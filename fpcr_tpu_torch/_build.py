@@ -1,0 +1,121 @@
+"""Build the package's CUDA kernels at first use and load them with ctypes.
+
+The sources under ``csrc/`` have a plain C interface and include no PyTorch
+header, so ``nvcc`` compiles them in seconds into one shared library:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o _build/libfpcr_kernels_<key>.so csrc/*.cu
+
+The library lands in ``fpcr_tpu_torch/_build/`` (listed in ``.gitignore``)
+under a name keyed by a hash of the sources and flags, so an edited source
+is rebuilt and an unchanged one is loaded as it is. Importing the package
+builds nothing; :func:`load_library` builds on its first call. ``nvcc`` is
+found through ``CUDA_HOME``/``CUDA_PATH``, then ``PATH``, then
+``/usr/local/cuda``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
+                           "-fPIC", "-Xptxas", "-v"]
+
+
+class BuildResult(NamedTuple):
+    path: Path
+    seconds: float  # nvcc wall time; 0 when the library was already built
+    cached: bool
+    log: str  # nvcc's output, with ptxas' registers and spills per kernel
+
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build_key() -> str:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def build() -> BuildResult:
+    """Compile ``csrc/*.cu`` unless a library with the same key exists."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    key = build_key()
+    out = BUILD_DIR / f"libfpcr_kernels_{key}.so"
+    log_path = BUILD_DIR / f"libfpcr_kernels_{key}.log"
+    if out.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return BuildResult(out, 0.0, True, log)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a temporary name, then rename: a reader never sees half a
+    # library, and two processes building at once both end with a whole one
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, out)
+    return BuildResult(out, seconds, False, log)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once, and declare every C function's types."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build().path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fpcr_nn_rows_per_block.argtypes = []
+    lib.fpcr_nn_rows_per_block.restype = i32
+    lib.fpcr_nn_partial.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr,
+                                    ptr]
+    lib.fpcr_nn_partial.restype = i32
+    lib.fpcr_nn_combine.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr]
+    lib.fpcr_nn_combine.restype = i32
+    lib.fpcr_cuda_error_string.argtypes = [i32]
+    lib.fpcr_cuda_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
