@@ -1,15 +1,18 @@
 """fpcr_tpu_torch — point-cloud registration in PyTorch and CUDA.
 
 The port of ``fpcr_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100, slice
-by slice. This slice is the main path: point-to-point ICP with exact
-brute-force matching. Its one kernel, the nearest-neighbour matcher K1, is
-CUDA C++ for ``sm_90a`` (``csrc/matching.cu``), built with ``nvcc`` at its
-first launch; a CPU tensor takes its plain PyTorch version. The layout and
+by slice. Ported so far: point-to-point, point-to-plane and symmetric ICP
+with PCA normals, the exact brute-force matcher and the Morton band matcher
+for large clouds, and the coarse-to-fine pipeline. Two kernels carry them,
+both CUDA C++ for ``sm_90a`` built with ``nvcc`` at first launch: the
+brute-force nearest-neighbour matcher K1 (``csrc/matching.cu``) and the
+Morton band matcher K3 (``csrc/morton.cu``); a CPU tensor takes their plain
+PyTorch versions. The layout and
 the public names follow ``fpcr_tpu``, which stays the reference the port is
 tested against. The package imports torch and numpy, never JAX.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from .core.cloud import MaskedCloud, pad_cloud
 from .core.metrics import rmse, transform_rmse
@@ -27,9 +30,14 @@ from .data.ouster import hall_scene, load_hall_scan
 from .data.synthetic import (RegistrationScene, surface_grid, synthetic_scene,
                              transformed_scene)
 from .models.icp import (ICPConfig, ICPResult, icp_iteration,
-                         icp_point_to_point, run_icp)
+                         icp_point_to_plane, icp_point_to_point, run_icp,
+                         tune_morton)
+from .models.pipeline import CoarseToFineResult, icp_coarse_to_fine
 from .ops.matching import gather_correspondences, nn_argmin, pairwise_sqdist
-from .ops.solve import kabsch_transform
+from .ops.morton import (MortonTable, build_morton_table, knn_morton,
+                         morton_nn, source_morton_order)
+from .ops.normals import estimate_normals, orient_normals
+from .ops.solve import kabsch_transform, point_to_plane_transform
 
 __all__ = [
     "bunny_scene",
@@ -51,12 +59,24 @@ __all__ = [
     "rmse",
     "transform_rmse",
     "icp_iteration",
+    "icp_point_to_plane",
     "icp_point_to_point",
     "run_icp",
+    "tune_morton",
+    "icp_coarse_to_fine",
+    "CoarseToFineResult",
+    "estimate_normals",
+    "orient_normals",
+    "MortonTable",
+    "build_morton_table",
+    "source_morton_order",
+    "morton_nn",
+    "knn_morton",
     "nn_argmin",
     "gather_correspondences",
     "pairwise_sqdist",
     "kabsch_transform",
+    "point_to_plane_transform",
     "surface_grid",
     "synthetic_scene",
     "transformed_scene",

@@ -1,10 +1,13 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
 The sources under ``csrc/`` have a plain C interface and include no PyTorch
-header, so ``nvcc`` compiles them in seconds into one shared library:
+header, so ``nvcc`` compiles each in seconds. One ``nvcc`` per source runs
+at the same time, and a last one links the objects into one library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o _build/libfpcr_kernels_<key>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler \
+         -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o       (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o \
+         _build/libfpcr_kernels_<key>.so *.o
 
 The library lands in ``fpcr_tpu_torch/_build/`` (listed in ``.gitignore``)
 under a name keyed by a hash of the sources and flags, so an edited source
@@ -30,8 +33,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
 
 
 class BuildResult(NamedTuple):
@@ -71,6 +74,18 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def _run_all(cmds) -> list:
+    """Run the commands at the same time; ``[(cmd, returncode, output)]``."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    results = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        results.append((cmd, proc.returncode, out))
+    return results
+
+
 def build() -> BuildResult:
     """Compile ``csrc/*.cu`` unless a library with the same key exists."""
     srcs = sources()
@@ -83,22 +98,27 @@ def build() -> BuildResult:
         log = log_path.read_text() if log_path.exists() else ""
         return BuildResult(out, 0.0, True, log)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name, then rename: a reader never sees half a
-    # library, and two processes building at once both end with a whole one
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, out)
-    return BuildResult(out, seconds, False, log)
+    # objects and the library go to temporary names and the library is
+    # renamed at the end: a reader never sees half a library, and two
+    # processes building at once both end with a whole one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+        steps = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                          for src, obj in zip(srcs, objs)])
+        lib_tmp = Path(tmp) / "lib.so"
+        if all(rc == 0 for _, rc, _ in steps):
+            steps += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o",
+                                str(lib_tmp), *map(str, objs)]])
+        log = "".join(f"$ {' '.join(cmd)}\n{text}" for cmd, _, text in steps)
+        failed = [(cmd, rc) for cmd, rc, _ in steps if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0][1]}): "
+                               f"{' '.join(failed[0][0])}\n{log}")
+        log_path.write_text(log)
+        os.replace(lib_tmp, out)
+    return BuildResult(out, time.perf_counter() - t0, False, log)
 
 
 def load_library() -> ctypes.CDLL:
@@ -115,6 +135,9 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_nn_partial.restype = i32
     lib.fpcr_nn_combine.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr]
     lib.fpcr_nn_combine.restype = i32
+    lib.fpcr_morton_nn.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr, i32,
+                                   i32, i32, ptr, ptr, ptr, ptr, ptr]
+    lib.fpcr_morton_nn.restype = i32
     lib.fpcr_cuda_error_string.argtypes = [i32]
     lib.fpcr_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,37 +1,54 @@
-"""The ICP registration loop, point-to-point metric, state kept on the device.
+"""The ICP registration loop, state kept on the device.
 
 Counterpart of ``fpcr_tpu/models/icp.py``. One iteration is the
-reference's: match → gather → Kabsch → apply → error, with the error
-measured between the newly transformed source and the correspondences found
-at the start of the iteration. The loop stops when ``E < tol`` or
-``|E - E_prev| < tol`` (``E_prev`` starts at ``inf``), or at
-``max_iterations``.
+reference's: match → solve → apply → error, with the error measured
+between the newly transformed source and the correspondences found at the
+start of the iteration (the point RMSE for every metric, as in the
+reference). The loop stops when ``E < tol`` or ``|E - E_prev| < tol``
+(``E_prev`` starts at ``inf``), or at ``max_iterations``.
+
+Metrics: ``point`` (Kabsch), ``plane`` (6x6 solve on PCA target normals) and
+``symmetric`` (the plane solve on ``n_p + sign·n_q``, with the source
+normals carried and re-rotated every iteration). Matchers: ``xla`` and
+``pallas`` are the brute matcher ``nn_argmin`` (kernel K1 on a CUDA
+tensor); ``morton`` is the band matcher, whose ``morton_impl`` picks the
+geometry: ``'pallas'`` is kernel K3's (K3 on CUDA, its plain version on the
+CPU), ``'xla'`` the XLA geometry ``morton_nn`` everywhere, and ``'auto'``
+K3 on a CUDA tensor and ``morton_nn`` on a CPU tensor, as the JAX package
+takes Pallas on the TPU and XLA elsewhere. The morton path sorts the source
+along the target's curve once and unsorts the result at the end.
 
 The JAX loop is one ``lax.while_loop`` with no host sync until the result.
-Here the loop state (points, transform, previous error, done flag,
-iteration count) stays on the device and every update is masked by the
-device ``done`` flag, so an iteration that runs after the stop changes
-nothing. The host reads ``done`` only every ``DONE_CHECK_EVERY``
+Here the loop state (points, carried normals, transform, previous error,
+done flag, iteration count) stays on the device and every update is masked
+by the device ``done`` flag, so an iteration that runs after the stop
+changes nothing. The host reads ``done`` only every ``DONE_CHECK_EVERY``
 iterations, never per iteration; the results equal those of a
 per-iteration check.
 
-Config values outside this slice (other metrics and matchers, the packed
-index kernel) construct, since the validation accepts them, and raise
-``NotImplementedError`` at :func:`run_icp`.
+Config values outside the port (``metric='gicp'``, ``matcher='grid'``, the
+packed index reduction ``pallas_mode='packed6_idx'``) construct, since the
+validation accepts them, and raise ``NotImplementedError`` at
+:func:`run_icp`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..core.cloud import as_points
 from ..core.metrics import rmse
 from ..core.transforms import RigidTransform
 from ..ops.matching import gather_correspondences, nn_argmin
-from ..ops.solve import kabsch_transform
+from ..ops.morton import (build_morton_table, miss_floors, morton_nn,
+                          morton_nn_band, source_morton_order)
+from ..ops.normals import estimate_normals
+from ..ops.solve import kabsch_transform, point_to_plane_transform
 from ..utils.precision import pin_f32_precision
 
 # The host reads the device `done` flag once per this many iterations: a
@@ -55,7 +72,7 @@ class ICPConfig:
     damping: float = 0.0
     max_correspondence_dist: Optional[float] = None  # trimmed ICP
     # gate matches with sqdist > factor x (iteratively re-trimmed mean
-    # sqdist); None = off
+    # sqdist); None = off, or 9.0 for matcher='morton'
     auto_trim: Optional[float] = None
     robust_loss: Optional[str] = None  # None | 'huber' | 'tukey' (IRLS)
     gicp_epsilon: float = 1e-3
@@ -63,7 +80,7 @@ class ICPConfig:
     source_chunk: int = 2048
     target_tile: int = 2048
     # 'xla' and 'pallas' both mean the brute matcher nn_argmin (kernel K1
-    # on a CUDA tensor); 'grid' and 'morton' are not ported yet
+    # on a CUDA tensor); 'morton' the band matcher; 'grid' is not ported
     matcher: str = "xla"
     exact_distances: bool = False  # plain matcher: difference form
     grid_cell_size: Optional[float] = None
@@ -71,10 +88,13 @@ class ICPConfig:
     grid_table_bits: int = 20
     morton_chunk: int = 256
     morton_window: int = 256
+    # the TPU band kernel's loop unroll: accepted and ignored
     morton_unroll: int = 16
-    morton_impl: str = "auto"
-    # 'packed6', 'highest' and the 'packed6_pipe*'/'packed6_seq' aliases all
-    # mean the one FP32 kernel K1; 'packed6_idx' (K2) is not ported yet
+    morton_impl: str = "auto"  # 'auto' | 'pallas' (K3's geometry) | 'xla'
+    # 'packed6', 'highest' and the 'packed6_pipe*'/'packed6_seq' schedule
+    # pins all mean the one FP32 kernel of each matcher (K1, K3); the pins
+    # are TPU knobs, accepted and ignored; 'packed6_idx' (K2 and K3's
+    # packed reduction) is not ported yet
     pallas_mode: str = "packed6"
     morton_shifts: int = 1
     morton_rescue: int = 0
@@ -99,21 +119,22 @@ class ICPConfig:
 
 
 def check_supported(config: ICPConfig) -> None:
-    """Raise ``NotImplementedError`` for config values outside this slice,
+    """Raise ``NotImplementedError`` for config values outside the port,
     naming the ROADMAP.md item that ports them."""
-    if config.metric != "point":
+    if config.metric == "gicp":
         raise NotImplementedError(
-            f"metric={config.metric!r} is not ported yet (ROADMAP.md, "
-            "'Modules to port': normals and the plane solve, GICP)")
-    if config.matcher in ("grid", "morton"):
+            "metric='gicp' is not ported yet (ROADMAP.md, 'Modules to "
+            "port', item 3: GICP)")
+    if config.matcher == "grid":
         raise NotImplementedError(
-            f"matcher={config.matcher!r} is not ported yet (ROADMAP.md, "
-            "'Modules to port': the Morton band matcher and kernel K3, "
-            "ops/grid.py)")
-    if config.matcher == "pallas" and config.pallas_mode == "packed6_idx":
+            "matcher='grid' is not ported yet (ROADMAP.md, 'Modules to "
+            "port', item 5: ops/grid.py)")
+    if (config.matcher in ("pallas", "morton")
+            and config.pallas_mode == "packed6_idx"):
         raise NotImplementedError(
-            "pallas_mode='packed6_idx' is kernel K2, not ported yet "
-            "(ROADMAP.md, 'TPU kernels to port': K2)")
+            "pallas_mode='packed6_idx' is kernel K2 and K3's packed "
+            "reduction, not ported yet (ROADMAP.md, 'Modules to port', "
+            "item 1)")
 
 
 class ICPResult(NamedTuple):
@@ -121,7 +142,7 @@ class ICPResult(NamedTuple):
     errors: torch.Tensor  # [max_iterations] RMSE per iteration, NaN after stop
     num_iterations: torch.Tensor  # int32 — iterations executed
     converged: torch.Tensor  # bool
-    points: torch.Tensor  # final transformed source cloud
+    points: torch.Tensor  # final transformed source cloud, input row order
     matched_fraction: torch.Tensor  # [max_iterations], NaN after stop
     delta_t: torch.Tensor  # [max_iterations] ‖Δt‖ of the increment
     delta_rot: torch.Tensor  # [max_iterations] ∠ΔR (radians) of it
@@ -137,6 +158,98 @@ def rotation_angle(rotation: torch.Tensor) -> torch.Tensor:
     """Rotation angle (radians) of a 3×3 rotation: θ = arccos((tr R − 1)/2)."""
     return torch.arccos(torch.clamp(0.5 * (torch.trace(rotation) - 1.0),
                                     -1.0, 1.0))
+
+
+def build_matcher_state(target: torch.Tensor,
+                        target_mask: Optional[torch.Tensor],
+                        config: ICPConfig,
+                        target_normals: Optional[torch.Tensor] = None):
+    """Per-target matcher structures, built once and reused every
+    iteration: for ``matcher='morton'`` one ``(MortonTable, normals in table
+    order)`` per shift (the normals are K3's ``extra``); None otherwise."""
+    if config.matcher != "morton":
+        return None
+    states = []
+    for s_idx in range(max(1, config.morton_shifts)):
+        table = build_morton_table(target, target_mask, shift=0.5 * s_idx)
+        normals_sorted = (None if target_normals is None else
+                          target_normals[table.orig_index.long()]
+                          .contiguous())
+        states.append((table, normals_sorted))
+    return tuple(states)
+
+
+def _exact_rescue(points, target, target_mask, target_normals, q_m, n_m,
+                  dmin, config: ICPConfig, source_mask):
+    """Re-match the ``config.morton_rescue`` rows of largest banded
+    distance exactly against the whole target (``nn_argmin``: kernel K1 on
+    a CUDA tensor) and keep the closer match. Seam misses have unbounded
+    banded distance, so the damaging rows separate cleanly by ``dmin``."""
+    k = min(config.morton_rescue, points.shape[0])
+    if k <= 0:
+        return q_m, n_m, dmin
+    score = dmin
+    if source_mask is not None:  # padded rows must not take rescue slots
+        score = torch.where(source_mask, score,
+                            torch.full_like(score, -float("inf")))
+    # stable descending sort: among equal scores the lower row comes first,
+    # as lax.top_k orders them
+    sel = torch.sort(score, descending=True, stable=True).indices[:k]
+    idx_e, d_e = nn_argmin(
+        points[sel].contiguous(), target, target_mask,
+        source_chunk=min(config.source_chunk, max(k, 8)),
+        target_tile=config.target_tile, exact=config.exact_distances)
+    d_old = dmin[sel]
+    better = d_e < d_old
+    q_m = q_m.clone()
+    q_m[sel] = torch.where(better[:, None],
+                           gather_correspondences(target, idx_e), q_m[sel])
+    dmin = dmin.clone()
+    dmin[sel] = torch.where(better, d_e, d_old)
+    if n_m is not None and target_normals is not None:
+        n_m = n_m.clone()
+        n_m[sel] = torch.where(better[:, None],
+                               gather_correspondences(target_normals, idx_e),
+                               n_m[sel])
+    return q_m, n_m, dmin
+
+
+def _correspondences(points, target, target_mask, target_normals,
+                     config: ICPConfig, matcher_state, source_mask=None):
+    """Find the correspondences: ``(q_matched, n_matched, dmin)``. For
+    ``matcher='morton'`` the matched points and normals come from the band
+    matcher, which reads them from the sorted table."""
+    if config.matcher == "morton":
+        impl = config.morton_impl
+        if impl == "auto":
+            impl = "pallas" if points.device.type == "cuda" else "xla"
+        nn_fn = morton_nn_band if impl == "pallas" else morton_nn
+        q_m = n_m = dmin = None
+        for table, normals_sorted in matcher_state:
+            q_c, d_c, _, n_c = nn_fn(
+                points, table, normals_sorted, chunk=config.morton_chunk,
+                window=config.morton_window)
+            if dmin is None:
+                q_m, dmin, n_m = q_c, d_c, n_c
+            else:  # keep the closer match of the shifted curve
+                better = (d_c < dmin)[:, None]
+                q_m = torch.where(better, q_c, q_m)
+                if n_m is not None:
+                    n_m = torch.where(better, n_c, n_m)
+                dmin = torch.minimum(d_c, dmin)
+        if config.morton_rescue > 0:
+            q_m, n_m, dmin = _exact_rescue(
+                points, target, target_mask, target_normals, q_m, n_m, dmin,
+                config, source_mask)
+        return q_m, n_m, dmin
+    idx, dmin = nn_argmin(points, target, target_mask,
+                          source_chunk=config.source_chunk,
+                          target_tile=config.target_tile,
+                          exact=config.exact_distances)
+    q_m = gather_correspondences(target, idx)
+    n_m = (None if target_normals is None
+           else gather_correspondences(target_normals, idx))
+    return q_m, n_m, dmin
 
 
 def _trimmed_mean(dmin: torch.Tensor, base: torch.Tensor,
@@ -188,13 +301,17 @@ def _auto_trim_gate(dmin: torch.Tensor, mask: Optional[torch.Tensor],
 def correspondence_weights(dmin: torch.Tensor, config: ICPConfig,
                            source_mask: Optional[torch.Tensor] = None):
     """Distance gate → auto-trim → IRLS weights. Returns the solve mask:
-    None, bool, or float weights."""
+    None, bool, or float weights. ``auto_trim`` defaults to 9.0 for the
+    morton matcher, whose rare band misses have unbounded distance."""
     mask = source_mask
     if config.max_correspondence_dist is not None:
         gate = dmin <= (config.max_correspondence_dist ** 2)
         mask = gate if mask is None else (mask & gate)
-    if config.auto_trim:
-        mask = _auto_trim_gate(dmin, mask, config.auto_trim)
+    auto_trim = config.auto_trim
+    if auto_trim is None and config.matcher == "morton":
+        auto_trim = 9.0
+    if auto_trim:
+        mask = _auto_trim_gate(dmin, mask, auto_trim)
     if config.robust_loss is not None:
         weights = _robust_weights(dmin, mask, config.robust_loss)
         mask = weights if mask is None else mask.to(torch.float32) * weights
@@ -217,20 +334,43 @@ def _matched_fraction(mask, source_mask, n_rows: int,
 def icp_iteration(points: torch.Tensor, target: torch.Tensor,
                   config: ICPConfig,
                   source_mask: Optional[torch.Tensor] = None,
-                  target_mask: Optional[torch.Tensor] = None):
-    """One point-to-point iteration: returns
-    ``(new_points, incremental_transform, error, IterationAux)``."""
-    idx, dmin = nn_argmin(points, target, target_mask,
-                          source_chunk=config.source_chunk,
-                          target_tile=config.target_tile,
-                          exact=config.exact_distances)
-    q_matched = gather_correspondences(target, idx)
+                  target_mask: Optional[torch.Tensor] = None,
+                  target_normals: Optional[torch.Tensor] = None,
+                  matcher_state=None,
+                  source_normals: Optional[torch.Tensor] = None):
+    """One ICP iteration: returns ``(new_points, incremental_transform,
+    error, IterationAux)``. ``target_normals`` are needed by the plane and
+    symmetric metrics, ``source_normals`` (rotated to the current pose) by
+    the symmetric one, and the morton matcher its ``matcher_state``
+    (:func:`build_matcher_state`)."""
+    q_matched, n_matched, dmin = _correspondences(
+        points, target, target_mask, target_normals, config, matcher_state,
+        source_mask=source_mask)
     mask = correspondence_weights(dmin, config, source_mask)
     aux = IterationAux(matched_fraction=_matched_fraction(
         mask, source_mask, points.shape[0], points.device))
-    inc = kabsch_transform(
-        points, q_matched, mask, solver=config.solver,
-        det_correction=config.det_correction and not config.strict_reference)
+    if config.metric == "point":
+        inc = kabsch_transform(
+            points, q_matched, mask, solver=config.solver,
+            det_correction=config.det_correction
+            and not config.strict_reference)
+    elif n_matched is None:
+        raise ValueError(f"metric={config.metric!r} needs target_normals")
+    elif config.metric == "symmetric":
+        # symmetric point-to-plane (Rusinkiewicz 2019): residual
+        # (p - q)·(n_p + n_q); unoriented normals could cancel, so n_q is
+        # sign-aligned to n_p first
+        if source_normals is None:
+            raise ValueError("metric='symmetric' needs source_normals")
+        sgn = torch.sign(torch.sum(source_normals * n_matched, dim=1,
+                                   keepdim=True))
+        sgn = torch.where(sgn == 0, torch.ones_like(sgn), sgn)
+        inc = point_to_plane_transform(
+            points, q_matched, source_normals + sgn * n_matched, mask,
+            damping=config.damping)
+    else:
+        inc = point_to_plane_transform(points, q_matched, n_matched, mask,
+                                       damping=config.damping)
     new_points = inc.apply(points)
     error = rmse(new_points, q_matched, mask)
     return new_points, inc, error, aux
@@ -244,21 +384,66 @@ def _nan_padded(values, length: int, device) -> torch.Tensor:
     return out
 
 
+def _normals_prepass(cloud, mask, config: ICPConfig) -> torch.Tensor:
+    return estimate_normals(cloud, k=config.k_neighbors, mask=mask,
+                            chunk=config.source_chunk,
+                            tile=config.target_tile,
+                            banded_threshold=config.normals_banded_threshold)
+
+
 def run_icp(source, target, config: ICPConfig = ICPConfig(),
             source_mask: Optional[torch.Tensor] = None,
-            target_mask: Optional[torch.Tensor] = None) -> ICPResult:
-    """Register ``source`` onto ``target`` on their device."""
+            target_mask: Optional[torch.Tensor] = None,
+            target_normals: Optional[torch.Tensor] = None,
+            source_normals: Optional[torch.Tensor] = None,
+            matcher_state=None) -> ICPResult:
+    """Register ``source`` onto ``target`` on their device.
+
+    ``target_normals`` (and ``source_normals`` for the symmetric metric)
+    are estimated when not given; ``matcher_state`` takes a prebuilt
+    :func:`build_matcher_state` to reuse the target's Morton tables."""
     check_supported(config)
     pin_f32_precision()
-    # the kernel takes contiguous f32 rows; views are copied once here
+    # the kernels take contiguous f32 rows; views are copied once here
     source = as_points(source).contiguous()
-    target = as_points(target, device=source.device).contiguous()
-    if target_mask is not None:
-        target_mask = target_mask.contiguous()
     device = source.device
-    nan = torch.tensor(float("nan"), device=device)
+    target = as_points(target, device=device).contiguous()
+    if target_mask is not None:
+        target_mask = target_mask.to(device).contiguous()
+    if source_mask is not None:
+        source_mask = source_mask.to(device)
 
+    carries_normals = config.metric == "symmetric"
+    if config.metric in ("plane", "symmetric"):
+        target_normals = (_normals_prepass(target, target_mask, config)
+                          if target_normals is None else
+                          as_points(target_normals, device=device))
+        target_normals = target_normals.contiguous()
+    if carries_normals:
+        source_normals = (_normals_prepass(source, source_mask, config)
+                          if source_normals is None else
+                          as_points(source_normals, device=device))
+    if matcher_state is None:
+        matcher_state = build_matcher_state(target, target_mask, config,
+                                            target_normals)
+
+    unsort = None
+    if config.matcher == "morton":
+        # sort the source along the target's curve once: the solve and the
+        # error do not depend on the row order, and the loop then reads
+        # bands only
+        order = source_morton_order(source, matcher_state[0][0]).long()
+        source = source[order].contiguous()
+        if source_mask is not None:
+            source_mask = source_mask[order]
+        if carries_normals:
+            source_normals = source_normals[order]
+        unsort = torch.empty_like(order)
+        unsort[order] = torch.arange(order.shape[0], device=device)
+
+    nan = torch.tensor(float("nan"), device=device)
     points = source
+    normals = source_normals if carries_normals else None
     transform = RigidTransform.identity(device=device)
     prev_error = torch.tensor(float("inf"), device=device)
     done = torch.zeros((), dtype=torch.bool, device=device)
@@ -268,7 +453,8 @@ def run_icp(source, target, config: ICPConfig = ICPConfig(),
         if it and it % DONE_CHECK_EVERY == 0 and bool(done):
             break
         new_points, inc, error, aux = icp_iteration(
-            points, target, config, source_mask, target_mask)
+            points, target, config, source_mask, target_mask,
+            target_normals, matcher_state, normals)
         active = ~done
         errors.append(torch.where(active, error, nan))
         fractions.append(torch.where(active, aux.matched_fraction, nan))
@@ -280,6 +466,10 @@ def run_icp(source, target, config: ICPConfig = ICPConfig(),
             torch.abs(error - prev_error) < config.tolerance)
         composed = inc.compose(transform)
         points = torch.where(active, new_points, points)
+        if carries_normals:  # full f32 rotation of the carried normals
+            normals = torch.where(active,
+                                  torch.matmul(normals, inc.rotation.T),
+                                  normals)
         transform = RigidTransform(
             torch.where(active, composed.rotation, transform.rotation),
             torch.where(active, composed.translation, transform.translation))
@@ -293,23 +483,93 @@ def run_icp(source, target, config: ICPConfig = ICPConfig(),
         errors=_nan_padded(errors, n, device),
         num_iterations=num_iterations,
         converged=done,
-        points=points,
+        points=points if unsort is None else points[unsort],
         matched_fraction=_nan_padded(fractions, n, device),
         delta_t=_nan_padded(delta_t, n, device),
         delta_rot=_nan_padded(delta_rot, n, device),
     )
 
 
-def icp_point_to_point(source, target, **kwargs) -> ICPResult:
-    """Point-to-point ICP. Takes ``config=ICPConfig(...)`` or its fields as
-    keywords, plus ``source_mask``/``target_mask``."""
+def tune_morton(source, target, config: Optional[ICPConfig] = None, *,
+                target_miss: float = 0.02, sample: int = 2048,
+                target_mask: Optional[torch.Tensor] = None) -> ICPConfig:
+    """A morton config whose band matcher misses fewer than ``target_miss``
+    of the true nearest neighbours on this cloud pair, measured by probing
+    a strided sample against the exact NN. The ladder: the config as given;
+    then ``morton_shifts=2``; then ``morton_rescue=K``, K sized to cover
+    every damaging probed miss by its banded distance."""
+    config = config or ICPConfig(matcher="morton")
+    if config.matcher != "morton":
+        config = dataclasses.replace(config, matcher="morton")
+    pin_f32_precision()
+    src = as_points(source).contiguous()
+    tgt = as_points(target, device=src.device).contiguous()
+    if target_mask is not None:
+        target_mask = target_mask.to(src.device).contiguous()
+
+    def probe(cfg):
+        state = build_matcher_state(tgt, target_mask, cfg)
+        order = source_morton_order(src, state[0][0]).long()
+        p = src[order].contiguous()
+        _, _, dmin = _correspondences(
+            p, tgt, target_mask, None,
+            dataclasses.replace(cfg, morton_rescue=0), state)
+        stride = max(1, -(-p.shape[0] // sample))
+        rows = torch.arange(0, p.shape[0], stride, device=p.device)[:sample]
+        _, d_e = nn_argmin(p[rows].contiguous(), tgt, target_mask)
+        d_b = dmin[rows].cpu().numpy()
+        d_e_np = d_e.cpu().numpy()
+        excess = d_b - d_e_np
+        noise, damage = miss_floors(p.cpu().numpy().astype(np.float64))
+        miss = excess > np.maximum(noise, 1e-4 * d_e_np)
+        damaging = excess > damage
+        # rescue K: every damaging miss covered by its banded distance,
+        # mild misses only down to half of target_miss
+        thresh = np.inf
+        if damaging.any():
+            thresh = float(d_b[damaging].min())
+        mild = miss & ~damaging
+        n_mild = int(mild.sum())
+        allow = int(0.5 * target_miss * miss.shape[0])
+        if n_mild > allow:
+            md = np.sort(d_b[mild])[::-1]
+            thresh = min(thresh, float(md[n_mild - allow - 1]))
+        k_cover = (int((dmin >= thresh).sum()) if np.isfinite(thresh)
+                   else 0)
+        return float(miss.mean()), k_cover
+
+    miss0, _ = probe(config)
+    if miss0 <= target_miss:
+        return config
+    cfg2 = dataclasses.replace(config,
+                               morton_shifts=max(config.morton_shifts, 2))
+    miss2, k2 = probe(cfg2)
+    if miss2 <= target_miss:
+        return cfg2
+    k = min(int(math.ceil(1.25 * max(k2, 1) / 256.0)) * 256, src.shape[0])
+    return dataclasses.replace(cfg2, morton_rescue=k)
+
+
+def _metric_wrapper(metric: str, source, target, kwargs) -> ICPResult:
     config = kwargs.pop("config", None)
     if config is None:
         fields = {k: kwargs.pop(k) for k in list(kwargs)
                   if k in ICPConfig.__dataclass_fields__}
-        if fields.pop("metric", "point") != "point":
+        if fields.pop("metric", metric) != metric:
             raise ValueError(
-                "metric is fixed to 'point' by this entry point; use "
+                f"metric is fixed to {metric!r} by this entry point; use "
                 "run_icp(config=...) to pick the metric explicitly")
-        config = ICPConfig(metric="point", **fields)
+        config = ICPConfig(metric=metric, **fields)
     return run_icp(source, target, config, **kwargs)
+
+
+def icp_point_to_point(source, target, **kwargs) -> ICPResult:
+    """Point-to-point ICP. Takes ``config=ICPConfig(...)`` or its fields as
+    keywords, plus the keywords of :func:`run_icp`."""
+    return _metric_wrapper("point", source, target, kwargs)
+
+
+def icp_point_to_plane(source, target, **kwargs) -> ICPResult:
+    """Point-to-plane ICP (PCA target normals, 6x6 solve), called as
+    :func:`icp_point_to_point`."""
+    return _metric_wrapper("plane", source, target, kwargs)

@@ -1,0 +1,140 @@
+"""kNN search and PCA surface normals, streaming, on the device.
+
+Counterpart of ``fpcr_tpu/ops/normals.py``. :func:`knn` streams target tiles
+with a running top-k, so the ``[N, M]`` distance matrix never exists whole.
+The running top-k keeps the JAX tie rule: on equal distance the lower target
+index wins. ``torch.topk`` does not promise an order among equal values, so
+:func:`smallest_k` selects by a key of (distance, position) from
+``[carried | tile]``, where the carried entries (lower indices) and then the
+tile's (ascending) come first.
+
+Normals are the reference's: the k+1 nearest neighbours including the point
+itself, the self slot dropped, the 3x3 covariance of the k neighbours, and
+the eigenvector of its smallest eigenvalue (closed form, ``ops/eigh3.py``).
+Normals are unoriented, as the reference's are.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .eigh3 import eigvals3, smallest_eigenvector
+from .matching import pairwise_sqdist, pairwise_sqdist_exact
+
+
+def smallest_k(d: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of non-negative ``d`` along its last dim, ascending,
+    ties to the lower position: ``(values, positions int64)``. The key is
+    the value's bits (order-preserving for non-negative floats) above the
+    position, so every key is distinct and ``topk``'s order among equal
+    values never matters."""
+    bits = d.abs().contiguous().view(torch.int32).to(torch.int64)
+    pos = torch.arange(d.shape[-1], dtype=torch.int64, device=d.device)
+    key = torch.topk((bits << 32) | pos, k, dim=-1, largest=False).values
+    pos = key & 0xFFFFFFFF
+    return torch.gather(d, -1, pos), pos
+
+
+def knn(p: torch.Tensor, q: torch.Tensor, k: int,
+        q_mask: Optional[torch.Tensor] = None, *, chunk: int = 1024,
+        tile: int = 2048, exact: bool = False
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest targets of every query point: ``(idx int32[N, k], sqdist
+    f32[N, k])``, ascending by distance, ties to the lower target index.
+    Slots with no valid target left hold ``(0, inf)``."""
+    p = p.to(torch.float32)
+    q = q.to(torch.float32)
+    n, m = p.shape[0], q.shape[0]
+    dist_fn = pairwise_sqdist_exact if exact else pairwise_sqdist
+    out_d = torch.empty((n, k), dtype=torch.float32, device=p.device)
+    out_i = torch.empty((n, k), dtype=torch.int32, device=p.device)
+    for s0 in range(0, n, chunk):
+        p_c = p[s0:s0 + chunk]
+        rows = p_c.shape[0]
+        best_d = torch.full((rows, k), float("inf"), dtype=torch.float32,
+                            device=p.device)
+        best_i = torch.zeros((rows, k), dtype=torch.int32, device=p.device)
+        for t0 in range(0, m, tile):
+            d = dist_fn(p_c, q[t0:t0 + tile])
+            if q_mask is not None:
+                valid = q_mask[t0:t0 + tile].to(torch.bool)
+                d = torch.where(valid[None, :], d,
+                                torch.full_like(d, float("inf")))
+            tile_i = torch.arange(t0, t0 + d.shape[1], dtype=torch.int32,
+                                  device=p.device).expand(rows, -1)
+            best_d, pos = smallest_k(torch.cat([best_d, d], dim=1), k)
+            best_i = torch.gather(torch.cat([best_i, tile_i], dim=1), 1, pos)
+        out_d[s0:s0 + rows] = best_d
+        out_i[s0:s0 + rows] = best_i
+    return out_i, out_d
+
+
+def self_knn(q: torch.Tensor, kk: int, mask: Optional[torch.Tensor] = None,
+             *, chunk: int = 2048, tile: int = 2048, exact: bool = False,
+             banded_threshold: int = 100_000
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Self-kNN (``kk`` includes the self slot): the O(M²) streaming search
+    up to ``banded_threshold`` points, the Morton-banded O(M·band) search
+    above it with its chunk capped at 1024. ``exact=True`` keeps the
+    streaming search at every size, since the banded one is approximate."""
+    if q.shape[0] > banded_threshold and not exact:
+        from .morton import knn_morton
+
+        return knn_morton(q, kk, mask, chunk=min(chunk, 1024))
+    return knn(q, q, kk, mask, chunk=chunk, tile=tile, exact=exact)
+
+
+def _neighbour_covariance(q: torch.Tensor, nbr_idx: torch.Tensor
+                          ) -> torch.Tensor:
+    """Unnormalised 3x3 covariance ``[M, 3, 3]`` of each point's neighbours
+    (the reference also skips the 1/k factor)."""
+    nbrs = q[nbr_idx.long()]  # [M, k, 3]
+    dev = nbrs - nbrs.mean(dim=1, keepdim=True)
+    return torch.matmul(dev.transpose(1, 2), dev)
+
+
+def estimate_normals(q: torch.Tensor, k: int = 4,
+                     mask: Optional[torch.Tensor] = None, *,
+                     chunk: int = 1024, tile: int = 2048, exact: bool = False,
+                     include_self: bool = False,
+                     banded_threshold: int = 100_000) -> torch.Tensor:
+    """Unoriented PCA normals ``[M, 3]`` of a cloud from its k nearest
+    non-self neighbours (``include_self`` adds the point itself). A
+    degenerate neighbourhood gets (1,1,1)/√3."""
+    q = q.to(torch.float32)
+    idx_all, _ = self_knn(q, k + 1, mask, chunk=chunk, tile=tile,
+                          exact=exact, banded_threshold=banded_threshold)
+    nbr_idx = idx_all if include_self else idx_all[:, 1:]
+    normals, _ = smallest_eigenvector(_neighbour_covariance(q, nbr_idx))
+    return normals
+
+
+def orient_normals(points: torch.Tensor, normals: torch.Tensor,
+                   viewpoint=None) -> torch.Tensor:
+    """Flip unoriented normals to a consistent sign: away from the centroid
+    when ``viewpoint`` is None, else toward the viewpoint."""
+    points = points.to(torch.float32)
+    if viewpoint is None:
+        ref = points - points.mean(dim=0, keepdim=True)
+    else:
+        ref = torch.as_tensor(viewpoint, dtype=torch.float32,
+                              device=points.device)[None, :] - points
+    s = torch.sign(torch.sum(normals * ref, dim=1, keepdim=True))
+    return normals * torch.where(s == 0, torch.ones_like(s), s)
+
+
+def normals_with_curvature(q: torch.Tensor, k: int = 4,
+                           mask: Optional[torch.Tensor] = None, **kwargs
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normals and the surface-variation curvature ``lam_min / (lam0 + lam1
+    + lam2)``, from the streaming kNN (``kwargs`` go to :func:`knn`)."""
+    q = q.to(torch.float32)
+    idx_all, _ = knn(q, q, k + 1, mask, **kwargs)
+    cov = _neighbour_covariance(q, idx_all[:, 1:])
+    normals, lam_min = smallest_eigenvector(cov)
+    trace = eigvals3(cov).sum(dim=-1)
+    return normals, lam_min / torch.where(trace > 0, trace,
+                                          torch.ones_like(trace))

@@ -1,20 +1,21 @@
-"""Point-to-point rigid solve (Kabsch).
+"""Rigid-motion solvers: point-to-point (Kabsch) and point-to-plane (6x6).
 
-Counterpart of the point half of ``fpcr_tpu/ops/solve.py``: masked
-centroids, the 3x3 cross-covariance as one float32 matmul, and the rotation
-from a 3x3 SVD on the device of the inputs (``torch.linalg.svd``), with the
-det(R) = +1 reflection fix the reference lacks, or from the matmul-only
-Newton–Schulz polar iteration. A mask may be boolean or float (IRLS
-weights).
+Counterpart of ``fpcr_tpu/ops/solve.py``. Point-to-point: masked centroids,
+the 3x3 cross-covariance as one float32 matmul, and the rotation from a 3x3
+SVD on the device of the inputs (``torch.linalg.svd``), with the det(R) = +1
+reflection fix the reference lacks, or from the matmul-only Newton–Schulz
+polar iteration. Point-to-plane: J = [p × n, n], C = JᵀWJ and b = -JᵀWr as
+float32 reductions, and the 6x6 Cholesky solve on the device, with no host
+round trip. A mask may be boolean or float (IRLS weights).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from ..core.transforms import RigidTransform
+from ..core.transforms import RigidTransform, rotation_zyx
 from ..utils.precision import pin_f32_precision
 
 
@@ -97,3 +98,52 @@ def kabsch_transform(p: torch.Tensor, q: torch.Tensor,
     else:
         raise ValueError(f"unknown solver {solver!r}")
     return RigidTransform(R, q_bar - torch.matmul(R, p_bar))
+
+
+def plane_normal_equations(p: torch.Tensor, q: torch.Tensor,
+                           normals: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 6x6 normal equations ``C x = b`` of point-to-plane ICP: per point
+    ``J_i = [p_i × n_i, n_i]`` and ``r_i = (p_i - q_i)·n_i``; ``C = Σ w_i
+    J_iᵀJ_i`` and ``b = -Σ w_i J_iᵀ r_i``."""
+    J = torch.cat([torch.linalg.cross(p, normals), normals], dim=1)  # [N, 6]
+    r = torch.sum((p - q) * normals, dim=1)
+    Jw = J * _weights(mask, p)[:, None]
+    C = torch.matmul(Jw.T, J)
+    b = -torch.sum(Jw * r[:, None], dim=0)
+    return C, b
+
+
+def plane_solve_update(C: torch.Tensor, b: torch.Tensor,
+                       damping: float = 0.0
+                       ) -> Tuple[RigidTransform, torch.Tensor]:
+    """Solve ``C x = b`` by a 6x6 Cholesky on the device and rebuild the
+    increment: the full Euler ``Rz·Ry·Rx`` from x[0:3] (the reference's,
+    not the small-angle one) and t = x[3:6]. Returns ``(transform, x)``.
+
+    A relative floor ``1e-7·tr(C)/6`` on the diagonal keeps the factor
+    finite when the inlier set collapses. ``cholesky_ex`` reports a failed
+    factorization on the device (``torch.linalg.cholesky`` would check it
+    on the host, a sync per iteration, and raise); a failed or non-finite
+    solve gives x = 0, the identity update."""
+    eye = torch.eye(6, dtype=C.dtype, device=C.device)
+    if damping:
+        C = C + damping * eye
+    C = C + (1e-7 * (torch.trace(C) / 6.0) + 1e-30) * eye
+    L, info = torch.linalg.cholesky_ex(C)
+    x = torch.cholesky_solve(b[:, None], L)[:, 0]
+    good = (info == 0) & torch.isfinite(x).all()
+    x = torch.where(good, x, torch.zeros_like(x))
+    return RigidTransform(rotation_zyx(x[0], x[1], x[2]), x[3:6]), x
+
+
+def point_to_plane_transform(p: torch.Tensor, q: torch.Tensor,
+                             normals: torch.Tensor,
+                             mask: Optional[torch.Tensor] = None, *,
+                             damping: float = 0.0) -> RigidTransform:
+    """One linearised point-to-plane solve: p, the matched q and the matched
+    target normals give the incremental rigid transform."""
+    pin_f32_precision()
+    C, b = plane_normal_equations(p, q, normals, mask)
+    return plane_solve_update(C, b, damping)[0]

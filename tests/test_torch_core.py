@@ -168,9 +168,10 @@ def test_config_validation_matches_jax(bad):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"metric": "plane"}, {"metric": "symmetric"}, {"metric": "gicp"},
-    {"matcher": "grid"}, {"matcher": "morton"},
+    {"metric": "gicp"}, {"metric": "gicp", "matcher": "morton"},
+    {"matcher": "grid"}, {"matcher": "grid", "metric": "plane"},
     {"matcher": "pallas", "pallas_mode": "packed6_idx"},
+    {"matcher": "morton", "pallas_mode": "packed6_idx"},
 ])
 def test_values_outside_the_slice_raise_at_run(kwargs):
     cfg = ft.ICPConfig(**kwargs)  # constructs: the validation accepts it

@@ -1,6 +1,6 @@
-"""Kernel K1 on the card against its plain PyTorch version.
+"""Kernels K1 and K3 on the card against their plain PyTorch versions.
 
-Every test here needs a CUDA device and skips without one: the CUDA kernel
+Every test here needs a CUDA device and skips without one: a CUDA kernel
 has no CPU mode. On the card (which has no JAX, so the root conftest is
 not loaded):
 
@@ -25,7 +25,7 @@ TIE_REL = 1e-6  # indices may differ only between picks this close
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: kernel K1 has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -149,3 +149,115 @@ def test_cuda_timers(cuda):
     assert 0 < t["min"] <= t["mean"] <= t["max"]
     s = slope_ms_per_iter(lambda k: [x * 2 for _ in range(k)], 2, 12, 2)
     assert np.isfinite(s["ms_per_iter"])
+
+
+# --- kernel K3, the Morton band matcher -----------------------------------
+
+def _band_case(cuda, n, m, seed, masked_from=None, shift=0.0):
+    from fpcr_tpu_torch.ops.morton import (build_morton_table,
+                                           source_morton_order)
+
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(_cloud(rng, m), device=cuda)
+    p = q[torch.as_tensor(rng.integers(0, m, n), device=cuda)]
+    p = (p + 0.002 * torch.randn(p.shape, device=cuda,
+                                 generator=torch.Generator(cuda)
+                                 .manual_seed(seed))).contiguous()
+    mask = None if masked_from is None else (
+        torch.arange(m, device=cuda) < masked_from)
+    table = build_morton_table(q, mask, shift=shift)
+    return p[source_morton_order(p, table).long()].contiguous(), table
+
+
+def _check_band_against_plain(p, table, extra, chunk, window):
+    from fpcr_tpu_torch.ops.morton import morton_nn_band_plain
+    from fpcr_tpu_torch.ops.morton_cuda import morton_nn_cuda
+
+    km, kd, ki, ke = morton_nn_cuda(p, table, extra, chunk=chunk,
+                                    window=window)
+    om, od, oi, oe = morton_nn_band_plain(p, table, extra, chunk=chunk,
+                                          window=window)
+    q = table.points_sorted
+    m, vc = q.shape[0], int(table.valid_count)
+    assert ki.dtype == torch.int32 and int(ki.min()) >= 0
+    assert int(ki.max()) <= m - 1
+    assert torch.equal(km, q[ki.long()])  # bit for bit the table rows
+    if extra is not None:
+        assert torch.equal(ke, extra[ki.long()])
+    if vc > 0:
+        assert int(ki.max()) < vc  # no masked row wins
+    fin = torch.isfinite(od)
+    assert torch.equal(torch.isfinite(kd), fin)
+    np.testing.assert_allclose(kd[fin].cpu().numpy(), od[fin].cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    diff = torch.nonzero(ki != oi)[:, 0]
+    if diff.numel():
+        p64 = p[diff].double()
+        dk = ((p64 - q[ki[diff].long()].double()) ** 2).sum(1)
+        do = ((p64 - q[oi[diff].long()].double()) ** 2).sum(1)
+        assert ((dk - do).abs() <= TIE_REL * torch.clamp(do, min=1.0)).all()
+    return ki
+
+
+@pytest.mark.parametrize("n,m,chunk,window,masked_from,shift", [
+    (100, 3000, 256, 256, None, 0.0),      # n < chunk
+    (1000, 3000, 512, 64, None, 0.0),      # n not a multiple of chunk
+    (300, 500, 256, 256, None, 0.0),       # m < band
+    (2500, 3000, 256, 256, 2200, 0.0),     # masked tail
+    (2500, 3000, 512, 64, 2900, 0.5),      # shifted table
+    (4000, 5000, 1000, 300, None, 0.0),    # a chunk in two passes
+    (65536, 65536, 512, 64, None, 0.0),
+])
+def test_band_kernel_matches_plain(cuda, n, m, chunk, window, masked_from,
+                                   shift):
+    p, table = _band_case(cuda, n, m, n + m, masked_from, shift)
+    extra = (table.points_sorted * 0.5 + 0.25).contiguous()
+    _check_band_against_plain(p, table, extra, chunk, window)
+    _check_band_against_plain(p, table, None, chunk, window)
+
+
+def test_band_kernel_no_valid_target_convention(cuda):
+    from fpcr_tpu_torch.ops.morton_cuda import morton_nn_cuda
+
+    p, table = _band_case(cuda, 300, 600, 3, masked_from=0)
+    km, kd, ki, _ = morton_nn_cuda(p, table, chunk=128, window=64)
+    assert torch.isinf(kd).all() and (ki == 0).all()
+    assert torch.equal(km, table.points_sorted[:1].expand(300, 3))
+
+
+def test_band_kernel_counter_dispatch_and_checks(cuda):
+    from fpcr_tpu_torch.ops.morton import morton_nn_band
+    from fpcr_tpu_torch.ops.morton_cuda import morton_nn_cuda
+
+    p, table = _band_case(cuda, 2048, 4096, 4)
+    before = morton_nn_cuda.launches
+    morton_nn_band(p, table, chunk=512, window=64)
+    assert morton_nn_cuda.launches == before + 1
+    with pytest.raises(ValueError, match="CUDA"):
+        morton_nn_cuda(p.cpu(), table)
+    with pytest.raises(ValueError, match=r"\[4096, 3\]"):
+        morton_nn_cuda(p, table, extra=table.points_sorted[:10].contiguous())
+    bad = table._replace(valid_count=table.valid_count.long())
+    with pytest.raises(ValueError, match="int32"):
+        morton_nn_cuda(p, bad)
+
+
+def test_morton_icp_on_card_matches_cpu(cuda):
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.ops.morton_cuda import morton_nn_cuda
+
+    gt = ft.gt_transform((0.004, -0.002, 0.003), (0.002, -0.003, 0.002))
+    cfg = ft.ICPConfig(matcher="morton", morton_impl="pallas",
+                       morton_chunk=512, morton_window=64, max_iterations=20,
+                       morton_shifts=2)
+    src = ft.synthetic_scene(width=64).source
+    r_cpu = ft.run_icp(src, gt.apply(src), cfg)
+    s_gpu = src.to(cuda)
+    before = morton_nn_cuda.launches
+    r_gpu = ft.run_icp(s_gpu, gt.apply(s_gpu.cpu()).to(cuda), cfg)
+    it = int(r_gpu.num_iterations)
+    assert morton_nn_cuda.launches - before >= 2 * it
+    assert abs(it - int(r_cpu.num_iterations)) <= 1
+    tr = ft.RigidTransform(r_gpu.transform.rotation.cpu(),
+                           r_gpu.transform.translation.cpu())
+    assert float(ft.transform_rmse(tr, r_cpu.transform, src)) < 1e-5
