@@ -7,12 +7,13 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. device — the card's name, ``nvidia-smi``'s name and power limit, the
    torch and CUDA versions, and the float32 precision settings;
-2. build — kernels K1 (``fpcr_tpu_torch/csrc/matching.cu``) and K3
-   (``csrc/morton.cu``) with one nvcc per source, started together, into
-   one library; ptxas' registers and spills of each kernel;
-3. kernel vs plain — K1 and K3 against their plain PyTorch versions
-   (difference form) on the card, at the test shapes and the main path's
-   shapes;
+2. build — kernels K1 (``fpcr_tpu_torch/csrc/matching.cu``), K3
+   (``csrc/morton.cu``) and K4 (``csrc/ndt.cu``) with one nvcc per source,
+   started together, into one library; ptxas' registers and spills of each
+   kernel;
+3. kernel vs plain — K1, K3 and K4 against their plain PyTorch versions on
+   the card, at the test shapes and the main path's shapes, and K4 against
+   the 7-offset gather oracle at 262,144 points;
 4. main path — each path driven with the launch counters set to 0 just
    before it and read just after, every scene to its ground-truth
    threshold: point-to-point ICP (``matcher='pallas'``, K1) on the
@@ -20,18 +21,24 @@ Phases, in order; any failure raises and the script exits nonzero:
    ICP through K1 on the reference's plane workloads; Morton band ICP
    (``matcher='morton'``, K3, chunk 512, window 64) at 262,144 and
    1,048,576 points and on the hall scan; and the coarse-to-fine pipeline
-   on the full Bunny (K1 coarse, K3 fine); then small scenes registered on
-   the card and on the CPU must agree, for each matcher;
+   on the full Bunny (K1 coarse, K3 fine); NDT through K4 (``run_ndt`` on
+   prebuilt grids at 262,144 and 1,048,576 points, and map tracking: three
+   scans against one grid and one resolved config) and ``register_ndt`` on
+   the hall scan (gather NDT stages, then plane ICP through K1); then small
+   scenes registered on the card and on the CPU must agree, for each
+   matcher;
 5. times — ms/iter by the slope method (point and plane ICP at 16,384,
-   Morton ICP at 262,144 and 1,048,576), K1 and K3 alone against their
-   plain versions, normals, the plane solve and the share of each stage of
-   a point iteration, each printed beside the card's name and power limit.
+   Morton ICP and NDT at 262,144 and 1,048,576), K1, K3 and K4 alone
+   against their plain versions, normals, the plane solve, the NDT grid
+   build and the share of each stage of a point iteration, each printed
+   beside the card's name and power limit.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
 exits 1 and prints no result.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -69,6 +76,30 @@ MORTON_SCENES = [  # (name, scene kind, metric, max_iterations, threshold)
     ("morton plane synthetic-262144", "grid-0", "plane", 30, 1e-5),
     ("morton plane hall-16384", "hall_near", "plane", 50, 1e-4),
 ]
+
+
+# NDT: the saddle of scripts/tpu_report.py:154-173 with N(0, 0.002) noise,
+# voxel 0.12, near GT; the thresholds are 10x what the JAX package reaches
+# on the CPU for the same runs, rounded up to a decade, and its iteration
+# counts, which the card's must match within 1 (PERF.md §2 gives the runs)
+NDT_VOXEL = 0.12
+NDT_SCENES = [  # (name, width, threshold, JAX iterations)
+    ("ndt synthetic-262144", 512, 1e-3, 9),  # JAX: 1.138e-5
+    ("ndt synthetic-1048576", 1024, 1e-4, 9),  # JAX: 7.710e-6
+]
+# map tracking, three scans: (threshold, JAX iterations per scan); JAX:
+# 1.239e-5, 1.193e-5, 1.211e-5
+NDT_TRACK = (1e-3, (12, 22, 15))
+# K4 vs its plain version: the two round r, q and the sums with and without
+# FMAs, and exp(-d2/2·q) carries q's rounding into w, so the moments agree
+# to ~1e-6 relative; counts, which are integers, and x', the same float
+# subtractions, agree exactly
+K4_RTOL, K4_ATOL_REL = 1e-4, 1e-5
+# K4 vs the 7-offset gather oracle, which forms r = x - mu on absolute
+# coordinates (|x| up to 4 on the saddle): r rounds ~2.4e-7 apart, so q of a
+# stiff voxel (|S| ~ 1e4, |r| ~ 0.06) moves by ~2|Sr|·2.4e-7 ~ 3e-4, and w
+# by d2/2 of that (d2 ~ 1 at voxel 0.12): 1e-3 relative bounds it
+ORACLE_RTOL, ORACLE_ATOL_REL = 1e-3, 1e-5
 
 
 def log(phase, msg):
@@ -286,11 +317,168 @@ def phase_band_vs_plain(torch, np, ft, dev):
     return worst
 
 
+def ndt_scene(torch, np, ft, width, dev):
+    """The NDT scene: a ``width``² saddle with N(0, 0.002) noise drawn by
+    ``numpy.random.default_rng(0)``, and its near-GT target."""
+    rng = np.random.default_rng(0)
+    ax = np.linspace(-2, 2, width, dtype=np.float32)
+    xs, ys = np.meshgrid(ax, ax, indexing="ij")
+    pts = np.stack([xs.ravel(), ys.ravel(), (xs * xs - ys * ys).ravel()], 1)
+    pts = pts + rng.normal(0, 0.002, pts.shape).astype(np.float32)
+    return ft.transformed_scene(
+        torch.as_tensor(pts.astype(np.float32), device=dev), *NEAR_GT)
+
+
+def fused_cases(torch, np, ft, dev):
+    """K4's cases: ``(name, sorted source, grid, voxel, chunk, window,
+    neighborhood, source mask, hold against the gather oracle)``. The scenes
+    of the CPU tests (uniform; rows off the grid, one cell below its min
+    face and a masked row; x-planes wider than the band), then the main
+    path's grids at 262,144 and 1,048,576 points with the resolved window
+    and with 1024 (a band of two shared-memory tiles)."""
+    from fpcr_tpu_torch.ops.ndt import cell_key_order
+
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    out = []
+
+    def add(name, pts, src, h, geoms, mask=None, hoods=("direct7",)):
+        grid = ft.build_ndt_grid(t(pts), h)
+        src = t(src)
+        src = src[cell_key_order(src, grid).long()].contiguous()
+        for hood in hoods:
+            for c, w in geoms:
+                out.append((f"{name} {hood} c{c}/w{w}", src, grid, h, c, w,
+                            hood, mask, False))
+
+    rng = np.random.default_rng(23)
+    pts = rng.uniform(0, 2.0, (6000, 3)).astype(np.float32)
+    add("uniform-6000", pts,
+        pts + rng.normal(0, 0.02, pts.shape).astype(np.float32), 0.25,
+        ((256, 256), (512, 64)))
+    rng = np.random.default_rng(31)
+    pts = rng.uniform(0, 2.0, (4096, 3)).astype(np.float32)
+    src = pts + rng.normal(0, 0.02, pts.shape).astype(np.float32)
+    src[:64] -= 3.0
+    src[64:128, 0] = -0.1
+    add("edges-4096", pts, src, 0.25, ((256, 256),),
+        mask=t(np.arange(4096) != 100), hoods=("direct7", "direct1"))
+    rng = np.random.default_rng(7)
+    ys, zs = np.meshgrid(np.linspace(0, 5.0, 40, dtype=np.float32),
+                         np.linspace(0, 5.0, 40, dtype=np.float32),
+                         indexing="ij")
+    pts = np.concatenate([np.stack([np.full(ys.size, 0.25 * xi, np.float32),
+                                    ys.ravel(), zs.ravel()], 1)
+                          for xi in range(6)])
+    pts = pts + rng.normal(0, 0.01, pts.shape).astype(np.float32)
+    add("sheets-9600", pts, pts + np.float32(0.02), 0.25,
+        ((256, 256), (512, 3968)))  # 3968: the window cap, band 8,576
+    for w in LARGE_WIDTHS:
+        s = ndt_scene(torch, np, ft, w, dev)
+        grid = ft.build_ndt_grid(s.target, NDT_VOXEL)
+        cfg = ft.resolve_ndt_config(ft.NDTConfig(voxel_size=NDT_VOXEL),
+                                    grid, s.source)
+        src = s.source[cell_key_order(s.source, grid).long()].contiguous()
+        for win in (cfg.lookup_window, 1024):
+            out.append((f"ndt-{w * w} direct7 c512/w{win}", src, grid,
+                        NDT_VOXEL, 512, win, "direct7", None,
+                        w == LARGE_WIDTHS[0] and win == cfg.lookup_window))
+    return out
+
+
+def phase_fused_vs_plain(torch, np, ft, dev):
+    """K4 against ``ndt_fused_moments_plain`` on the same inputs, and at
+    262,144 points against the 7-offset gather oracle. Returns the largest
+    |kernel - plain| over the moment and sum lanes."""
+    from fpcr_tpu_torch.ops.ndt import (gauss_d1_d2, ndt_fused_moments_plain,
+                                        prepare_fused_tables,
+                                        reference_neighborhood_moments)
+    from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
+
+    worst = 0.0
+    for name, src, grid, h, chunk, window, hood, mask, oracle in fused_cases(
+            torch, np, ft, dev):
+        d1, d2 = gauss_d1_d2(0.55, h)
+        kw = dict(voxel_size=h, d1=abs(d1), d2=d2, neighborhood=hood,
+                  chunk=chunk, window=window, source_mask=mask)
+        tables = prepare_fused_tables(grid)
+        rk, xk = ndt_fused_moments_cuda(src, grid, tables, **kw)
+        torch.cuda.synchronize()
+        rp, xp = ndt_fused_moments_plain(src, grid, tables, **kw)
+        if not torch.equal(rk[:, 10], rp[:, 10]):
+            raise AssertionError(f"K4 {name}: neighbour counts differ on "
+                                 f"{int((rk[:, 10] != rp[:, 10]).sum())} "
+                                 "rows")
+        if not torch.equal(xk, xp):
+            raise AssertionError(f"K4 {name}: x' differs")
+        if bool((rk[:, 12:] != 0).any()) or not bool(
+                torch.isfinite(rk).all()):
+            raise AssertionError(f"K4 {name}: non-finite or nonzero pad "
+                                 "lanes")
+        a, b = rk[:, :12].cpu().numpy(), rp[:, :12].cpu().numpy()
+        for lanes in (slice(0, 10), slice(11, 12)):
+            np.testing.assert_allclose(
+                a[:, lanes], b[:, lanes], rtol=K4_RTOL,
+                atol=K4_ATOL_REL * max(float(np.abs(b[:, lanes]).max()),
+                                       1e-30), err_msg=f"K4 {name}")
+        err = float(np.abs(a - b).max())
+        rel = float((np.abs(a - b) / (np.abs(b) + 1e-30))[
+            np.abs(b) > 1e-6 * np.abs(b).max()].max())
+        worst = max(worst, err)
+        log("kernel", f"K4 {name}: counts and x' equal on {src.shape[0]} "
+                      f"rows (max count {int(rk[:, 10].max())}), max |err| "
+                      f"{err:.3e}, max rel err {rel:.3e} -> ok")
+        if oracle:
+            WS, WSr, count, qsum = reference_neighborhood_moments(
+                src, grid, abs(d1), d2)
+            if bool((rk[:, 10] > count).any()):
+                raise AssertionError("K4 found a neighbour the gather "
+                                     "oracle does not")
+            same = rk[:, 10] == count
+            share = float(same.to(torch.float32).mean())
+            s = rk[same]
+            x = xk[same]
+            wsr = torch.stack([
+                s[:, 0] * x[:, 0] + s[:, 1] * x[:, 1] + s[:, 2] * x[:, 2]
+                - s[:, 6],
+                s[:, 1] * x[:, 0] + s[:, 3] * x[:, 1] + s[:, 4] * x[:, 2]
+                - s[:, 7],
+                s[:, 2] * x[:, 0] + s[:, 4] * x[:, 1] + s[:, 5] * x[:, 2]
+                - s[:, 8]], dim=1)
+            for label, got, want in (("WS", s[:, 0:6], WS[same]),
+                                     ("qsum", s[:, 11], qsum[same])):
+                want = want.cpu().numpy()
+                np.testing.assert_allclose(
+                    got.cpu().numpy(), want, rtol=ORACLE_RTOL,
+                    atol=ORACLE_ATOL_REL * float(np.abs(want).max()),
+                    err_msg=f"K4 vs gather oracle {name} {label}")
+            # Σ w S r: K4 forms r from x − lo and the oracle from x, each
+            # rounded to ~2⁻²⁴ of its magnitude, which S (|S| up to ~1e3)
+            # multiplies, and K4's WS·x' − WSμ' cancels; the error scales
+            # with |WS|·max(|x|, |x − lo|) + |WSμ'|, not with the result
+            xs = src[same]
+            reach = torch.maximum(xs.abs(), (xs - grid.lo).abs()).amax(1)
+            cancel = (s[:, 0:6].abs().sum(1) * reach
+                      + s[:, 6:9].abs().sum(1))[:, None]
+            if bool(((wsr - WSr[same]).abs() > ORACLE_RTOL * WSr[same].abs()
+                     + 1e-6 * cancel).any()):
+                raise AssertionError(f"K4 vs gather oracle {name}: WSr")
+            log("kernel", f"K4 {name} vs the 7-offset gather oracle: counts "
+                          f"equal on {share:.6f} of the rows (the band "
+                          f"covers), moments within rtol {ORACLE_RTOL:g} "
+                          "there -> ok")
+            if share < 0.999:
+                raise AssertionError("the resolved band missed neighbours "
+                                     f"on {1 - share:.4%} of the rows")
+    return worst
+
+
 def _wrappers():
     from fpcr_tpu_torch.ops.matching_cuda import nn_argmin_cuda
     from fpcr_tpu_torch.ops.morton_cuda import morton_nn_cuda
+    from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
 
-    return {"nn_argmin": nn_argmin_cuda, "morton_nn": morton_nn_cuda}
+    return {"nn_argmin": nn_argmin_cuda, "morton_nn": morton_nn_cuda,
+            "ndt_fused_moments": ndt_fused_moments_cuda}
 
 
 def drive(torch, path, fn):
@@ -340,6 +528,7 @@ def register(torch, ft, name, s, run, thr, kernel, per_iteration=1):
                              f"{it} iterations")
     if not gt < thr:
         raise AssertionError(f"{name}: GT transform RMSE {gt} >= {thr}")
+    return res
 
 
 def phase_main_path(torch, ft, dev):
@@ -376,10 +565,80 @@ def phase_main_path(torch, ft, dev):
         if _wrappers()["nn_argmin"].launches == k1:
             raise AssertionError("the coarse stage never launched K1")
 
+    import numpy as np
+
+    def check_iterations(name, res, jax_iters):
+        it = int(res.num_iterations)
+        log("main", f"{name}: the JAX package took {jax_iters} iterations on "
+                    f"the CPU, the card {it}")
+        if abs(it - jax_iters) > 1:
+            raise AssertionError(f"{name}: {it} iterations, JAX {jax_iters}")
+
+    def ndt_runs():
+        for name, width, thr, jax_iters in NDT_SCENES:
+            s = ndt_scene(torch, np, ft, width, dev)
+            grid = ft.build_ndt_grid(s.target, NDT_VOXEL)
+            cfg = ft.NDTConfig(voxel_size=NDT_VOXEL, max_iterations=50)
+            res = register(torch, ft, name, s,
+                           lambda a, b: ft.run_ndt(a, b, cfg, grid=grid),
+                           thr, "ndt_fused_moments")
+            check_iterations(name, res, jax_iters)
+
+    def map_tracking():
+        from fpcr_tpu_torch.models import ndt as ndt_model
+
+        map_cloud = ndt_scene(torch, np, ft, LARGE_WIDTHS[0], dev).source
+        grid = ft.build_ndt_grid(map_cloud, NDT_VOXEL)
+        cfg = ft.resolve_ndt_config(
+            ft.NDTConfig(voxel_size=NDT_VOXEL, max_iterations=50), grid,
+            map_cloud)
+        log("main", f"map tracking: resolved lookup={cfg.lookup} "
+                    f"impl={cfg.lookup_impl} window={cfg.lookup_window}")
+        if cfg.lookup_impl != "pallas" or not cfg.lookup_resolved:
+            raise AssertionError("the resolved config does not run K4")
+        probes = []
+        resolve = ndt_model._resolve_fused
+
+        def spy(config, grid, source=None):  # counts coverage probes
+            if not config.lookup_resolved:
+                probes.append(source)
+            return resolve(config, grid, source)
+
+        ndt_model._resolve_fused = spy
+        try:
+            rng = np.random.default_rng(0)
+            thr, jax_iters = NDT_TRACK
+            for k in range(3):
+                gt = ft.gt_transform(tuple(0.01 * rng.standard_normal(3)),
+                                     tuple(0.05 * rng.standard_normal(3)),
+                                     device=dev)
+                scan = gt.apply(map_cloud)
+                s = ft.RegistrationScene(scan, map_cloud, gt.inverse())
+                res = register(torch, ft, f"map tracking scan {k}", s,
+                               lambda a, b: ft.run_ndt(a, b, cfg, grid=grid),
+                               thr, "ndt_fused_moments")
+                check_iterations(f"map tracking scan {k}", res, jax_iters[k])
+        finally:
+            ndt_model._resolve_fused = resolve
+        if probes:
+            raise AssertionError(f"{len(probes)} scans ran a coverage probe")
+
+    def register_ndt_hall():
+        s = build_scene(ft, "hall", dev)
+        run = lambda a, b: ft.register_ndt(  # noqa: E731
+            a, b, ft.ICPConfig(metric="plane", max_iterations=40,
+                               matcher="pallas"))
+        register(torch, ft, "register_ndt hall-16384 (plane ICP refine)", s,
+                 run, 1e-5, "nn_argmin")
+
     paths = [("point ICP, K1", brute("point", SCENES), "nn_argmin"),
              ("plane ICP, K1", brute("plane", PLANE_SCENES), "nn_argmin"),
              ("morton ICP, K3", morton, "morton_nn"),
-             ("coarse-to-fine, K1 + K3", coarse_to_fine, "morton_nn")]
+             ("coarse-to-fine, K1 + K3", coarse_to_fine, "morton_nn"),
+             ("NDT run_ndt, K4", ndt_runs, "ndt_fused_moments"),
+             ("NDT map tracking, K4", map_tracking, "ndt_fused_moments"),
+             ("register_ndt, gather NDT + K1", register_ndt_hall,
+              "nn_argmin")]
     totals = {k: 0 for k in _wrappers()}
     for path, fn, kernel in paths:
         counts = drive(torch, path, fn)
@@ -565,6 +824,61 @@ def phase_times_slice2(torch, ft, dev, smi):
     return out
 
 
+def phase_times_ndt(torch, np, ft, dev, smi):
+    """NDT ms/iter by the slope method, K4 alone against its plain version,
+    and the grid build, at 262,144 and 1,048,576 points."""
+    from fpcr_tpu_torch.ops.ndt import (cell_key_order, gauss_d1_d2,
+                                        ndt_fused_moments_plain,
+                                        prepare_fused_tables)
+    from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms, slope_ms_per_iter
+
+    card = f"[card: {smi}]"
+    out = {}
+    d1, d2 = gauss_d1_d2(0.55, NDT_VOXEL)
+    for w in LARGE_WIDTHS:
+        n = w * w
+        s = ndt_scene(torch, np, ft, w, dev)
+        build = cuda_time_ms(lambda: ft.build_ndt_grid(s.target, NDT_VOXEL),
+                             repeats=3, warmup=1)
+        grid = ft.build_ndt_grid(s.target, NDT_VOXEL)
+        again = ft.build_ndt_grid(s.target, NDT_VOXEL)
+        same = all(torch.equal(a, b) for a, b in zip(grid, again))
+        log("times", f"build_ndt_grid N={n}: min {build['min']:.3f} ms, "
+                     f"{int(grid.valid.sum())} valid voxels, two builds "
+                     f"bit-equal: {same} {card}")
+        if not same:
+            raise AssertionError("build_ndt_grid is not deterministic")
+        cfg = ft.resolve_ndt_config(ft.NDTConfig(voxel_size=NDT_VOXEL), grid,
+                                    s.source)
+
+        def run(k):
+            c = dataclasses.replace(cfg, max_iterations=k, tolerance=0.0)
+            return ft.run_ndt(s.source, s.target, c, grid=grid)
+
+        r = slope_ms_per_iter(run, k_lo=5, k_hi=25, repeats=3)
+        log("times", f"NDT N={n} (K4, window {cfg.lookup_window}): "
+                     f"{r['ms_per_iter']:.4f} ms/iter (slope of min-of-3, 5 "
+                     f"and 25 iterations: {r['lo_ms']:.3f} / "
+                     f"{r['hi_ms']:.3f} ms) {card}")
+        src = s.source[cell_key_order(s.source, grid).long()].contiguous()
+        tables = prepare_fused_tables(grid)
+        kw = dict(voxel_size=NDT_VOXEL, d1=abs(d1), d2=d2, chunk=512,
+                  window=cfg.lookup_window)
+        k4 = cuda_time_ms(lambda: ndt_fused_moments_cuda(src, grid, tables,
+                                                         **kw),
+                          repeats=20, warmup=3)
+        plain = cuda_time_ms(lambda: ndt_fused_moments_plain(
+            src, grid, tables, **kw), repeats=3, warmup=1)
+        log("times", f"K4 ndt_fused_moments_cuda N={n} c512/w"
+                     f"{cfg.lookup_window}: min {k4['min']:.4f} ms, mean "
+                     f"{k4['mean']:.4f} ms; plain ndt_fused_moments_plain "
+                     f"min {plain['min']:.4f} ms {card}")
+        out[n] = {"ms_per_iter": r["ms_per_iter"], "k4_ms": k4["min"],
+                  "plain_ms": plain["min"], "build_ms": build["min"]}
+    return out
+
+
 def main():
     import torch
 
@@ -581,10 +895,12 @@ def main():
     phase_build()
     max_err = phase_kernel_vs_plain(torch, np, ft, dev)
     max_err_k3 = phase_band_vs_plain(torch, np, ft, dev)
+    max_err_k4 = phase_fused_vs_plain(torch, np, ft, dev)
     launches = phase_main_path(torch, ft, dev)
     phase_reference(torch, ft, dev)
     times = phase_times(torch, ft, dev, smi)
     times2 = phase_times_slice2(torch, ft, dev, smi)
+    times3 = phase_times_ndt(torch, np, ft, dev, smi)
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     k3_ms, k3_plain_ms = times2[f"k3 {LARGE_WIDTHS[-1] ** 2}"]
     print(json.dumps({"kernels": [{
@@ -605,6 +921,15 @@ def main():
         "max_abs_err": max_err_k3,
         "ms": k3_ms,
         "plain_ms": k3_plain_ms,
+    }, {
+        "name": "ndt_fused_moments",
+        "route": "cuda",
+        "source": "fpcr_tpu_torch/csrc/ndt.cu",
+        "replaces": "fpcr_tpu/ops/ndt_pallas.py:512",
+        "launches": launches["ndt_fused_moments"],
+        "max_abs_err": max_err_k4,
+        "ms": times3[LARGE_WIDTHS[-1] ** 2]["k4_ms"],
+        "plain_ms": times3[LARGE_WIDTHS[-1] ** 2]["plain_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

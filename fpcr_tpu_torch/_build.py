@@ -138,6 +138,11 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_morton_nn.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr, i32,
                                    i32, i32, ptr, ptr, ptr, ptr, ptr]
     lib.fpcr_morton_nn.restype = i32
+    f32 = ctypes.c_float
+    lib.fpcr_ndt_moments.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr,
+                                     i32, i32, i32, i32, i32, f32, f32, ptr,
+                                     ptr, ptr]
+    lib.fpcr_ndt_moments.restype = i32
     lib.fpcr_cuda_error_string.argtypes = [i32]
     lib.fpcr_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -9,6 +9,8 @@ plain dicts, never JAX objects, so this module imports nothing of JAX:
     tr = transform_from_numpy(np.asarray(jax_tr.rotation),
                               np.asarray(jax_tr.translation), device="cuda")
     table = morton_table_from_numpy(jax_table, device="cuda")
+    grid = ndt_grid_from_numpy(jax_grid, device="cuda")
+    ndt_cfg = ndt_config_from_dict(dataclasses.asdict(fpcr_tpu.NDTConfig()))
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import torch
 
 from .core.transforms import RigidTransform
 from .models.icp import ICPConfig, ICPResult
+from .models.ndt import NDTConfig
 from .ops.morton import MortonTable
+from .ops.ndt import NDTGrid
 
 
 def config_from_dict(d: Dict[str, object]) -> ICPConfig:
@@ -71,3 +75,26 @@ def morton_table_from_numpy(table, device=None) -> MortonTable:
         codes_sorted=i32(table.codes_sorted), orig_index=i32(table.orig_index),
         lo=f32(table.lo), inv_extent=f32(table.inv_extent),
         valid_count=i32(table.valid_count).reshape(()))
+
+
+def ndt_config_from_dict(d: Dict[str, object]) -> NDTConfig:
+    """An ``NDTConfig`` from the dict of another package's ``NDTConfig``
+    (``dataclasses.asdict``); an unknown field raises ``TypeError``."""
+    return NDTConfig(**d)
+
+
+def ndt_grid_from_numpy(grid, device=None) -> NDTGrid:
+    """An ``NDTGrid`` from any object with the seven fields of one (for
+    example ``fpcr_tpu.ops.ndt.NDTGrid``), each read with ``np.asarray``; so
+    a test can hand another package's grid to the lookups and to K4."""
+    def t(x, dtype):
+        return torch.tensor(np.asarray(x), dtype=dtype,
+                            device=device).contiguous()
+
+    return NDTGrid(keys=t(grid.keys, torch.int32),
+                   mu=t(grid.mu, torch.float32),
+                   sinv=t(grid.sinv, torch.float32),
+                   valid=t(grid.valid, torch.bool),
+                   lo=t(grid.lo, torch.float32),
+                   voxel_size=t(grid.voxel_size, torch.float32).reshape(()),
+                   table=t(grid.table, torch.float32))

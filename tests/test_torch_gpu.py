@@ -1,4 +1,4 @@
-"""Kernels K1 and K3 on the card against their plain PyTorch versions.
+"""Kernels K1, K3 and K4 on the card against their plain PyTorch versions.
 
 Every test here needs a CUDA device and skips without one: a CUDA kernel
 has no CPU mode. On the card (which has no JAX, so the root conftest is
@@ -257,6 +257,130 @@ def test_morton_icp_on_card_matches_cpu(cuda):
     r_gpu = ft.run_icp(s_gpu, gt.apply(s_gpu.cpu()).to(cuda), cfg)
     it = int(r_gpu.num_iterations)
     assert morton_nn_cuda.launches - before >= 2 * it
+    assert abs(it - int(r_cpu.num_iterations)) <= 1
+    tr = ft.RigidTransform(r_gpu.transform.rotation.cpu(),
+                           r_gpu.transform.translation.cpu())
+    assert float(ft.transform_rmse(tr, r_cpu.transform, src)) < 1e-5
+
+
+# --- kernel K4, the fused direct7 NDT moments -------------------------------
+
+# K4 vs its plain version: r, q and the sums round with and without FMAs and
+# exp(-d2/2·q) carries q's rounding into w; counts and x' are exact
+K4_RTOL, K4_ATOL_REL = 1e-4, 1e-5
+
+
+def _ndt_case(cuda, n, seed, h=0.25, off_grid=False, masked=False):
+    from fpcr_tpu_torch.ops.ndt import build_ndt_grid, cell_key_order
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, 2.0, (n, 3)).astype(np.float32)
+    src = pts + rng.normal(0, 0.02, pts.shape).astype(np.float32)
+    if off_grid:
+        src[:64] -= 3.0
+        src[64:128, 0] = -0.1
+    grid = build_ndt_grid(torch.as_tensor(pts, device=cuda), h)
+    p = torch.as_tensor(src, device=cuda)
+    p = p[cell_key_order(p, grid).long()].contiguous()
+    mask = (torch.arange(n, device=cuda) != 100) if masked else None
+    return p, grid, mask
+
+
+def _check_fused_against_plain(p, grid, mask, h, chunk, window, hood):
+    from fpcr_tpu_torch.ops.ndt import (gauss_d1_d2, ndt_fused_moments_plain,
+                                        prepare_fused_tables)
+    from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
+
+    d1, d2 = gauss_d1_d2(0.55, h)
+    kw = dict(voxel_size=h, d1=abs(d1), d2=d2, neighborhood=hood,
+              chunk=chunk, window=window, source_mask=mask)
+    tables = prepare_fused_tables(grid)
+    rk, xk = ndt_fused_moments_cuda(p, grid, tables, **kw)
+    rp, xp = ndt_fused_moments_plain(p, grid, tables, **kw)
+    assert torch.equal(rk[:, 10], rp[:, 10])
+    assert torch.equal(xk, xp)
+    assert not bool(rk[:, 12:].any())
+    a, b = rk[:, :12].cpu().numpy(), rp[:, :12].cpu().numpy()
+    for lanes in (slice(0, 10), slice(11, 12)):
+        np.testing.assert_allclose(
+            a[:, lanes], b[:, lanes], rtol=K4_RTOL,
+            atol=K4_ATOL_REL * max(float(np.abs(b[:, lanes]).max()), 1e-30))
+    return rk
+
+
+@pytest.mark.parametrize("n,chunk,window,hood,off_grid,masked", [
+    (6000, 256, 256, "direct7", False, False),
+    (4096, 256, 256, "direct7", True, True),   # off the grid, a masked row
+    (4096, 256, 256, "direct1", True, True),
+    (100, 128, 64, "direct7", False, False),   # n < chunk, m < band
+    (6000, 512, 3968, "direct7", False, False),  # the cap's band, 8,576 rows
+    (6000, 128, 1, "direct7", False, False),   # a narrow band: misses
+    (65536, 512, 256, "direct7", False, False),
+])
+def test_fused_kernel_matches_plain(cuda, n, chunk, window, hood, off_grid,
+                                    masked):
+    p, grid, mask = _ndt_case(cuda, n, n + chunk + window, off_grid=off_grid,
+                              masked=masked)
+    rk = _check_fused_against_plain(p, grid, mask, 0.25, chunk, window, hood)
+    if n >= 1000:  # dense enough for valid voxels
+        assert int(rk[:, 10].max()) >= 1
+
+
+def test_fused_kernel_matches_gather_oracle(cuda):
+    from fpcr_tpu_torch.ops.ndt import (gauss_d1_d2, ndt_fused_moments,
+                                        prepare_fused_tables,
+                                        reference_neighborhood_moments)
+
+    p, grid, _ = _ndt_case(cuda, 6000, 23)
+    d1, d2 = gauss_d1_d2(0.55, 0.25)
+    rows, xp = ndt_fused_moments(p, grid, prepare_fused_tables(grid),
+                                 voxel_size=0.25, d1=abs(d1), d2=d2,
+                                 chunk=256, window=256)
+    WS, _, count, qsum = reference_neighborhood_moments(p, grid, abs(d1), d2)
+    assert torch.equal(rows[:, 10], count)
+    np.testing.assert_allclose(rows[:, 0:6].cpu().numpy(), WS.cpu().numpy(),
+                               rtol=1e-4,
+                               atol=1e-5 * float(WS.abs().max()))
+    np.testing.assert_allclose(rows[:, 11].cpu().numpy(),
+                               qsum.cpu().numpy(), rtol=1e-4,
+                               atol=1e-5 * float(qsum.max()))
+
+
+def test_fused_counter_dispatch_and_checks(cuda):
+    from fpcr_tpu_torch.ops.ndt import ndt_fused_moments, prepare_fused_tables
+    from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
+
+    p, grid, _ = _ndt_case(cuda, 2048, 4)
+    tables = prepare_fused_tables(grid)
+    kw = dict(voxel_size=0.25, d1=1.0, d2=1.0, chunk=256, window=256)
+    before = ndt_fused_moments_cuda.launches
+    ndt_fused_moments(p, grid, tables, **kw)
+    assert ndt_fused_moments_cuda.launches == before + 1
+    with pytest.raises(ValueError, match="CUDA"):
+        ndt_fused_moments_cuda(p.cpu(), grid, tables, **kw)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ndt_fused_moments_cuda(p, grid, tables, **{**kw, "chunk": 100})
+    with pytest.raises(ValueError, match="tables.tab"):
+        ndt_fused_moments_cuda(p, grid, tables._replace(
+            tab=tables.tab.double()), **kw)
+
+
+def test_ndt_on_card_matches_cpu(cuda):
+    """The same registration through K4 on the card and through its plain
+    version on the CPU."""
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
+
+    gt = ft.gt_transform((0.02, -0.015, 0.01), (0.03, -0.02, 0.015))
+    src = ft.synthetic_scene(width=48).source
+    cfg = ft.NDTConfig(voxel_size=0.4, max_iterations=60, lookup="banded",
+                       lookup_impl="pallas", lookup_chunk=256,
+                       lookup_window=256)
+    r_cpu = ft.run_ndt(src, gt.apply(src), cfg)
+    before = ndt_fused_moments_cuda.launches
+    r_gpu = ft.run_ndt(src.to(cuda), gt.apply(src).to(cuda), cfg)
+    it = int(r_gpu.num_iterations)
+    assert ndt_fused_moments_cuda.launches - before >= it
     assert abs(it - int(r_cpu.num_iterations)) <= 1
     tr = ft.RigidTransform(r_gpu.transform.rotation.cpu(),
                            r_gpu.transform.translation.cpu())
