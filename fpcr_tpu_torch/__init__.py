@@ -4,16 +4,22 @@ The port of ``fpcr_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100, slice
 by slice. Ported so far: point-to-point, point-to-plane and symmetric ICP
 with PCA normals, the exact brute-force matcher and the Morton band matcher
 for large clouds, the coarse-to-fine pipeline, and NDT registration (the
-voxel Gaussian grid, ``run_ndt``, ``register_ndt``). Three kernels carry
-them, all CUDA C++ for ``sm_90a`` built with ``nvcc`` at first launch: the
-brute-force nearest-neighbour matcher K1 (``csrc/matching.cu``), the Morton
-band matcher K3 (``csrc/morton.cu``) and NDT's fused direct7 moments K4
-(``csrc/ndt.cu``); a CPU tensor takes their plain PyTorch versions. The
-layout and the public names follow ``fpcr_tpu``, which stays the reference
-the port is tested against. The package imports torch and numpy, never JAX.
+voxel Gaussian grid, ``run_ndt``, ``register_ndt``), and the packed
+(value|index) reduction of both matchers (``pallas_mode='packed6_idx'``).
+Its kernels are all CUDA C++ for ``sm_90a`` built with ``nvcc`` at first
+launch: the brute-force nearest-neighbour matcher K1 and its packed twin K2
+(``csrc/matching.cu``, with the min-only sweep of the packed-reduction
+study ``bench/packed_reduction.py``), the Morton band matcher K3 and its
+packed twin K3p (``csrc/morton.cu``) and NDT's fused direct7 moments K4
+(``csrc/ndt.cu``); a CPU tensor takes their plain PyTorch versions. Every
+entry point runs on the card unless the caller asks for the CPU: loaders
+and scene builders take ``device="cpu"`` for that, and a function given
+tensors runs on their device. The layout and the public names follow
+``fpcr_tpu``, which stays the reference the port is tested against. The
+package imports torch and numpy, never JAX.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 from .core.cloud import MaskedCloud, pad_cloud
 from .core.metrics import rmse, transform_rmse
@@ -36,7 +42,8 @@ from .models.icp import (ICPConfig, ICPResult, icp_iteration,
 from .models.ndt import (NDTConfig, NDTResult, register_ndt,
                          resolve_ndt_config, run_ndt)
 from .models.pipeline import CoarseToFineResult, icp_coarse_to_fine
-from .ops.matching import gather_correspondences, nn_argmin, pairwise_sqdist
+from .ops.matching import (gather_correspondences, nn_argmin,
+                           nn_argmin_packed, pairwise_sqdist)
 from .ops.morton import (MortonTable, build_morton_table, knn_morton,
                          morton_nn, source_morton_order)
 from .ops.ndt import NDTGrid, build_ndt_grid, ndt_lookup
@@ -85,6 +92,7 @@ __all__ = [
     "morton_nn",
     "knn_morton",
     "nn_argmin",
+    "nn_argmin_packed",
     "gather_correspondences",
     "pairwise_sqdist",
     "kabsch_transform",

@@ -135,9 +135,24 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_nn_partial.restype = i32
     lib.fpcr_nn_combine.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr]
     lib.fpcr_nn_combine.restype = i32
+    lib.fpcr_nn_packed_partial.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
+                                           ptr, ptr]
+    lib.fpcr_nn_packed_partial.restype = i32
+    lib.fpcr_nn_packed_epilogue.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+                                            i32, ptr, ptr, ptr]
+    lib.fpcr_nn_packed_epilogue.restype = i32
+    lib.fpcr_nn_min_partial.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr,
+                                        ptr]
+    lib.fpcr_nn_min_partial.restype = i32
+    lib.fpcr_nn_min_combine.argtypes = [ptr, i32, i32, ptr, ptr]
+    lib.fpcr_nn_min_combine.restype = i32
     lib.fpcr_morton_nn.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr, i32,
                                    i32, i32, ptr, ptr, ptr, ptr, ptr]
     lib.fpcr_morton_nn.restype = i32
+    lib.fpcr_morton_nn_packed.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr,
+                                          i32, i32, i32, i32, ptr, ptr, ptr,
+                                          ptr, ptr]
+    lib.fpcr_morton_nn_packed.restype = i32
     f32 = ctypes.c_float
     lib.fpcr_ndt_moments.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr,
                                      i32, i32, i32, i32, i32, f32, f32, ptr,

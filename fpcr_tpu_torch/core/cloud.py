@@ -11,6 +11,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.device import resolve_device
+
 
 def round_up(x: int, multiple: int) -> int:
     return ((x + multiple - 1) // multiple) * multiple
@@ -51,7 +53,11 @@ def pad_cloud(
 
 
 def as_points(x, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Coerce array-like to an ``[N, 3]`` float tensor."""
+    """Coerce array-like to an ``[N, 3]`` float tensor. A tensor keeps its
+    device unless ``device`` is given; anything else lands on ``device``,
+    the card by default (``utils.device.resolve_device``)."""
+    if device is None and not isinstance(x, torch.Tensor):
+        device = resolve_device()
     arr = torch.as_tensor(x, dtype=dtype, device=device)
     if arr.ndim != 2 or arr.shape[1] != 3:
         raise ValueError(f"expected [N, 3] points, got {tuple(arr.shape)}")

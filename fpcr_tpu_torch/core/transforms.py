@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.device import resolve_device
+
 
 class RigidTransform(NamedTuple):
     """SE(3) transform ``x -> R @ x + t`` acting on row-major ``[N, 3]``."""
@@ -44,6 +46,8 @@ class RigidTransform(NamedTuple):
 
     @staticmethod
     def identity(dtype=torch.float32, device=None) -> "RigidTransform":
+        """The identity on ``device``, the card by default."""
+        device = resolve_device(device)
         return RigidTransform(torch.eye(3, dtype=dtype, device=device),
                               torch.zeros(3, dtype=dtype, device=device))
 
@@ -114,7 +118,9 @@ def rotation_gt(rx, ry, rz) -> torch.Tensor:
 def gt_transform(translation, rotation_rad, dtype=torch.float32,
                  device=None) -> RigidTransform:
     """The ground-truth ``RigidTransform`` the reference drivers use to
-    synthesize target clouds (``M = R·D + t``)."""
+    synthesize target clouds (``M = R·D + t``), on ``device``, the card by
+    default."""
+    device = resolve_device(device)
     t = torch.as_tensor(translation, dtype=dtype, device=device)
     rx, ry, rz = [torch.as_tensor(a, dtype=dtype, device=device)
                   for a in rotation_rad]

@@ -4,7 +4,8 @@ Two files ship in ``assets/``: ``Bunny_res.csv`` (8,171 points,
 whitespace-separated, what the reference drivers load) and ``Bunny.csv``
 (35,947 points, semicolon-separated). The delimiter is sniffed so both load.
 The Bunny scene's ground truth is the reference's t=(0.01,-0.04,0.02),
-r=(0.15,-0.1,0.05).
+r=(0.15,-0.1,0.05). Clouds land on the ``device`` asked for, the card when
+none is named.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .paths import asset
 from .synthetic import RegistrationScene, transformed_scene
 
@@ -34,7 +36,8 @@ def parse_xyz(path: Path) -> np.ndarray:
 
 
 def load_xyz_csv(path: Union[str, Path], device=None) -> torch.Tensor:
-    return torch.as_tensor(parse_xyz(Path(path)), device=device)
+    return torch.as_tensor(parse_xyz(Path(path)),
+                           device=resolve_device(device))
 
 
 def load_bunny(resampled: bool = True,

@@ -9,7 +9,8 @@ line ``17 + 12*channel + 788*block + 12608*packet`` for channels 2, 6, ...,
 per return i, azimuth block i//16 and channel i%16; encoder counter
 ``(enc0 + block*88) mod 90112``; theta = 2π(counter/90112 + azimuth/360),
 phi = 2π·altitude/360; x = r·cosθ·cosφ, y = -r·sinθ·cosφ, z = r·sinφ.
-Ranges are millimetres; ``meters=True`` scales by 1e-3 afterwards.
+Ranges are millimetres; ``meters=True`` scales by 1e-3 afterwards. The
+cloud lands on the ``device`` asked for, the card when none is named.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .paths import asset
 from .synthetic import RegistrationScene, transformed_scene
 
@@ -108,6 +110,7 @@ def polar_to_cartesian(ranges: torch.Tensor, encoder_start: int,
 def load_hall_scan(path: Union[str, Path, None] = None, meters: bool = True,
                    device=None) -> torch.Tensor:
     """The full hall-scan cloud: 16,384 Cartesian points."""
+    device = resolve_device(device)
     frame = parse_packets(path)
     pts = polar_to_cartesian(
         torch.as_tensor(frame.ranges, device=device),

@@ -4,7 +4,8 @@ The reference's oracle-by-construction setup: a ``z = x² - y²`` surface grid
 on ``[XY_min, XY_max]²`` and a target synthesized as ``M = R_gt·D + t_gt``,
 so registration is correct when it recovers ``(R_gt, t_gt)``. Clouds are
 built with numpy exactly as ``fpcr_tpu.data.synthetic`` builds them, so
-both packages get identical inputs, and land on the ``device`` asked for.
+both packages get identical inputs, and land on the ``device`` asked for,
+the card when none is named (``utils/device.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.transforms import RigidTransform, gt_transform
+from ..utils.device import resolve_device
 
 DEFAULT_XY_MIN = -2.0
 DEFAULT_XY_MAX = 2.0
@@ -30,7 +32,7 @@ def surface_grid(width: int, xy_min: float = DEFAULT_XY_MIN,
     xs, ys = np.meshgrid(axis, axis, indexing="ij")
     zs = xs * xs - ys * ys
     pts = np.stack([xs.ravel(), ys.ravel(), zs.ravel()], axis=1)
-    return torch.as_tensor(pts, dtype=dtype, device=device)
+    return torch.as_tensor(pts, dtype=dtype, device=resolve_device(device))
 
 
 class RegistrationScene(NamedTuple):
@@ -64,4 +66,4 @@ def random_cloud(n: int, seed: int = 0, scale: float = 1.0,
     ``numpy.random.default_rng(seed)`` as the JAX package draws it."""
     rng = np.random.default_rng(seed)
     return torch.as_tensor(rng.uniform(-scale, scale, size=(n, 3)),
-                           dtype=dtype, device=device)
+                           dtype=dtype, device=resolve_device(device))

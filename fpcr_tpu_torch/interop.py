@@ -2,7 +2,8 @@
 
 A registration system has no weights: its state is the config, the
 transforms and the clouds. Everything here takes or returns numpy arrays or
-plain dicts, never JAX objects, so this module imports nothing of JAX:
+plain dicts, never JAX objects, so this module imports nothing of JAX.
+Tensors land on ``device``, the card when none is named:
 
     import dataclasses, numpy as np
     cfg = config_from_dict(dataclasses.asdict(fpcr_tpu.ICPConfig(...)))
@@ -25,6 +26,7 @@ from .models.icp import ICPConfig, ICPResult
 from .models.ndt import NDTConfig
 from .ops.morton import MortonTable
 from .ops.ndt import NDTGrid
+from .utils.device import resolve_device
 
 
 def config_from_dict(d: Dict[str, object]) -> ICPConfig:
@@ -35,6 +37,7 @@ def config_from_dict(d: Dict[str, object]) -> ICPConfig:
 
 def transform_from_numpy(rotation, translation, device=None,
                          dtype=torch.float32) -> RigidTransform:
+    device = resolve_device(device)
     return RigidTransform(
         torch.tensor(np.asarray(rotation), dtype=dtype, device=device),
         torch.tensor(np.asarray(translation), dtype=dtype, device=device))
@@ -52,7 +55,8 @@ def result_to_numpy(res: ICPResult) -> Dict[str, np.ndarray]:
 
 def points_from_numpy(x, device=None) -> torch.Tensor:
     """A cloud or its normals ``[N, 3]`` as a contiguous float32 tensor."""
-    a = torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+    a = torch.tensor(np.asarray(x), dtype=torch.float32,
+                     device=resolve_device(device))
     if a.ndim != 2 or a.shape[1] != 3:
         raise ValueError(f"expected [N, 3], got {tuple(a.shape)}")
     return a
@@ -63,6 +67,8 @@ def morton_table_from_numpy(table, device=None) -> MortonTable:
     example ``fpcr_tpu.ops.morton.MortonTable``), each read with
     ``np.asarray``; so a test can hand another package's table to the band
     matcher and check the matcher apart from the table build."""
+    device = resolve_device(device)
+
     def f32(x):
         return torch.tensor(np.asarray(x), dtype=torch.float32,
                             device=device)
@@ -87,6 +93,8 @@ def ndt_grid_from_numpy(grid, device=None) -> NDTGrid:
     """An ``NDTGrid`` from any object with the seven fields of one (for
     example ``fpcr_tpu.ops.ndt.NDTGrid``), each read with ``np.asarray``; so
     a test can hand another package's grid to the lookups and to K4."""
+    device = resolve_device(device)
+
     def t(x, dtype):
         return torch.tensor(np.asarray(x), dtype=dtype,
                             device=device).contiguous()

@@ -11,12 +11,16 @@ Metrics: ``point`` (Kabsch), ``plane`` (6x6 solve on PCA target normals) and
 ``symmetric`` (the plane solve on ``n_p + sign·n_q``, with the source
 normals carried and re-rotated every iteration). Matchers: ``xla`` and
 ``pallas`` are the brute matcher ``nn_argmin`` (kernel K1 on a CUDA
-tensor); ``morton`` is the band matcher, whose ``morton_impl`` picks the
-geometry: ``'pallas'`` is kernel K3's (K3 on CUDA, its plain version on the
-CPU), ``'xla'`` the XLA geometry ``morton_nn`` everywhere, and ``'auto'``
-K3 on a CUDA tensor and ``morton_nn`` on a CPU tensor, as the JAX package
-takes Pallas on the TPU and XLA elsewhere. The morton path sorts the source
-along the target's curve once and unsorts the result at the end.
+tensor), except that ``pallas`` with ``pallas_mode='packed6_idx'`` takes
+the packed (value|index) reduction ``nn_argmin_packed`` (kernel K2);
+``morton`` is the band matcher, whose ``morton_impl`` picks the geometry:
+``'pallas'`` is kernel K3's (K3, or K3p for ``'packed6_idx'``, on CUDA;
+their plain versions on the CPU), ``'xla'`` the XLA geometry ``morton_nn``
+everywhere, and ``'auto'`` K3's on a CUDA tensor and ``morton_nn`` on a CPU
+tensor, as the JAX package takes Pallas on the TPU and XLA elsewhere. The
+exact rescue of the morton path always takes ``nn_argmin``. The morton path
+sorts the source along the target's curve once and unsorts the result at
+the end.
 
 The JAX loop is one ``lax.while_loop`` with no host sync until the result.
 Here the loop state (points, carried normals, transform, previous error,
@@ -26,10 +30,9 @@ changes nothing. The host reads ``done`` only every ``DONE_CHECK_EVERY``
 iterations, never per iteration; the results equal those of a
 per-iteration check.
 
-Config values outside the port (``metric='gicp'``, ``matcher='grid'``, the
-packed index reduction ``pallas_mode='packed6_idx'``) construct, since the
-validation accepts them, and raise ``NotImplementedError`` at
-:func:`run_icp`.
+Config values outside the port (``metric='gicp'``, ``matcher='grid'``)
+construct, since the validation accepts them, and raise
+``NotImplementedError`` at :func:`run_icp`.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ import torch
 from ..core.cloud import as_points
 from ..core.metrics import rmse
 from ..core.transforms import RigidTransform
-from ..ops.matching import gather_correspondences, nn_argmin
+from ..ops.matching import (gather_correspondences, nn_argmin,
+                             nn_argmin_packed)
 from ..ops.morton import (build_morton_table, miss_floors, morton_nn,
                           morton_nn_band, source_morton_order)
 from ..ops.normals import estimate_normals
@@ -80,7 +84,8 @@ class ICPConfig:
     source_chunk: int = 2048
     target_tile: int = 2048
     # 'xla' and 'pallas' both mean the brute matcher nn_argmin (kernel K1
-    # on a CUDA tensor); 'morton' the band matcher; 'grid' is not ported
+    # on a CUDA tensor), but 'pallas' with pallas_mode='packed6_idx' is
+    # nn_argmin_packed (K2); 'morton' the band matcher; 'grid' is not ported
     matcher: str = "xla"
     exact_distances: bool = False  # plain matcher: difference form
     grid_cell_size: Optional[float] = None
@@ -93,8 +98,9 @@ class ICPConfig:
     morton_impl: str = "auto"  # 'auto' | 'pallas' (K3's geometry) | 'xla'
     # 'packed6', 'highest' and the 'packed6_pipe*'/'packed6_seq' schedule
     # pins all mean the one FP32 kernel of each matcher (K1, K3); the pins
-    # are TPU knobs, accepted and ignored; 'packed6_idx' (K2 and K3's
-    # packed reduction) is not ported yet
+    # are TPU knobs, accepted and ignored; 'packed6_idx' is the packed
+    # (value|index) reduction of matcher 'pallas' (K2) and of the morton
+    # band with K3's geometry (K3p)
     pallas_mode: str = "packed6"
     morton_shifts: int = 1
     morton_rescue: int = 0
@@ -129,12 +135,6 @@ def check_supported(config: ICPConfig) -> None:
         raise NotImplementedError(
             "matcher='grid' is not ported yet (ROADMAP.md, 'Modules to "
             "port', item 5: ops/grid.py)")
-    if (config.matcher in ("pallas", "morton")
-            and config.pallas_mode == "packed6_idx"):
-        raise NotImplementedError(
-            "pallas_mode='packed6_idx' is kernel K2 and K3's packed "
-            "reduction, not ported yet (ROADMAP.md, 'Modules to port', "
-            "item 1)")
 
 
 class ICPResult(NamedTuple):
@@ -223,12 +223,14 @@ def _correspondences(points, target, target_mask, target_normals,
         impl = config.morton_impl
         if impl == "auto":
             impl = "pallas" if points.device.type == "cuda" else "xla"
+        # pallas_mode maps 1:1 onto K3's geometry, as in the JAX package
+        kw = {"mode": config.pallas_mode} if impl == "pallas" else {}
         nn_fn = morton_nn_band if impl == "pallas" else morton_nn
         q_m = n_m = dmin = None
         for table, normals_sorted in matcher_state:
             q_c, d_c, _, n_c = nn_fn(
                 points, table, normals_sorted, chunk=config.morton_chunk,
-                window=config.morton_window)
+                window=config.morton_window, **kw)
             if dmin is None:
                 q_m, dmin, n_m = q_c, d_c, n_c
             else:  # keep the closer match of the shifted curve
@@ -242,10 +244,13 @@ def _correspondences(points, target, target_mask, target_normals,
                 points, target, target_mask, target_normals, q_m, n_m, dmin,
                 config, source_mask)
         return q_m, n_m, dmin
-    idx, dmin = nn_argmin(points, target, target_mask,
-                          source_chunk=config.source_chunk,
-                          target_tile=config.target_tile,
-                          exact=config.exact_distances)
+    if config.matcher == "pallas" and config.pallas_mode == "packed6_idx":
+        idx, dmin = nn_argmin_packed(points, target, target_mask)
+    else:  # 'xla' keeps the exact matcher whatever pallas_mode is
+        idx, dmin = nn_argmin(points, target, target_mask,
+                              source_chunk=config.source_chunk,
+                              target_tile=config.target_tile,
+                              exact=config.exact_distances)
     q_m = gather_correspondences(target, idx)
     n_m = (None if target_normals is None
            else gather_correspondences(target_normals, idx))

@@ -18,7 +18,9 @@ Two band geometries exist, as in the JAX package:
   ``band = round_up(chunk + 2·window + 128, 128)``, the base aligned down to
   128 and clipped to ``m_pad - band`` with ``m_pad = round_up(m, 128) +
   band``. A CUDA tensor launches K3 (``ops/morton_cuda.py``); a CPU tensor
-  takes its plain version :func:`morton_nn_band_plain`.
+  takes its plain version :func:`morton_nn_band_plain`. Its ``mode=
+  'packed6_idx'`` is K3's packed (value|index) reduction, kernel K3p, whose
+  plain version is :func:`morton_nn_band_packed_plain`.
 
 Both process the ``[chunks, chunk, band]`` distance blocks in groups of at
 most ``PAIR_BUDGET`` pairs, so memory stays bounded at 1M points. Argsorts
@@ -34,13 +36,18 @@ import numpy as np
 import torch
 
 from ..core.cloud import round_up
-from .matching import nn_argmin, nn_argmin_plain
+from .matching import (PACKED_KEY_INIT, nn_argmin, nn_argmin_plain,
+                       packed_keys)
 from .normals import smallest_k
 
 _BITS = 10  # 10 bits an axis -> 30-bit codes, int32-safe
 _MASKED_CODE = 2 ** 31 - 1  # masked target rows sort to the end
 BAND_ALIGN = 128  # K3's band bases are aligned down to this many rows
 PAIR_BUDGET = 2 ** 23  # (source, target) pairs per distance block group
+# the JAX package's band kernel modes: 'packed6_idx' is K3p, every other
+# (bf16x6, HIGHEST and the TPU pipeline schedules) computes K3's function
+BAND_MODES = ("packed6", "highest", "packed6_idx", "packed6_pipe",
+              "packed6_seq", "packed6_pipe2", "packed6_pipe3")
 
 
 def _part1by2(x: torch.Tensor) -> torch.Tensor:
@@ -125,10 +132,15 @@ def probe_ranks(p: torch.Tensor, table: MortonTable,
     return torch.searchsorted(table.codes_sorted, codes)
 
 
+def band_rows(chunk: int, window: int) -> int:
+    """K3's band height: ``round_up(chunk + 2·window + 128, 128)``."""
+    return round_up(chunk + 2 * window + BAND_ALIGN, BAND_ALIGN)
+
+
 def band_bases(p: torch.Tensor, table: MortonTable, chunk: int,
                window: int) -> Tuple[int, torch.Tensor]:
     """K3's band geometry: ``(band, bases int32[chunks])``."""
-    band = round_up(chunk + 2 * window + BAND_ALIGN, BAND_ALIGN)
+    band = band_rows(chunk, window)
     m_pad = round_up(table.points_sorted.shape[0], BAND_ALIGN) + band
     bases = torch.clamp(probe_ranks(p, table, chunk) - band // 2, 0,
                         m_pad - band)
@@ -171,20 +183,41 @@ def _band_blocks(p: torch.Tensor, q_sorted: torch.Tensor,
         yield c0, rows, d
 
 
+def band_idx_bits(band: int) -> int:
+    """K3p's index bits: ``bit_length(band - 1)``, as the JAX package sets
+    them from the band height (10 at chunk 512 / window 64)."""
+    return max(1, (band - 1).bit_length())
+
+
 def _band_nn(p: torch.Tensor, table: MortonTable, extra, bases, chunk: int,
-             band: int, exact: bool, no_valid_to_zero: bool):
+             band: int, exact: bool, no_valid_to_zero: bool,
+             packed: bool = False):
     """Band NN over the chunks' bases: ``(matched, sqdist, idx_sorted,
-    matched_extra)``. The first minimum of the band wins."""
+    matched_extra)``. The first minimum of the band wins; ``packed``: the
+    least key of :func:`~.matching.packed_keys` over the band rows wins and
+    the distance is recomputed exactly from the matched row."""
     n, m = p.shape[0], table.points_sorted.shape[0]
     num_chunks = bases.shape[0]
     best_d = torch.empty(num_chunks * chunk, dtype=torch.float32,
                          device=p.device)
     best_i = torch.empty(num_chunks * chunk, dtype=torch.int64,
                          device=p.device)
+    if packed:
+        idx_bits = band_idx_bits(band)
+        row_ids = torch.arange(band, dtype=torch.int32, device=p.device)
     for c0, rows, d in _band_blocks(p, table.points_sorted,
                                     table.valid_count, bases, chunk, band,
                                     exact):
-        dmin, arg = torch.min(d, dim=2)  # first minimum
+        if packed:
+            key = torch.clamp(packed_keys(d, row_ids, idx_bits).amin(dim=2),
+                              max=PACKED_KEY_INIT)
+            # a band with no valid row keeps PACKED_KEY_INIT, whose index
+            # bits may pass the band: inf marks it, and the distance of
+            # every other row is recomputed below
+            dmin = torch.where(key == PACKED_KEY_INIT, float("inf"), 0.0)
+            arg = torch.clamp(key & ((1 << idx_bits) - 1), max=band - 1).long()
+        else:
+            dmin, arg = torch.min(d, dim=2)  # first minimum
         idx = torch.gather(rows, 1, arg)
         sl = slice(c0 * chunk, c0 * chunk + dmin.numel())
         best_d[sl] = dmin.reshape(-1)
@@ -196,6 +229,10 @@ def _band_nn(p: torch.Tensor, table: MortonTable, extra, bases, chunk: int,
     idx = torch.clamp(best_i, 0, m - 1)
     matched = table.points_sorted[idx]
     matched_extra = None if extra is None else extra.to(torch.float32)[idx]
+    if packed:
+        diff = p - matched
+        best_d = torch.where(torch.isinf(best_d), best_d,
+                             torch.sum(diff * diff, dim=1))
     return matched, best_d, idx.to(torch.int32), matched_extra
 
 
@@ -232,19 +269,44 @@ def morton_nn_band_plain(p: torch.Tensor, table: MortonTable,
                     no_valid_to_zero=True)
 
 
+def morton_nn_band_packed_plain(p: torch.Tensor, table: MortonTable,
+                                extra: Optional[torch.Tensor] = None,
+                                chunk: int = 256, window: int = 256):
+    """The plain PyTorch version of kernel K3p, on any device: K3's band
+    geometry and difference-form distances, the per-row (min, argmin)
+    replaced by the least key ``(bits(d) & ~(2^b - 1)) | band_row`` with
+    ``b`` = :func:`band_idx_bits`, so ties within a bucket go to the first
+    band row. The index is clipped to [0, m-1], matched point and extra are
+    the table rows at it, and the distance is recomputed exactly from the
+    matched point. A row whose band holds no valid target gets
+    ``idx_sorted`` 0, ``inf`` and table row 0, K3's convention (the TPU
+    kernel keeps its ~1e30 surrogate distance there)."""
+    p = p.to(torch.float32)
+    band, bases = band_bases(p, table, chunk, window)
+    return _band_nn(p, table, extra, bases, chunk, band, exact=True,
+                    no_valid_to_zero=True, packed=True)
+
+
 def morton_nn_band(p: torch.Tensor, table: MortonTable,
                    extra: Optional[torch.Tensor] = None, chunk: int = 256,
-                   window: int = 256):
-    """Band NN with K3's geometry: kernel K3 on a CUDA tensor, its plain
-    version on a CPU tensor, with no fallback between the two."""
+                   window: int = 256, mode: str = "packed6"):
+    """Band NN with K3's geometry: kernel K3 (K3p for ``mode=
+    'packed6_idx'``) on a CUDA tensor, its plain version on a CPU tensor,
+    with no fallback between the two. ``mode`` takes the JAX package's
+    band kernel modes (:data:`BAND_MODES`)."""
+    if mode not in BAND_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    packed = mode == "packed6_idx"
     if p.device.type == "cuda":
-        from .morton_cuda import morton_nn_cuda
+        from .morton_cuda import morton_nn_cuda, morton_nn_packed_cuda
 
-        return morton_nn_cuda(p, table, extra, chunk=chunk, window=window)
+        kernel = morton_nn_packed_cuda if packed else morton_nn_cuda
+        return kernel(p, table, extra, chunk=chunk, window=window)
     if p.device.type != "cpu":
         raise ValueError(f"morton_nn_band runs on CPU or CUDA tensors, got "
                          f"{p.device}")
-    return morton_nn_band_plain(p, table, extra, chunk=chunk, window=window)
+    plain = morton_nn_band_packed_plain if packed else morton_nn_band_plain
+    return plain(p, table, extra, chunk=chunk, window=window)
 
 
 def knn_morton(q: torch.Tensor, k: int, q_mask: Optional[torch.Tensor] = None,

@@ -22,7 +22,8 @@ def _np(x):
 
 @pytest.mark.parametrize("width", [2, 16, 32])
 def test_synthetic_scene_matches_jax(width):
-    a, b = ft.synthetic_scene(width=width), f.synthetic_scene(width=width)
+    a = ft.synthetic_scene(width=width, device="cpu")
+    b = f.synthetic_scene(width=width)
     # the grid is built in numpy by both: identical
     np.testing.assert_array_equal(a.source.numpy(), _np(b.source))
     # the target is one float32 3x3 product + translation per point, by two
@@ -37,17 +38,17 @@ def test_synthetic_scene_matches_jax(width):
 
 def test_surface_grid_and_random_cloud_match_jax():
     np.testing.assert_array_equal(
-        ft.surface_grid(9, -1.0, 3.0).numpy(),
+        ft.surface_grid(9, -1.0, 3.0, device="cpu").numpy(),
         _np(f.surface_grid(9, -1.0, 3.0)))
     for seed in (0, 1, 123):
         np.testing.assert_array_equal(
-            random_cloud(257, seed=seed, scale=2.5).numpy(),
+            random_cloud(257, seed=seed, scale=2.5, device="cpu").numpy(),
             _np(j_random_cloud(257, seed=seed, scale=2.5)))
 
 
 @pytest.mark.parametrize("resampled,n", [(True, 8171), (False, 35947)])
 def test_bunny_matches_jax(resampled, n):
-    a = ft.load_bunny(resampled=resampled)
+    a = ft.load_bunny(resampled=resampled, device="cpu")
     b = f.load_bunny(resampled=resampled)
     assert a.shape == (n, 3) and a.dtype == torch.float32
     # two float parsers (numpy here, possibly a C++ strtof there)
@@ -55,7 +56,7 @@ def test_bunny_matches_jax(resampled, n):
 
 
 def test_bunny_scene_ground_truth():
-    a, b = ft.bunny_scene(), f.bunny_scene()
+    a, b = ft.bunny_scene(device="cpu"), f.bunny_scene()
     np.testing.assert_allclose(a.ground_truth.rotation.numpy(),
                                _np(b.ground_truth.rotation), atol=1e-6)
     np.testing.assert_allclose(a.target.numpy(), _np(b.target), atol=1e-6)
@@ -105,14 +106,14 @@ def test_hall_points_match_jax(frames):
     # two float32 trigonometry libraries on angles up to 2π: 1e-5 relative,
     # and 1 µm absolute for coordinates near zero
     np.testing.assert_allclose(pts.numpy(), ref, rtol=1e-5, atol=1e-3)
-    np.testing.assert_allclose(ft.load_hall_scan().numpy(),
+    np.testing.assert_allclose(ft.load_hall_scan(device="cpu").numpy(),
                                _np(f.load_hall_scan()), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("meters,strict", [(True, True), (True, False),
                                            (False, True)])
 def test_hall_scene_ground_truth(meters, strict):
-    a = ft.hall_scene(meters=meters, strict=strict)
+    a = ft.hall_scene(meters=meters, strict=strict, device="cpu")
     b = f.hall_scene(meters=meters, strict=strict)
     np.testing.assert_allclose(a.ground_truth.translation.numpy(),
                                _np(b.ground_truth.translation), rtol=1e-6)

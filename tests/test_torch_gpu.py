@@ -1,4 +1,5 @@
-"""Kernels K1, K3 and K4 on the card against their plain PyTorch versions.
+"""Kernels K1, K2, the min-only sweep, K3, K3p and K4 on the card against
+their plain PyTorch versions.
 
 Every test here needs a CUDA device and skips without one: a CUDA kernel
 has no CPU mode. On the card (which has no JAX, so the root conftest is
@@ -123,7 +124,7 @@ def test_icp_on_card_matches_cpu(cuda):
     import fpcr_tpu_torch as ft
 
     cfg = ft.ICPConfig(max_iterations=40, exact_distances=True)
-    s_cpu = ft.synthetic_scene(width=32)
+    s_cpu = ft.synthetic_scene(width=32, device="cpu")
     s_gpu = ft.synthetic_scene(width=32, device=cuda)
     r_cpu = ft.run_icp(s_cpu.source, s_cpu.target, cfg)
     before = nn_argmin_cuda.launches
@@ -246,11 +247,12 @@ def test_morton_icp_on_card_matches_cpu(cuda):
     import fpcr_tpu_torch as ft
     from fpcr_tpu_torch.ops.morton_cuda import morton_nn_cuda
 
-    gt = ft.gt_transform((0.004, -0.002, 0.003), (0.002, -0.003, 0.002))
+    gt = ft.gt_transform((0.004, -0.002, 0.003), (0.002, -0.003, 0.002),
+                         device="cpu")
     cfg = ft.ICPConfig(matcher="morton", morton_impl="pallas",
                        morton_chunk=512, morton_window=64, max_iterations=20,
                        morton_shifts=2)
-    src = ft.synthetic_scene(width=64).source
+    src = ft.synthetic_scene(width=64, device="cpu").source
     r_cpu = ft.run_icp(src, gt.apply(src), cfg)
     s_gpu = src.to(cuda)
     before = morton_nn_cuda.launches
@@ -371,8 +373,9 @@ def test_ndt_on_card_matches_cpu(cuda):
     import fpcr_tpu_torch as ft
     from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
 
-    gt = ft.gt_transform((0.02, -0.015, 0.01), (0.03, -0.02, 0.015))
-    src = ft.synthetic_scene(width=48).source
+    gt = ft.gt_transform((0.02, -0.015, 0.01), (0.03, -0.02, 0.015),
+                         device="cpu")
+    src = ft.synthetic_scene(width=48, device="cpu").source
     cfg = ft.NDTConfig(voxel_size=0.4, max_iterations=60, lookup="banded",
                        lookup_impl="pallas", lookup_chunk=256,
                        lookup_window=256)
@@ -385,3 +388,200 @@ def test_ndt_on_card_matches_cpu(cuda):
     tr = ft.RigidTransform(r_gpu.transform.rotation.cpu(),
                            r_gpu.transform.translation.cpu())
     assert float(ft.transform_rmse(tr, r_cpu.transform, src)) < 1e-5
+
+
+# --- kernel K2, the packed brute-force matcher, and the min-only sweep ------
+
+def _packed_tie(idx_bits):
+    """Two picks may differ only within one bucket (2^-(23-b) relative) and
+    the few ulp by which the kernel's FMAs and the plain version's separate
+    roundings place a distance on either side of a bucket edge."""
+    return 2.0 ** -(23 - idx_bits) + 2.0 ** -20
+
+
+def _check_packed_against_plain(p, q, mask=None, idx_bits=None):
+    from fpcr_tpu_torch.ops.matching import (nn_argmin_packed_plain,
+                                             packed_idx_bits)
+    from fpcr_tpu_torch.ops.matching_cuda import nn_argmin_packed_cuda
+
+    bits = packed_idx_bits(q.shape[0]) if idx_bits is None else idx_bits
+    ki, kd = nn_argmin_packed_cuda(p, q, mask, idx_bits=bits)
+    oi, od = nn_argmin_packed_plain(p, q, mask, idx_bits=bits)
+    ki, kd, oi, od = (x.cpu().numpy() for x in (ki, kd, oi, od))
+    assert ki.dtype == np.int32 and kd.dtype == np.float32
+    assert ki.min() >= 0 and ki.max() <= q.shape[0] - 1
+    np.testing.assert_array_equal(np.isinf(kd), np.isinf(od))
+    fin = np.isfinite(od)
+    assert (ki[~fin] == 0).all()
+    p64 = p.cpu().numpy().astype(np.float64)
+    q64 = q.cpu().numpy().astype(np.float64)
+    dk = ((p64 - q64[ki]) ** 2).sum(1)
+    np.testing.assert_allclose(kd[fin], dk[fin], rtol=RTOL, atol=ATOL)
+    same = fin & (ki == oi)
+    np.testing.assert_allclose(kd[same], od[same], rtol=RTOL, atol=ATOL)
+    diff = fin & (ki != oi)
+    if diff.any():
+        do = ((p64[diff] - q64[oi[diff]]) ** 2).sum(1)
+        rel = np.abs(dk[diff] - do) / np.maximum(np.minimum(dk[diff], do),
+                                                 1e-30)
+        assert rel.max() <= _packed_tie(bits), rel.max()
+    if mask is not None and fin.any():
+        assert mask.cpu().numpy()[ki[fin]].all()
+    return ki
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (7, 300), (300, 500), (131, 259),
+                                 (513, 1025), (4096, 20000), (20000, 700),
+                                 (16384, 65536)])
+def test_packed_kernel_matches_plain(cuda, n, m):
+    rng = np.random.default_rng(n * 7919 + m + 1)
+    p = torch.as_tensor(_cloud(rng, n), device=cuda)
+    q = torch.as_tensor(_cloud(rng, m), device=cuda)
+    _check_packed_against_plain(p, q)
+
+
+@pytest.mark.parametrize("keep", [0.0, 0.01, 0.4, 1.0])
+def test_packed_kernel_masked_targets(cuda, keep):
+    rng = np.random.default_rng(15)
+    p = torch.as_tensor(_cloud(rng, 300), device=cuda)
+    q = torch.as_tensor(_cloud(rng, 3000), device=cuda)
+    mask = torch.as_tensor(rng.uniform(size=3000) < keep, device=cuda)
+    _check_packed_against_plain(p, q, mask)
+
+
+def test_packed_kernel_ties_gate_counter_and_checks(cuda):
+    from fpcr_tpu_torch.ops.matching import nn_argmin_packed
+    from fpcr_tpu_torch.ops.matching_cuda import nn_argmin_packed_cuda
+
+    q = torch.tensor([[5, 0, 0], [1, 0, 0], [2, 0, 0], [1, 0, 0]],
+                     dtype=torch.float32, device=cuda)
+    assert int(nn_argmin_packed(torch.zeros((1, 3), device=cuda), q)[0][0]) \
+        == 1
+    # a tie across target slices: the int32 min keeps the lowest index
+    q = torch.full((5000, 3), 9.0, device=cuda)
+    q[4000] = q[300] = q[4999] = torch.tensor([0.5, 0.0, 0.0])
+    idx, d = nn_argmin_packed(torch.zeros((600, 3), device=cuda), q)
+    assert (idx == 300).all() and torch.allclose(d, torch.tensor(0.25))
+    before = nn_argmin_packed_cuda.launches
+    nn_argmin_packed(q, q)
+    assert nn_argmin_packed_cuda.launches == before + 2  # sweep + epilogue
+    with pytest.raises(ValueError, match="packed6_idx"):
+        nn_argmin_packed(q, torch.zeros((70000, 3), device=cuda))
+    with pytest.raises(ValueError, match="index bits"):
+        nn_argmin_packed_cuda(q, q, idx_bits=12)
+    with pytest.raises(ValueError, match="CUDA"):
+        nn_argmin_packed_cuda(q, q.cpu(), idx_bits=13)
+
+
+@pytest.mark.parametrize("n,m,keep", [(1, 1, 1.0), (300, 500, 1.0),
+                                      (300, 3000, 0.4), (300, 3000, 0.0),
+                                      (16384, 16384, 1.0)])
+def test_min_only_kernel_matches_plain(cuda, n, m, keep):
+    from fpcr_tpu_torch.bench.packed_reduction import (nn_min_only,
+                                                       nn_min_only_plain)
+    from fpcr_tpu_torch.ops.matching_cuda import nn_min_only_cuda
+
+    rng = np.random.default_rng(n + m)
+    p = torch.as_tensor(_cloud(rng, n), device=cuda)
+    q = torch.as_tensor(_cloud(rng, m), device=cuda)
+    mask = torch.as_tensor(rng.uniform(size=m) < keep, device=cuda)
+    kd = nn_min_only_cuda(p, q, mask).cpu().numpy()
+    od = nn_min_only_plain(p, q, mask).cpu().numpy()
+    np.testing.assert_array_equal(np.isinf(kd), np.isinf(od))
+    fin = np.isfinite(od)
+    np.testing.assert_allclose(kd[fin], od[fin], rtol=RTOL, atol=ATOL)
+    before = nn_min_only_cuda.launches
+    idx, d = nn_min_only(p, q)
+    assert nn_min_only_cuda.launches > before and not bool(idx.any())
+
+
+def test_packed_icp_on_card_matches_cpu(cuda):
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.ops.matching_cuda import (nn_argmin_cuda,
+                                                  nn_argmin_packed_cuda)
+
+    cfg = ft.ICPConfig(max_iterations=40, matcher="pallas",
+                       pallas_mode="packed6_idx")
+    s_cpu = ft.synthetic_scene(width=32, device="cpu")
+    s_gpu = ft.synthetic_scene(width=32, device=cuda)
+    r_cpu = ft.run_icp(s_cpu.source, s_cpu.target, cfg)
+    before = (nn_argmin_cuda.launches, nn_argmin_packed_cuda.launches)
+    r_gpu = ft.run_icp(s_gpu.source, s_gpu.target, cfg)
+    it = int(r_gpu.num_iterations)
+    assert nn_argmin_cuda.launches == before[0]
+    assert nn_argmin_packed_cuda.launches - before[1] >= 2 * it
+    assert abs(it - int(r_cpu.num_iterations)) <= 1
+    tr = ft.RigidTransform(r_gpu.transform.rotation.cpu(),
+                           r_gpu.transform.translation.cpu())
+    assert float(ft.transform_rmse(tr, r_cpu.transform, s_cpu.source)) < 1e-5
+
+
+# --- kernel K3p, the packed Morton band -------------------------------------
+
+def _check_band_packed_against_plain(p, table, extra, chunk, window):
+    from fpcr_tpu_torch.ops.morton import (band_idx_bits, band_rows,
+                                           morton_nn_band_packed_plain)
+    from fpcr_tpu_torch.ops.morton_cuda import morton_nn_packed_cuda
+
+    km, kd, ki, ke = morton_nn_packed_cuda(p, table, extra, chunk=chunk,
+                                           window=window)
+    om, od, oi, oe = morton_nn_band_packed_plain(p, table, extra, chunk=chunk,
+                                                 window=window)
+    q = table.points_sorted
+    m, vc = q.shape[0], int(table.valid_count)
+    assert ki.dtype == torch.int32 and int(ki.min()) >= 0
+    assert int(ki.max()) <= m - 1
+    assert torch.equal(km, q[ki.long()])  # bit for bit the table rows
+    if extra is not None:
+        assert torch.equal(ke, extra[ki.long()])
+    if vc > 0:
+        assert int(ki.max()) < vc
+    fin = torch.isfinite(od)
+    assert torch.equal(torch.isfinite(kd), fin)
+    same = fin & (ki == oi)
+    np.testing.assert_allclose(kd[same].cpu().numpy(),
+                               od[same].cpu().numpy(), rtol=RTOL, atol=ATOL)
+    diff = torch.nonzero(fin & (ki != oi))[:, 0]
+    if diff.numel():
+        band = band_rows(chunk, window)
+        p64 = p[diff].double()
+        dk = ((p64 - q[ki[diff].long()].double()) ** 2).sum(1)
+        do = ((p64 - q[oi[diff].long()].double()) ** 2).sum(1)
+        rel = (dk - do).abs() / torch.clamp(torch.minimum(dk, do), min=1e-30)
+        assert float(rel.max()) <= _packed_tie(band_idx_bits(band))
+    return ki
+
+
+@pytest.mark.parametrize("n,m,chunk,window,masked_from,shift", [
+    (100, 3000, 256, 256, None, 0.0),
+    (1000, 3000, 512, 64, None, 0.0),
+    (300, 500, 256, 256, None, 0.0),
+    (2500, 3000, 256, 256, 2200, 0.0),
+    (2500, 3000, 512, 64, 2900, 0.5),
+    (4000, 5000, 1000, 300, None, 0.0),
+    (65536, 65536, 512, 64, None, 0.0),
+])
+def test_band_packed_kernel_matches_plain(cuda, n, m, chunk, window,
+                                          masked_from, shift):
+    p, table = _band_case(cuda, n, m, n + m + 1, masked_from, shift)
+    extra = (table.points_sorted * 0.5 + 0.25).contiguous()
+    _check_band_packed_against_plain(p, table, extra, chunk, window)
+    _check_band_packed_against_plain(p, table, None, chunk, window)
+
+
+def test_band_packed_kernel_convention_and_counter(cuda):
+    from fpcr_tpu_torch.ops.morton import morton_nn_band
+    from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
+                                                morton_nn_packed_cuda)
+
+    p, table = _band_case(cuda, 300, 600, 3, masked_from=0)
+    km, kd, ki, _ = morton_nn_packed_cuda(p, table, chunk=128, window=64)
+    assert torch.isinf(kd).all() and (ki == 0).all()
+    assert torch.equal(km, table.points_sorted[:1].expand(300, 3))
+    p, table = _band_case(cuda, 2048, 4096, 4)
+    before = (morton_nn_cuda.launches, morton_nn_packed_cuda.launches)
+    morton_nn_band(p, table, chunk=512, window=64, mode="packed6_idx")
+    assert (morton_nn_cuda.launches,
+            morton_nn_packed_cuda.launches) == (before[0], before[1] + 1)
+    morton_nn_band(p, table, chunk=512, window=64, mode="highest")
+    assert morton_nn_cuda.launches == before[0] + 1

@@ -225,7 +225,7 @@ def test_iteration_cap_without_convergence():
 
 def test_bunny_recovers_ground_truth():
     """Reference workload: Bunny (8,171 points), 40-iteration cap."""
-    s = ft.bunny_scene()
+    s = ft.bunny_scene(device="cpu")
     res = ft.icp_point_to_point(s.source, s.target,
                                 config=ft.ICPConfig(max_iterations=40))
     assert bool(res.converged)

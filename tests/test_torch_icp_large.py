@@ -184,11 +184,12 @@ def test_plane_and_morton_run_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['fpcr_tpu'] = None\n"
         "import fpcr_tpu_torch as ft\n"
-        "s = ft.synthetic_scene(width=24)\n"
+        "s = ft.synthetic_scene(width=24, device='cpu')\n"
         "r = ft.icp_point_to_plane(s.source, s.target, max_iterations=60)\n"
         "e = float(ft.transform_rmse(r.transform, s.ground_truth, s.source))\n"
         "assert e < 1e-4, e\n"
-        "gt = ft.gt_transform((0.004, -0.002, 0.003), (0.002, -0.003, 0.002))\n"
+        "gt = ft.gt_transform((0.004, -0.002, 0.003),\n"
+        "                     (0.002, -0.003, 0.002), device='cpu')\n"
         "for impl in ('auto', 'pallas'):\n"
         "    r = ft.run_icp(s.source, gt.apply(s.source), ft.ICPConfig(\n"
         "        matcher='morton', morton_impl=impl, max_iterations=20))\n"

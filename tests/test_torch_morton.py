@@ -161,7 +161,7 @@ def test_band_plain_matches_tpu_kernel(name):
                          None if extra is None else jnp.asarray(extra),
                          chunk=chunk, window=window, mode="highest",
                          interpret=True)
-    tt = morton_table_from_numpy(jt)
+    tt = morton_table_from_numpy(jt, device="cpu")
     before = morton_nn_cuda.launches
     t = tm.morton_nn_band(torch.as_tensor(ps), tt,
                           None if extra is None else torch.as_tensor(extra),
@@ -196,7 +196,7 @@ def test_band_plain_convention_where_no_target_is_valid():
     j = morton_nn_pallas(jnp.asarray(p), jt, jnp.asarray(extra), chunk=128,
                          window=64, mode="highest", interpret=True)
     t = tm.morton_nn_band_plain(torch.as_tensor(p),
-                                morton_table_from_numpy(jt),
+                                morton_table_from_numpy(jt, device="cpu"),
                                 torch.as_tensor(extra), chunk=128, window=64)
     assert (np.asarray(j[1]) > 1e29).all() and np.isfinite(j[1]).all()
     assert torch.isinf(t[1]).all() and (t[2] == 0).all()
@@ -212,8 +212,8 @@ def test_band_plain_on_the_port_table_equals_interop_table():
     jt, tt = _tables(q)
     ps = torch.as_tensor(_sorted_source(p, jt))
     a = tm.morton_nn_band_plain(ps, tt, chunk=512, window=64)
-    b = tm.morton_nn_band_plain(ps, morton_table_from_numpy(jt), chunk=512,
-                                window=64)
+    b = tm.morton_nn_band_plain(ps, morton_table_from_numpy(jt, device="cpu"),
+                                chunk=512, window=64)
     for x, y in zip(a[:3], b[:3]):
         assert torch.equal(x, y)
     with pytest.raises(ValueError, match="CUDA"):

@@ -88,7 +88,7 @@ def test_lookups_match_jax_per_offset(offset):
     src = pts + rng.normal(0, 0.02, pts.shape).astype(np.float32)
     src[:50] -= 2.5  # off the grid
     src = src[np.asarray(jn.cell_key_order(jnp.asarray(src), gj))]
-    gt = ndt_grid_from_numpy(gj)
+    gt = ndt_grid_from_numpy(gj, device="cpu")
     o = None if offset is None else jnp.asarray(offset, jnp.int32)
     for jf, tf, kw in ((jn.ndt_lookup, tn.ndt_lookup, {}),
                        (jn.ndt_lookup_banded, tn.ndt_lookup_banded,
@@ -179,7 +179,7 @@ def test_narrow_band_misses_as_the_tpu_kernel():
     src = src[np.asarray(jn.cell_key_order(jnp.asarray(src), gj))]
     d1, d2 = jn.gauss_d1_d2(0.55, h)
     kw = dict(voxel_size=h, d1=abs(d1), d2=d2, chunk=256, window=256)
-    gt = ndt_grid_from_numpy(gj)
+    gt = ndt_grid_from_numpy(gj, device="cpu")
     rows, _ = tn.ndt_fused_moments(torch.as_tensor(src), gt,
                                    tn.prepare_fused_tables(gt), **kw)
     rj, _ = j_fused(jnp.asarray(src), gj, j_tables(gj), interpret=True, **kw)
@@ -223,7 +223,7 @@ def test_resolver_matches_jax(name):
         src = np.asarray(s.source)
     if src is not None:
         src = src[np.asarray(jn.cell_key_order(jnp.asarray(src), gj))]
-    gt = ndt_grid_from_numpy(gj)
+    gt = ndt_grid_from_numpy(gj, device="cpu")
     if src is None:
         j = jm._resolve_fused(jm.NDTConfig(**kw), gj)
         t = tm._resolve_fused(tm.NDTConfig(**kw), gt)
@@ -301,13 +301,14 @@ def test_run_ndt_matches_jax(key):
 
 
 def test_prebuilt_grid_and_resolved_config_match_fresh_run():
-    scene = ft.synthetic_scene(width=48)
+    scene = ft.synthetic_scene(width=48, device="cpu")
     grid = ft.build_ndt_grid(scene.source, 0.3)
     base = ft.NDTConfig(voxel_size=0.3, max_iterations=25, lookup="banded",
                         lookup_impl="pallas", lookup_chunk=256)
     resolved = ft.resolve_ndt_config(base, grid, scene.source)
     assert resolved.lookup_resolved and resolved.lookup_window is not None
-    gt = ft.gt_transform((0.02, -0.01, 0.015), (0.01, -0.02, 0.01))
+    gt = ft.gt_transform((0.02, -0.01, 0.015), (0.01, -0.02, 0.01),
+                         device="cpu")
     scan = gt.apply(scene.source)
     a = ft.run_ndt(scan, scene.source, resolved, grid=grid)
     b = ft.run_ndt(scan, scene.source, base, grid=grid)
@@ -322,8 +323,8 @@ def test_prebuilt_grid_and_resolved_config_match_fresh_run():
 
 def test_register_ndt_large_displacement():
     """NDT coarse + fine init, then ICP: the exact-ICP contract."""
-    scene = ft.synthetic_scene(width=48)
-    gt = ft.gt_transform((0.25, -0.2, 0.15), (0.3, -0.25, 0.2))
+    scene = ft.synthetic_scene(width=48, device="cpu")
+    gt = ft.gt_transform((0.25, -0.2, 0.15), (0.3, -0.25, 0.2), device="cpu")
     tgt = gt.apply(scene.source)
     res = ft.register_ndt(scene.source, tgt, ft.ICPConfig(max_iterations=40))
     assert float(ft.transform_rmse(res.transform, gt, scene.source)) < 1e-5
@@ -338,7 +339,7 @@ def test_disjoint_clouds_not_converged():
 
 
 def test_grid_voxel_size_mismatch_raises():
-    scene = ft.synthetic_scene(width=24)
+    scene = ft.synthetic_scene(width=24, device="cpu")
     grid = ft.build_ndt_grid(scene.source, 0.5)
     with pytest.raises(ValueError, match="voxel_size"):
         ft.run_ndt(scene.source, scene.source, ft.NDTConfig(voxel_size=0.3),
@@ -358,16 +359,18 @@ def test_ndt_runs_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['fpcr_tpu'] = None\n"
         "import fpcr_tpu_torch as ft\n"
-        "s = ft.synthetic_scene(width=32)\n"
+        "s = ft.synthetic_scene(width=32, device='cpu')\n"
         "grid = ft.build_ndt_grid(s.source, 0.4)\n"
         "cfg = ft.resolve_ndt_config(ft.NDTConfig(lookup='banded',\n"
         "    lookup_impl='pallas', lookup_chunk=128), grid, s.source)\n"
-        "gt = ft.gt_transform((0.02, -0.01, 0.015), (0.01, -0.02, 0.01))\n"
+        "gt = ft.gt_transform((0.02, -0.01, 0.015), (0.01, -0.02, 0.01),\n"
+        "                     device='cpu')\n"
         "scan = gt.apply(s.source)\n"
         "r = ft.run_ndt(scan, s.source, cfg, grid=grid)\n"
         "e = float(ft.transform_rmse(r.transform, gt.inverse(), scan))\n"
         "assert bool(r.converged) and e < 5e-3, e\n"
-        "gt = ft.gt_transform((0.25, -0.2, 0.15), (0.3, -0.25, 0.2))\n"
+        "gt = ft.gt_transform((0.25, -0.2, 0.15), (0.3, -0.25, 0.2),\n"
+        "                     device='cpu')\n"
         "r = ft.register_ndt(s.source, gt.apply(s.source))\n"
         "e = float(ft.transform_rmse(r.transform, gt, s.source))\n"
         "assert e < 1e-4, e\n"

@@ -54,7 +54,7 @@ def _scene(kind):
 
 
 def _port(grid_j, src, mask, neighborhood, chunk=256, window=256):
-    grid = ndt_grid_from_numpy(grid_j)
+    grid = ndt_grid_from_numpy(grid_j, device="cpu")
     rows, xp = tn.ndt_fused_moments(
         torch.as_tensor(src), grid, tn.prepare_fused_tables(grid),
         voxel_size=H, d1=D1, d2=D2, neighborhood=neighborhood, chunk=chunk,
@@ -125,7 +125,8 @@ def test_torch_oracle_matches_numpy_oracle():
     WS, WSr, count, qsum = jn.reference_neighborhood_moments(
         jnp.asarray(src), grid_j, D1, D2)
     t = tn.reference_neighborhood_moments(
-        torch.as_tensor(src), ndt_grid_from_numpy(grid_j), D1, D2)
+        torch.as_tensor(src), ndt_grid_from_numpy(grid_j, device="cpu"), D1,
+        D2)
     np.testing.assert_array_equal(t[2].numpy(), count)
     for got, want in ((t[0], WS), (t[1], WSr), (t[3], qsum)):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
@@ -135,7 +136,7 @@ def test_torch_oracle_matches_numpy_oracle():
 def test_dispatch_and_wrapper_checks():
     """A CPU tensor takes the plain version; the CUDA wrapper refuses it."""
     grid_j, src, _ = _scene("edges")
-    grid = ndt_grid_from_numpy(grid_j)
+    grid = ndt_grid_from_numpy(grid_j, device="cpu")
     tables = tn.prepare_fused_tables(grid)
     kw = dict(voxel_size=H, d1=D1, d2=D2, chunk=256, window=256)
     p = torch.as_tensor(src)

@@ -154,7 +154,8 @@ def test_plane_entry_point_and_given_normals():
                              target_normals=jnp.asarray(nrm))
     t = ft.icp_point_to_plane(torch.as_tensor(src), torch.as_tensor(tgt),
                               max_iterations=60,
-                              target_normals=points_from_numpy(nrm))
+                              target_normals=points_from_numpy(
+                                  nrm, device="cpu"))
     assert abs(int(j.num_iterations) - int(t.num_iterations)) <= 1
     assert _rmse_between(t.transform.rotation.numpy(),
                          t.transform.translation.numpy(),
