@@ -7,14 +7,18 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. device — the card's name, ``nvidia-smi``'s name and power limit, the
    torch and CUDA versions, and the float32 precision settings;
-2. build — kernels K1, K2 and the min-only sweep
-   (``fpcr_tpu_torch/csrc/matching.cu``), K3 and K3p (``csrc/morton.cu``)
-   and K4 (``csrc/ndt.cu``) with one nvcc per source, started together,
-   into one library; ptxas' registers and spills of each kernel;
+2. build — kernels K1, K2, the min-only sweep and the E1 forms
+   (``fpcr_tpu_torch/csrc/matching.cu``), K3 and K3p (``csrc/morton.cu``),
+   K4 (``csrc/ndt.cu``) and Kernel S (``csrc/split_mma.cu``) with one nvcc
+   per source, started together, into one library; ptxas' registers and
+   spills of each kernel, and the bf16 HMMA instructions of each Kernel S
+   instance in the library's SASS (``cuobjdump``; none fails);
 3. kernel vs plain — K1, K2, the min-only sweep, K3, K3p and K4 against
    their plain PyTorch versions on the card, at the test shapes and the
    main path's shapes, K2's 2^16 gate, and K4 against the 7-offset gather
-   oracle at 262,144 points;
+   oracle at 262,144 points; Kernel S (terms 6 and 3, every epilogue) and
+   the five E1 launches against theirs at 16,384² and ragged shapes (m = 1,
+   m = 2^14 for the packed14 key, a cloud of duplicates);
 4. main path — each path driven with the launch counters set to 0 just
    before it and read just after, every scene to its ground-truth
    threshold: point-to-point ICP (``matcher='pallas'``, K1) on the
@@ -31,20 +35,26 @@ Phases, in order; any failure raises and the script exits nonzero:
    scenes registered on the card and on the CPU must agree, for each
    matcher, the packed brute runs step by step within a bound derived from
    the drift of their points and matches, where the first picks that
-   differ must be swaps at a bucket's edge;
+   differ must be swaps at a bucket's edge; the studies E4, E3 (its gates)
+   and E1 (``fpcr_tpu_torch.bench.split_matmul``, ``reduction2``,
+   ``match_kernels``), each of which must launch its own kernels;
 5. times — ms/iter by the slope method (point ICP at 16,384 through K1 and
    K2, plane ICP at 16,384, Morton ICP through K3 and K3p and NDT at
    262,144 and 1,048,576), K1, K2, the min-only sweep, K3, K3p and K4 alone
    against their plain versions, the packed-reduction study
    (``fpcr_tpu_torch.bench.packed_reduction.main``), normals, the plane
    solve, the NDT grid build and the share of each stage of a point
-   iteration, each printed beside the card's name and power limit.
+   iteration, Kernel S's five launch types and the E1 forms alone against
+   their plain versions with their profiler kernel times, each printed
+   beside the card's name and power limit.
 
 The line before the last is a JSON object describing each kernel: its
 launches on the main path, its largest difference from its plain version,
 its time and its plain version's, and its bound, the least time the card
 could take for the same work (the larger of its bytes over the HBM rate and
-its float32 operations over the float32 peak, from this run's inputs). The
+its float32 operations over the float32 peak, from this run's inputs;
+Kernel S's the largest of its bytes, its bf16 tensor-core products over the
+bf16 peak and its reduction's CUDA-core instructions over their rate). The
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits 1 and prints no result.
 """
@@ -63,6 +73,12 @@ TIE_REL = 1e-6  # an index may differ only where the two picks tie this close
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes
 # per second and float32 operations per second outside the tensor cores
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
+# and bf16 tensor-core operations per second (dense), and CUDA-core
+# instructions per second (132 SMs x 128 lanes at the FP32 peak's clock)
+BF16_FLOPS, CORE_IPS = 989e12, 33.5e12
+# Kernel S's reduction: CUDA-core instructions a pair (argmin compare and
+# two selects, the packed key's LOP3 and min, a min, the keep select)
+SPLIT_REDUCE_INSTR = {"argmin": 3, "packed14": 2, "min": 1, "keep": 1}
 # float32 operations a (source, target) pair needs, counted in the norm
 # form d = |p|^2 - 2 p.q + |q|^2 that the TPU kernels use, with |q|^2
 # precomputed: an argmin or a min over targets needs |q|^2 - 2 p.q alone,
@@ -184,6 +200,30 @@ def phase_device(torch):
     return name, smi
 
 
+def sass_counts(path):
+    """``{kernel: {"HMMA": n, "FFMA": n}}`` of every Kernel S instance in
+    the library's SASS, read with the toolkit's ``cuobjdump``."""
+    from pathlib import Path
+
+    from fpcr_tpu_torch import _build
+
+    tool = str(Path(_build.find_nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            if "split_partial_kernel" not in name:
+                name = None
+            else:
+                counts[name] = {"HMMA": 0, "FFMA": 0}
+        elif name:
+            for op in ("HMMA", "FFMA"):
+                counts[name][op] += f" {op}." in line or f" {op} " in line
+    return counts
+
+
 def phase_build():
     from fpcr_tpu_torch import _build
 
@@ -195,6 +235,12 @@ def phase_build():
                                    "error", "warning")):
             log("build", "ptxas: " + line.strip())
     _build.load_library()
+    counts = sass_counts(res.path)
+    for name, c in counts.items():
+        log("build", f"SASS {name}: {c['HMMA']} HMMA (bf16 mma.sync), "
+                     f"{c['FFMA']} FFMA")
+    if len(counts) != 8 or not all(c["HMMA"] for c in counts.values()):
+        raise AssertionError("a Kernel S instance issues no bf16 HMMA")
 
 
 def kernel_cases(torch, np, ft, dev):
@@ -633,6 +679,78 @@ def phase_fused_vs_plain(torch, np, ft, dev):
     return worst
 
 
+def study_cases(torch, np, ft, dev):
+    """``(split cases, E1 cases)``, each ``(name, p, q)``: the studies'
+    inputs at 16,384² (E4's synthetic scene, E3's saddle, E1's ±300
+    cloud), then ragged shapes off every tile (m = 1, m = 2^14 exactly,
+    the packed14 key's most) and a cloud of duplicates for ties."""
+    from fpcr_tpu_torch.bench import match_kernels, reduction2
+
+    rng = np.random.default_rng(80)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+
+    def cloud(n, scale):
+        return t(rng.uniform(-scale, scale, (n, 3)).astype(np.float32))
+
+    def ragged(scale):
+        dup = np.repeat(rng.uniform(-scale, scale, (37, 3)), 27, axis=0)
+        dup = t(dup.astype(np.float32))
+        near = (dup[t(rng.integers(0, 999, 700))]
+                + cloud(700, scale * 1e-3)).contiguous()
+        return [("131x259", cloud(131, scale), cloud(259, scale)),
+                ("1000x1", cloud(1000, scale), cloud(1, scale)),
+                ("5x3", cloud(5, scale), cloud(3, scale)),
+                ("300x16384", cloud(300, scale), cloud(16384, scale)),
+                ("duplicates 700x999", near, dup)]
+
+    s = build_scene(ft, "synthetic", dev)
+    split = ([("synthetic-16384^2", s.source, s.target),
+              ("saddle-16384^2", *reduction2.study_inputs(dev))]
+             + ragged(2.0))
+    e1 = ([("study-16384^2", *match_kernels.study_inputs(16384, dev))]
+          + ragged(300.0))
+    return split, e1
+
+
+def phase_studies_vs_plain(torch, np, ft, dev):
+    """Kernel S (terms 6 and 3, every epilogue) and the five E1 launches
+    against their plain versions (``bench/kernel_checks.py``: picks equal
+    on 0.999 of the rows, the rest and every value within the order bound
+    of the sum); the largest error of each launch type."""
+    from fpcr_tpu_torch.bench.kernel_checks import check_form, check_split
+    from fpcr_tpu_torch.bench.split_matmul import split_pads
+    from fpcr_tpu_torch.ops.matching import E1_VARIANTS
+    from fpcr_tpu_torch.ops.split import split_operands
+    from fpcr_tpu_torch.ops.split_cuda import EPILOGUES
+
+    worst = {}
+    split, e1 = study_cases(torch, np, ft, dev)
+    for name, p, q in split:
+        n, m = p.shape[0], q.shape[0]
+        for terms in (6, 3):
+            p_in, q_in = split_operands(p, q, terms, *split_pads(n, m))
+            for epi in EPILOGUES:
+                label = f"Kernel S x{terms} {epi} {name}"
+                st = check_split(p_in, q_in, n, m, epi, keep=m - 1,
+                                 clamp=terms == 3 and epi == "argmin",
+                                 label=label)
+                key = f"split x{terms} {epi}"
+                worst[key] = max(worst.get(key, 0.0), st["max_abs_err"])
+                log("kernel", f"{label}: picks equal on {st['equal']}/"
+                              f"{st['rows']} rows, max |err| "
+                              f"{st['max_abs_err']:.3e} -> ok")
+    for name, p, q in e1:
+        for v in E1_VARIANTS:
+            label = f"E1 {v} {E1_VARIANTS[v]} {name}"
+            st = check_form(p, q, v, label=label)
+            worst[f"e1 {v}"] = max(worst.get(f"e1 {v}", 0.0),
+                                   st["max_abs_err"])
+            log("kernel", f"{label}: picks equal on {st['equal']}/"
+                          f"{st['rows']} rows, max |err| "
+                          f"{st['max_abs_err']:.3e} -> ok")
+    return worst
+
+
 def _wrappers():
     from fpcr_tpu_torch.ops.matching_cuda import (nn_argmin_cuda,
                                                   nn_argmin_packed_cuda,
@@ -649,19 +767,37 @@ def _wrappers():
             "ndt_fused_moments": ndt_fused_moments_cuda}
 
 
+def _keyed_wrappers():
+    """Wrappers that count per launch type, in a dict: Kernel S's
+    ``"x<terms> <epilogue>"`` and the E1 forms' ``"v<k>"``."""
+    from fpcr_tpu_torch.ops.matching_cuda import nn_form_cuda
+    from fpcr_tpu_torch.ops.split_cuda import split_nn_cuda
+
+    return {"split": split_nn_cuda, "e1": nn_form_cuda}
+
+
+def counters():
+    """Every launch count, keyed by kernel (and launch type)."""
+    out = {k: w.launches for k, w in _wrappers().items()}
+    for prefix, w in _keyed_wrappers().items():
+        out.update({f"{prefix} {k}": v for k, v in w.launches.items()})
+    return out
+
+
 def drive(torch, path, fn):
     """Run one path of the main path with every launch counter set to 0
     just before it, and return the counts read just after."""
-    wrappers = _wrappers()
     torch.cuda.synchronize()
-    for w in wrappers.values():
+    for w in _wrappers().values():
         w.launches = 0
+    for w in _keyed_wrappers().values():
+        w.launches = dict.fromkeys(w.launches, 0)
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    counts = {k: w.launches for k, w in wrappers.items()}
+    counts = counters()
     log("main", f"path '{path}' done in {time.perf_counter() - t0:.2f} s, "
-                f"launches {counts}")
+                f"launches { {k: v for k, v in counts.items() if v} }")
     return counts
 
 
@@ -806,12 +942,27 @@ def phase_main_path(torch, ft, dev):
         register(torch, ft, "register_ndt hall-16384 (plane ICP refine)", s,
                  run, 1e-5, "nn_argmin")
 
-    study_out = {}
+    study_out, studies = {}, {}
 
     def study():  # E2: K1, K2 with the study's index bits, min-only
         from fpcr_tpu_torch.bench import packed_reduction
 
         study_out.update(packed_reduction.main(16384))
+
+    def e4():  # the split distance, Kernel S x6 and x3 against K1
+        from fpcr_tpu_torch.bench import split_matmul
+
+        studies["E4"] = split_matmul.main()
+
+    def e3():  # the reductions of the split distance, E3's gates
+        from fpcr_tpu_torch.bench import reduction2
+
+        studies["E3"] = reduction2.main()
+
+    def e1():  # the distance forms against the float64 oracle
+        from fpcr_tpu_torch.bench import match_kernels
+
+        studies["E1"] = match_kernels.main(16384)
 
     # (path, run, the kernel it must launch, the kernels it must not)
     packed_not = ("nn_argmin", "morton_nn", "nn_min_only")
@@ -830,18 +981,28 @@ def phase_main_path(torch, ft, dev):
              ("register_ndt, gather NDT + K1", register_ndt_hall,
               "nn_argmin", ()),
              ("packed-reduction study, K1 + K2 + min-only", study,
-              "nn_min_only", ("morton_nn", "morton_nn_packed"))]
-    totals = {k: 0 for k in _wrappers()}
-    for path, fn, kernel, absent in paths:
+              "nn_min_only", ("morton_nn", "morton_nn_packed")),
+             ("split-distance study E4, Kernel S", e4,
+              ("split x6 argmin", "split x3 argmin"), ("nn_argmin_packed",)),
+             ("reduction study E3, Kernel S", e3,
+              ("split x6 argmin", "split x6 packed14", "split x6 min",
+               "split x6 keep"), ("split x3 argmin",)),
+             ("distance-form study E1", e1,
+              ("e1 v1", "e1 v2", "e1 v4", "e1 v5", "e1 v6"),
+              ("nn_argmin_packed",))]
+    totals = dict.fromkeys(counters(), 0)
+    for path, fn, kernels, absent in paths:
         counts = drive(torch, path, fn)
-        if counts[kernel] == 0:
-            raise AssertionError(f"path '{path}' never launched {kernel}")
+        for kernel in (kernels,) if isinstance(kernels, str) else kernels:
+            if counts[kernel] == 0:
+                raise AssertionError(f"path '{path}' never launched "
+                                     f"{kernel}")
         ran = [k for k in absent if counts[k]]
         if ran:
             raise AssertionError(f"path '{path}' launched {ran}")
         for k, v in counts.items():
             totals[k] += v
-    return totals, study_out
+    return totals, study_out, studies
 
 
 def _replay(ft, cfg, s, steps):
@@ -992,7 +1153,8 @@ def phase_reference(torch, ft, dev):
 
 OUR_KERNELS = ("nn_partial_kernel", "nn_combine_kernel",
                "nn_packed_epilogue_kernel", "nn_min_combine_kernel",
-               "morton_band_kernel", "ndt_moments_kernel")
+               "morton_band_kernel", "ndt_moments_kernel",
+               "split_partial_kernel", "split_combine_kernel")
 
 
 def kernel_ms(fn, repeats=10):
@@ -1004,15 +1166,20 @@ def kernel_ms(fn, repeats=10):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and any(k in e.name for k in OUR_KERNELS))
-    return us / repeats / 1e3
+    # a session now and then reports no device events at all (seen once in
+    # ~20 sessions of one process): take the next one, up to three
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and any(k in e.name for k in OUR_KERNELS))
+        if us > 0:
+            return us / repeats / 1e3
+    raise AssertionError("the profiler saw none of the port's kernels")
 
 
 def phase_times(torch, ft, dev, smi, study):
@@ -1290,32 +1457,44 @@ def phase_times_ndt(torch, np, ft, dev, smi):
     return out
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, ops_ms=0.0):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``nbytes`` of device-memory traffic (each input read once, each output
     written once) and ``flops`` float32 operations at the published
-    peaks."""
+    peaks, or ``ops_ms`` of other operations where that is longer."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = max(flops / FP32_FLOPS * 1e3, ops_ms)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def split_ops_ms(n, m, k, epilogue):
+    """Kernel S's operation time: the larger of its bf16 products, 2 K_pad
+    N M over the tensor cores' dense peak (K padded to 16), and its
+    reduction's CUDA-core instructions over their rate."""
+    k_pad = -(-k // 16) * 16
+    return max(2 * k_pad * n * m / BF16_FLOPS,
+               SPLIT_REDUCE_INSTR[epilogue] * n * m / CORE_IPS) * 1e3
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-                 flops):
-    bound_ms, bound_by = bound(nbytes, flops)
-    # no single PyTorch call computes an argmin NN, a band NN or K4's
-    # moments, so there is no library yardstick
+                 flops, ops_ms=0.0):
+    bound_ms, bound_by = bound(nbytes, flops, ops_ms)
+    # no single PyTorch call computes an argmin NN, a band NN, K4's
+    # moments, a packed or min reduction of the split distance, or E1's
+    # form values (the keep column reads a product of bf16 operands in f32,
+    # which no single call returns), so there is no library yardstick
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
 
-def kernels_line(launches, errs, times, times2, times3):
+def kernels_line(launches, errs, times, times2, times3, times5):
     """The ``kernels`` JSON object, the bounds from this run's inputs: the
     brute-force kernels at the synthetic scene's N = M = 16,384, the band
     kernels at 1,048,576 points (chunk 512, window 64, no extra), K4 at
-    1,048,576 points with its hit neighbours counted."""
+    1,048,576 points with its hit neighbours counted, Kernel S at E3's
+    N = M = 16,384 and the E1 forms at E1's."""
     from fpcr_tpu_torch.ops.morton import band_rows
 
     n, m = times["n"], times["m"]
@@ -1367,7 +1546,104 @@ def kernels_line(launches, errs, times, times2, times3):
                      "fpcr_tpu/ops/ndt_pallas.py:512",
                      launches["ndt_fused_moments"], errs["ndt_fused_moments"],
                      k4["k4_ms"], k4["plain_ms"], k4_bytes, k4_flops),
-    ]}
+    ] + study_entries(launches, errs, times5)}
+
+
+def study_entries(launches, errs, times5):
+    """The ``kernels`` entries of Kernel S's five launch types (bytes: the
+    bf16 operands read once, idx and d written once) and the five E1 forms
+    (bytes: p, q, the staged lane and |p|² read, idx and d written; 6 flops
+    a pair for an argmin, 7 for a packed key, as K1 and K2)."""
+    return [kernel_entry(
+        key, "fpcr_tpu_torch/csrc/split_mma.cu", SPLIT_REPLACES[key],
+        launches[key], errs[key], t["ms"], t["plain_ms"],
+        2 * t["k"] * (t["n"] + t["m"]) + 8 * t["n"], 0,
+        split_ops_ms(t["n"], t["m"], t["k"], key.split()[-1]))
+        for key, t in times5.items() if key.startswith("split")
+    ] + [kernel_entry(
+        key, "fpcr_tpu_torch/csrc/matching.cu", E1_REPLACES[key],
+        launches[key], errs[key], t["ms"], t["plain_ms"],
+        12 * t["n"] + 12 * t["m"] + 4 * t["m"] + 4 * t["n"] + 8 * t["n"],
+        (ARGMIN_PAIR_FLOPS if key in ("e1 v1", "e1 v6") else
+         PACKED_PAIR_FLOPS) * t["n"] * t["m"])
+        for key, t in times5.items() if key.startswith("e1")]
+
+
+# the TPU kernel each new launch type replaces
+SPLIT_REPLACES = {"split x6 argmin": "scripts/exp_split_matmul.py:72",
+                  "split x3 argmin": "scripts/exp_split_matmul.py:72",
+                  "split x6 packed14": "scripts/exp_reduction2.py:155",
+                  "split x6 min": "scripts/exp_reduction2.py:155",
+                  "split x6 keep": "scripts/exp_reduction2.py:155"}
+E1_REPLACES = {"e1 v1": "scripts/exp_match_kernels.py:297",
+               "e1 v2": "scripts/exp_match_kernels.py:332",
+               "e1 v4": "scripts/exp_match_kernels.py:361",
+               "e1 v5": "scripts/exp_match_kernels.py:137",
+               "e1 v6": "scripts/exp_match_kernels.py:166"}
+
+
+def phase_times_studies(torch, dev, smi, studies):
+    """Kernel S's five launch types at E3's N = M = 16,384 (the E3
+    decomposition: keep column, min, argmin and packed key on the same
+    operands, and x3's argmin) and the E1 forms at E1's, each alone
+    against its plain version, with the profiler's kernel time and, for the
+    forms, K1's on the same inputs; then the three studies' results."""
+    from fpcr_tpu_torch.bench import match_kernels, reduction2
+    from fpcr_tpu_torch.ops.matching import (E1_VARIANTS, e1_idx_bits,
+                                             form_lanes, nn_form_plain)
+    from fpcr_tpu_torch.ops.matching_cuda import nn_argmin_cuda, nn_form_cuda
+    from fpcr_tpu_torch.ops.split import split_nn_plain, split_operands
+    from fpcr_tpu_torch.ops.split_cuda import split_nn_cuda
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms
+
+    card = f"[card: {smi}]"
+    out = {}
+
+    def measure(key, call, plain, n, m, **extra):
+        ms = cuda_time_ms(call, repeats=20, warmup=3)
+        plain_ms = cuda_time_ms(plain, repeats=5, warmup=1)["min"]
+        kern = kernel_ms(call)
+        out[key] = dict(ms=ms["min"], plain_ms=plain_ms, kernel_ms=kern,
+                        n=n, m=m, **extra)
+        log("times", f"{key} N=M={n}: min {ms['min']:.4f} ms, mean "
+                     f"{ms['mean']:.4f} ms; kernel {kern:.4f} ms "
+                     f"(profiler); plain min {plain_ms:.4f} ms {card}")
+
+    src, tgt = reduction2.study_inputs(dev)
+    n = m = src.shape[0]
+    keep = (m // 8192 - 1) * 8192
+    for terms, epis in ((6, ("keep", "min", "argmin", "packed14")),
+                        (3, ("argmin",))):
+        p_in, q_in = split_operands(src, tgt, terms, n, m)
+        for epi in epis:
+            measure(f"split x{terms} {epi}",
+                    lambda: split_nn_cuda(p_in, q_in, n, m, epi, keep=keep),
+                    lambda: split_nn_plain(p_in, q_in, n, m, epi, keep=keep),
+                    n, m, k=8 * terms)
+        if terms == 6:  # every product issued: time grows with M
+            grow = {mm: kernel_ms(lambda: split_nn_cuda(
+                p_in, q_in, n, mm, "keep", keep=mm - 1))
+                for mm in (4096, 8192, m)}
+            log("times", "split x6 keep kernel time by M at N=16384: "
+                + ", ".join(f"M={k} {v:.4f} ms" for k, v in grow.items())
+                + f" (profiler) {card}")
+            out["keep by M"] = grow
+    p, q = match_kernels.study_inputs(16384, dev)
+    k1 = kernel_ms(lambda: nn_argmin_cuda(p, q))
+    log("times", f"K1 at E1's inputs (±300) N=M=16384: kernel {k1:.4f} ms "
+                 f"(profiler) {card}")
+    for v, (form, reduce) in E1_VARIANTS.items():
+        q_w, p_sq, _ = form_lanes(p, q, form)
+        psq = None if form == "biased" else p_sq
+        kw = dict(form=form, reduce=reduce, idx_bits=e1_idx_bits(
+            16384) if reduce == "packed" else None)
+        measure(f"e1 {v}", lambda: nn_form_cuda(p, q, q_w, psq, **kw),
+                lambda: nn_form_plain(p, q, q_w, psq, **kw), 16384, 16384)
+        log("times", f"e1 {v} ({form}, {reduce}): kernel "
+                     f"{out[f'e1 {v}']['kernel_ms'] / k1:.3f}x K1's {card}")
+    for name, res in studies.items():
+        log("times", f"study {name}: {json.dumps(res)} {card}")
+    return out
 
 
 def main():
@@ -1383,14 +1659,16 @@ def main():
     errs = phase_kernel_vs_plain(torch, np, ft, dev)
     errs.update(phase_band_vs_plain(torch, np, ft, dev))
     errs["ndt_fused_moments"] = phase_fused_vs_plain(torch, np, ft, dev)
-    launches, study = phase_main_path(torch, ft, dev)
+    errs.update(phase_studies_vs_plain(torch, np, ft, dev))
+    launches, study, studies = phase_main_path(torch, ft, dev)
     phase_reference(torch, ft, dev)
     times = phase_times(torch, ft, dev, smi, study)
     times2 = phase_times_slice2(torch, ft, dev, smi)
     times3 = phase_times_ndt(torch, np, ft, dev, smi)
+    times5 = phase_times_studies(torch, dev, smi, studies)
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(kernels_line(launches, errs, times, times2, times3)),
-          flush=True)
+    print(json.dumps(kernels_line(launches, errs, times, times2, times3,
+                                  times5)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -153,6 +153,17 @@ def load_library() -> ctypes.CDLL:
                                           i32, i32, i32, i32, ptr, ptr, ptr,
                                           ptr, ptr]
     lib.fpcr_morton_nn_packed.restype = i32
+    lib.fpcr_nn_form_partial.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                         i32, i32, i32, ptr, ptr, ptr]
+    lib.fpcr_nn_form_partial.restype = i32
+    lib.fpcr_split_rows_per_block.argtypes = []
+    lib.fpcr_split_rows_per_block.restype = i32
+    lib.fpcr_split_partial.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
+                                       i32, i32, ptr, ptr, ptr]
+    lib.fpcr_split_partial.restype = i32
+    lib.fpcr_split_combine.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr,
+                                       ptr, ptr]
+    lib.fpcr_split_combine.restype = i32
     f32 = ctypes.c_float
     lib.fpcr_ndt_moments.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr,
                                      i32, i32, i32, i32, i32, f32, f32, ptr,

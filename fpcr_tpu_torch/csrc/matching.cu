@@ -1,5 +1,5 @@
-// Brute-force nearest-neighbour search for Hopper (sm_90a): kernels K1, K2
-// and the min-only sweep.
+// Brute-force nearest-neighbour search for Hopper (sm_90a): kernels K1, K2,
+// the min-only sweep and the E1 distance forms.
 //
 // K1 replaces the TPU kernel fpcr_tpu/ops/matching_pallas.py::
 // nn_argmin_pallas (kernel body _matching_kernel, modes "packed6" and
@@ -25,6 +25,20 @@
 // The min-only sweep replaces scripts/exp_packed_reduction.py::_kern_min:
 // the least squared distance per row and nothing else, the floor of the two
 // reductions above.
+//
+// The E1 forms replace the distance forms of the brute-matcher study
+// scripts/exp_match_kernels.py (make_v1/v3, make_v2, make_v4, make_v5,
+// make_v6), which the TPU computed at HIGHEST f32 and so run here on the
+// CUDA cores too. With a = -2p held per thread and the target's w lane
+// staged by the wrapper:
+//   kBiased   w + a.q with w = |q|^2 + C, C = max|p|^2 (v1, v3, v2): 3 FMAs;
+//   kExpand   (w + a.q) + |p|^2 with w = (|q|^2 + C) - C (v4): 3 FMAs, 1 add;
+//   kExpand5  (w + |p|^2) + a.q with w = |q|^2, the 5-lane sum (v5, v6).
+// Their argmin (v1, v6) keeps the raw value, which the wrapper turns into
+// the script's output; their packed key buckets the raw value (v2, which a
+// negative rounding of it wins, as on the TPU) or the value clamped at 0
+// (v4, v5), and K2's epilogue unpacks it and recomputes the exact distance.
+// K1, K2 and the min-only sweep keep the difference form (kDiff).
 //
 // What bounds them on this card: FP32 arithmetic over the N*M pairs. The
 // targets are tiny (16 bytes each once staged) and live in shared memory
@@ -68,16 +82,23 @@ constexpr int kTile = 1024;    // targets staged in shared memory per step
 constexpr int kKeyInit = 0x7F7FFFFF;  // bits of the largest finite float
 
 enum class Reduce { kArgmin, kPacked, kMin };
+enum class Form { kDiff = 0, kBiased = 1, kExpand = 2, kExpand5 = 3 };
 
 // One slice of targets against kPPT * kThreads source rows. kArgmin writes
-// part_d and part_i, kPacked the keys to part_i, kMin part_d.
-template <Reduce R>
+// part_d and part_i, kPacked the keys to part_i, kMin part_d. The forms
+// other than kDiff read the staged lane q_w[m] and, kExpand and kExpand5,
+// p_sq[n]; they take no mask.
+template <Form F, Reduce R>
 __global__ void __launch_bounds__(kThreads)
 nn_partial_kernel(const float* __restrict__ p, const float* __restrict__ q,
+                  const float* __restrict__ q_w, const float* __restrict__ p_sq,
                   const uint8_t* __restrict__ q_mask, int n, int m,
                   int slice_len, int idx_bits, float* __restrict__ part_d,
                   int* __restrict__ part_i) {
     __shared__ float4 tile[kTile];
+    constexpr bool kDiffForm = F == Form::kDiff;
+    // the packed key of v4 and v5 buckets the distance clamped at 0
+    constexpr bool kClampKey = F == Form::kExpand || F == Form::kExpand5;
 
     const int slice = blockIdx.y;
     const int j_begin = slice * slice_len;
@@ -85,15 +106,18 @@ nn_partial_kernel(const float* __restrict__ p, const float* __restrict__ q,
     const int row0 = blockIdx.x * (kThreads * kPPT) + threadIdx.x;
     const int keep = ~((1 << idx_bits) - 1);  // the distance bits K2 keeps
 
-    float px[kPPT], py[kPPT], pz[kPPT], best_d[kPPT];
+    // kDiff holds p, the other forms a = -2p (exact) and |p|^2
+    float px[kPPT], py[kPPT], pz[kPPT], psq[kPPT], best_d[kPPT];
     int best_i[kPPT];
+    constexpr float kScale = kDiffForm ? 1.0f : -2.0f;
 #pragma unroll
     for (int k = 0; k < kPPT; ++k) {
         // rows past n load the last row and are never written back
         const int i = min(row0 + k * kThreads, n - 1);
-        px[k] = p[3 * i];
-        py[k] = p[3 * i + 1];
-        pz[k] = p[3 * i + 2];
+        px[k] = kScale * p[3 * i];
+        py[k] = kScale * p[3 * i + 1];
+        pz[k] = kScale * p[3 * i + 2];
+        psq[k] = p_sq == nullptr ? 0.0f : p_sq[i];
         best_d[k] = CUDART_INF_F;
         best_i[k] = R == Reduce::kPacked ? kKeyInit : 0;
     }
@@ -103,9 +127,14 @@ nn_partial_kernel(const float* __restrict__ p, const float* __restrict__ q,
         __syncthreads();  // every thread is done with the previous tile
         for (int s = threadIdx.x; s < count; s += kThreads) {
             const int j = t0 + s;
-            const bool valid = (q_mask == nullptr) || (q_mask[j] != 0);
-            tile[s] = make_float4(q[3 * j], q[3 * j + 1], q[3 * j + 2],
-                                  valid ? 0.0f : CUDART_INF_F);
+            float w;
+            if constexpr (kDiffForm) {
+                const bool valid = (q_mask == nullptr) || (q_mask[j] != 0);
+                w = valid ? 0.0f : CUDART_INF_F;
+            } else {
+                w = q_w[j];
+            }
+            tile[s] = make_float4(q[3 * j], q[3 * j + 1], q[3 * j + 2], w);
         }
         __syncthreads();
 #pragma unroll 4
@@ -114,16 +143,24 @@ nn_partial_kernel(const float* __restrict__ p, const float* __restrict__ q,
             const int j = t0 + s;
 #pragma unroll
             for (int k = 0; k < kPPT; ++k) {
-                const float dx = px[k] - t.x;
-                const float dy = py[k] - t.y;
-                const float dz = pz[k] - t.z;
-                const float d = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, t.w)));
+                float d;
+                if constexpr (kDiffForm) {
+                    const float dx = px[k] - t.x;
+                    const float dy = py[k] - t.y;
+                    const float dz = pz[k] - t.z;
+                    d = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, t.w)));
+                } else {
+                    const float w = F == Form::kExpand5 ? t.w + psq[k] : t.w;
+                    d = fmaf(pz[k], t.z, fmaf(py[k], t.y, fmaf(px[k], t.x, w)));
+                    if constexpr (F == Form::kExpand) d += psq[k];
+                }
                 if constexpr (R == Reduce::kArgmin) {
                     if (d < best_d[k]) {  // strict: the first minimum stays
                         best_d[k] = d;
                         best_i[k] = j;
                     }
                 } else if constexpr (R == Reduce::kPacked) {
+                    if constexpr (kClampKey) d = fmaxf(d, 0.0f);
                     best_i[k] = min(best_i[k], (__float_as_int(d) & keep) | j);
                 } else {
                     best_d[k] = fminf(best_d[k], d);
@@ -227,9 +264,10 @@ int fpcr_nn_rows_per_block(void) { return kThreads * kPPT; }
 int fpcr_nn_partial(const float* p, const float* q, const uint8_t* q_mask,
                     int n, int m, int slice_len, float* part_d, int* part_i,
                     void* stream) {
-    nn_partial_kernel<Reduce::kArgmin>
+    nn_partial_kernel<Form::kDiff, Reduce::kArgmin>
         <<<partial_grid(n, m, slice_len), kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(p, q, q_mask, n, m, slice_len,
+           static_cast<cudaStream_t>(stream)>>>(p, q, nullptr, nullptr, q_mask,
+                                                n, m, slice_len,
                                                 0, part_d, part_i);
     return static_cast<int>(cudaGetLastError());
 }
@@ -248,9 +286,10 @@ int fpcr_nn_combine(const float* part_d, const int* part_i, int n, int slices,
 int fpcr_nn_packed_partial(const float* p, const float* q,
                            const uint8_t* q_mask, int n, int m, int slice_len,
                            int idx_bits, int* part_key, void* stream) {
-    nn_partial_kernel<Reduce::kPacked>
+    nn_partial_kernel<Form::kDiff, Reduce::kPacked>
         <<<partial_grid(n, m, slice_len), kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(p, q, q_mask, n, m, slice_len,
+           static_cast<cudaStream_t>(stream)>>>(p, q, nullptr, nullptr, q_mask,
+                                                n, m, slice_len,
                                                 idx_bits, nullptr, part_key);
     return static_cast<int>(cudaGetLastError());
 }
@@ -271,9 +310,10 @@ int fpcr_nn_packed_epilogue(const float* p, const float* q,
 int fpcr_nn_min_partial(const float* p, const float* q, const uint8_t* q_mask,
                         int n, int m, int slice_len, float* part_d,
                         void* stream) {
-    nn_partial_kernel<Reduce::kMin>
+    nn_partial_kernel<Form::kDiff, Reduce::kMin>
         <<<partial_grid(n, m, slice_len), kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(p, q, q_mask, n, m, slice_len,
+           static_cast<cudaStream_t>(stream)>>>(p, q, nullptr, nullptr, q_mask,
+                                                n, m, slice_len,
                                                 0, part_d, nullptr);
     return static_cast<int>(cudaGetLastError());
 }
@@ -284,6 +324,33 @@ int fpcr_nn_min_combine(const float* part_d, int n, int slices, float* out_d,
     nn_min_combine_kernel<<<combine_blocks(n), kCombineThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         part_d, n, slices, out_d);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The E1 forms' sweep: `form` 1 kBiased, 2 kExpand or 3 kExpand5 and
+// `reduce` 0 argmin (part_d, part_i) or 1 packed (keys with idx_bits to
+// part_i), as [slices, n], over the five pairs E1 runs: (kBiased, argmin)
+// v1/v3, (kBiased, packed) v2, (kExpand, packed) v4, (kExpand5, packed) v5,
+// (kExpand5, argmin) v6. q_w [m] is the staged lane, p_sq [n] |p|^2 (null
+// for kBiased). fpcr_nn_combine and fpcr_nn_packed_epilogue finish them.
+int fpcr_nn_form_partial(const float* p, const float* q, const float* q_w,
+                         const float* p_sq, int form, int reduce, int n,
+                         int m, int slice_len, int idx_bits, float* part_d,
+                         int* part_i, void* stream) {
+    const dim3 grid = partial_grid(n, m, slice_len);
+    const auto s = static_cast<cudaStream_t>(stream);
+#define FPCR_FORM_LAUNCH(F, R)                                               \
+    nn_partial_kernel<F, R><<<grid, kThreads, 0, s>>>(                       \
+        p, q, q_w, p_sq, nullptr, n, m, slice_len, idx_bits, part_d, part_i)
+    switch (form * 2 + reduce) {
+        case 2: FPCR_FORM_LAUNCH(Form::kBiased, Reduce::kArgmin); break;
+        case 3: FPCR_FORM_LAUNCH(Form::kBiased, Reduce::kPacked); break;
+        case 5: FPCR_FORM_LAUNCH(Form::kExpand, Reduce::kPacked); break;
+        case 6: FPCR_FORM_LAUNCH(Form::kExpand5, Reduce::kArgmin); break;
+        case 7: FPCR_FORM_LAUNCH(Form::kExpand5, Reduce::kPacked); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef FPCR_FORM_LAUNCH
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,6 +21,14 @@ with its low ``b`` mantissa bits dropped and ties within a bucket go to the
 lowest index; the returned distance is the exact one of the pick. A CPU
 tensor takes :func:`nn_argmin_packed_plain`, a CUDA tensor launches kernel
 K2.
+
+:func:`nn_e1` runs the variants of the distance-form study
+``scripts/exp_match_kernels.py`` (E1), each with the script's output
+formula, through :func:`nn_form`: the biased form ``|q|² + C − 2p·q``
+(C = max|p|²), the expansion ``(|q|² − 2p·q) + |p|²`` and the 5-lane sum
+p̂·q̂, with an argmin or a packed reduction. A CPU tensor takes
+:func:`nn_form_plain`, a CUDA tensor launches ``csrc/matching.cu``'s form
+instances.
 """
 
 from __future__ import annotations
@@ -31,8 +39,8 @@ import torch
 
 from ..core.cloud import round_up
 from ..utils.precision import pin_f32_precision
-from .matching_cuda import (check_idx_bits, nn_argmin_cuda,
-                            nn_argmin_packed_cuda)
+from .matching_cuda import (FORM_LAUNCHES, check_idx_bits, nn_argmin_cuda,
+                            nn_argmin_packed_cuda, nn_form_cuda)
 
 PACKED_KEY_INIT = 0x7F7FFFFF  # bits of the largest finite float: a packed
 # key that stays at it found no valid target (a masked target's key, from
@@ -199,6 +207,162 @@ def nn_argmin_packed(
         raise ValueError(f"nn_argmin_packed runs on CPU or CUDA tensors, got "
                          f"{p.device}")
     return nn_argmin_packed_plain(p, q, q_mask, idx_bits=idx_bits)
+
+
+def sq_norm(x: torch.Tensor) -> torch.Tensor:
+    """|x|² of each row of x f32[N,3], summed left to right as XLA reduces
+    the three lanes of ``jnp.sum(x * x, axis=1)``."""
+    return x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1] + x[:, 2] * x[:, 2]
+
+
+def form_lanes(p: torch.Tensor, q: torch.Tensor, form: str):
+    """``(q_w f32[M], p_sq f32[N], C)`` of an E1 form, as
+    ``scripts/exp_match_kernels.py::augment_v1`` / ``augment5`` build them,
+    on the inputs' device: C = max|p|², and the staged lane ``q_w`` is
+    |q|² + C (``'biased'``), (|q|² + C) − C (``'expand'``, v4's lane) or
+    |q|² (``'expand5'``)."""
+    p_sq = sq_norm(p)
+    c_bias = p_sq.max()
+    q_sq = sq_norm(q)
+    if form == "biased":
+        q_w = q_sq + c_bias
+    elif form == "expand":
+        q_w = (q_sq + c_bias) - c_bias
+    elif form == "expand5":
+        q_w = q_sq
+    else:
+        raise ValueError(f"unknown form {form!r}")
+    return q_w.contiguous(), p_sq.contiguous(), c_bias
+
+
+def form_values(p: torch.Tensor, q: torch.Tensor, q_w: torch.Tensor,
+                p_sq: torch.Tensor, form: str) -> torch.Tensor:
+    """The raw values ``[n, m]`` of an E1 form, summed in the kernel's
+    order (its FMAs rounded as separate products and sums here)."""
+    ax, ay, az = (-2.0 * p[:, k:k + 1] for k in range(3))
+    qx, qy, qz = (q[None, :, k] for k in range(3))
+    w = q_w[None, :]
+    if form == "expand5":
+        w = w + p_sq[:, None]
+    d = ((w + ax * qx) + ay * qy) + az * qz
+    return d + p_sq[:, None] if form == "expand" else d
+
+
+def nn_form_plain(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    q_w: torch.Tensor,
+    p_sq: Optional[torch.Tensor],
+    *,
+    form: str,
+    reduce: str,
+    idx_bits: Optional[int] = None,
+    source_chunk: int = 2048,
+    target_tile: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of ``nn_form_cuda``, on any device:
+    ``'argmin'`` gives ``(idx, the raw value of the first minimum)``,
+    ``'packed'`` the keys of the raw value (``'biased'``) or of the value
+    clamped at 0, their ``amin``, and ``(idx, the exact distance to the
+    pick)``."""
+    if (form, reduce) not in FORM_LAUNCHES:
+        raise ValueError(f"(form, reduce) must be one of "
+                         f"{sorted(FORM_LAUNCHES)}, got {(form, reduce)}")
+    p = p.to(torch.float32)
+    q = q.to(torch.float32)
+    n, m = p.shape[0], q.shape[0]
+    if reduce == "packed":
+        check_idx_bits(m, idx_bits)
+    if p_sq is None:
+        p_sq = torch.zeros(n, dtype=torch.float32, device=p.device)
+    best_d = torch.full((n,), float("inf"), dtype=torch.float32,
+                        device=p.device)
+    best_i = torch.zeros((n,), dtype=torch.int32, device=p.device)
+    key = torch.full((n,), PACKED_KEY_INIT, dtype=torch.int32,
+                     device=p.device)
+    cols = torch.arange(m, dtype=torch.int32, device=p.device)
+    for s0 in range(0, n, source_chunk):
+        sl = slice(s0, s0 + source_chunk)
+        for t0 in range(0, m, target_tile):
+            tl = slice(t0, t0 + target_tile)
+            d = form_values(p[sl], q[tl], q_w[tl], p_sq[sl], form)
+            if reduce == "argmin":
+                arg = torch.argmin(d, dim=1)  # first minimum in the tile
+                dmin = torch.gather(d, 1, arg[:, None])[:, 0]
+                better = dmin < best_d[sl]  # strict: the earlier tile wins
+                best_d[sl] = torch.where(better, dmin, best_d[sl])
+                best_i[sl] = torch.where(better, (arg + t0).to(torch.int32),
+                                         best_i[sl])
+            else:
+                if form != "biased":
+                    d = torch.clamp_min(d, 0.0)
+                k = packed_keys(d, cols[tl][None, :], idx_bits)
+                key[sl] = torch.minimum(key[sl], k.amin(dim=1))
+    if reduce == "argmin":
+        return best_i, best_d
+    idx = torch.clamp(key & ((1 << idx_bits) - 1), max=m - 1)
+    diff = p - q[idx.long()]
+    return idx, torch.sum(diff * diff, dim=1)
+
+
+def nn_form(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    q_w: torch.Tensor,
+    p_sq: Optional[torch.Tensor],
+    *,
+    form: str,
+    reduce: str,
+    idx_bits: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An E1 form's brute-force NN: ``csrc/matching.cu`` on a CUDA tensor,
+    :func:`nn_form_plain` on a CPU tensor, a raise otherwise."""
+    pin_f32_precision()
+    if p.device.type == "cuda":
+        return nn_form_cuda(p, q, q_w, p_sq, form=form, reduce=reduce,
+                            idx_bits=idx_bits)
+    if p.device.type != "cpu":
+        raise ValueError(f"nn_form runs on CPU or CUDA tensors, got "
+                         f"{p.device}")
+    return nn_form_plain(p, q, q_w, p_sq, form=form, reduce=reduce,
+                         idx_bits=idx_bits)
+
+
+# E1's variants (v3 is v1's function): their form and reduction
+E1_VARIANTS = {v: pair for pair, v in FORM_LAUNCHES.items()}
+
+
+def e1_idx_bits(m: int, block_m: int = 8192) -> int:
+    """The index bits of E1's packed variants: ``bit_length(round_up(m,
+    block_m) - 1)`` (14 at 16,384 targets with the study's 8,192)."""
+    return max(1, (round_up(m, block_m) - 1).bit_length())
+
+
+def nn_e1(p: torch.Tensor, q: torch.Tensor, variant: str,
+          block_m: int = 8192) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One variant of ``scripts/exp_match_kernels.py``, with the script's
+    output formula: ``(idx int32[N], d f32[N])``.
+
+    * ``'v1'`` (and ``'v3'``, the same function): the biased argmin, ``d =
+      best − C + |p|²``, unclamped;
+    * ``'v2'``: the packed key of the biased, unclamped value (a negative
+      rounding wins, as on the TPU; the bucket is 2^−(23−b) of the biased
+      value C − |p|² + d), the exact distance to the pick;
+    * ``'v4'``, ``'v5'``: the packed key of the expansion or the 5-lane sum
+      clamped at 0, the exact distance to the pick;
+    * ``'v6'``: the 5-lane argmin, ``d = max(best, 0)``.
+
+    The packed variants take ``b = e1_idx_bits(m, block_m)``."""
+    form, reduce = E1_VARIANTS["v1" if variant == "v3" else variant]
+    q_w, p_sq, c_bias = form_lanes(p, q, form)
+    bits = e1_idx_bits(q.shape[0], block_m) if reduce == "packed" else None
+    idx, d = nn_form(p, q, q_w, None if form == "biased" else p_sq,
+                     form=form, reduce=reduce, idx_bits=bits)
+    if variant in ("v1", "v3"):
+        d = d - c_bias + p_sq
+    elif variant == "v6":
+        d = torch.clamp_min(d, 0.0)
+    return idx, d
 
 
 def gather_correspondences(q: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -11,12 +11,18 @@ neighbour, CUDA C++ (``csrc/matching.cu``).
   ``ops.matching.nn_argmin_packed``;
 * :func:`nn_min_only_cuda` launches the min-only sweep of
   ``scripts/exp_packed_reduction.py::make_minonly``; plain version and
-  dispatcher in ``bench/packed_reduction.py``.
+  dispatcher in ``bench/packed_reduction.py``;
+* :func:`nn_form_cuda` launches the E1 distance forms of
+  ``scripts/exp_match_kernels.py`` (``make_v1``–``make_v6``) with an
+  argmin or a packed reduction; plain version ``ops.matching.nn_form_plain``,
+  dispatcher ``ops.matching.nn_form``, the script's variants
+  ``ops.matching.nn_e1``.
 
 Each wrapper checks the inputs, plans the launch, allocates the outputs and
 scratch with ``torch.empty``, launches on PyTorch's current stream, raises
 when a launch is refused, and counts its launches in its own ``.launches``.
-They take CUDA tensors only.
+They take CUDA tensors only. :func:`nn_form_cuda` counts per launch type,
+keyed by the E1 variant (``"v1"``, ``"v2"``, ``"v4"``, ``"v5"``, ``"v6"``).
 """
 
 from __future__ import annotations
@@ -237,3 +243,98 @@ def nn_min_only_cuda(
 
 
 nn_min_only_cuda.launches = 0  # kernel launches made by this wrapper
+
+
+FORMS = ("biased", "expand", "expand5")  # csrc/matching.cu's Form 1, 2, 3
+REDUCES = ("argmin", "packed")
+# the (form, reduction) of each of E1's launch types, by its variant
+FORM_LAUNCHES = {("biased", "argmin"): "v1", ("biased", "packed"): "v2",
+                 ("expand", "packed"): "v4", ("expand5", "packed"): "v5",
+                 ("expand5", "argmin"): "v6"}
+
+
+def _check_lane(name: str, x, rows: int, device) -> None:
+    if not isinstance(x, torch.Tensor) or x.device != device:
+        raise ValueError(f"{name} must be a tensor on {device}")
+    if x.dtype != torch.float32 or x.shape != (rows,):
+        raise ValueError(f"{name} must be float32[{rows}], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def nn_form_cuda(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    q_w: torch.Tensor,
+    p_sq: Optional[torch.Tensor],
+    *,
+    form: str,
+    reduce: str,
+    idx_bits: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The brute-force NN under one of E1's distance forms, computed on the
+    card by ``csrc/matching.cu``'s ``nn_partial_kernel<Form, Reduce>``.
+
+    ``p`` f32[N,3] and ``q`` f32[M,3] (M >= 1) as :func:`nn_argmin_cuda`
+    takes them, without a mask; ``q_w`` f32[M] the staged lane and ``p_sq``
+    f32[N] |p|² (None for ``'biased'``), from
+    ``ops.matching.form_lanes``. ``(form, reduce)`` is one of
+    :data:`FORM_LAUNCHES`. ``'argmin'`` returns ``(idx, the raw form value
+    of the first minimum)``; ``'packed'`` the int32 min over ``(bits(v) &
+    ~(2^idx_bits - 1)) | j`` of the raw value (``'biased'``) or of the value
+    clamped at 0, then ``(idx, the exact distance to the pick)`` by K2's
+    epilogue.
+    """
+    _check_inputs("nn_form_cuda", p, q, None)
+    if (form, reduce) not in FORM_LAUNCHES:
+        raise ValueError(f"(form, reduce) must be one of "
+                         f"{sorted(FORM_LAUNCHES)}, got {(form, reduce)}")
+    n, m = p.shape[0], q.shape[0]
+    _check_lane("q_w", q_w, m, p.device)
+    if form != "biased":
+        _check_lane("p_sq", p_sq, n, p.device)
+    if reduce == "packed":
+        check_idx_bits(m, idx_bits)
+    name = FORM_LAUNCHES[(form, reduce)]
+    idx = torch.empty(n, dtype=torch.int32, device=p.device)
+    dist = torch.empty(n, dtype=torch.float32, device=p.device)
+    if n == 0:
+        return idx, dist
+    lib, slices, slice_len = _plan(p, m)
+    psq_ptr = None if form == "biased" else p_sq.data_ptr()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+
+        def sweep(part_d, part_i):
+            rc = lib.fpcr_nn_form_partial(
+                p.data_ptr(), q.data_ptr(), q_w.data_ptr(), psq_ptr,
+                FORMS.index(form) + 1, REDUCES.index(reduce), n, m,
+                slice_len, idx_bits or 0, part_d, part_i, stream)
+            _raise_on(lib, rc, f"nn_form_partial {name}")
+            nn_form_cuda.launches[name] += 1
+
+        if reduce == "argmin" and slices == 1:
+            sweep(dist.data_ptr(), idx.data_ptr())
+            return idx, dist
+        part_i = torch.empty((slices, n), dtype=torch.int32, device=p.device)
+        if reduce == "packed":
+            sweep(None, part_i.data_ptr())
+            rc = lib.fpcr_nn_packed_epilogue(
+                p.data_ptr(), q.data_ptr(), part_i.data_ptr(), n, m, slices,
+                idx_bits, dist.data_ptr(), idx.data_ptr(), stream)
+            _raise_on(lib, rc, f"nn_packed_epilogue {name}")
+        else:
+            part_d = torch.empty((slices, n), dtype=torch.float32,
+                                 device=p.device)
+            sweep(part_d.data_ptr(), part_i.data_ptr())
+            rc = lib.fpcr_nn_combine(part_d.data_ptr(), part_i.data_ptr(), n,
+                                     slices, dist.data_ptr(), idx.data_ptr(),
+                                     stream)
+            _raise_on(lib, rc, f"nn_combine {name}")
+        nn_form_cuda.launches[name] += 1
+    return idx, dist
+
+
+# kernel launches made by this wrapper, per E1 launch type
+nn_form_cuda.launches = dict.fromkeys(FORM_LAUNCHES.values(), 0)

@@ -1,5 +1,6 @@
-"""Kernels K1, K2, the min-only sweep, K3, K3p and K4 on the card against
-their plain PyTorch versions.
+"""Kernels K1, K2, the min-only sweep, K3, K3p, K4, Kernel S (the bf16
+split distance on the tensor cores) and the E1 distance forms on the card
+against their plain PyTorch versions.
 
 Every test here needs a CUDA device and skips without one: a CUDA kernel
 has no CPU mode. On the card (which has no JAX, so the root conftest is
@@ -585,3 +586,136 @@ def test_band_packed_kernel_convention_and_counter(cuda):
             morton_nn_packed_cuda.launches) == (before[0], before[1] + 1)
     morton_nn_band(p, table, chunk=512, window=64, mode="highest")
     assert morton_nn_cuda.launches == before[0] + 1
+
+
+# --- Kernel S and the E1 forms (the studies E1, E3, E4) --------------------
+
+SPLIT_SHAPES = [(1, 1), (5, 3), (131, 259), (300, 500), (1000, 8),
+                (1000, 16), (1000, 24), (4099, 20001)]
+
+
+def _split_case(cuda, n, m, terms, seed=0, scale=2.0):
+    from fpcr_tpu_torch.bench.split_matmul import split_pads
+    from fpcr_tpu_torch.ops.split import split_operands
+
+    rng = np.random.default_rng(seed * 131 + n + m)
+    p = torch.as_tensor(_cloud(rng, n, scale), device=cuda)
+    q = torch.as_tensor(_cloud(rng, m, scale), device=cuda)
+    return split_operands(p, q, terms, *split_pads(n, m))
+
+
+@pytest.mark.parametrize("terms", [6, 3])
+@pytest.mark.parametrize("epilogue", ["argmin", "packed14", "min", "keep"])
+@pytest.mark.parametrize("n,m", SPLIT_SHAPES)
+def test_split_kernel_matches_plain(cuda, terms, epilogue, n, m):
+    """Kernel S against its plain version at ragged shapes: picks equal on
+    0.999 of the rows, the rest and every value within the order bound
+    (``bench/kernel_checks.py``)."""
+    from fpcr_tpu_torch.bench.kernel_checks import check_split
+
+    p_in, q_in = _split_case(cuda, n, m, terms)
+    if epilogue == "packed14" and q_in.shape[0] > 1 << 14:
+        with pytest.raises(ValueError, match="2\\^14"):  # E3's 14 bits
+            check_split(p_in, q_in, n, m, epilogue)
+        return
+    check_split(p_in, q_in, n, m, epilogue, keep=m // 2,
+                clamp=epilogue == "argmin")
+
+
+@pytest.mark.parametrize("m", [8, 16, 24, 1000])
+def test_split_kernel_finds_known_neighbours(cuda, m):
+    """p on a shuffled lattice of spacing 0.1 and q = p shifted by a
+    distinct offset under 0.01 per row: the argmin and the packed key find
+    row i's own target in every row, which a wrong A or B fragment layout
+    would not."""
+    from fpcr_tpu_torch.ops.split import split_operands
+    from fpcr_tpu_torch.ops.split_cuda import split_nn_cuda
+
+    rng = np.random.default_rng(m)
+    cell = rng.permutation(1000)[:m]
+    p = (np.stack([cell % 10, cell // 10 % 10, cell // 100], 1) * 0.1
+         - 0.5).astype(np.float32)
+    off = (np.arange(m, dtype=np.float32) + 1)[:, None] * np.float32(1e-5)
+    q = (p + off * np.array([1, -1, 1], np.float32)).astype(np.float32)
+    for terms in (6, 3):
+        p_in, q_in = split_operands(torch.as_tensor(p, device=cuda),
+                                    torch.as_tensor(q, device=cuda), terms,
+                                    m, 1024)
+        for epi in ("argmin", "packed14"):
+            i, _ = split_nn_cuda(p_in, q_in, m, m, epi)
+            assert i.cpu().tolist() == list(range(m)), (terms, epi)
+
+
+def test_split_kernel_ties_gate_counter_and_checks(cuda):
+    """Duplicates across target slices go to the lowest index; packed14 at
+    exactly 2^14 targets runs and past it raises without a launch; each
+    launch type counts its sweep and combine (the keep column one launch);
+    bad operands raise."""
+    from fpcr_tpu_torch.bench.kernel_checks import check_split
+    from fpcr_tpu_torch.ops.split import split_nn, split_operands
+    from fpcr_tpu_torch.ops.split_cuda import split_nn_cuda
+
+    q = torch.full((5000, 3), 9.0, device=cuda)
+    q[4000] = q[300] = q[4999] = torch.tensor([0.5, 0.0, 0.0])
+    p_in, q_in = split_operands(torch.zeros((600, 3), device=cuda), q, 6,
+                                600, 5120)
+    for epi in ("argmin", "packed14"):
+        assert (split_nn_cuda(p_in, q_in, 600, 5000, epi)[0] == 300).all()
+    p_in, q_in = _split_case(cuda, 300, 16384, 6)
+    check_split(p_in, q_in, 300, 16384, "packed14")
+    big = torch.zeros((16392, 48), dtype=torch.bfloat16, device=cuda)
+    before = dict(split_nn_cuda.launches)
+    with pytest.raises(ValueError, match="2\\^14"):
+        split_nn_cuda(p_in, big, 300, 16385, "packed14")
+    assert split_nn_cuda.launches == before
+    split_nn(p_in, q_in, 300, 16384, "argmin")
+    split_nn(p_in, q_in, 300, 16384, "keep", keep=5)
+    assert split_nn_cuda.launches["x6 argmin"] == before["x6 argmin"] + 2
+    assert split_nn_cuda.launches["x6 keep"] == before["x6 keep"] + 1
+    with pytest.raises(ValueError, match="bfloat16"):
+        split_nn_cuda(p_in.float(), q_in, 300, 16384, "min")
+    with pytest.raises(ValueError, match="terms"):
+        split_nn_cuda(p_in[:, :40].contiguous(), q_in[:, :40].contiguous(),
+                      300, 16384, "min")
+    with pytest.raises(ValueError, match="round_up"):
+        split_nn_cuda(p_in, q_in[:100], 300, 99, "min")
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2", "v4", "v5", "v6"])
+@pytest.mark.parametrize("n,m", [(1, 1), (131, 259), (300, 500),
+                                 (4099, 20001)])
+def test_form_kernel_matches_plain(cuda, variant, n, m):
+    """Each E1 form against its plain version at the study's scale (±300),
+    within the order bound of its sum (``bench/kernel_checks.py``)."""
+    from fpcr_tpu_torch.bench.kernel_checks import check_form
+
+    rng = np.random.default_rng(n * 3 + m)
+    p = torch.as_tensor(_cloud(rng, n, 300.0), device=cuda)
+    q = torch.as_tensor(_cloud(rng, m, 300.0), device=cuda)
+    check_form(p, q, variant)
+
+
+def test_form_kernel_ties_counter_and_study_outputs(cuda):
+    """Ties go to the lowest index under every form; each launch type counts
+    its launches; ``nn_e1`` keeps the script's output formulas on the
+    card as on the CPU."""
+    from fpcr_tpu_torch.ops.matching import nn_e1
+    from fpcr_tpu_torch.ops.matching_cuda import nn_form_cuda
+
+    q = torch.tensor([[5.0, 0, 0], [1, 0, 0], [2, 0, 0], [1, 0, 0]],
+                     device=cuda)
+    p = torch.zeros((1, 3), device=cuda)
+    before = dict(nn_form_cuda.launches)
+    for v in ("v1", "v2", "v4", "v5", "v6"):
+        assert int(nn_e1(p, q, v)[0][0]) == 1, v
+        assert nn_form_cuda.launches[v] > before[v]
+    rng = np.random.default_rng(4)
+    p = torch.as_tensor(_cloud(rng, 700, 300.0), device=cuda)
+    q = torch.as_tensor(_cloud(rng, 900, 300.0), device=cuda)
+    for v in ("v1", "v3", "v2", "v4", "v5", "v6"):
+        gi, gd = nn_e1(p, q, v)
+        ci, cd = nn_e1(p.cpu(), q.cpu(), v)
+        same = (gi.cpu() == ci)
+        assert float(same.double().mean()) > 0.99, v
+        np.testing.assert_allclose(gd.cpu()[same].numpy(),
+                                   cd[same].numpy(), rtol=1e-3, atol=0.5)
