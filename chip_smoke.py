@@ -16,7 +16,13 @@ Phases, in order; any failure raises and the script exits nonzero:
 3. kernel vs plain — K1, K2, the min-only sweep, K3, K3p and K4 against
    their plain PyTorch versions on the card, at the test shapes and the
    main path's shapes, K2's 2^16 gate, and K4 against the 7-offset gather
-   oracle at 262,144 points; Kernel S (terms 6 and 3, every epilogue) and
+   oracle at 262,144 points; K3's and K3p's band bases, computed in the
+   kernel, equal to ``band_bases``, their culled and unculled instances
+   bit-equal in all four outputs, and the share of band sub-tiles culled,
+   on every band case (tail chunk, m < band, masked and shifted tables, a
+   far pose, duplicates across the seed sub-tile, probes outside the
+   table's box, two staged tiles, the main path's grids), and one CUDA
+   kernel per call; Kernel S (terms 6 and 3, every epilogue) and
    the five E1 launches against theirs at 16,384² and ragged shapes (m = 1,
    m = 2^14 for the packed14 key, a cloud of duplicates);
 4. main path — each path driven with the launch counters set to 0 just
@@ -41,7 +47,10 @@ Phases, in order; any failure raises and the script exits nonzero:
 5. times — ms/iter by the slope method (point ICP at 16,384 through K1 and
    K2, plane ICP at 16,384, Morton ICP through K3 and K3p and NDT at
    262,144 and 1,048,576), K1, K2, the min-only sweep, K3, K3p and K4 alone
-   against their plain versions, the packed-reduction study
+   against their plain versions (K3 and K3p with and without an extra, and
+   their unculled instances' kernel times), the kernels, device busy time
+   and idle share of a Morton point iteration at 1,048,576 (traced), the
+   packed-reduction study
    (``fpcr_tpu_torch.bench.packed_reduction.main``), normals, the plane
    solve, the NDT grid build and the share of each stage of a point
    iteration, Kernel S's five launch types and the E1 forms alone against
@@ -52,7 +61,8 @@ The line before the last is a JSON object describing each kernel: its
 launches on the main path, its largest difference from its plain version,
 its time and its plain version's, and its bound, the least time the card
 could take for the same work (the larger of its bytes over the HBM rate and
-its float32 operations over the float32 peak, from this run's inputs;
+its float32 operations over the float32 peak, from this run's inputs: the
+band kernels' over the pairs they evaluated after culling;
 Kernel S's the largest of its bytes, its bf16 tensor-core products over the
 bf16 peak and its reduction's CUDA-core instructions over their rate). The
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -448,6 +458,20 @@ def band_cases(torch, np, ft, dev):
     out += case("shift-0.5 2500x3000", q, near(q, 2500), shift=0.5,
                 geoms=((512, 64),))
     both = ((512, 64), (256, 256))
+    out += case("outside-box 2500x3000", q, (near(q, 2500) + t(np.float32(
+        [3.0, 0.0, -2.5]))).contiguous(), geoms=((512, 64),))
+    # eight targets 70 times each: equal distances span three 32-row
+    # sub-tiles, the seed sub-tile among them
+    dup = q[t(rng.integers(0, 3000, 8))].repeat_interleave(70, 0)
+    pd = torch.cat([dup[::70].repeat_interleave(40, 0) + 0.01 * t(
+        rng.normal(size=(320, 3)).astype(np.float32)), near(q, 900)])
+    out += case("duplicates 1220x3560", torch.cat([q, dup]), pd, geoms=both)
+    q5 = t(rng.uniform(-2, 2, size=(5000, 3)).astype(np.float32))
+    out += case("two-tiles 4000x5000", q5, near(q5, 4000),
+                geoms=((1000, 300),))  # band 1,792, two passes a chunk
+    s = ft.transformed_scene(ft.surface_grid(256, device=dev),
+                             (0.3, -0.2, 0.25), (0.4, -0.3, 0.2))
+    out += case("far-pose 65536", s.target, s.source, geoms=((512, 64),))
     for w in LARGE_WIDTHS:
         s = build_scene(ft, f"grid-{LARGE_WIDTHS.index(w)}", dev)
         out += case(f"synthetic-{w * w}", s.target, s.source, geoms=both)
@@ -458,12 +482,45 @@ def band_cases(torch, np, ft, dev):
     return out
 
 
+def _check_culling(label, p, table, extra, chunk, window, kernel, out,
+                   stats):
+    """The kernel's band bases against ``band_bases`` bit for bit, and its
+    culled outputs ``out`` against its unculled instance's, all four bit
+    for bit; returns the share of (group, sub-tile) visits culled."""
+    from fpcr_tpu_torch.ops.morton import band_bases
+    from fpcr_tpu_torch.ops.morton_cuda import band_visit_totals
+
+    full = {}
+    ref = kernel(p, table, extra, chunk=chunk, window=window, _cull=False,
+                 _stats=full)
+    torch.cuda.synchronize()
+    _, bases = band_bases(p, table, chunk, window)
+    for run in (stats, full):
+        if not torch.equal(run["bases"], bases):
+            raise AssertionError(f"{label}: the kernel's band bases differ "
+                                 "from band_bases on "
+                                 f"{int((run['bases'] != bases).sum())} "
+                                 "chunks")
+    for what, a, b in zip(("matched", "sqdist", "idx", "extra"), out, ref):
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            raise AssertionError(f"{label}: culled and unculled {what} "
+                                 "differ")
+    total, _ = band_visit_totals(p.shape[0], chunk, stats["band"])
+    visits = int(stats["visits"].sum())
+    if int(full["visits"].sum()) != total or not 0 <= visits <= total:
+        raise AssertionError(f"{label}: visits {visits} / "
+                             f"{int(full['visits'].sum())} of {total}")
+    return 1.0 - visits / total
+
+
 def _check_band(name, p, table, extra, chunk, window, packed):
     """K3 (``packed`` False) or K3p against its plain version: indices in
     [0, m-1] and below valid_count, matched points and extras bit-equal to
     the table rows, every row finite, picks equal except at ties (K3) or
-    within one bucket (K3p), distances of equal picks within CASE_TOL.
-    Returns the largest |sqdist err| over equal picks."""
+    within one bucket (K3p), distances of equal picks within CASE_TOL; and
+    :func:`_check_culling`. Returns the largest |sqdist err| over equal
+    picks."""
     from fpcr_tpu_torch.ops.morton import (band_idx_bits, band_rows,
                                            morton_nn_band_packed_plain,
                                            morton_nn_band_plain)
@@ -472,8 +529,12 @@ def _check_band(name, p, table, extra, chunk, window, packed):
 
     label = "K3p" if packed else "K3"
     kernel = morton_nn_packed_cuda if packed else morton_nn_cuda
-    km, kd, ki, ke = kernel(p, table, extra, chunk=chunk, window=window)
+    stats = {}
+    out = kernel(p, table, extra, chunk=chunk, window=window, _stats=stats)
+    km, kd, ki, ke = out
     torch.cuda.synchronize()
+    culled = _check_culling(f"{label} {name}", p, table, extra, chunk,
+                            window, kernel, out, stats)
     plain = morton_nn_band_packed_plain if packed else morton_nn_band_plain
     om, od, oi, oe = plain(p, table, extra, chunk=chunk, window=window)
     q = table.points_sorted
@@ -507,20 +568,57 @@ def _check_band(name, p, table, extra, chunk, window, packed):
                   f"{p.shape[0]} rows, {swaps} {diff.size}, max |sqdist "
                   f"err| {err:.3e}, matched"
                   f"{'' if extra is None else ' and extra'} bit-equal to the "
-                  "table rows -> ok")
+                  "table rows; bases equal to band_bases, culled and "
+                  "unculled bit-equal, sub-tile visits culled "
+                  f"{culled:.4f} -> ok")
     return err
+
+
+def device_events(fn):
+    """The device events of one run of ``fn`` under ``torch.profiler``,
+    after a warm-up run. A session now and then reports no device event at
+    all (seen once in ~20 sessions of one process): the next one is taken,
+    up to three."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            return events
+    raise AssertionError("the profiler saw no device event")
 
 
 def phase_band_vs_plain(torch, np, ft, dev):
     """K3 against ``morton_nn_band_plain`` and K3p against
-    ``morton_nn_band_packed_plain`` on the same inputs; the largest error
-    of each."""
+    ``morton_nn_band_packed_plain`` on the same inputs, the bases and the
+    culled instances on every case, and one CUDA kernel per call; the
+    largest error of each."""
+    from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
+                                                morton_nn_packed_cuda)
+
     worst = {"morton_nn": 0.0, "morton_nn_packed": 0.0}
     for name, p, table, extra, chunk, window in band_cases(torch, np, ft,
                                                             dev):
         for key, packed in (("morton_nn", False), ("morton_nn_packed", True)):
             worst[key] = max(worst[key], _check_band(
                 name, p, table, extra, chunk, window, packed))
+    for kernel in (morton_nn_cuda, morton_nn_packed_cuda):
+        for e in (None, extra):
+            names = [ev.name for ev in device_events(
+                lambda: kernel(p, table, e, chunk=chunk, window=window))]
+            if len(names) != 1 or "morton_band_kernel" not in names[0]:
+                raise AssertionError(f"{kernel.__name__} launched {names}")
+            log("kernel", f"{kernel.__name__} ({name}, extra "
+                          f"{e is not None}): one CUDA kernel a call, "
+                          f"{names[0]} -> ok")
     return worst
 
 
@@ -1160,26 +1258,24 @@ OUR_KERNELS = ("nn_partial_kernel", "nn_combine_kernel",
 def kernel_ms(fn, repeats=10):
     """Device time per call of the port's own kernels that ``fn`` launches
     (``torch.profiler``'s CUDA kernel events over ``repeats`` calls, the
-    wrapper's torch glue left out), in ms."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    wrapper's torch glue left out), in ms. A session may lose some events
+    (a count short of a whole number a call), so a call's time is each
+    kernel's mean event time times its launches a call."""
+    ours = {}
+    for e in device_events(lambda: [fn() for _ in range(repeats)]):
+        if any(k in e.name for k in OUR_KERNELS):
+            ours.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not ours:
+        raise AssertionError("the profiler saw none of the port's kernels")
+    per_call = {k: max(1, round(len(v) / repeats)) for k, v in ours.items()}
+    seen = sum(len(v) for v in ours.values())
+    if seen != repeats * sum(per_call.values()):
+        PROFILER_LOSSES.append((seen, repeats * sum(per_call.values())))
+    return sum(sum(v) / len(v) * per_call[k] for k, v in ours.items()) / 1e3
 
-    fn()
-    torch.cuda.synchronize()
-    # a session now and then reports no device events at all (seen once in
-    # ~20 sessions of one process): take the next one, up to three
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(repeats):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and any(k in e.name for k in OUR_KERNELS))
-        if us > 0:
-            return us / repeats / 1e3
-    raise AssertionError("the profiler saw none of the port's kernels")
+
+# kernel_ms sessions that lost events: (events seen, events launched)
+PROFILER_LOSSES = []
 
 
 def phase_times(torch, ft, dev, smi, study):
@@ -1296,6 +1392,36 @@ def phase_times(torch, ft, dev, smi, study):
             "svd_ms": stage_ms["svd + det fix"]}
 
 
+def traced_iteration(run, k_lo=2, k_hi=12):
+    """Per iteration of ``run(k)`` (k iterations), by the slope of two
+    traced runs: device kernels (events other than memcpy and memset),
+    other device events, device busy ms (the union of the events' spans)
+    and traced wall ms, and the idle share 1 - busy / wall."""
+    def one(k):
+        wall = []
+
+        def timed():
+            t0 = time.perf_counter()
+            run(k)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+
+        events = device_events(timed)
+        busy, end = 0.0, -float("inf")
+        for a, b in sorted((e.time_range.start, e.time_range.end)
+                           for e in events):
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
+                      for e in events)
+        return kernels, len(events) - kernels, busy / 1e3, wall[-1]
+
+    lo, hi = one(k_lo), one(k_hi)
+    per = [(b - a) / (k_hi - k_lo) for a, b in zip(lo, hi)]
+    return {"kernels": per[0], "other": per[1], "busy_ms": per[2],
+            "wall_ms": per[3], "idle": 1.0 - per[2] / per[3]}
+
+
 def phase_times_slice2(torch, ft, dev, smi):
     """Times of the plane and large-N paths: plane and Morton ICP ms/iter,
     K3 alone against its plain version, normals and the plane solve."""
@@ -1303,7 +1429,8 @@ def phase_times_slice2(torch, ft, dev, smi):
                                            morton_nn_band_packed_plain,
                                            morton_nn_band_plain,
                                            source_morton_order)
-    from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
+    from fpcr_tpu_torch.ops.morton_cuda import (BAND_SUB, band_visit_totals,
+                                                morton_nn_cuda,
                                                 morton_nn_packed_cuda)
     from fpcr_tpu_torch.ops.solve import (plane_normal_equations,
                                           plane_solve_update)
@@ -1338,41 +1465,56 @@ def phase_times_slice2(torch, ft, dev, smi):
         if i == 0:
             slope(f"morton plane ICP N={w * w}", s, 5, 25, 3,
                   metric="plane", matcher="morton", **BAND)
+        else:
+            tr = traced_iteration(lambda k: ft.run_icp(
+                s.source, s.target, ft.ICPConfig(
+                    max_iterations=k, tolerance=0.0, matcher="morton",
+                    **BAND)))
+            log("times", f"morton point ICP N={w * w} traced, per iteration "
+                         f"(slope of 2 and 12 iterations): {tr['kernels']:.1f}"
+                         f" kernels, {tr['other']:.1f} other device events "
+                         f"(memcpy, memset), device busy {tr['busy_ms']:.4f} "
+                         f"ms of {tr['wall_ms']:.4f} ms traced, idle "
+                         f"{tr['idle']:.1%} {card}")
+            out["trace"] = tr
         # K3 alone, at the inputs of the first iteration
         table = build_morton_table(s.target)
         ps = s.source[source_morton_order(s.source, table).long()]
         ps = ps.contiguous()
         nrm = ft.estimate_normals(s.target)[table.orig_index.long()]
         nrm = nrm.contiguous()
-        for label, extra in (("", None), (" + normals", nrm)):
-            k3 = cuda_time_ms(lambda: morton_nn_cuda(ps, table, extra,
-                                                     chunk=512, window=64),
-                              repeats=20, warmup=3)
-            plain = cuda_time_ms(lambda: morton_nn_band_plain(
-                ps, table, extra, chunk=512, window=64), repeats=3,
-                warmup=1)
-            log("times", f"K3 morton_nn_cuda{label} N=M={w * w} c512/w64: "
-                         f"min {k3['min']:.4f} ms, mean {k3['mean']:.4f} ms; "
-                         f"plain morton_nn_band_plain min "
-                         f"{plain['min']:.4f} ms {card}")
-            out[f"k3{label} {w * w}"] = (k3["min"], plain["min"])
-        k3p = cuda_time_ms(lambda: morton_nn_packed_cuda(
-            ps, table, chunk=512, window=64), repeats=20, warmup=3)
-        plain = cuda_time_ms(lambda: morton_nn_band_packed_plain(
-            ps, table, chunk=512, window=64), repeats=3, warmup=1)
-        kern = {"K3": kernel_ms(lambda: morton_nn_cuda(ps, table, chunk=512,
-                                                       window=64)),
-                "K3p": kernel_ms(lambda: morton_nn_packed_cuda(
-                    ps, table, chunk=512, window=64))}
-        log("times", f"kernel time per call at N=M={w * w} c512/w64 "
-                     "(profiler, the port's kernels only): "
-            + ", ".join(f"{k} {v:.4f} ms" for k, v in kern.items())
-            + f" {card}")
-        log("times", f"K3p morton_nn_packed_cuda N=M={w * w} c512/w64: min "
-                     f"{k3p['min']:.4f} ms, mean {k3p['mean']:.4f} ms; plain "
-                     f"morton_nn_band_packed_plain min {plain['min']:.4f} ms "
-                     f"{card}")
-        out[f"k3p {w * w}"] = (k3p["min"], plain["min"])
+        kernels = (("K3", "k3", morton_nn_cuda, morton_nn_band_plain),
+                   ("K3p", "k3p", morton_nn_packed_cuda,
+                    morton_nn_band_packed_plain))
+        for name, key, kernel, plain_fn in kernels:
+            for label, extra in (("", None), (" + normals", nrm)):
+                call = lambda **kw: kernel(  # noqa: E731
+                    ps, table, extra, chunk=512, window=64, **kw)
+                wrapper = cuda_time_ms(call, repeats=20, warmup=3)
+                plain = cuda_time_ms(lambda: plain_fn(
+                    ps, table, extra, chunk=512, window=64), repeats=3,
+                    warmup=1)
+                kern = kernel_ms(call)
+                full = kernel_ms(lambda: call(_cull=False))
+                log("times", f"{name} {kernel.__name__}{label} N=M={w * w} "
+                             f"c512/w64: min {wrapper['min']:.4f} ms, mean "
+                             f"{wrapper['mean']:.4f} ms; kernel {kern:.4f} "
+                             f"ms, unculled instance {full:.4f} ms "
+                             f"({kern / full:.3f}x; profiler); plain "
+                             f"{plain_fn.__name__} min {plain['min']:.4f} ms "
+                             f"{card}")
+                out[f"{key}{label} {w * w}"] = (wrapper["min"], plain["min"])
+                out[f"{key}{label} kernel {w * w}"] = (kern, full)
+            stats = {}
+            kernel(ps, table, chunk=512, window=64, _stats=stats)
+            total, seeds = band_visit_totals(w * w, 512, stats["band"])
+            visits = int(stats["visits"].sum())
+            out[f"{key} pairs {w * w}"] = (visits + seeds) * BAND_SUB ** 2
+            log("times", f"{name} N=M={w * w} c512/w64: (32-row group, "
+                         f"sub-tile) visits {visits} of {total} "
+                         f"({1 - visits / total:.4f} culled), {seeds} seed "
+                         f"sub-tiles: {out[f'{key} pairs {w * w}']} pairs "
+                         f"evaluated of {w * w * stats['band']} {card}")
     for w in (128, LARGE_WIDTHS[-1]):
         cloud = ft.surface_grid(w, device=dev)
         t = cuda_time_ms(lambda: ft.estimate_normals(cloud), repeats=3,
@@ -1492,7 +1634,9 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, nbytes,
 def kernels_line(launches, errs, times, times2, times3, times5):
     """The ``kernels`` JSON object, the bounds from this run's inputs: the
     brute-force kernels at the synthetic scene's N = M = 16,384, the band
-    kernels at 1,048,576 points (chunk 512, window 64, no extra), K4 at
+    kernels at 1,048,576 points (chunk 512, window 64, no extra; bytes with
+    the codes the bases are searched in, float32 operations over the pairs
+    the culled kernel evaluated, seed sub-tiles included), K4 at
     1,048,576 points with its hit neighbours counted, Kernel S at E3's
     N = M = 16,384 and the E1 forms at E1's."""
     from fpcr_tpu_torch.ops.morton import band_rows
@@ -1500,12 +1644,16 @@ def kernels_line(launches, errs, times, times2, times3, times5):
     n, m = times["n"], times["m"]
     nb = LARGE_WIDTHS[-1] ** 2
     band = band_rows(512, 64)
-    band_bytes = 12 * nb + 12 * nb + 4 * -(-nb // 512) + 4 + 20 * nb
+    band_bytes = 12 * nb + 12 * nb + 4 * nb + 24 + 4 + 20 * nb
     k4 = times3[nb]
     k4_bytes = nb * (12 + 12 + 64 + 12) + k4["table_rows"] * (4 + 64)
     k4_flops = K4_HIT_FLOPS * k4["hits"] + K4_QUERY_FLOPS * nb
     for label, pairs in ((f"brute N=M={n}", n * m),
-                         (f"band N={nb} x {band} rows", nb * band)):
+                         (f"band N={nb} x {band} rows", nb * band),
+                         (f"K3 band N={nb}, pairs evaluated",
+                          times2[f"k3 pairs {nb}"]),
+                         (f"K3p band N={nb}, pairs evaluated",
+                          times2[f"k3p pairs {nb}"])):
         log("bound", f"{label}: {pairs} pairs, float32 bound "
                      f"{ARGMIN_PAIR_FLOPS * pairs / FP32_FLOPS * 1e3:.6f} ms "
                      f"(argmin, min-only) / "
@@ -1536,12 +1684,12 @@ def kernels_line(launches, errs, times, times2, times3, times5):
                      "fpcr_tpu/ops/morton_pallas.py:328",
                      launches["morton_nn"], errs["morton_nn"],
                      *times2[f"k3 {nb}"], band_bytes,
-                     ARGMIN_PAIR_FLOPS * nb * band),
+                     ARGMIN_PAIR_FLOPS * times2[f"k3 pairs {nb}"]),
         kernel_entry("morton_nn_packed", morton,
                      "fpcr_tpu/ops/morton_pallas.py:261",
                      launches["morton_nn_packed"], errs["morton_nn_packed"],
                      *times2[f"k3p {nb}"], band_bytes,
-                     PACKED_PAIR_FLOPS * nb * band),
+                     PACKED_PAIR_FLOPS * times2[f"k3p pairs {nb}"]),
         kernel_entry("ndt_fused_moments", "fpcr_tpu_torch/csrc/ndt.cu",
                      "fpcr_tpu/ops/ndt_pallas.py:512",
                      launches["ndt_fused_moments"], errs["ndt_fused_moments"],
@@ -1666,6 +1814,8 @@ def main():
     times2 = phase_times_slice2(torch, ft, dev, smi)
     times3 = phase_times_ndt(torch, np, ft, dev, smi)
     times5 = phase_times_studies(torch, dev, smi, studies)
+    log("times", f"kernel_ms: {len(PROFILER_LOSSES)} profiler sessions lost "
+                 f"events (seen, launched): {PROFILER_LOSSES}")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(launches, errs, times, times2, times3,
                                   times5)), flush=True)

@@ -146,13 +146,12 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_nn_min_partial.restype = i32
     lib.fpcr_nn_min_combine.argtypes = [ptr, i32, i32, ptr, ptr]
     lib.fpcr_nn_min_combine.restype = i32
-    lib.fpcr_morton_nn.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr, i32,
-                                   i32, i32, ptr, ptr, ptr, ptr, ptr]
-    lib.fpcr_morton_nn.restype = i32
-    lib.fpcr_morton_nn_packed.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr,
-                                          i32, i32, i32, i32, ptr, ptr, ptr,
-                                          ptr, ptr]
-    lib.fpcr_morton_nn_packed.restype = i32
+    for name in ("fpcr_morton_nn", "fpcr_morton_nn_packed",
+                 "fpcr_morton_nn_unculled", "fpcr_morton_nn_packed_unculled"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                       i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+        fn.restype = i32
     lib.fpcr_nn_form_partial.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                          i32, i32, i32, ptr, ptr, ptr]
     lib.fpcr_nn_form_partial.restype = i32

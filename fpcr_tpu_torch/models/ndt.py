@@ -467,9 +467,13 @@ def register_ndt(source, target, icp_config=None,
     Two NDT stages (voxels ``coarse_scale``× the fine size, then the fine
     size) pull the pose into ICP's basin, and ``run_icp`` polishes it. The
     returned ``ICPResult.transform`` is the composed source→target estimate.
-    Clouds above ``ndt_points`` are strided down for the NDT stages only."""
+    Clouds above ``ndt_points`` are strided down for the NDT stages only.
+    Array-likes go to the card, the target to the source's device, as in
+    :func:`run_ndt`."""
     from .icp import ICPConfig, run_icp
 
+    source = as_points(source)
+    target = as_points(target, device=source.device)
     icp_config = icp_config or ICPConfig()
     ndt_config = resolve_voxel_size(ndt_config or NDTConfig(), target)
     src_i = source

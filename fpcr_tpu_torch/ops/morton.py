@@ -17,7 +17,9 @@ Two band geometries exist, as in the JAX package:
 * :func:`morton_nn_band` is kernel K3's geometry (``morton_nn_pallas``):
   ``band = round_up(chunk + 2·window + 128, 128)``, the base aligned down to
   128 and clipped to ``m_pad - band`` with ``m_pad = round_up(m, 128) +
-  band``. A CUDA tensor launches K3 (``ops/morton_cuda.py``); a CPU tensor
+  band`` (:func:`band_bases`; K3 computes them in its block prologue, whose
+  scalar mirror is :func:`prologue_bases`). A CUDA tensor launches K3
+  (``ops/morton_cuda.py``); a CPU tensor
   takes its plain version :func:`morton_nn_band_plain`. Its ``mode=
   'packed6_idx'`` is K3's packed (value|index) reduction, kernel K3p, whose
   plain version is :func:`morton_nn_band_packed_plain`.
@@ -145,6 +147,71 @@ def band_bases(p: torch.Tensor, table: MortonTable, chunk: int,
     bases = torch.clamp(probe_ranks(p, table, chunk) - band // 2, 0,
                         m_pad - band)
     return band, (bases & ~(BAND_ALIGN - 1)).to(torch.int32).contiguous()
+
+
+def _float2int_rz(u: np.float32) -> int:
+    """CUDA's ``__float2int_rz``, which torch's CUDA float-to-int32 cast
+    compiles to: truncation, saturating at the int32 range, NaN to 0."""
+    if np.isnan(u):
+        return 0
+    if u >= 2.0 ** 31:
+        return 2 ** 31 - 1
+    if u <= -2.0 ** 31:
+        return -2 ** 31
+    return int(u)
+
+
+def _part1by2_int(x: int) -> int:
+    x &= 0x3FF
+    for shift, mask in ((16, 0x030000FF), (8, 0x0300F00F), (4, 0x030C30C3),
+                        (2, 0x09249249)):
+        x = (x | (x << shift)) & mask
+    return x
+
+
+def _lower_bound_32(codes: np.ndarray, code: int) -> int:
+    """The first ``i`` with ``codes[i] >= code``, by the kernel's 32-ary
+    warp search: lane ``j`` tests row ``lo + (j + 1)·step - 1`` a round."""
+    lo, hi = 0, codes.shape[0]
+    while lo < hi:
+        step = (hi - lo + 31) // 32
+        ge = [pos >= hi or int(codes[pos]) >= code
+              for pos in (lo + (j + 1) * step - 1 for j in range(32))]
+        if not any(ge):
+            lo = hi
+        else:
+            f = ge.index(True)
+            hi = min(lo + (f + 1) * step - 1, hi)
+            lo += f * step
+    return lo
+
+
+def prologue_bases(p: torch.Tensor, table: MortonTable, chunk: int,
+                   window: int) -> Tuple[int, np.ndarray]:
+    """The scalar mirror of kernels K3/K3p's block prologue
+    (``csrc/morton.cu``): ``(band, bases int32[chunks])``, each chunk's
+    probe row ``min(c·chunk + chunk/2, n-1)`` quantized in float32 in
+    :func:`morton_codes`' operation order, its rank by the kernel's 32-ary
+    lower-bound search, then clip and align as :func:`band_bases`. Equals
+    :func:`band_bases` wherever torch's cast does not overflow."""
+    band = band_rows(chunk, window)
+    pts = p.detach().to(torch.float32).cpu().numpy()
+    lo = table.lo.detach().cpu().numpy().astype(np.float32)
+    inv = table.inv_extent.detach().cpu().numpy().astype(np.float32)
+    codes = table.codes_sorted.detach().cpu().numpy()
+    n, top = pts.shape[0], round_up(codes.shape[0], BAND_ALIGN)
+    bases = np.empty(math.ceil(n / chunk), np.int32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        for c in range(bases.shape[0]):
+            row = min(c * chunk + chunk // 2, n - 1)
+            code = 0
+            for a in range(3):
+                u = (pts[row, a] - lo[a]) * inv[a] * np.float32(1 << _BITS)
+                cell = min(max(_float2int_rz(u), 0), (1 << _BITS) - 1)
+                code |= _part1by2_int(cell) << (2 - a)
+            rank = _lower_bound_32(codes, code)
+            bases[c] = min(max(rank - band // 2, 0), top) & ~(BAND_ALIGN - 1)
+    return band, bases
 
 
 def _band_blocks(p: torch.Tensor, q_sorted: torch.Tensor,

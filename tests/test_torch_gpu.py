@@ -719,3 +719,168 @@ def test_form_kernel_ties_counter_and_study_outputs(cuda):
         assert float(same.double().mean()) > 0.99, v
         np.testing.assert_allclose(gd.cpu()[same].numpy(),
                                    cd[same].numpy(), rtol=1e-3, atol=0.5)
+
+
+# --- K3 and K3p with their bases in the kernel and culled sub-tiles ---------
+
+BAND_CASES = ["tail-chunk", "m<band", "masked", "no-valid-target", "shifted",
+              "far-pose", "duplicates", "outside-box", "two-tiles",
+              "grid-65536"]
+
+
+def _culling_case(cuda, name):
+    """``(p sorted along the table, table, extra, chunk, window)``."""
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.ops.morton import (build_morton_table,
+                                           source_morton_order)
+
+    if name in ("far-pose", "grid-65536"):
+        pose = (((0.3, -0.2, 0.25), (0.4, -0.3, 0.2)) if name == "far-pose"
+                else ((0.004, -0.002, 0.003), (0.002, -0.003, 0.002)))
+        s = ft.transformed_scene(ft.surface_grid(256, device=cuda), *pose)
+        p, q, chunk, window = s.source, s.target, 512, 64
+        table = build_morton_table(q)
+        p = p[source_morton_order(p, table).long()].contiguous()
+    elif name in ("duplicates", "outside-box"):
+        rng = np.random.default_rng(17)
+        q = rng.uniform(-2, 2, (3000, 3)).astype(np.float32)
+        if name == "duplicates":  # equal distances across the seed sub-tile
+            dup = q[rng.integers(0, 3000, 8)]
+            q = np.concatenate([q, np.repeat(dup, 70, axis=0)])
+            p = np.concatenate([np.repeat(dup, 40, axis=0)
+                                + rng.normal(scale=0.01, size=(320, 3)),
+                                q[rng.integers(0, 3000, 900)]])
+            chunk, window = 256, 256
+        else:  # probes quantize past the table's box
+            p = q[rng.integers(0, 3000, 2500)] + np.array([3.0, 0.0, -2.5])
+            chunk, window = 512, 64
+        q = torch.as_tensor(q, device=cuda)
+        p = torch.as_tensor(p.astype(np.float32), device=cuda)
+        table = build_morton_table(q)
+        p = p[source_morton_order(p, table).long()].contiguous()
+    else:
+        n, m, chunk, window, masked_from, shift = {
+            "tail-chunk": (1000, 3000, 512, 64, None, 0.0),
+            "m<band": (300, 500, 256, 256, None, 0.0),
+            "masked": (2500, 3000, 256, 256, 2200, 0.0),
+            "no-valid-target": (300, 600, 128, 64, 0, 0.0),
+            "shifted": (2500, 3000, 512, 64, 2900, 0.5),
+            "two-tiles": (4000, 5000, 1000, 300, None, 0.0),
+        }[name]
+        p, table = _band_case(cuda, n, m, n + m + 2, masked_from, shift)
+    extra = (table.points_sorted * 0.5 + 0.25).contiguous()
+    return p, table, extra, chunk, window
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K3", "K3p"])
+@pytest.mark.parametrize("name", BAND_CASES)
+def test_band_kernel_bases_equal_band_bases(cuda, name, packed):
+    """The bases the kernel's prologue computes equal ``band_bases`` and
+    its scalar mirror ``prologue_bases``, bit for bit."""
+    from fpcr_tpu_torch.ops.morton import band_bases, prologue_bases
+    from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
+                                                morton_nn_packed_cuda)
+
+    p, table, _, chunk, window = _culling_case(cuda, name)
+    kernel = morton_nn_packed_cuda if packed else morton_nn_cuda
+    stats = {}
+    kernel(p, table, chunk=chunk, window=window, _stats=stats)
+    band, want = band_bases(p, table, chunk, window)
+    assert stats["band"] == band and stats["bases"].dtype == torch.int32
+    assert torch.equal(stats["bases"], want)
+    np.testing.assert_array_equal(
+        stats["bases"].cpu().numpy(),
+        prologue_bases(p, table, chunk, window)[1])
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K3", "K3p"])
+@pytest.mark.parametrize("name", BAND_CASES)
+def test_band_kernel_culled_equals_unculled(cuda, name, packed):
+    """Culling changes no output: matched, sqdist, idx and extra of the
+    culled kernel equal its unculled instance's bit for bit; the unculled
+    instance visits every (group, sub-tile), the culled one no more."""
+    from fpcr_tpu_torch.ops.morton import band_rows
+    from fpcr_tpu_torch.ops.morton_cuda import (band_visit_totals,
+                                                morton_nn_cuda,
+                                                morton_nn_packed_cuda)
+
+    p, table, extra, chunk, window = _culling_case(cuda, name)
+    kernel = morton_nn_packed_cuda if packed else morton_nn_cuda
+    for e in (extra, None):
+        culled, full = {}, {}
+        a = kernel(p, table, e, chunk=chunk, window=window, _stats=culled)
+        b = kernel(p, table, e, chunk=chunk, window=window, _cull=False,
+                   _stats=full)
+        for x, y in zip(a, b):
+            assert (x is None and y is None) or torch.equal(x, y)
+        total, _ = band_visit_totals(p.shape[0], chunk,
+                                     band_rows(chunk, window))
+        assert int(full["visits"].sum()) == total
+        assert 0 <= int(culled["visits"].sum()) <= total
+        if name == "grid-65536":  # near GT most sub-tiles are far
+            assert int(culled["visits"].sum()) < 0.6 * total
+        if name == "no-valid-target":  # empty boxes: nothing visited
+            assert int(culled["visits"].sum()) == 0
+            assert torch.isinf(a[1]).all() and (a[2] == 0).all()
+
+
+def test_band_kernel_one_launch_per_call(cuda):
+    """A K3 or K3p call launches the port's kernel and no other CUDA
+    kernel, and counts one launch; ``_cull=False`` counts too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fpcr_tpu_torch.ops.morton import morton_nn_band
+    from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
+                                                morton_nn_packed_cuda)
+
+    p, table, extra, chunk, window = _culling_case(cuda, "grid-65536")
+    for kernel, mode in ((morton_nn_cuda, "highest"),
+                         (morton_nn_packed_cuda, "packed6_idx")):
+        for e in (None, extra):
+            call = lambda: morton_nn_band(p, table, e, chunk=chunk,  # noqa
+                                          window=window, mode=mode)
+            call()
+            torch.cuda.synchronize()
+            before = kernel.launches
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = [ev.name for ev in prof.events()
+                     if ev.device_type == DeviceType.CUDA]
+            assert kernel.launches == before + 1
+            # a session now and then reports no device event at all
+            assert len(names) <= 1
+            assert all("morton_band_kernel" in x for x in names), names
+        before = kernel.launches
+        kernel(p, table, chunk=chunk, window=window, _cull=False)
+        assert kernel.launches == before + 1
+
+
+def test_band_kernel_rejects_bad_tables(cuda):
+    from fpcr_tpu_torch.ops.morton_cuda import morton_nn_cuda
+
+    p, table = _band_case(cuda, 256, 1024, 6)
+    for field, bad in (("codes_sorted", table.codes_sorted.long()),
+                       ("lo", table.lo.double()),
+                       ("inv_extent", table.inv_extent[:2].contiguous()),
+                       ("codes_sorted", table.codes_sorted.cpu())):
+        with pytest.raises(ValueError, match=field):
+            morton_nn_cuda(p, table._replace(**{field: bad}))
+
+
+def test_register_ndt_numpy_clouds_on_card(cuda):
+    """numpy clouds go to the card through ``as_points`` and register to
+    the exact-ICP contract (the scene of
+    ``tests/test_torch_ndt.py::test_register_ndt_large_displacement``)."""
+    import fpcr_tpu_torch as ft
+
+    scene = ft.synthetic_scene(width=48, device="cpu")
+    gt = ft.gt_transform((0.25, -0.2, 0.15), (0.3, -0.25, 0.2), device="cpu")
+    src, tgt = scene.source.numpy(), gt.apply(scene.source).numpy()
+    res = ft.register_ndt(src, tgt, ft.ICPConfig(max_iterations=40))
+    assert res.transform.rotation.device.type == "cuda"
+    tr = ft.RigidTransform(res.transform.rotation.cpu(),
+                           res.transform.translation.cpu())
+    assert float(ft.transform_rmse(tr, gt, scene.source)) < 1e-5
