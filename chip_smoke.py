@@ -7,13 +7,22 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. device — the card's name, ``nvidia-smi``'s name and power limit, the
    torch and CUDA versions, and the float32 precision settings;
-2. build — kernels K1, K2, the min-only sweep and the E1 forms
-   (``fpcr_tpu_torch/csrc/matching.cu``), K3 and K3p (``csrc/morton.cu``),
-   K4 (``csrc/ndt.cu``) and Kernel S (``csrc/split_mma.cu``) with one nvcc
-   per source, started together, into one library; ptxas' registers and
-   spills of each kernel, and the bf16 HMMA instructions of each Kernel S
-   instance in the library's SASS (``cuobjdump``; none fails);
-3. kernel vs plain — K1, K2, the min-only sweep, K3, K3p and K4 against
+2. build — kernels K1 and K2 (the tensor-core sweep and the certified
+   finish, ``fpcr_tpu_torch/csrc/nn_tc.cu``), their CUDA-core sweep, the
+   min-only sweep and the E1 forms (``csrc/matching.cu``), K3 and K3p
+   (``csrc/morton.cu``), K4 (``csrc/ndt.cu``) and Kernel S
+   (``csrc/split_mma.cu``) with one nvcc per source, started together, into
+   one library; ptxas' registers and spills of each kernel, the bf16 HMMA
+   instructions of each Kernel S instance and the HGMMA (wgmma) of each
+   instance of the K1/K2 sweep in the library's SASS (``cuobjdump``; none
+   fails), and no spill in the K1/K2 kernels;
+3. kernel vs plain — the tensor-core K1 and K2 against their CUDA-core
+   sweep bit for bit (index and distance bits) on the kernel cases, the
+   hall scan, E1's ±300 cloud, duplicates and 200 x 1,048,576, each call
+   two launches and no host synchronisation, with the rescued share of
+   each input, and the guard: one tile of the sweep's values within a
+   quarter of each pair's G of the float64 distance; K1, K2, the min-only
+   sweep, K3, K3p and K4 against
    their plain PyTorch versions on the card, at the test shapes and the
    main path's shapes, K2's 2^16 gate, and K4 against the 7-offset gather
    oracle at 262,144 points; K3's and K3p's band bases, computed in the
@@ -43,11 +52,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    the drift of their points and matches, where the first picks that
    differ must be swaps at a bucket's edge; the studies E4, E3 (its gates)
    and E1 (``fpcr_tpu_torch.bench.split_matmul``, ``reduction2``,
-   ``match_kernels``), each of which must launch its own kernels;
+   ``match_kernels``), each of which must launch its own kernels; then
+   every ICP path through K1 or K2 again on the CUDA-core sweep, to the
+   same iterations, final error and GT error;
 5. times — ms/iter by the slope method (point ICP at 16,384 through K1 and
    K2, plane ICP at 16,384, Morton ICP through K3 and K3p and NDT at
-   262,144 and 1,048,576), K1, K2, the min-only sweep, K3, K3p and K4 alone
-   against their plain versions (K3 and K3p with and without an extra, and
+   262,144 and 1,048,576), K1 and K2 against their CUDA-core sweep in legs
+   (call and kernel time) with the sweep's ablations, K1, K2, the min-only
+   sweep, K3, K3p and K4 alone against their plain versions (K3 and K3p
+   with and without an extra, and
    their unculled instances' kernel times), the kernels, device busy time
    and idle share of a Morton point iteration at 1,048,576 (traced), the
    packed-reduction study
@@ -211,8 +224,9 @@ def phase_device(torch):
 
 
 def sass_counts(path):
-    """``{kernel: {"HMMA": n, "FFMA": n}}`` of every Kernel S instance in
-    the library's SASS, read with the toolkit's ``cuobjdump``."""
+    """``{kernel: {"HMMA": n, "HGMMA": n, "FFMA": n}}`` of every Kernel S
+    instance and every instance of the tensor-core K1/K2 sweep in the
+    library's SASS, read with the toolkit's ``cuobjdump``."""
     from pathlib import Path
 
     from fpcr_tpu_torch import _build
@@ -224,12 +238,13 @@ def sass_counts(path):
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
-            if "split_partial_kernel" not in name:
+            if not any(k in name for k in ("split_partial_kernel",
+                                            "nn_tc_sweep_kernel")):
                 name = None
             else:
-                counts[name] = {"HMMA": 0, "FFMA": 0}
+                counts[name] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0}
         elif name:
-            for op in ("HMMA", "FFMA"):
+            for op in ("HMMA", "HGMMA", "FFMA"):
                 counts[name][op] += f" {op}." in line or f" {op} " in line
     return counts
 
@@ -248,9 +263,34 @@ def phase_build():
     counts = sass_counts(res.path)
     for name, c in counts.items():
         log("build", f"SASS {name}: {c['HMMA']} HMMA (bf16 mma.sync), "
-                     f"{c['FFMA']} FFMA")
-    if len(counts) != 8 or not all(c["HMMA"] for c in counts.values()):
+                     f"{c['HGMMA']} HGMMA (wgmma), {c['FFMA']} FFMA")
+    split = [c for k, c in counts.items() if "split_partial_kernel" in k]
+    if len(split) != 8 or not all(c["HMMA"] for c in split):
         raise AssertionError("a Kernel S instance issues no bf16 HMMA")
+    sweeps = [c for k, c in counts.items() if "nn_tc_sweep_kernel" in k]
+    if not sweeps or not all(c["HGMMA"] for c in sweeps):
+        raise AssertionError("a tensor-core K1/K2 sweep issues no HGMMA")
+    spills = tc_spills(res.log)
+    log("build", f"ptxas spills of the tensor-core K1/K2 kernels: {spills}")
+    if len(spills) != len(sweeps) + 2 or any(spills.values()):
+        raise AssertionError("a tensor-core K1/K2 kernel spills")
+
+
+def tc_spills(log_text):
+    """``{kernel: spill bytes}`` of every ``nn_tc`` kernel in ptxas' log
+    (the stores and loads of its "Function properties" line)."""
+    import re
+
+    spills, name = {}, None
+    for line in log_text.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = found.group(1) if "nn_tc" in found.group(1) else None
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill", line)
+            spills[name] = int(st) + int(ld)
+            name = None
+    return spills
 
 
 def kernel_cases(torch, np, ft, dev):
@@ -425,6 +465,112 @@ def phase_kernel_vs_plain(torch, np, ft, dev):
     if nn_argmin_packed_cuda.launches != before:
         raise AssertionError("K2 launched past its 2^16 gate")
     return worst
+
+
+def tc_cases(torch, np, ft, dev):
+    """The inputs on which the tensor-core K1 and K2 must equal their
+    CUDA-core instances: the kernel cases (masks, ties, an all-masked
+    target, 8,171^2, 16,384^2, 35,947^2), the hall scan, E1's +-300 cloud,
+    a cloud of duplicates and 200 rows against 1,048,576 targets."""
+    from fpcr_tpu_torch.bench import match_kernels
+
+    rng = np.random.default_rng(81)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    cases = kernel_cases(torch, np, ft, dev)
+    s = build_scene(ft, "hall", dev)
+    cases.append(("hall-16384^2", s.source, s.target, None))
+    cases.append(("E1 +-300 16384^2", *match_kernels.study_inputs(16384, dev),
+                  None))
+    dup = np.repeat(rng.uniform(-2, 2, (37, 3)), 27, axis=0)
+    near = dup[rng.integers(0, 999, 700)] + rng.normal(scale=1e-3,
+                                                       size=(700, 3))
+    cases.append(("duplicates 700x999", t(near.astype(np.float32)),
+                  t(dup.astype(np.float32)), None))
+    big = rng.uniform(-2, 2, (1 << 20, 3)).astype(np.float32)
+    rows = big[rng.integers(0, 1 << 20, 200)] + rng.normal(
+        scale=1e-3, size=(200, 3)).astype(np.float32)
+    cases.append(("200x1048576", t(rows), t(big), None))
+    return cases
+
+
+def phase_tc_vs_cudacore(torch, np, ft, dev, smi):
+    """The tensor-core K1 and K2 against the CUDA-core sweep of the same
+    functions (``_nn_argmin_cudacore``, ``_nn_argmin_packed_cudacore``),
+    bit for bit in index and distance, on every input of ``tc_cases``; two
+    launches a call, none of them a host synchronisation; the rescued share
+    of each input; and the guard: on the synthetic scene, E1's +-300 cloud,
+    the hall scan and Bunny, every value of one tile of the sweep
+    (``_nn_tc_tile_values``) within a quarter of its pair's G of the float64
+    distance. Returns ``({input: (K1 share, K2 share)}, largest ratio)``."""
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+    from fpcr_tpu_torch.ops.matching import CERT_GUARD, packed_idx_bits
+
+    shares = {}
+    for name, p, q, mask in tc_cases(torch, np, ft, dev):
+        m = q.shape[0]
+        bits = packed_idx_bits(m) if m <= 1 << 16 else (m - 1).bit_length()
+        calls = (("K1", lambda: mc.nn_argmin_cuda(p, q, mask),
+                  lambda: mc._nn_argmin_cudacore(p, q, mask),
+                  mc.nn_argmin_cuda),
+                 ("K2", lambda: mc.nn_argmin_packed_cuda(p, q, mask,
+                                                         idx_bits=bits),
+                  lambda: mc._nn_argmin_packed_cudacore(p, q, mask,
+                                                        idx_bits=bits),
+                  mc.nn_argmin_packed_cuda))
+        row = []
+        for k, (label, new, core, wrapper) in enumerate(calls):
+            mc.reset_rescued(dev)
+            torch.cuda.synchronize()
+            before = wrapper.launches
+            torch.cuda.set_sync_debug_mode("error")  # a sync in a call raises
+            try:
+                a = new()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if wrapper.launches - before != 2:
+                raise AssertionError(f"{label} {name}: "
+                                     f"{wrapper.launches - before} launches")
+            b = core()
+            torch.cuda.synchronize()
+            same = (torch.equal(a[0], b[0]) and torch.equal(
+                a[1].view(torch.int32), b[1].view(torch.int32)))
+            rescued = mc.rescued_rows(dev)[k]
+            row.append(rescued / p.shape[0])
+            log("tc", f"{label} {name}: idx and distance bits equal to the "
+                      f"CUDA-core sweep: {same}; rescued rows {rescued}/"
+                      f"{p.shape[0]} ({rescued / p.shape[0]:.4f}) "
+                      f"[card: {smi}]")
+            if not same:
+                raise AssertionError(f"{label} {name}: the tensor-core "
+                                     "kernel differs from the CUDA-core one")
+        shares[name] = tuple(row)
+
+    from fpcr_tpu_torch.bench import match_kernels
+
+    worst = 0.0
+    guard_inputs = [("synthetic", build_scene(ft, "synthetic", dev)),
+                    ("hall", build_scene(ft, "hall", dev)),
+                    ("bunny", build_scene(ft, "bunny", dev))]
+    guard_inputs = [(k, s.source, s.target) for k, s in guard_inputs]
+    guard_inputs.append(("E1 +-300", *match_kernels.study_inputs(16384,
+                                                                  dev)))
+    for name, p, q in guard_inputs:
+        d, centre = mc._nn_tc_tile_values(p, q)
+        torch.cuda.synchronize()
+        cols = min(64, q.shape[0])
+        qt = q[:cols].double()
+        exact = ((p.double()[:, None, :] - qt[None]) ** 2).sum(-1)
+        pn = (p - centre).double().norm(dim=1)
+        qn = (q[:cols][None] - centre[:, None]).double().norm(dim=2)
+        g = CERT_GUARD * (pn[:, None] + qn) ** 2
+        ratio = float(((d[:, :cols].double() - exact).abs() / g).max())
+        worst = max(worst, ratio)
+        log("tc", f"guard on {name}: largest |d~ - d64| / G over "
+                  f"{p.shape[0]} x {cols} pairs {ratio:.4f} (<= 0.25) "
+                  f"[card: {smi}]")
+    if worst > 0.25:
+        raise AssertionError(f"the sweep's values strayed {worst:.3f} G")
+    return shares, worst
 
 
 def band_cases(torch, np, ft, dev):
@@ -850,7 +996,9 @@ def phase_studies_vs_plain(torch, np, ft, dev):
 
 
 def _wrappers():
-    from fpcr_tpu_torch.ops.matching_cuda import (nn_argmin_cuda,
+    from fpcr_tpu_torch.ops.matching_cuda import (_nn_argmin_cudacore,
+                                                  _nn_argmin_packed_cudacore,
+                                                  nn_argmin_cuda,
                                                   nn_argmin_packed_cuda,
                                                   nn_min_only_cuda)
     from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
@@ -862,7 +1010,19 @@ def _wrappers():
             "nn_min_only": nn_min_only_cuda,
             "morton_nn": morton_nn_cuda,
             "morton_nn_packed": morton_nn_packed_cuda,
-            "ndt_fused_moments": ndt_fused_moments_cuda}
+            "ndt_fused_moments": ndt_fused_moments_cuda,
+            "nn_argmin_cudacore": _nn_argmin_cudacore,
+            "nn_argmin_packed_cudacore": _nn_argmin_packed_cudacore}
+
+
+# the CUDA-core sweep of K1 and K2: the yardstick, on no path of the package
+CUDACORE = ("nn_argmin_cudacore", "nn_argmin_packed_cudacore")
+# while the ICP paths rerun on the CUDA-core sweep: the wrapper that counts
+# a kernel's launches in its place
+KERNEL_ALIAS = {}
+# the printed digits of each registration: {name: (iterations, final error,
+# GT transform RMSE)}
+RECORDS = {}
 
 
 def _keyed_wrappers():
@@ -903,7 +1063,7 @@ def register(torch, ft, name, s, run, thr, kernel, per_iteration=1):
     """Register one scene with ``run(source, target)``, check the result
     against its ground truth and the kernel's launches against the
     iterations, and log the outcome."""
-    w = _wrappers()[kernel]
+    w = _wrappers()[KERNEL_ALIAS.get(kernel, kernel)]
     before = w.launches
     t0 = time.perf_counter()
     res = run(s.source, s.target)
@@ -918,11 +1078,12 @@ def register(torch, ft, name, s, run, thr, kernel, per_iteration=1):
                 and bool(torch.isfinite(fine.points).all())
                 and bool(torch.isfinite(err[:it]).all())
                 and bool(torch.isnan(err[it:]).all()))
+    RECORDS[name] = (it, f"{float(err[it - 1]):.6e}", f"{gt:.3e}")
     log("main", f"{name}: iterations {it}, converged "
                 f"{bool(fine.converged)}, final error "
                 f"{float(err[it - 1]):.6e}, GT transform RMSE {gt:.3e} "
-                f"(< {thr:g}), wall {wall:.3f} s, {kernel} launches "
-                f"+{grown}")
+                f"(< {thr:g}), wall {wall:.3f} s, "
+                f"{KERNEL_ALIAS.get(kernel, kernel)} launches +{grown}")
     if not ok_shape:
         raise AssertionError(f"{name}: non-finite or misshapen result")
     if grown < per_iteration * it:
@@ -968,10 +1129,11 @@ def phase_main_path(torch, ft, dev):
             a, b, coarse_config=ft.ICPConfig(max_iterations=40),
             fine_config=ft.ICPConfig(matcher="morton", max_iterations=20),
             coarse_points=2048)
-        k1 = _wrappers()["nn_argmin"].launches
+        k1_wrapper = _wrappers()[KERNEL_ALIAS.get("nn_argmin", "nn_argmin")]
+        k1 = k1_wrapper.launches
         register(torch, ft, "coarse-to-fine bunny-full-35947", s, run, 1e-4,
                  "morton_nn")
-        if _wrappers()["nn_argmin"].launches == k1:
+        if k1_wrapper.launches == k1:
             raise AssertionError("the coarse stage never launched K1")
 
     import numpy as np
@@ -1063,21 +1225,28 @@ def phase_main_path(torch, ft, dev):
         studies["E1"] = match_kernels.main(16384)
 
     # (path, run, the kernel it must launch, the kernels it must not)
-    packed_not = ("nn_argmin", "morton_nn", "nn_min_only")
-    paths = [("point ICP, K1", brute("point", SCENES), "nn_argmin", ()),
-             ("point ICP packed6_idx, K2",
-              brute("point", PACKED_SCENES, "nn_argmin_packed", **PACKED),
-              "nn_argmin_packed", packed_not + ("morton_nn_packed",)),
-             ("plane ICP, K1", brute("plane", PLANE_SCENES), "nn_argmin", ()),
-             ("morton ICP, K3", morton(), "morton_nn", ()),
+    packed_not = ("nn_argmin", "morton_nn", "nn_min_only") + CUDACORE
+    k1_paths = [("point ICP, K1", brute("point", SCENES), "nn_argmin",
+                 CUDACORE),
+                ("point ICP packed6_idx, K2",
+                 brute("point", PACKED_SCENES, "nn_argmin_packed", **PACKED),
+                 "nn_argmin_packed", packed_not + ("morton_nn_packed",)),
+                ("plane ICP, K1", brute("plane", PLANE_SCENES), "nn_argmin",
+                 CUDACORE),
+                ("coarse-to-fine, K1 + K3", coarse_to_fine, "morton_nn",
+                 CUDACORE),
+                ("register_ndt, gather NDT + K1", register_ndt_hall,
+                 "nn_argmin", CUDACORE)]
+    paths = k1_paths[:3] + [
+             ("morton ICP, K3", morton(), "morton_nn", CUDACORE),
              ("morton ICP packed6_idx, K3p",
               morton(PACKED_MORTON_SCENES, "morton_nn_packed", **PACKED),
               "morton_nn_packed", packed_not + ("nn_argmin_packed",)),
-             ("coarse-to-fine, K1 + K3", coarse_to_fine, "morton_nn", ()),
-             ("NDT run_ndt, K4", ndt_runs, "ndt_fused_moments", ()),
-             ("NDT map tracking, K4", map_tracking, "ndt_fused_moments", ()),
-             ("register_ndt, gather NDT + K1", register_ndt_hall,
-              "nn_argmin", ()),
+             k1_paths[3],
+             ("NDT run_ndt, K4", ndt_runs, "ndt_fused_moments", CUDACORE),
+             ("NDT map tracking, K4", map_tracking, "ndt_fused_moments",
+              CUDACORE),
+             k1_paths[4],
              ("packed-reduction study, K1 + K2 + min-only", study,
               "nn_min_only", ("morton_nn", "morton_nn_packed")),
              ("split-distance study E4, Kernel S", e4,
@@ -1100,7 +1269,39 @@ def phase_main_path(torch, ft, dev):
             raise AssertionError(f"path '{path}' launched {ran}")
         for k, v in counts.items():
             totals[k] += v
+    same_on_cudacore(torch, k1_paths)
     return totals, study_out, studies
+
+
+def same_on_cudacore(torch, k1_paths):
+    """Run every ICP path through K1 or K2 again with the CUDA-core sweep
+    in the tensor-core kernels' place (``ops.matching``'s names patched):
+    each registration must end with the same iterations, final error and
+    GT error to the printed digits."""
+    from fpcr_tpu_torch.ops import matching as om
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+
+    first = dict(RECORDS)
+    RECORDS.clear()
+    saved = om.nn_argmin_cuda, om.nn_argmin_packed_cuda
+    om.nn_argmin_cuda = mc._nn_argmin_cudacore
+    om.nn_argmin_packed_cuda = mc._nn_argmin_packed_cudacore
+    KERNEL_ALIAS.update(nn_argmin="nn_argmin_cudacore",
+                        nn_argmin_packed="nn_argmin_packed_cudacore")
+    try:
+        for path, fn, _, _ in k1_paths:
+            counts = drive(torch, f"{path}, on the CUDA-core sweep", fn)
+            if counts["nn_argmin"] or counts["nn_argmin_packed"]:
+                raise AssertionError(f"{path}: the tensor-core kernels ran")
+    finally:
+        om.nn_argmin_cuda, om.nn_argmin_packed_cuda = saved
+        KERNEL_ALIAS.clear()
+    for name, digits in RECORDS.items():
+        log("main", f"{name}: tensor-core {first[name]}, CUDA-core {digits}"
+                    f" -> {'equal' if first[name] == digits else 'DIFFER'}")
+        if first[name] != digits:
+            raise AssertionError(f"{name}: the runs differ under the two "
+                                 "instances")
 
 
 def _replay(ft, cfg, s, steps):
@@ -1249,7 +1450,8 @@ def phase_reference(torch, ft, dev):
                       ft.transformed_scene(src, *NEAR_GT))
 
 
-OUR_KERNELS = ("nn_partial_kernel", "nn_combine_kernel",
+OUR_KERNELS = ("nn_tc_sweep_kernel", "nn_tc_finish_kernel",
+               "nn_partial_kernel", "nn_combine_kernel",
                "nn_packed_epilogue_kernel", "nn_min_combine_kernel",
                "morton_band_kernel", "ndt_moments_kernel",
                "split_partial_kernel", "split_combine_kernel")
@@ -1358,6 +1560,7 @@ def phase_times(torch, ft, dev, smi, study):
     for name, (ms, agree) in study.items():
         log("times", f"packed-reduction study N=M=16384 {name}: {ms:.4f} "
                      f"ms, idx agreement with K1 {agree:.5f} {card}")
+    legs, ablation, share = tc_legs(p, q, card)
 
     # one iteration's stages at N=16384, each alone, min of 20
     idx, d = nn_argmin_cuda(p, q)
@@ -1389,7 +1592,46 @@ def phase_times(torch, ft, dev, smi, study):
             "min_only_ms": mo["min"], "min_only_plain_ms": mo_plain["min"],
             "n": p.shape[0], "m": q.shape[0],
             "plain_expand_ms": plain_expand["min"], "ms_per_iter": per_iter,
-            "svd_ms": stage_ms["svd + det fix"]}
+            "svd_ms": stage_ms["svd + det fix"], "legs": legs,
+            "ablation": ablation, "share": share}
+
+
+def tc_legs(p, q, card):
+    """The tensor-core K1 and K2 against their CUDA-core sweep on the same
+    inputs, in legs (CUDA-core, tensor-core, tensor-core, CUDA-core): the
+    call time (CUDA events, min of 20) and the kernel time (profiler) of
+    each leg; the sweep's kernel time alone and in its ablations; and the
+    rescued share of each kernel here."""
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+    from fpcr_tpu_torch.ops.matching import packed_idx_bits
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms
+
+    bits = packed_idx_bits(q.shape[0])
+    calls = {"K1 CUDA-core": lambda: mc._nn_argmin_cudacore(p, q),
+             "K1": lambda: mc.nn_argmin_cuda(p, q),
+             "K2 CUDA-core": lambda: mc._nn_argmin_packed_cudacore(
+                 p, q, idx_bits=bits),
+             "K2": lambda: mc.nn_argmin_packed_cuda(p, q, idx_bits=bits)}
+    legs = {}
+    for k in ("K1 CUDA-core", "K1", "K1", "K1 CUDA-core",
+              "K2 CUDA-core", "K2", "K2", "K2 CUDA-core"):
+        call = cuda_time_ms(calls[k], repeats=20, warmup=3)["min"]
+        kern = kernel_ms(calls[k])
+        legs.setdefault(k, []).append((call, kern))
+        log("times", f"leg {k} N=M={p.shape[0]}: call {call:.4f} ms, kernel "
+                     f"{kern:.4f} ms {card}")
+    ablation = {}
+    for mode in ("sweep", "no reduce", "no staging", "skeleton"):
+        ablation[mode] = kernel_ms(lambda: mc._nn_tc_sweep_only(p, q, mode))
+        log("times", f"tensor-core sweep alone, {mode}: kernel "
+                     f"{ablation[mode]:.4f} ms (profiler) {card}")
+    mc.reset_rescued(p.device)
+    calls["K1"]()
+    calls["K2"]()
+    share = [r / p.shape[0] for r in mc.rescued_rows(p.device)]
+    log("times", f"rescued share N=M={p.shape[0]}: K1 {share[0]:.4f}, K2 "
+                 f"{share[1]:.4f}")
+    return legs, ablation, share
 
 
 def traced_iteration(run, k_lo=2, k_hi=12):
@@ -1662,14 +1904,15 @@ def kernels_line(launches, errs, times, times2, times3, times5):
                      f"{DESIGN_PAIR_FLOPS} flops a pair would take "
                      f"{DESIGN_PAIR_FLOPS * pairs / FP32_FLOPS * 1e3:.6f} ms")
     matching = "fpcr_tpu_torch/csrc/matching.cu"
+    nn_tc = "fpcr_tpu_torch/csrc/nn_tc.cu"
     morton = "fpcr_tpu_torch/csrc/morton.cu"
     return {"kernels": [
-        kernel_entry("nn_argmin", matching,
+        kernel_entry("nn_argmin", nn_tc,
                      "fpcr_tpu/ops/matching_pallas.py:196",
                      launches["nn_argmin"], errs["nn_argmin"],
                      times["k1_ms"], times["plain_ms"],
                      12 * n + 12 * m + 8 * n, ARGMIN_PAIR_FLOPS * n * m),
-        kernel_entry("nn_argmin_packed", matching,
+        kernel_entry("nn_argmin_packed", nn_tc,
                      "fpcr_tpu/ops/matching_pallas.py:273",
                      launches["nn_argmin_packed"],
                      errs["nn_argmin_packed"], times["k2_ms"],
@@ -1739,7 +1982,8 @@ def phase_times_studies(torch, dev, smi, studies):
     from fpcr_tpu_torch.bench import match_kernels, reduction2
     from fpcr_tpu_torch.ops.matching import (E1_VARIANTS, e1_idx_bits,
                                              form_lanes, nn_form_plain)
-    from fpcr_tpu_torch.ops.matching_cuda import nn_argmin_cuda, nn_form_cuda
+    from fpcr_tpu_torch.ops.matching_cuda import (_nn_argmin_cudacore,
+                                                  nn_argmin_cuda, nn_form_cuda)
     from fpcr_tpu_torch.ops.split import split_nn_plain, split_operands
     from fpcr_tpu_torch.ops.split_cuda import split_nn_cuda
     from fpcr_tpu_torch.utils.timing import cuda_time_ms
@@ -1777,8 +2021,12 @@ def phase_times_studies(torch, dev, smi, studies):
                 + f" (profiler) {card}")
             out["keep by M"] = grow
     p, q = match_kernels.study_inputs(16384, dev)
-    k1 = kernel_ms(lambda: nn_argmin_cuda(p, q))
+    # the forms' ratios stay against K1's CUDA-core sweep, the yardstick
+    # they were first measured against
+    k1 = kernel_ms(lambda: _nn_argmin_cudacore(p, q))
+    k1_tc = kernel_ms(lambda: nn_argmin_cuda(p, q))
     log("times", f"K1 at E1's inputs (±300) N=M=16384: kernel {k1:.4f} ms "
+                 f"on the CUDA cores, {k1_tc:.4f} ms on the tensor cores "
                  f"(profiler) {card}")
     for v, (form, reduce) in E1_VARIANTS.items():
         q_w, p_sq, _ = form_lanes(p, q, form)
@@ -1788,7 +2036,8 @@ def phase_times_studies(torch, dev, smi, studies):
         measure(f"e1 {v}", lambda: nn_form_cuda(p, q, q_w, psq, **kw),
                 lambda: nn_form_plain(p, q, q_w, psq, **kw), 16384, 16384)
         log("times", f"e1 {v} ({form}, {reduce}): kernel "
-                     f"{out[f'e1 {v}']['kernel_ms'] / k1:.3f}x K1's {card}")
+                     f"{out[f'e1 {v}']['kernel_ms'] / k1:.3f}x the CUDA-core "
+                     f"K1's {card}")
     for name, res in studies.items():
         log("times", f"study {name}: {json.dumps(res)} {card}")
     return out
@@ -1805,6 +2054,7 @@ def main():
     name, smi = phase_device(torch)
     phase_build()
     errs = phase_kernel_vs_plain(torch, np, ft, dev)
+    shares, guard = phase_tc_vs_cudacore(torch, np, ft, dev, smi)
     errs.update(phase_band_vs_plain(torch, np, ft, dev))
     errs["ndt_fused_moments"] = phase_fused_vs_plain(torch, np, ft, dev)
     errs.update(phase_studies_vs_plain(torch, np, ft, dev))
@@ -1816,6 +2066,12 @@ def main():
     times5 = phase_times_studies(torch, dev, smi, studies)
     log("times", f"kernel_ms: {len(PROFILER_LOSSES)} profiler sessions lost "
                  f"events (seen, launched): {PROFILER_LOSSES}")
+    legs = times["legs"]
+    log("tc", "K1 / K2 at N=M=16384, (call, kernel) ms per leg, CUDA-core "
+              f"then tensor-core: {json.dumps(legs)}; sweep ablations "
+              f"{json.dumps(times['ablation'])}; rescued shares (K1, K2) "
+              f"{json.dumps(shares)}; guard's largest measured ratio "
+              f"{guard:.4f} [card: {smi}]")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(launches, errs, times, times2, times3,
                                   times5)), flush=True)

@@ -146,6 +146,14 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_nn_min_partial.restype = i32
     lib.fpcr_nn_min_combine.argtypes = [ptr, i32, i32, ptr, ptr]
     lib.fpcr_nn_min_combine.restype = i32
+    lib.fpcr_nn_tc_rows_per_block.argtypes = []
+    lib.fpcr_nn_tc_rows_per_block.restype = i32
+    lib.fpcr_nn_tc_sweep.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr,
+                                     ptr, ptr, ptr]
+    lib.fpcr_nn_tc_sweep.restype = i32
+    lib.fpcr_nn_tc_finish.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                      i32, i32, i32, ptr, ptr, ptr, ptr]
+    lib.fpcr_nn_tc_finish.restype = i32
     for name in ("fpcr_morton_nn", "fpcr_morton_nn_packed",
                  "fpcr_morton_nn_unculled", "fpcr_morton_nn_packed_unculled"):
         fn = getattr(lib, name)

@@ -5,7 +5,9 @@
 
 The brute-force NN under the script's distance forms, on the CUDA cores as
 the script computed them (HIGHEST f32), each with its output formula
-(``ops/matching.py::nn_e1``): v0, kernel K1 (the difference form); v1 and
+(``ops/matching.py::nn_e1``): v0, kernel K1's function on the CUDA cores
+(the difference form, ``_nn_argmin_cudacore``, the yardstick of the
+studies' ratios since the tensor-core K1 took its place); v1 and
 v3 (one function), the biased form ``|q|² + C − 2p·q`` with an argmin; v2
 its packed key; v4 the expansion ``(|q|² − 2p·q) + |p|²`` packed; v5 and
 v6 the 5-lane sum p̂·q̂, packed and argmin. On the script's inputs
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.matching import nn_e1
-from ..ops.matching_cuda import nn_argmin_cuda
+from ..ops.matching_cuda import _nn_argmin_cudacore
 from ..utils.precision import pin_f32_precision
 from ..utils.timing import cuda_time_ms
 
@@ -81,7 +83,7 @@ def main(n: int = 16384, block_m: int = 8192) -> dict:
     card = torch.cuda.get_device_name(0)
     out, timed = {}, {}
     for name in VARIANTS:
-        fn = ((lambda: nn_argmin_cuda(p, q)) if name == "v0"
+        fn = ((lambda: _nn_argmin_cudacore(p, q)) if name == "v0"
               else (lambda name=name: nn_e1(p, q, name, block_m)))
         parity, rel = check_correct(fn, p, q, exact_idx, exact_d, name)
         key = "v1" if name == "v3" else name

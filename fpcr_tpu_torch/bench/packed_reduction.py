@@ -7,7 +7,9 @@ On the same inputs (``numpy.random.default_rng(0)``: q uniform in (-2, 2),
 p = q + N(0, 0.3), N = M = n, 16,384 by default) it times, by CUDA events,
 the three reductions of the brute-force NN sweep:
 
-* the current kernel, K1 (``make_current``): min and argmin;
+* the current kernel, K1 (``make_current``): min and argmin, on the CUDA
+  cores (``_nn_argmin_cudacore``, the yardstick of the study's ratios), and
+  the tensor-core K1 beside it;
 * ``pint`` (``make_pint``): the packed (value|index) int32 min, which is
   kernel K2 with the index bits :func:`pint_idx_bits` takes from
   ``round_up(m, block_m)``. At 16,384 both of the script's block widths,
@@ -17,7 +19,8 @@ the three reductions of the brute-force NN sweep:
 * ``minonly`` (``make_minonly``): the least distance alone, the floor of
   the two, by the min-only sweep (``csrc/matching.cu``).
 
-It prints each time and the share of rows whose index equals K1's.
+It prints each time and the share of rows whose index equals the CUDA-core
+K1's.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import torch
 
 from ..core.cloud import round_up
 from ..ops.matching import nn_argmin_packed, pairwise_sqdist_exact
-from ..ops.matching_cuda import nn_argmin_cuda, nn_min_only_cuda
+from ..ops.matching_cuda import (_nn_argmin_cudacore, nn_argmin_cuda,
+                                 nn_min_only_cuda)
 from ..utils.precision import pin_f32_precision
 from ..utils.timing import cuda_time_ms
 
@@ -99,17 +103,19 @@ def study_inputs(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def main(n: int = 16384) -> dict:
-    """Time K1, pint (block width 8,192) and min-only at N = M = ``n`` on
-    the card; print and return ``{variant: (ms, index
-    agreement with K1)}`` (agreement -1 for min-only, as the script)."""
+    """Time K1 on the CUDA cores (the study's yardstick) and on the tensor
+    cores, pint (block width 8,192) and min-only at N = M = ``n`` on the
+    card; print and return ``{variant: (ms, index agreement with K1)}``
+    (agreement -1 for min-only, as the script)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the packed-reduction study needs a CUDA device")
     pin_f32_precision()
     dev = torch.device("cuda", 0)
     p, q = study_inputs(n, dev)
-    idx_ref, _ = nn_argmin_cuda(p, q)
+    idx_ref, _ = _nn_argmin_cudacore(p, q)
     variants = {
-        "current(argmin+min) K1": lambda: nn_argmin_cuda(p, q),
+        "current(argmin+min) K1 CUDA-core": lambda: _nn_argmin_cudacore(p, q),
+        "K1 tensor-core": lambda: nn_argmin_cuda(p, q),
         "pint K2": lambda: nn_argmin_pint(p, q),
         "minonly": lambda: nn_min_only(p, q),
     }

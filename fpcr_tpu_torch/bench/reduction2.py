@@ -21,8 +21,9 @@ compute one function share one launch:
 ``main`` runs the script's inputs (the 128² saddle grid and ``tgt = src +
 0.01``) and its gates (:func:`check_gates`, where a tie within the split's
 precision counts as agreeing with K1's exact pick), raising when one fails,
-then times K1 (``full_lib``) and each function once by CUDA events, min of
-20, printed under every name that computes it. The script's ``blocks`` sweep tiles the TPU grid and has
+then times K1 on the CUDA cores (``full_lib K1 CUDA-core``) and each
+function once by CUDA events, min of 20, printed under every name that
+computes it. The script's ``blocks`` sweep tiles the TPU grid and has
 no counterpart here.
 """
 
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from ..core.cloud import round_up
-from ..ops.matching_cuda import nn_argmin_cuda
+from ..ops.matching_cuda import _nn_argmin_cudacore
 from ..ops.split import split_nn, split_operands
 from ..utils.precision import pin_f32_precision
 from ..utils.timing import cuda_time_ms
@@ -128,11 +129,11 @@ def main(bm: int = 8192) -> dict:
         raise RuntimeError("the reduction study needs a CUDA device")
     pin_f32_precision()
     src, tgt = study_inputs(torch.device("cuda", 0))
-    i_lib, _ = nn_argmin_cuda(src, tgt)
+    i_lib, _ = _nn_argmin_cudacore(src, tgt)
     gates = check_gates(src, tgt, i_lib, bm)
     card = torch.cuda.get_device_name(0)
-    times = {"full_lib": cuda_time_ms(lambda: nn_argmin_cuda(src, tgt),
-                                      repeats=20, warmup=3)["min"]}
+    times = {"full_lib K1 CUDA-core": cuda_time_ms(
+        lambda: _nn_argmin_cudacore(src, tgt), repeats=20, warmup=3)["min"]}
     by_epilogue = {}
     for v in VARIANTS:
         e = EPILOGUE[v]
@@ -142,7 +143,8 @@ def main(bm: int = 8192) -> dict:
                 warmup=3)["min"]
         times[v] = by_epilogue[e]
     for name, ms in times.items():
-        how = "K1" if name == "full_lib" else f"Kernel S '{EPILOGUE[name]}'"
+        how = ("K1 on the CUDA cores" if name.startswith("full_lib")
+               else f"Kernel S '{EPILOGUE[name]}'")
         print(f"{name}: {ms:.4f} ms ({how}, N=M={src.shape[0]}, min of 20 "
               f"by CUDA events, {card})", flush=True)
     return {"gates": gates, "times": times}

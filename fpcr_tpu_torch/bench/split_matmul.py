@@ -10,7 +10,8 @@ tensor cores, against K1. On the script's inputs, the width-128 synthetic
 scene, "far" = the source and "near" = the source after 12 iterations of
 ``run_icp``, it prints for each split the mismatches against K1, the
 largest extra squared distance of its picks and the largest |d err|, then
-times K1 (``ref``) and x6 / x3 by CUDA events, min of 20. The script's
+times K1 on the CUDA cores (``ref K1 CUDA-core``, the study's
+yardstick) and x6 / x3 by CUDA events, min of 20. The script's
 ``block_n`` sweep tiles the TPU grid and has no counterpart here.
 """
 
@@ -24,7 +25,7 @@ from ..core.cloud import round_up
 from ..data.synthetic import synthetic_scene
 from ..models.icp import ICPConfig, run_icp
 from ..ops.matching import gather_correspondences
-from ..ops.matching_cuda import nn_argmin_cuda
+from ..ops.matching_cuda import _nn_argmin_cudacore
 from ..ops.split import split_nn, split_operands
 from ..utils.precision import pin_f32_precision
 from ..utils.timing import cuda_time_ms
@@ -54,7 +55,8 @@ def nn_argmin_split(p: torch.Tensor, q: torch.Tensor, terms: int = 6,
 
 def main() -> dict:
     """Run the study on the card; print and return ``{"x6 far": (mism, max
-    extra sqdist, max |d err|), ..., "ref": ms, "x6": ms, "x3": ms}``."""
+    extra sqdist, max |d err|), ..., "ref K1 CUDA-core": ms, "x6": ms,
+    "x3": ms}``."""
     if not torch.cuda.is_available():
         raise RuntimeError("the split-distance study needs a CUDA device")
     pin_f32_precision()
@@ -66,7 +68,7 @@ def main() -> dict:
     out = {}
     for terms in (6, 3):
         for tag, p in (("far", src), ("near", near)):
-            i_ref, d_ref = nn_argmin_cuda(p, tgt)
+            i_ref, d_ref = _nn_argmin_cudacore(p, tgt)
             i_sp, d_sp = nn_argmin_split(p, tgt, terms=terms)
             mism = int((i_ref != i_sp).sum())
             q_ref = gather_correspondences(tgt, i_ref)
@@ -77,7 +79,7 @@ def main() -> dict:
             print(f"x{terms} {tag}: mism {mism}/{p.shape[0]}, max extra "
                   f"sqdist {worse:.3e}, max |d err| {err:.3e}", flush=True)
             out[f"x{terms} {tag}"] = (mism, worse, err)
-    runs = {"ref": lambda: nn_argmin_cuda(src, tgt),
+    runs = {"ref K1 CUDA-core": lambda: _nn_argmin_cudacore(src, tgt),
             "x6": lambda: nn_argmin_split(src, tgt, terms=6),
             "x3": lambda: nn_argmin_split(src, tgt, terms=3)}
     for name, fn in runs.items():

@@ -209,6 +209,130 @@ def nn_argmin_packed(
     return nn_argmin_packed_plain(p, q, q_mask, idx_bits=idx_bits)
 
 
+# The certified finish of the tensor-core K1 and K2 (csrc/nn_tc.cu). The
+# sweep centres each block of TC_BLOCK_ROWS source rows on their mean c and
+# keeps, per row, the least norm-form value of each tile of TC_TILE
+# targets; a masked target carries CERT_SURROGATE. Its value for the pair
+# (i, j) lies within CERT_GUARD (|p_i - c| + |q_j - c|)^2 of the difference
+# form (the derivation is in nn_tc.cu's header).
+TC_BLOCK_ROWS = 128
+TC_TILE = 128
+CERT_GUARD = 24.0 * 2.0 ** -23
+CERT_SURROGATE = 1e30
+_INT_MAX = 0x7FFFFFFF
+
+
+def tc_centres(p: torch.Tensor) -> torch.Tensor:
+    """Each source row's centre f32[N, 3]: the mean of its block of
+    ``TC_BLOCK_ROWS`` rows, as the sweep takes it (up to the order of the
+    f32 sum)."""
+    p = p.to(torch.float32)
+    block = torch.arange(p.shape[0], device=p.device) // TC_BLOCK_ROWS
+    sums = torch.zeros((int(block.max()) + 1 if p.shape[0] else 0, 3),
+                       dtype=torch.float32, device=p.device)
+    sums.index_add_(0, block, p)
+    counts = torch.bincount(block).to(torch.float32)
+    return (sums / counts[:, None])[block]
+
+
+def pair_guard(p: torch.Tensor, q: torch.Tensor,
+               centres: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """G f64[N, M]: the bound ``CERT_GUARD (|p_i - c_i| + |q_j - c_i|)^2``
+    that the sweep's value of each pair keeps to."""
+    p = p.to(torch.float32)
+    c = tc_centres(p) if centres is None else centres
+    pn = (p - c).double().norm(dim=1)
+    qn = (q.to(torch.float32)[None, :, :] - c[:, None, :]).double().norm(
+        dim=2)
+    return CERT_GUARD * (pn[:, None] + qn) ** 2
+
+
+def nn_certified_plain(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    q_mask: Optional[torch.Tensor],
+    d_approx: torch.Tensor,
+    guard: float = CERT_GUARD,
+    *,
+    centres: Optional[torch.Tensor] = None,
+    rule: str = "argmin",
+    idx_bits: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain mirror of the tensor-core K1 (``rule='argmin'``) and K2
+    (``'packed'``) from any approximate distance matrix ``d_approx`` [N, M]
+    that keeps to :func:`pair_guard` with coefficient ``guard``.
+
+    Per row, as the sweep: the least value (its float bits as an int) of
+    each tile of ``TC_TILE`` targets, the tile t1 of the least, and b2, the
+    least of every other tile. As the finish: the exact pick inside tile t1
+    (K1's first minimum, or K2's least key), with exact distance d. The pick
+    is certified where b2 - G > t, t = d (K1) or the upper edge of d's
+    bucket (K2), G = guard (2|p - c| + sqrt(t))^2: a target outside t1 that
+    reached t would lie within sqrt(t) of p, so its value would be below
+    t + G. Every other row takes the exact plain version. Returns ``(idx
+    int32[N], sqdist f32[N], rescued bool[N])``; the first two equal
+    :func:`nn_argmin_plain` (``exact=True``) or :func:`nn_argmin_packed_plain`
+    wherever the approximation keeps to its guard."""
+    if rule not in ("argmin", "packed"):
+        raise ValueError(f"rule must be 'argmin' or 'packed', got {rule!r}")
+    p = p.to(torch.float32)
+    q = q.to(torch.float32)
+    n, m = p.shape[0], q.shape[0]
+    if rule == "packed":
+        check_idx_bits(m, idx_bits)
+    valid = (torch.ones(m, dtype=torch.bool, device=p.device)
+             if q_mask is None else q_mask.to(torch.bool))
+    e = torch.where(valid[None, :], d_approx.to(torch.float32),
+                    torch.full_like(d_approx, CERT_SURROGATE,
+                                    dtype=torch.float32))
+    tiles = -(-m // TC_TILE)
+    value = torch.full((n, tiles * TC_TILE), _INT_MAX, dtype=torch.int32,
+                       device=p.device)
+    value[:, :m] = e.contiguous().view(torch.int32)
+    tile_min = value.view(n, tiles, TC_TILE).amin(dim=2)
+    t1 = torch.argmin(tile_min, dim=1)  # the lower tile on a tie
+    b2 = tile_min.scatter(1, t1[:, None], _INT_MAX).amin(dim=1)
+    # the exact pick inside tile t1
+    cols = t1[:, None] * TC_TILE + torch.arange(TC_TILE, device=p.device)
+    inside = cols < m
+    cols = torch.clamp(cols, max=m - 1)
+    diff = p[:, None, :] - q[cols]
+    d = torch.sum(diff * diff, dim=-1)
+    d = torch.where(inside & valid[cols], d, torch.full_like(d, float("inf")))
+    if rule == "packed":
+        step = 1 << idx_bits
+        key = torch.clamp(packed_keys(d, cols.to(torch.int32),
+                                      idx_bits).amin(dim=1),
+                          max=PACKED_KEY_INIT)  # a masked key stays above
+        idx = torch.clamp(key & (step - 1), max=m - 1)
+        diff = p - q[idx.long()]
+        dist = torch.sum(diff * diff, dim=1)
+        found = key != PACKED_KEY_INIT
+        t = ((dist.view(torch.int32) & -step) + step).view(torch.float32)
+    else:
+        arg = torch.argmin(d, dim=1)  # the first minimum in the tile
+        idx = torch.gather(cols, 1, arg[:, None])[:, 0].to(torch.int32)
+        dist = torch.gather(d, 1, arg[:, None])[:, 0]
+        found = torch.isfinite(dist)
+        t = dist
+    t = t.double()
+    c = tc_centres(p) if centres is None else centres
+    r = 2.0 * (p - c).double().norm(dim=1) + (t * (1.0 + 2.0 ** -20)).sqrt()
+    lo = torch.where(b2 == _INT_MAX, torch.full_like(t, float("inf")),
+                     b2.view(torch.float32).double())
+    certified = (b2 >= 0) & found & (lo - guard * r * r > t)
+    idx, dist = idx.to(torch.int32).clone(), dist.clone()
+    rows = torch.nonzero(~certified).flatten()
+    if rows.numel():
+        sub = p[rows].contiguous()
+        if rule == "packed":
+            ri, rd = nn_argmin_packed_plain(sub, q, q_mask, idx_bits=idx_bits)
+        else:
+            ri, rd = nn_argmin_plain(sub, q, q_mask, exact=True)
+        idx[rows], dist[rows] = ri, rd
+    return idx, dist, ~certified
+
+
 def sq_norm(x: torch.Tensor) -> torch.Tensor:
     """|x|² of each row of x f32[N,3], summed left to right as XLA reduces
     the three lanes of ``jnp.sum(x * x, axis=1)``."""

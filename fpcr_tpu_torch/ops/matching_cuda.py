@@ -1,14 +1,21 @@
 """Kernels K1, K2 and the min-only sweep on Hopper: brute-force nearest
-neighbour, CUDA C++ (``csrc/matching.cu``).
+neighbour, CUDA C++ (``csrc/nn_tc.cu``, ``csrc/matching.cu``).
 
 * :func:`nn_argmin_cuda` launches K1, exact NN, which replaces the TPU
-  kernel ``fpcr_tpu/ops/matching_pallas.py::nn_argmin_pallas``; plain
-  version ``ops.matching.nn_argmin_plain``, dispatcher
-  ``ops.matching.nn_argmin``;
+  kernel ``fpcr_tpu/ops/matching_pallas.py::nn_argmin_pallas``: the
+  tensor-core candidate sweep and the certified finish of ``nn_tc.cu``;
+  plain version ``ops.matching.nn_argmin_plain``, dispatcher
+  ``ops.matching.nn_argmin``, the finish's CPU mirror
+  ``ops.matching.nn_certified_plain``;
 * :func:`nn_argmin_packed_cuda` launches K2, the packed (value|index)
-  reduction of the same function's mode ``'packed6_idx'``; plain version
+  reduction of the same function's mode ``'packed6_idx'``, through the
+  same sweep and K2's finish; plain version
   ``ops.matching.nn_argmin_packed_plain``, dispatcher
   ``ops.matching.nn_argmin_packed``;
+* ``_nn_argmin_cudacore`` and ``_nn_argmin_packed_cudacore`` launch the
+  same two functions on the CUDA cores (``matching.cu``'s sweep): the
+  yardstick of the studies and of the card's checks, on no path;
+  :func:`rescued_rows` reads how many rows the finish rescanned exactly;
 * :func:`nn_min_only_cuda` launches the min-only sweep of
   ``scripts/exp_packed_reduction.py::make_minonly``; plain version and
   dispatcher in ``bench/packed_reduction.py``;
@@ -37,6 +44,12 @@ from ..core.cloud import round_up
 
 SLICE_QUANTUM = 256  # a target slice is a multiple of this many targets
 BLOCKS_PER_SM = 4  # the launch aims at this many blocks per SM
+TC_MAX_SLICE = 4096  # targets a sweep block holds in shared memory
+# the sweep's modes (csrc/nn_tc.cu): the sweep, the sweep that also writes
+# one tile's values, and the ablations without the reduction, without
+# restaging, or without either
+TC_MODES = {"sweep": 0, "dump": 1, "no reduce": 2, "no staging": 3,
+            "skeleton": 4}
 
 
 def plan_slices(n: int, m: int, rows_per_block: int,
@@ -101,13 +114,90 @@ def _check_inputs(what: str, p, q, q_mask) -> Optional[int]:
     return mask_ptr
 
 
-def _plan(p: torch.Tensor, m: int):
-    """``(lib, slices, slice_len)`` of a brute-force launch over ``p``."""
+def _plan(p: torch.Tensor, m: int, tensor_cores: bool = False):
+    """``(lib, slices, slice_len)`` of a brute-force launch over ``p``: the
+    CUDA-core sweep's rows per block, or the tensor-core sweep's."""
     lib = _build.load_library()
     sms = torch.cuda.get_device_properties(p.device).multi_processor_count
-    slices, slice_len = plan_slices(p.shape[0], m,
-                                    lib.fpcr_nn_rows_per_block(), sms)
+    rows = (lib.fpcr_nn_tc_rows_per_block() if tensor_cores
+            else lib.fpcr_nn_rows_per_block())
+    slices, slice_len = plan_slices(p.shape[0], m, rows, sms)
+    if tensor_cores and slice_len > TC_MAX_SLICE:  # a slice fits in smem
+        slices = math.ceil(m / TC_MAX_SLICE)
+        slice_len = round_up(math.ceil(m / slices), SLICE_QUANTUM)
     return lib, slices, slice_len
+
+
+_RESCUED = {}  # per device: int64[2], rows rescued by K1's and K2's finish
+
+
+def _rescue_counter(device) -> torch.Tensor:
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    counter = _RESCUED.get(device)
+    if counter is None:
+        counter = _RESCUED[device] = torch.zeros(2, dtype=torch.int64,
+                                                 device=device)
+    return counter
+
+
+def rescued_rows(device) -> Tuple[int, int]:
+    """``(K1, K2)``: the rows that the finish of :func:`nn_argmin_cuda` and
+    of :func:`nn_argmin_packed_cuda` rescanned exactly on ``device`` since
+    the last :func:`reset_rescued`. Reading it waits for the card."""
+    k1, k2 = _rescue_counter(device).tolist()
+    return k1, k2
+
+
+def reset_rescued(device) -> None:
+    _rescue_counter(device).zero_()
+
+
+def _sweep(lib, p, q, mask_ptr, slice_len: int, mode: str, stream,
+           dump: Optional[torch.Tensor] = None):
+    """Launch the tensor-core sweep; returns its partials int32[3, slices,
+    N] and the row blocks' centres f32[blocks, 4]."""
+    n, m = p.shape[0], q.shape[0]
+    slices = math.ceil(m / slice_len)
+    part = torch.empty((3, slices, n), dtype=torch.int32, device=p.device)
+    centres = torch.empty((math.ceil(n / lib.fpcr_nn_tc_rows_per_block()),
+                           4), dtype=torch.float32, device=p.device)
+    rc = lib.fpcr_nn_tc_sweep(
+        p.data_ptr(), q.data_ptr(), mask_ptr, n, m, slice_len,
+        TC_MODES[mode], part.data_ptr(), centres.data_ptr(),
+        None if dump is None else dump.data_ptr(), stream)
+    _raise_on(lib, rc, f"nn_tc_sweep ({mode})")
+    return part, centres
+
+
+def _nn_tc(fn, p, q, q_mask, idx_bits: Optional[int]):
+    """Launch the tensor-core sweep and the certified finish of K1
+    (``idx_bits`` None) or K2, counting both launches on ``fn``."""
+    packed = idx_bits is not None
+    mask_ptr = _check_inputs(fn.__name__, p, q, q_mask)
+    n, m = p.shape[0], q.shape[0]
+    if packed:
+        check_idx_bits(m, idx_bits)
+    idx = torch.empty(n, dtype=torch.int32, device=p.device)
+    dist = torch.empty(n, dtype=torch.float32, device=p.device)
+    if n == 0:
+        return idx, dist
+    lib, slices, slice_len = _plan(p, m, tensor_cores=True)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        part, centres = _sweep(lib, p, q, mask_ptr, slice_len, "sweep",
+                               stream)
+        fn.launches += 1
+        rc = lib.fpcr_nn_tc_finish(
+            p.data_ptr(), q.data_ptr(), mask_ptr, part.data_ptr(),
+            centres.data_ptr(), lib.fpcr_nn_tc_rows_per_block(), n, m,
+            slices, int(packed), idx_bits or 0, dist.data_ptr(),
+            idx.data_ptr(),
+            _rescue_counter(p.device).data_ptr() + 8 * int(packed), stream)
+        _raise_on(lib, rc, "nn_tc_finish")
+        fn.launches += 1
+    return idx, dist
 
 
 def nn_argmin_cuda(
@@ -116,43 +206,16 @@ def nn_argmin_cuda(
     q_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """For every source point, the index of its nearest valid target and
-    the squared distance, computed by kernel K1 on the card.
+    the squared distance, computed by kernel K1 on the card: the
+    tensor-core candidate sweep and the certified finish of
+    ``csrc/nn_tc.cu``, bit for bit the CUDA-core sweep's output.
 
     ``p`` f32[N,3] and ``q`` f32[M,3] (M >= 1), contiguous, on one CUDA
     device; ``q_mask`` optional bool/uint8[M]. Returns ``(idx int32[N],
     sqdist f32[N])``: ties go to the lowest index; a row with no valid
-    target gets idx 0 and ``inf``.
+    target gets idx 0 and ``inf``. Two launches: the sweep and the finish.
     """
-    mask_ptr = _check_inputs("nn_argmin_cuda", p, q, q_mask)
-    n, m = p.shape[0], q.shape[0]
-    idx = torch.empty(n, dtype=torch.int32, device=p.device)
-    dist = torch.empty(n, dtype=torch.float32, device=p.device)
-    if n == 0:
-        return idx, dist
-    lib, slices, slice_len = _plan(p, m)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        if slices == 1:
-            rc = lib.fpcr_nn_partial(p.data_ptr(), q.data_ptr(), mask_ptr, n,
-                                     m, slice_len, dist.data_ptr(),
-                                     idx.data_ptr(), stream)
-            _raise_on(lib, rc, "nn_partial")
-            nn_argmin_cuda.launches += 1
-            return idx, dist
-        part_d = torch.empty((slices, n), dtype=torch.float32,
-                             device=p.device)
-        part_i = torch.empty((slices, n), dtype=torch.int32, device=p.device)
-        rc = lib.fpcr_nn_partial(p.data_ptr(), q.data_ptr(), mask_ptr, n, m,
-                                 slice_len, part_d.data_ptr(),
-                                 part_i.data_ptr(), stream)
-        _raise_on(lib, rc, "nn_partial")
-        nn_argmin_cuda.launches += 1
-        rc = lib.fpcr_nn_combine(part_d.data_ptr(), part_i.data_ptr(), n,
-                                 slices, dist.data_ptr(), idx.data_ptr(),
-                                 stream)
-        _raise_on(lib, rc, "nn_combine")
-        nn_argmin_cuda.launches += 1
-    return idx, dist
+    return _nn_tc(nn_argmin_cuda, p, q, q_mask, None)
 
 
 nn_argmin_cuda.launches = 0  # kernel launches made by this wrapper
@@ -166,16 +229,109 @@ def nn_argmin_packed_cuda(
     idx_bits: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest valid target by the packed (value|index) reduction, computed
-    by kernel K2 on the card: the int32 min over j of ``(bits(d_ij) &
-    ~(2^idx_bits - 1)) | j``, then the exact distance to the pick.
+    by kernel K2 on the card (``csrc/nn_tc.cu``'s sweep and K2's certified
+    finish): the int32 min over j of ``(bits(d_ij) & ~(2^idx_bits - 1)) |
+    j``, then the exact distance to the pick.
 
     Inputs as :func:`nn_argmin_cuda`, and ``idx_bits`` in [1, 23] with
     ``M <= 2^idx_bits``. Returns ``(idx int32[N], sqdist f32[N])``: ties
     within a bucket go to the lowest index; the distance is the exact one
     of the selected target; a row with no valid target gets idx 0 and
-    ``inf``. Two launches: the sweep and the epilogue.
+    ``inf``. Two launches: the sweep and the finish.
     """
-    mask_ptr = _check_inputs("nn_argmin_packed_cuda", p, q, q_mask)
+    return _nn_tc(nn_argmin_packed_cuda, p, q, q_mask, idx_bits)
+
+
+nn_argmin_packed_cuda.launches = 0  # kernel launches made by this wrapper
+
+
+def _nn_tc_tile_values(p: torch.Tensor, q: torch.Tensor,
+                       q_mask: Optional[torch.Tensor] = None):
+    """The sweep's norm-form values d~ f32[N, 64] of every source row
+    against targets [0, 64) as the tensor cores sum them (a test-only
+    instance of the sweep; column j >= M holds the masked surrogate), and
+    each row's centre f32[N, 3]."""
+    mask_ptr = _check_inputs("_nn_tc_tile_values", p, q, q_mask)
+    lib = _build.load_library()
+    out = torch.empty((p.shape[0], 64), dtype=torch.float32,
+                      device=p.device)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        _, centres = _sweep(lib, p, q, mask_ptr,
+                            min(round_up(q.shape[0], 128), TC_MAX_SLICE),
+                            "dump", stream, dump=out)
+    rows = (torch.arange(p.shape[0], device=p.device)
+            // lib.fpcr_nn_tc_rows_per_block())
+    return out, centres[rows, :3]
+
+
+def _nn_tc_sweep_only(p: torch.Tensor, q: torch.Tensor,
+                      mode: str = "sweep") -> None:
+    """Launch the sweep alone, as ``nn_argmin_cuda`` plans it, in ``mode``
+    (``'sweep'``, ``'no reduce'``, ``'no staging'`` or ``'skeleton'``):
+    the ablations that split its kernel time. Its outputs are dropped."""
+    mask_ptr = _check_inputs("_nn_tc_sweep_only", p, q, None)
+    lib, _, slice_len = _plan(p, q.shape[0], tensor_cores=True)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        _sweep(lib, p, q, mask_ptr, slice_len, mode, stream)
+
+
+def _nn_argmin_cudacore(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    q_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's function on the CUDA cores (``csrc/matching.cu``'s
+    ``nn_partial_kernel<kDiff, kArgmin>`` and its slice combine): the
+    yardstick that the studies time against and that the new K1 is held
+    to bit for bit. No path of the package calls it."""
+    mask_ptr = _check_inputs("_nn_argmin_cudacore", p, q, q_mask)
+    n, m = p.shape[0], q.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=p.device)
+    dist = torch.empty(n, dtype=torch.float32, device=p.device)
+    if n == 0:
+        return idx, dist
+    lib, slices, slice_len = _plan(p, m)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        if slices == 1:
+            rc = lib.fpcr_nn_partial(p.data_ptr(), q.data_ptr(), mask_ptr, n,
+                                     m, slice_len, dist.data_ptr(),
+                                     idx.data_ptr(), stream)
+            _raise_on(lib, rc, "nn_partial")
+            _nn_argmin_cudacore.launches += 1
+            return idx, dist
+        part_d = torch.empty((slices, n), dtype=torch.float32,
+                             device=p.device)
+        part_i = torch.empty((slices, n), dtype=torch.int32, device=p.device)
+        rc = lib.fpcr_nn_partial(p.data_ptr(), q.data_ptr(), mask_ptr, n, m,
+                                 slice_len, part_d.data_ptr(),
+                                 part_i.data_ptr(), stream)
+        _raise_on(lib, rc, "nn_partial")
+        _nn_argmin_cudacore.launches += 1
+        rc = lib.fpcr_nn_combine(part_d.data_ptr(), part_i.data_ptr(), n,
+                                 slices, dist.data_ptr(), idx.data_ptr(),
+                                 stream)
+        _raise_on(lib, rc, "nn_combine")
+        _nn_argmin_cudacore.launches += 1
+    return idx, dist
+
+
+_nn_argmin_cudacore.launches = 0  # kernel launches made by this wrapper
+
+
+def _nn_argmin_packed_cudacore(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    q_mask: Optional[torch.Tensor] = None,
+    *,
+    idx_bits: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's function on the CUDA cores (``nn_partial_kernel<kDiff,
+    kPacked>`` and its epilogue): the yardstick of the new K2. No path of
+    the package calls it."""
+    mask_ptr = _check_inputs("_nn_argmin_packed_cudacore", p, q, q_mask)
     n, m = p.shape[0], q.shape[0]
     check_idx_bits(m, idx_bits)
     idx = torch.empty(n, dtype=torch.int32, device=p.device)
@@ -190,17 +346,17 @@ def nn_argmin_packed_cuda(
                                         n, m, slice_len, idx_bits,
                                         keys.data_ptr(), stream)
         _raise_on(lib, rc, "nn_packed_partial")
-        nn_argmin_packed_cuda.launches += 1
+        _nn_argmin_packed_cudacore.launches += 1
         rc = lib.fpcr_nn_packed_epilogue(p.data_ptr(), q.data_ptr(),
                                          keys.data_ptr(), n, m, slices,
                                          idx_bits, dist.data_ptr(),
                                          idx.data_ptr(), stream)
         _raise_on(lib, rc, "nn_packed_epilogue")
-        nn_argmin_packed_cuda.launches += 1
+        _nn_argmin_packed_cudacore.launches += 1
     return idx, dist
 
 
-nn_argmin_packed_cuda.launches = 0  # kernel launches made by this wrapper
+_nn_argmin_packed_cudacore.launches = 0  # kernel launches made by this wrapper
 
 
 def check_idx_bits(m: int, idx_bits: int) -> None:

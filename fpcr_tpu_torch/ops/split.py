@@ -90,6 +90,40 @@ def split_operands(p: torch.Tensor, q: torch.Tensor, terms: int, n_pad: int,
             torch.cat([qs[b] for _, b in pairs], dim=1).contiguous())
 
 
+def tc_split_operands(p: torch.Tensor, q: torch.Tensor,
+                      q_mask: Optional[torch.Tensor] = None,
+                      centre: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 24 used K slots of the tensor-core K1/K2 sweep
+    (``csrc/nn_tc.cu``) of one block of source rows, centred on ``centre``
+    f32[3] (default the rows' mean, as the sweep takes it), each the f32
+    value of a bf16 part: ``A`` f32[N, 24] and ``B`` f32[M, 24] with ``A @
+    B.T`` the norm form |p'|² + |q'|² − 2p'·q' (p' = p − c,
+    q' = q − c) less the dropped products of parts. Per coordinate the pairs
+    :data:`PAIRS` of ``split3_f32(-2p')`` and ``split3_f32(q')``, then
+    |p'|²'s three parts against ones and ones against |q'|²'s. A masked
+    target has zero coordinates and the surrogate 1e30 for |q'|²."""
+    p = p.to(torch.float32)
+    q = q.to(torch.float32)
+    c = p.mean(dim=0) if centre is None else centre.to(torch.float32)
+    p, q = p - c, q - c
+    if q_mask is not None:
+        keep = q_mask.to(torch.bool)
+        q = torch.where(keep[:, None], q, torch.zeros_like(q))
+        q_sq = torch.where(keep, sq_norm(q),
+                           torch.full_like(q[:, 0], INVALID_SURROGATE))
+    else:
+        q_sq = sq_norm(q)
+    ps = split3_f32(-2.0 * p)
+    qs = split3_f32(q)
+    a = [ps[i][:, k] for k in range(3) for i, _ in PAIRS]
+    b = [qs[j][:, k] for k in range(3) for _, j in PAIRS]
+    one_p, one_q = torch.ones_like(p[:, 0]), torch.ones_like(q[:, 0])
+    a += list(split3_f32(sq_norm(p))) + [one_p] * 3
+    b += [one_q] * 3 + list(split3_f32(q_sq))
+    return torch.stack(a, dim=1), torch.stack(b, dim=1)
+
+
 def split_nn_plain(
     p_in: torch.Tensor,
     q_in: torch.Tensor,

@@ -884,3 +884,106 @@ def test_register_ndt_numpy_clouds_on_card(cuda):
     tr = ft.RigidTransform(res.transform.rotation.cpu(),
                            res.transform.translation.cpu())
     assert float(ft.transform_rmse(tr, gt, scene.source)) < 1e-5
+
+
+# --- K1 and K2 on the tensor cores (csrc/nn_tc.cu) against their CUDA-core
+# sweep, bit for bit --------------------------------------------------------
+
+TC_CASES = ["synthetic-16384", "bunny-8171", "bunny-full-35947", "hall-16384",
+            "e1-300", "duplicates", "masked", "all-masked", "200x1048576"]
+
+
+def _tc_case(cuda, name):
+    """``(p, q, mask)`` of one input of the tensor-core checks."""
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.bench import match_kernels
+
+    rng = np.random.default_rng(len(name))
+    t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    scenes = {"synthetic-16384": lambda: ft.synthetic_scene(width=128,
+                                                            device=cuda),
+              "bunny-8171": lambda: ft.bunny_scene(device=cuda),
+              "bunny-full-35947": lambda: ft.bunny_scene(resampled=False,
+                                                         device=cuda),
+              "hall-16384": lambda: ft.hall_scene(device=cuda)}
+    if name in scenes:
+        s = scenes[name]()
+        return s.source, s.target, None
+    if name == "e1-300":
+        return (*match_kernels.study_inputs(16384, cuda), None)
+    if name == "duplicates":
+        dup = np.repeat(_cloud(rng, 37), 27, axis=0)
+        near = dup[rng.integers(0, 999, 700)] + rng.normal(
+            scale=1e-3, size=(700, 3)).astype(np.float32)
+        return t(near.astype(np.float32)), t(dup), None
+    if name in ("masked", "all-masked"):
+        keep = 0.3 if name == "masked" else 0.0
+        mask = t(rng.uniform(size=3000) < keep)
+        return t(_cloud(rng, 500)), t(_cloud(rng, 3000)), mask
+    big = _cloud(rng, 1 << 20)
+    rows = big[rng.integers(0, 1 << 20, 200)] + 1e-3
+    return t(rows.astype(np.float32)), t(big), None
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("name", TC_CASES)
+def test_tc_kernel_equals_cudacore(cuda, name, packed):
+    """Index and distance bits equal to the CUDA-core sweep, two launches
+    a call, and no host synchronisation inside the call."""
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+    from fpcr_tpu_torch.ops.matching import packed_idx_bits
+
+    p, q, mask = _tc_case(cuda, name)
+    m = q.shape[0]
+    bits = packed_idx_bits(m) if m <= 1 << 16 else (m - 1).bit_length()
+    if packed:
+        wrapper, core = mc.nn_argmin_packed_cuda, mc._nn_argmin_packed_cudacore
+        kw = dict(idx_bits=bits)
+    else:
+        wrapper, core, kw = mc.nn_argmin_cuda, mc._nn_argmin_cudacore, {}
+    torch.cuda.synchronize()
+    before = wrapper.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = wrapper(p, q, mask, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert wrapper.launches - before == 2
+    want = core(p, q, mask, **kw)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+def test_tc_rescued_rows_are_counted(cuda):
+    """Every row of an all-masked target is rescued and counted; a clear
+    nearest neighbour is not."""
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+
+    p, q, mask = _tc_case(cuda, "all-masked")
+    mc.reset_rescued(cuda)
+    mc.nn_argmin_cuda(p, q, mask)
+    mc.nn_argmin_packed_cuda(p, q, mask, idx_bits=12)
+    assert mc.rescued_rows(cuda) == (p.shape[0], p.shape[0])
+    mc.reset_rescued(cuda)
+    q = torch.tensor([[0.0, 0.0, 0.0], [5.0, 5.0, 5.0]], device=cuda)
+    idx, d = mc.nn_argmin_cuda(torch.zeros((4, 3), device=cuda) + 0.1, q)
+    assert (idx == 0).all() and mc.rescued_rows(cuda)[0] == 0
+
+
+@pytest.mark.parametrize("name", ["synthetic-16384", "bunny-8171",
+                                  "hall-16384", "e1-300"])
+def test_tc_guard_holds_on_card(cuda, name):
+    """One tile of the sweep's values, as the tensor cores summed them,
+    within a quarter of each pair's guard G of the float64 distance."""
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+    from fpcr_tpu_torch.ops.matching import CERT_GUARD
+
+    p, q, _ = _tc_case(cuda, name)
+    d, centre = mc._nn_tc_tile_values(p, q)
+    exact = ((p.double()[:, None, :] - q[:64].double()[None]) ** 2).sum(-1)
+    pn = (p - centre).double().norm(dim=1)
+    qn = (q[:64][None] - centre[:, None]).double().norm(dim=2)
+    ratio = ((d.double() - exact).abs()
+             / (CERT_GUARD * (pn[:, None] + qn) ** 2)).max()
+    print(f"{name}: largest |d~ - d64| / G {float(ratio):.4f}")
+    assert float(ratio) <= 0.25
