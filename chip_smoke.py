@@ -24,7 +24,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    quarter of each pair's G of the float64 distance; K1, K2, the min-only
    sweep, K3, K3p and K4 against
    their plain PyTorch versions on the card, at the test shapes and the
-   main path's shapes, K2's 2^16 gate, and K4 against the 7-offset gather
+   main path's shapes (K1 also at those of the GICP, loop-variant and grid
+   paths: 262,144², a 1,024-row SGD batch against Bunny, the 1M scene's
+   voxel centroids), K2's 2^16 gate, and K4 against the 7-offset gather
    oracle at 262,144 points; K3's and K3p's band bases, computed in the
    kernel, equal to ``band_bases``, their culled and unculled instances
    bit-equal in all four outputs, and the share of band sub-tiles culled,
@@ -52,9 +54,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    the drift of their points and matches, where the first picks that
    differ must be swaps at a bucket's edge; the studies E4, E3 (its gates)
    and E1 (``fpcr_tpu_torch.bench.split_matmul``, ``reduction2``,
-   ``match_kernels``), each of which must launch its own kernels; then
-   every ICP path through K1 or K2 again on the CUDA-core sweep, to the
-   same iterations, final error and GT error;
+   ``match_kernels``), each of which must launch its own kernels; GICP
+   through K1 on the synthetic scene, Bunny and the hall scan and through
+   K3 at 1,048,576 points, AA-ICP (point and plane, three K1 calls a loop
+   pass, fewer iterations than ``run_icp``, the accepted share), scaled
+   ICP on a U(±2) volume (the scale to 1e-3), SGD-ICP on Bunny then a
+   ``run_icp`` polish, grid ICP at 262,144 and 1,048,576 points (no kernel:
+   neither K1 nor K3 may launch), ``voxel_downsample`` of the 1M scene then
+   ``run_icp`` through K1, ``evaluate_registration`` on the GICP and grid
+   results (fitness, and its values equal to the same call on the plain
+   route) and ``profile_icp``'s phase table, each to the JAX package's CPU
+   iteration counts within 1 (SGD's draws are not JAX's: its polish must
+   converge) and 10x its GT error; then every ICP path
+   through K1 or K2 again on the CUDA-core sweep, to the same iterations,
+   final error and GT error;
 5. times — ms/iter by the slope method (point ICP at 16,384 through K1 and
    K2, plane ICP at 16,384, Morton ICP through K3 and K3p and NDT at
    262,144 and 1,048,576), K1 and K2 against their CUDA-core sweep in legs
@@ -67,8 +80,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    (``fpcr_tpu_torch.bench.packed_reduction.main``), normals, the plane
    solve, the NDT grid build and the share of each stage of a point
    iteration, Kernel S's five launch types and the E1 forms alone against
-   their plain versions with their profiler kernel times, each printed
-   beside the card's name and power limit.
+   their plain versions with their profiler kernel times, GICP (16,384
+   through K1, 1M through K3), AA-ICP, grid ICP (262k, 1M) and an SGD step
+   by the slope method, and ``build_voxel_table``, ``grid_nn``,
+   ``voxel_downsample`` and ``evaluate_registration`` by events, each
+   printed beside the card's name and power limit.
 
 The line before the last is a JSON object describing each kernel: its
 launches on the main path, its largest difference from its plain version,
@@ -93,6 +109,12 @@ import torch
 
 CASE_TOL = dict(rtol=1e-6, atol=1e-7)  # kernel vs plain sqdist
 TIE_REL = 1e-6  # an index may differ only where the two picks tie this close
+# the plain version's source chunk and target tile at the main path's large
+# K1 shapes (262,144^2): 8192 x 8192 difference rows are 0.8 GB a step
+PLAIN_CHUNK = 8192
+# evaluate_registration's inlier RMSE against the plain route's: a sum of
+# distances each within CASE_TOL of the plain version's
+EVAL_RTOL = 1e-5
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM bytes
 # per second and float32 operations per second outside the tensor cores
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
@@ -179,6 +201,40 @@ K4_RTOL, K4_ATOL_REL = 1e-4, 1e-5
 # stiff voxel (|S| ~ 1e4, |r| ~ 0.06) moves by ~2|Sr|·2.4e-7 ~ 3e-4, and w
 # by d2/2 of that (d2 ~ 1 at voxel 0.12): 1e-3 relative bounds it
 ORACLE_RTOL, ORACLE_ATOL_REL = 1e-3, 1e-5
+
+# GICP, the loop variants and the voxel grid: each threshold is 10x what
+# the JAX package reaches on the CPU for the same run (its 'xla' matcher),
+# rounded up to a decade, and JAX's iteration counts, which the card's must
+# match within 1 (PERF.md §2 gives the runs)
+GICP_SCENES = [  # (name, scene kind, max_iterations, threshold, JAX iters)
+    ("gicp synthetic-16384", "synthetic", 40, 1e-5, 5),  # JAX: 1.964e-7
+    ("gicp bunny-8171", "bunny", 40, 1e-5, 5),  # JAX: 1.127e-8
+    ("gicp hall-16384", "hall", 40, 1e-5, 3),  # JAX: 6.076e-7
+    ("gicp morton synthetic-1048576", "grid-1", 25, 1e-5, 3),  # 1.962e-7
+]
+# AA-ICP on the synthetic scene: (metric, threshold, JAX iterations, JAX's
+# plain run_icp iterations); JAX: 4.237e-7 and 2.079e-7
+AA_RUNS = [("point", 1e-5, 10, 28), ("plane", 1e-5, 4, 5)]
+# scaled ICP on a U(±2) cloud of 16,384 points (seed 11), s = 1.04 and the
+# pose of tests/test_scaled_icp.py:65: JAX reaches |Δs| 1.750e-6 and a
+# similarity RMSE of 3.158e-6 in 5 iterations
+SCALED = dict(scale=1.04, scale_tol=1e-3, rmse=1e-4, jax_iterations=5)
+# SGD-ICP on Bunny, B = 1024, 200 steps, then run_icp: JAX's coarse GT
+# error 2.284e-3, 5.940e-8 after the polish; its draws are not torch's, so
+# no step count is compared
+SGD = dict(steps=200, batch=1024, coarse=1e-1, polished=1e-5)
+# grid ICP on the near-GT grids (JAX's 1M run with its TPU limit lifted):
+# (name, scene kind, max_iterations, threshold, JAX iterations); JAX:
+# 2.679e-5 and 4.325e-5
+GRID_SCENES = [("grid synthetic-262144", "grid-0", 30, 1e-3, 5),
+               ("grid synthetic-1048576", "grid-1", 30, 1e-3, 12)]
+# voxel_downsample of the 1M synthetic scene at 0.05, then run_icp through
+# K1 on the 30,066 / 30,326 centroids: JAX reaches 1.781e-3 in 43
+# iterations. The scene has the reference's displacement: near GT, the
+# centroids' own offset between the two clouds, up to a voxel, is as large
+# as the displacement
+VOXEL = dict(size=0.05, iterations=60, threshold=1e-1, jax_iterations=43,
+             centroids=(30066, 30326))
 
 
 def log(phase, msg):
@@ -320,6 +376,31 @@ def kernel_cases(torch, np, ft, dev):
     return cases
 
 
+def path_k1_cases(torch, ft, dev):
+    """K1's inputs on the GICP, loop-variant and grid paths at shapes that
+    ``kernel_cases`` does not reach: ``evaluate_registration`` on the
+    262,144-point grid at its pose (64 target slices, indices past 2^16),
+    run_sgd_icp's first batch (seed 0) of 1,024 Bunny rows against its
+    8,171 targets, and the voxel centroids of the 1M scene as run_icp first
+    matches them. K1 only: K2's keys hold at most 2^16 targets."""
+    s = build_scene(ft, "grid-0", dev)
+    cases = [("evaluate grid-0 262144^2",
+              s.ground_truth.apply(s.source).contiguous(), s.target)]
+    s = build_scene(ft, "bunny", dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows = torch.randint(0, s.source.shape[0], (SGD["batch"],),
+                         generator=gen, device=dev)
+    cases.append((f"sgd batch {SGD['batch']}x8171",
+                  s.source[rows].contiguous(), s.target))
+    s = ft.synthetic_scene(width=LARGE_WIDTHS[-1], device=dev)
+    cs, ms = ft.voxel_downsample(s.source, VOXEL["size"])
+    ct, mt = ft.voxel_downsample(s.target, VOXEL["size"])
+    cases.append((f"voxel centroids {'x'.join(map(str, VOXEL['centroids']))}",
+                  cs[ms].contiguous(), ct[mt].contiguous()))
+    return cases
+
+
 def _tie_rows(name, p, q, ki, oi, within):
     """The rows where two picks differ; raises unless at each of them
     ``within(d_kernel, d_plain)`` holds for the picks' exact (float64)
@@ -345,13 +426,14 @@ def packed_tie(idx_bits):
                            <= bound * np.minimum(dk, do) + 1e-30)
 
 
-def _check_k1(name, p, q, mask):
+def _check_k1(name, p, q, mask, chunk=2048):
     from fpcr_tpu_torch.ops.matching import nn_argmin_plain
     from fpcr_tpu_torch.ops.matching_cuda import nn_argmin_cuda
 
     ki, kd = nn_argmin_cuda(p, q, mask)
     torch.cuda.synchronize()
-    oi, od = nn_argmin_plain(p, q, mask, exact=True)
+    oi, od = nn_argmin_plain(p, q, mask, exact=True, source_chunk=chunk,
+                             target_tile=chunk)
     ki, kd, oi, od = (x.cpu().numpy() for x in (ki, kd, oi, od))
     m = q.shape[0]
     if ki.min() < 0 or ki.max() > m - 1:
@@ -452,6 +534,9 @@ def phase_kernel_vs_plain(torch, np, ft, dev):
                            ("nn_argmin_packed", _check_k2),
                            ("nn_min_only", _check_min_only)):
             worst[key] = max(worst[key], check(name, p, q, mask))
+    for name, p, q in path_k1_cases(torch, ft, dev):
+        worst["nn_argmin"] = max(worst["nn_argmin"], _check_k1(
+            name, p, q, None, chunk=PLAIN_CHUNK))
     before = nn_argmin_packed_cuda.launches
     q = torch.zeros((70000, 3), device=dev)
     try:
@@ -1062,14 +1147,15 @@ def drive(torch, path, fn):
 def register(torch, ft, name, s, run, thr, kernel, per_iteration=1):
     """Register one scene with ``run(source, target)``, check the result
     against its ground truth and the kernel's launches against the
-    iterations, and log the outcome."""
-    w = _wrappers()[KERNEL_ALIAS.get(kernel, kernel)]
-    before = w.launches
+    iterations (``kernel`` None: a path of no kernel), and log the
+    outcome."""
+    w = _wrappers()[KERNEL_ALIAS.get(kernel, kernel)] if kernel else None
+    before = w.launches if w else 0
     t0 = time.perf_counter()
     res = run(s.source, s.target)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    grown = w.launches - before
+    grown = w.launches - before if w else 0
     fine = getattr(res, "fine", res)
     it = int(fine.num_iterations)
     gt = float(ft.transform_rmse(res.transform, s.ground_truth, s.source))
@@ -1083,7 +1169,8 @@ def register(torch, ft, name, s, run, thr, kernel, per_iteration=1):
                 f"{bool(fine.converged)}, final error "
                 f"{float(err[it - 1]):.6e}, GT transform RMSE {gt:.3e} "
                 f"(< {thr:g}), wall {wall:.3f} s, "
-                f"{KERNEL_ALIAS.get(kernel, kernel)} launches +{grown}")
+                f"{KERNEL_ALIAS.get(kernel, kernel) or 'no kernel:'} "
+                f"launches +{grown}")
     if not ok_shape:
         raise AssertionError(f"{name}: non-finite or misshapen result")
     if grown < per_iteration * it:
@@ -1092,6 +1179,226 @@ def register(torch, ft, name, s, run, thr, kernel, per_iteration=1):
     if not gt < thr:
         raise AssertionError(f"{name}: GT transform RMSE {gt} >= {thr}")
     return res
+
+
+def check_iterations(name, res, jax_iters):
+    it = int(res.num_iterations)
+    log("main", f"{name}: the JAX package took {jax_iters} iterations on "
+                f"the CPU, the card {it}")
+    if abs(it - jax_iters) > 1:
+        raise AssertionError(f"{name}: {it} iterations, JAX {jax_iters}")
+
+
+def loop_passes(iterations, max_iterations, every=8):
+    """Passes a loop that reads its done flag once per ``every`` passes
+    runs for a stop after ``iterations``: the masked passes included."""
+    return min(max_iterations, -(-iterations // every) * every)
+
+
+def slice3_paths(torch, np, ft, dev):
+    """The paths of GICP, the loop variants and the grid: ``[(path, run,
+    the kernels it must launch, the kernels it must not)]``. GICP and
+    grid ICP keep their 16,384- and 262,144-point results for the
+    ``evaluate_registration`` path."""
+    from fpcr_tpu_torch.models.icp import resolve_matcher
+    from fpcr_tpu_torch.ops.matching_cuda import nn_argmin_cuda
+
+    kept = {}
+
+    def gicp(scenes):
+        def fn():
+            for name, kind, iters, thr, jax_iters in scenes:
+                s = build_scene(ft, kind, dev)
+                extra = BAND if kind.startswith("grid") else {}
+                cfg = ft.ICPConfig(metric="gicp", max_iterations=iters,
+                                   matcher="morton" if extra else "pallas",
+                                   **extra)
+                res = register(torch, ft, name, s,
+                               lambda a, b: ft.run_icp(a, b, cfg), thr,
+                               "morton_nn" if extra else "nn_argmin")
+                check_iterations(name, res, jax_iters)
+                if kind == "synthetic":
+                    kept["gicp synthetic-16384"] = (s, res.transform)
+        return fn
+
+    def aa():
+        s = build_scene(ft, "synthetic", dev)
+        for metric, thr, jax_iters, jax_plain in AA_RUNS:
+            cfg = ft.ICPConfig(metric=metric, max_iterations=60,
+                               matcher="pallas")
+            accepted = []
+
+            def run(a, b):
+                res, acc = ft.run_aa_icp(a, b, cfg, return_accepted=True)
+                accepted.append(acc)
+                return res
+
+            name = f"aa {metric} synthetic-16384"
+            before = nn_argmin_cuda.launches
+            res = register(torch, ft, name, s, run, thr, "nn_argmin")
+            calls = (nn_argmin_cuda.launches - before) // 2  # 2 a call
+            acc = accepted[0].cpu()
+            it = int(res.num_iterations)
+            passes = loop_passes(it, cfg.max_iterations)
+            check_iterations(name, res, jax_iters)
+            plain = int(ft.run_icp(s.source, s.target, cfg).num_iterations)
+            share = float(acc[:it].float().mean())
+            log("main", f"{name}: accepted the Anderson candidate in "
+                        f"{int(acc[:it].sum())} of {it} iterations "
+                        f"({share:.3f}); K1 {calls} calls in {passes} loop "
+                        f"passes (3 a pass); plain run_icp {plain} "
+                        f"iterations (JAX {jax_plain})")
+            if calls != 3 * passes:
+                raise AssertionError(f"{name}: {calls} K1 calls in {passes} "
+                                     "passes, not 3 a pass")
+            if it > plain or (metric == "point" and it >= plain):
+                raise AssertionError(f"{name}: {it} iterations, plain "
+                                     f"run_icp {plain}")
+
+    def scaled():
+        src = ft.data.synthetic.random_cloud(16384, seed=11, scale=2.0,
+                                             device=dev)
+        gt = ft.gt_transform((0.01, -0.02, 0.015), (0.01, -0.008, 0.012),
+                             device=dev)
+        tgt = SCALED["scale"] * gt.apply(src)
+        before = nn_argmin_cuda.launches
+        res = ft.run_scaled_icp(src, tgt, ft.ICPConfig(max_iterations=60,
+                                                       matcher="pallas"))
+        torch.cuda.synchronize()
+        it = int(res.num_iterations)
+        ds = abs(float(res.scale) - SCALED["scale"])
+        err = float(ft.rmse(res.apply(src), tgt))
+        log("main", f"scaled ICP volume-16384: iterations {it}, converged "
+                    f"{bool(res.converged)}, scale {float(res.scale):.7f} "
+                    f"(|ds| {ds:.3e} < {SCALED['scale_tol']:g}), similarity "
+                    f"RMSE {err:.3e} (< {SCALED['rmse']:g}), K1 launches "
+                    f"+{nn_argmin_cuda.launches - before}")
+        check_iterations("scaled ICP volume-16384", res,
+                         SCALED["jax_iterations"])
+        if not (ds < SCALED["scale_tol"] and err < SCALED["rmse"]
+                and bool(res.converged)):
+            raise AssertionError("scaled ICP missed its thresholds")
+
+    def sgd():
+        s = build_scene(ft, "bunny", dev)
+        cfg = ft.ICPConfig(max_iterations=SGD["steps"], tolerance=1e-6)
+        coarse = register(
+            torch, ft, "sgd bunny-8171", s,
+            lambda a, b: ft.run_sgd_icp(a, b, cfg, batch_size=SGD["batch"],
+                                        seed=0), SGD["coarse"], "nn_argmin")
+        polish = ft.run_icp(coarse.points, s.target,
+                            ft.ICPConfig(max_iterations=20, matcher="pallas"))
+        total = polish.transform.compose(coarse.transform)
+        gt = float(ft.transform_rmse(total, s.ground_truth, s.source))
+        log("main", f"sgd bunny-8171 + run_icp polish: "
+                    f"{int(polish.num_iterations)} iterations, converged "
+                    f"{bool(polish.converged)}, GT transform RMSE {gt:.3e} "
+                    f"(< {SGD['polished']:g})")
+        if not (gt < SGD["polished"] and bool(polish.converged)):
+            raise AssertionError(f"sgd polish: GT transform RMSE {gt}, "
+                                 f"converged {bool(polish.converged)}")
+
+    def grid_runs():
+        for name, kind, iters, thr, jax_iters in GRID_SCENES:
+            s = build_scene(ft, kind, dev)
+            cfg = ft.ICPConfig(matcher="grid", max_iterations=iters)
+            if resolve_matcher(cfg, s.source.shape[0]).matcher != "grid":
+                raise AssertionError(f"{name}: the port's limit degrades "
+                                     "the grid matcher")
+            res = register(torch, ft, name, s,
+                           lambda a, b: ft.run_icp(a, b, cfg), thr, None, 0)
+            check_iterations(name, res, jax_iters)
+            if kind == "grid-0":
+                kept[name] = (s, res.transform)
+
+    def voxel():
+        s = ft.synthetic_scene(width=LARGE_WIDTHS[-1], device=dev)
+        cs, ms = ft.voxel_downsample(s.source, VOXEL["size"])
+        ct, mt = ft.voxel_downsample(s.target, VOXEL["size"])
+        counts = (int(ms.sum()), int(mt.sum()))
+        log("main", f"voxel_downsample {VOXEL['size']} of 2 x "
+                    f"{s.source.shape[0]} points: {counts} centroids (JAX "
+                    f"{VOXEL['centroids']})")
+        if counts != VOXEL["centroids"]:
+            raise AssertionError("voxel_downsample: the centroid counts "
+                                 "differ from JAX's")
+        small = ft.RegistrationScene(cs[ms], ct[mt], s.ground_truth)
+        cfg = ft.ICPConfig(max_iterations=VOXEL["iterations"],
+                           matcher="pallas")
+        name = "voxel 0.05 synthetic-1048576, run_icp"
+        res = register(torch, ft, name, small,
+                       lambda a, b: ft.run_icp(a, b, cfg),
+                       VOXEL["threshold"], "nn_argmin")
+        check_iterations(name, res, VOXEL["jax_iterations"])
+
+    def evaluate():
+        """Fitness at least 0.99 at the found pose, and the same call on
+        the plain route (``ops.matching``'s K1 wrapper swapped for the
+        plain version, which launches nothing) must give the same values:
+        ``num_inliers`` equal but for rows whose plain distance lies within
+        K1's CASE_TOL of the gate, ``inlier_rmse`` within EVAL_RTOL."""
+        from fpcr_tpu_torch.ops import matching as om
+
+        for name, (s, transform) in kept.items():
+            q = ft.evaluate_registration(s.source, s.target, transform)
+            vals = {k: float(v) for k, v in q.items()}
+            plain_d = []
+
+            def plain(p, t, m):
+                out = om.nn_argmin_plain(p, t, m, exact=True,
+                                         source_chunk=PLAIN_CHUNK,
+                                         target_tile=PLAIN_CHUNK)
+                plain_d.append(out[1])
+                return out
+
+            saved, om.nn_argmin_cuda = om.nn_argmin_cuda, plain
+            try:
+                ref = ft.evaluate_registration(s.source, s.target, transform)
+            finally:
+                om.nn_argmin_cuda = saved
+            ref = {k: float(v) for k, v in ref.items()}
+            gate2 = q["max_correspondence_dist"] ** 2
+            od = plain_d[-1]
+            near = int((torch.abs(od - gate2) <= CASE_TOL["atol"]
+                        + CASE_TOL["rtol"] * od).sum())
+            d_in = abs(int(vals["num_inliers"]) - int(ref["num_inliers"]))
+            rel = (abs(vals["inlier_rmse"] - ref["inlier_rmse"])
+                   / max(ref["inlier_rmse"], 1e-30))
+            log("main", f"evaluate_registration on the {name} result: "
+                        f"{json.dumps(vals)} (JAX: fitness 1.0); plain "
+                        f"route {json.dumps(ref)}: num_inliers differ by "
+                        f"{d_in} (rows within tolerance of the gate "
+                        f"{near}), inlier_rmse by {rel:.3e} relative "
+                        f"(< {EVAL_RTOL:g})")
+            if not vals["fitness"] >= 0.99:
+                raise AssertionError(f"{name}: fitness {vals['fitness']}")
+            if d_in > near or not rel < EVAL_RTOL or (
+                    vals["max_correspondence_dist"]
+                    != ref["max_correspondence_dist"]):
+                raise AssertionError(f"{name}: evaluate_registration "
+                                     "differs from the plain route")
+
+    def profile():
+        s = build_scene(ft, "synthetic", dev)
+        for metric in ("point", "plane"):
+            timer = ft.profile_icp(s.source, s.target,
+                                   ft.ICPConfig(metric=metric), iterations=5)
+            log("main", f"profile_icp {metric} synthetic-16384, 5 "
+                        "iterations, CUDA events per phase:\n"
+                        + timer.report())
+
+    k1_not = CUDACORE + ("morton_nn",)
+    return [("GICP, K1", gicp(GICP_SCENES[:3]), "nn_argmin", k1_not),
+            ("GICP Morton, K3", gicp(GICP_SCENES[3:]), "morton_nn",
+             CUDACORE + ("nn_argmin",)),
+            ("AA-ICP, K1", aa, "nn_argmin", k1_not),
+            ("scaled ICP, K1", scaled, "nn_argmin", k1_not),
+            ("SGD-ICP, K1", sgd, "nn_argmin", k1_not),
+            ("grid ICP, no kernel", grid_runs, (),
+             CUDACORE + ("nn_argmin", "morton_nn")),
+            ("voxel_downsample + run_icp, K1", voxel, "nn_argmin", k1_not),
+            ("evaluate_registration, K1", evaluate, "nn_argmin", k1_not),
+            ("profile_icp, K1", profile, "nn_argmin", k1_not)]
 
 
 def phase_main_path(torch, ft, dev):
@@ -1137,13 +1444,6 @@ def phase_main_path(torch, ft, dev):
             raise AssertionError("the coarse stage never launched K1")
 
     import numpy as np
-
-    def check_iterations(name, res, jax_iters):
-        it = int(res.num_iterations)
-        log("main", f"{name}: the JAX package took {jax_iters} iterations on "
-                    f"the CPU, the card {it}")
-        if abs(it - jax_iters) > 1:
-            raise AssertionError(f"{name}: {it} iterations, JAX {jax_iters}")
 
     def ndt_runs():
         for name, width, thr, jax_iters in NDT_SCENES:
@@ -1256,7 +1556,7 @@ def phase_main_path(torch, ft, dev):
                "split x6 keep"), ("split x3 argmin",)),
              ("distance-form study E1", e1,
               ("e1 v1", "e1 v2", "e1 v4", "e1 v5", "e1 v6"),
-              ("nn_argmin_packed",))]
+              ("nn_argmin_packed",))] + slice3_paths(torch, np, ft, dev)
     totals = dict.fromkeys(counters(), 0)
     for path, fn, kernels, absent in paths:
         counts = drive(torch, path, fn)
@@ -1841,6 +2141,77 @@ def phase_times_ndt(torch, np, ft, dev, smi):
     return out
 
 
+def phase_times_slice3(torch, ft, dev, smi):
+    """By the slope method, ms/iter of GICP through K1 at 16,384 and K3 at
+    1,048,576, AA-ICP at 16,384, grid ICP at 262,144 and 1,048,576 and one
+    SGD step; by events, ``build_voxel_table`` and ``grid_nn`` at both
+    sizes, ``voxel_downsample`` at 1,048,576 and
+    ``evaluate_registration`` at 262,144. Normals and voxel tables are
+    built once, outside the timed runs."""
+    from fpcr_tpu_torch.ops.grid import (build_voxel_table, grid_nn,
+                                         suggest_cell_size)
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms, slope_ms_per_iter
+
+    card = f"[card: {smi}]"
+    out = {}
+
+    def slope(label, run, k_lo, k_hi, repeats):
+        r = slope_ms_per_iter(run, k_lo=k_lo, k_hi=k_hi, repeats=repeats)
+        log("times", f"{label}: {r['ms_per_iter']:.4f} ms/iter (slope of "
+                     f"min-of-{repeats}, {k_lo} and {k_hi} iterations: "
+                     f"{r['lo_ms']:.3f} / {r['hi_ms']:.3f} ms) {card}")
+        out[label] = r["ms_per_iter"]
+
+    def events(label, fn):
+        t = cuda_time_ms(fn, repeats=5, warmup=1)
+        log("times", f"{label}: min {t['min']:.3f} ms, mean {t['mean']:.3f} "
+                     f"ms (events) {card}")
+        out[label] = t["min"]
+
+    def normals(s):
+        return {"source_normals": ft.estimate_normals(s.source),
+                "target_normals": ft.estimate_normals(s.target)}
+
+    def cfg(k, **kw):
+        return ft.ICPConfig(max_iterations=k, tolerance=0.0, **kw)
+
+    s16 = build_scene(ft, "synthetic", dev)
+    n16 = normals(s16)
+    slope("GICP N=16384 (K1)", lambda k: ft.run_icp(
+        s16.source, s16.target, cfg(k, metric="gicp", matcher="pallas"),
+        **n16), 10, 60, 5)
+    slope("AA-ICP point N=16384 (K1, 3 calls an iteration)",
+          lambda k: ft.run_aa_icp(s16.source, s16.target,
+                                  cfg(k, matcher="pallas")), 10, 60, 3)
+    bunny = build_scene(ft, "bunny", dev)
+    slope("SGD-ICP step, B=1024, Bunny-8171 (K1)", lambda k: ft.run_sgd_icp(
+        bunny.source, bunny.target, cfg(k), batch_size=1024), 10, 60, 5)
+    for i, w in enumerate(LARGE_WIDTHS):
+        n = w * w
+        s = build_scene(ft, f"grid-{i}", dev)
+        cell = suggest_cell_size(s.target)
+        events(f"build_voxel_table N={n}",
+               lambda: build_voxel_table(s.target, cell))
+        table = build_voxel_table(s.target, cell)
+        events(f"grid_nn N={n}, cap 8 ({n * 27 * 8} candidate rows)",
+               lambda: grid_nn(s.source, table))
+        slope(f"grid ICP N={n}", lambda k: ft.run_icp(
+            s.source, s.target, cfg(k, matcher="grid"),
+            matcher_state=table), 5, 25, 3)
+        if i == 0:
+            events(f"evaluate_registration N={n} (K1, automatic gate)",
+                   lambda: ft.evaluate_registration(s.source, s.target,
+                                                    s.ground_truth))
+            continue
+        nrm = normals(s)
+        slope(f"GICP N={n} (K3, c512/w64)", lambda k: ft.run_icp(
+            s.source, s.target, cfg(k, metric="gicp", matcher="morton",
+                                    **BAND), **nrm), 5, 25, 3)
+        events(f"voxel_downsample N={n}, voxel {VOXEL['size']}",
+               lambda: ft.voxel_downsample(s.source, VOXEL["size"]))
+    return out
+
+
 def bound(nbytes, flops, ops_ms=0.0):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``nbytes`` of device-memory traffic (each input read once, each output
@@ -2064,6 +2435,7 @@ def main():
     times2 = phase_times_slice2(torch, ft, dev, smi)
     times3 = phase_times_ndt(torch, np, ft, dev, smi)
     times5 = phase_times_studies(torch, dev, smi, studies)
+    phase_times_slice3(torch, ft, dev, smi)
     log("times", f"kernel_ms: {len(PROFILER_LOSSES)} profiler sessions lost "
                  f"events (seen, launched): {PROFILER_LOSSES}")
     legs = times["legs"]

@@ -156,3 +156,12 @@ def rotation_log(R: torch.Tensor) -> torch.Tensor:
     s = torch.where(theta < 1e-6, 1.0 + theta * theta / 6.0,
                     theta / torch.where(sin != 0, sin, torch.ones_like(sin)))
     return v * s
+
+
+def transform_to_vector(t: RigidTransform) -> torch.Tensor:
+    """Minimal 6-vector ``[rotation vector, translation]``."""
+    return torch.cat([rotation_log(t.rotation), t.translation])
+
+
+def vector_to_transform(x: torch.Tensor) -> RigidTransform:
+    return RigidTransform(rotation_exp(x[:3]).to(x.dtype), x[3:6])

@@ -7,13 +7,16 @@ start of the iteration (the point RMSE for every metric, as in the
 reference). The loop stops when ``E < tol`` or ``|E - E_prev| < tol``
 (``E_prev`` starts at ``inf``), or at ``max_iterations``.
 
-Metrics: ``point`` (Kabsch), ``plane`` (6x6 solve on PCA target normals) and
-``symmetric`` (the plane solve on ``n_p + sign·n_q``, with the source
-normals carried and re-rotated every iteration). Matchers: ``xla`` and
+Metrics: ``point`` (Kabsch), ``plane`` (6x6 solve on PCA target normals),
+``symmetric`` (the plane solve on ``n_p + sign·n_q``) and ``gicp``
+(Generalized-ICP, ``ops/gicp.py``); the last two carry the source normals
+and re-rotate them every iteration at full float32. Matchers: ``xla`` and
 ``pallas`` are the brute matcher ``nn_argmin`` (kernel K1 on a CUDA
 tensor), except that ``pallas`` with ``pallas_mode='packed6_idx'`` takes
 the packed (value|index) reduction ``nn_argmin_packed`` (kernel K2);
-``morton`` is the band matcher, whose ``morton_impl`` picks the geometry:
+``grid`` is the voxel-hash matcher ``ops/grid.py::grid_nn`` (plain torch,
+no kernel), whose unmatched rows leave the solve; ``morton`` is the band
+matcher, whose ``morton_impl`` picks the geometry:
 ``'pallas'`` is kernel K3's (K3, or K3p for ``'packed6_idx'``, on CUDA;
 their plain versions on the CPU), ``'xla'`` the XLA geometry ``morton_nn``
 everywhere, and ``'auto'`` K3's on a CUDA tensor and ``morton_nn`` on a CPU
@@ -30,15 +33,17 @@ changes nothing. The host reads ``done`` only every ``DONE_CHECK_EVERY``
 iterations, never per iteration; the results equal those of a
 per-iteration check.
 
-Config values outside the port (``metric='gicp'``, ``matcher='grid'``)
-construct, since the validation accepts them, and raise
-``NotImplementedError`` at :func:`run_icp`.
+``matcher='grid'`` degrades to ``'morton'`` (:func:`resolve_matcher`) above
+``ops.grid.MAX_CANDIDATE_GATHERS`` candidate rows, as in the JAX package;
+the port's limit is set by the card and admits 1M points at cap 8, where
+the JAX package's degrades.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -47,6 +52,8 @@ import torch
 from ..core.cloud import as_points
 from ..core.metrics import rmse
 from ..core.transforms import RigidTransform
+from ..ops import grid
+from ..ops.gicp import gicp_transform
 from ..ops.matching import (gather_correspondences, nn_argmin,
                              nn_argmin_packed)
 from ..ops.morton import (build_morton_table, miss_floors, morton_nn,
@@ -85,10 +92,11 @@ class ICPConfig:
     target_tile: int = 2048
     # 'xla' and 'pallas' both mean the brute matcher nn_argmin (kernel K1
     # on a CUDA tensor), but 'pallas' with pallas_mode='packed6_idx' is
-    # nn_argmin_packed (K2); 'morton' the band matcher; 'grid' is not ported
+    # nn_argmin_packed (K2); 'grid' the voxel-hash matcher; 'morton' the
+    # band matcher
     matcher: str = "xla"
     exact_distances: bool = False  # plain matcher: difference form
-    grid_cell_size: Optional[float] = None
+    grid_cell_size: Optional[float] = None  # None: suggest_cell_size
     grid_cap: int = 8
     grid_table_bits: int = 20
     morton_chunk: int = 256
@@ -124,19 +132,6 @@ class ICPConfig:
             raise ValueError("gicp_epsilon must be in (0, 1]")
 
 
-def check_supported(config: ICPConfig) -> None:
-    """Raise ``NotImplementedError`` for config values outside the port,
-    naming the ROADMAP.md item that ports them."""
-    if config.metric == "gicp":
-        raise NotImplementedError(
-            "metric='gicp' is not ported yet (ROADMAP.md, 'Modules to "
-            "port', item 3: GICP)")
-    if config.matcher == "grid":
-        raise NotImplementedError(
-            "matcher='grid' is not ported yet (ROADMAP.md, 'Modules to "
-            "port', item 5: ops/grid.py)")
-
-
 class ICPResult(NamedTuple):
     transform: RigidTransform  # accumulated source→target estimate
     errors: torch.Tensor  # [max_iterations] RMSE per iteration, NaN after stop
@@ -160,13 +155,40 @@ def rotation_angle(rotation: torch.Tensor) -> torch.Tensor:
                                     -1.0, 1.0))
 
 
+def resolve_matcher(config: ICPConfig, n_source: int) -> ICPConfig:
+    """``matcher='grid'`` above ``ops.grid.MAX_CANDIDATE_GATHERS`` candidate
+    rows (``n_source x 27 x grid_cap``) becomes ``'morton'``, with a
+    warning, rather than raising from inside the loop; every other config is
+    returned as given. Callers who know their card takes more call
+    ``grid_nn`` with an explicit ``max_candidate_gathers``."""
+    if config.matcher != "grid":
+        return config
+    budget = n_source * 27 * config.grid_cap
+    if budget <= grid.MAX_CANDIDATE_GATHERS:
+        return config
+    warnings.warn(
+        f"matcher='grid' candidate budget {budget:,} (N={n_source:,} x 27 "
+        f"x cap={config.grid_cap}) exceeds the limit "
+        f"{grid.MAX_CANDIDATE_GATHERS:,}, the largest measured; falling "
+        "back to matcher='morton', the large-N path. Lower grid_cap or "
+        "split the source to stay on the grid matcher.", stacklevel=2)
+    return dataclasses.replace(config, matcher="morton")
+
+
 def build_matcher_state(target: torch.Tensor,
                         target_mask: Optional[torch.Tensor],
                         config: ICPConfig,
                         target_normals: Optional[torch.Tensor] = None):
     """Per-target matcher structures, built once and reused every
-    iteration: for ``matcher='morton'`` one ``(MortonTable, normals in table
-    order)`` per shift (the normals are K3's ``extra``); None otherwise."""
+    iteration: for ``matcher='grid'`` the ``VoxelTable``, for
+    ``matcher='morton'`` one ``(MortonTable, normals in table order)`` per
+    shift (the normals are K3's ``extra``); None otherwise."""
+    if config.matcher == "grid":
+        cell = (grid.suggest_cell_size(target)
+                if config.grid_cell_size is None else config.grid_cell_size)
+        return grid.build_voxel_table(target, cell,
+                                      table_bits=config.grid_table_bits,
+                                      q_mask=target_mask)
     if config.matcher != "morton":
         return None
     states = []
@@ -214,11 +236,27 @@ def _exact_rescue(points, target, target_mask, target_normals, q_m, n_m,
     return q_m, n_m, dmin
 
 
+def _match(points, target, target_mask, config: ICPConfig,
+           matcher_state=None):
+    """The configured exhaustive or grid matcher: ``(idx, sqdist, found)``,
+    ``found`` None but for the fixed-radius grid matcher."""
+    if config.matcher == "grid":
+        return grid.grid_nn(points, matcher_state, cap=config.grid_cap)
+    if config.matcher == "pallas" and config.pallas_mode == "packed6_idx":
+        idx, dmin = nn_argmin_packed(points, target, target_mask)
+    else:  # 'xla' keeps the exact matcher whatever pallas_mode is
+        idx, dmin = nn_argmin(points, target, target_mask,
+                              source_chunk=config.source_chunk,
+                              target_tile=config.target_tile,
+                              exact=config.exact_distances)
+    return idx, dmin, None
+
+
 def _correspondences(points, target, target_mask, target_normals,
                      config: ICPConfig, matcher_state, source_mask=None):
-    """Find the correspondences: ``(q_matched, n_matched, dmin)``. For
-    ``matcher='morton'`` the matched points and normals come from the band
-    matcher, which reads them from the sorted table."""
+    """Find the correspondences: ``(q_matched, n_matched, dmin, found)``.
+    For ``matcher='morton'`` the matched points and normals come from the
+    band matcher, which reads them from the sorted table."""
     if config.matcher == "morton":
         impl = config.morton_impl
         if impl == "auto":
@@ -243,18 +281,13 @@ def _correspondences(points, target, target_mask, target_normals,
             q_m, n_m, dmin = _exact_rescue(
                 points, target, target_mask, target_normals, q_m, n_m, dmin,
                 config, source_mask)
-        return q_m, n_m, dmin
-    if config.matcher == "pallas" and config.pallas_mode == "packed6_idx":
-        idx, dmin = nn_argmin_packed(points, target, target_mask)
-    else:  # 'xla' keeps the exact matcher whatever pallas_mode is
-        idx, dmin = nn_argmin(points, target, target_mask,
-                              source_chunk=config.source_chunk,
-                              target_tile=config.target_tile,
-                              exact=config.exact_distances)
+        return q_m, n_m, dmin, None
+    idx, dmin, found = _match(points, target, target_mask, config,
+                              matcher_state)
     q_m = gather_correspondences(target, idx)
     n_m = (None if target_normals is None
            else gather_correspondences(target_normals, idx))
-    return q_m, n_m, dmin
+    return q_m, n_m, dmin, found
 
 
 def _trimmed_mean(dmin: torch.Tensor, base: torch.Tensor,
@@ -303,12 +336,17 @@ def _auto_trim_gate(dmin: torch.Tensor, mask: Optional[torch.Tensor],
     return gate if mask is None else (mask & gate)
 
 
-def correspondence_weights(dmin: torch.Tensor, config: ICPConfig,
+def correspondence_weights(dmin: torch.Tensor, found: Optional[torch.Tensor],
+                           config: ICPConfig,
                            source_mask: Optional[torch.Tensor] = None):
-    """Distance gate → auto-trim → IRLS weights. Returns the solve mask:
-    None, bool, or float weights. ``auto_trim`` defaults to 9.0 for the
-    morton matcher, whose rare band misses have unbounded distance."""
+    """The grid matcher's ``found`` → distance gate → auto-trim → IRLS
+    weights, shared by :func:`icp_iteration` and AA-ICP's safeguard.
+    Returns the solve mask: None, bool, or float weights. ``auto_trim``
+    defaults to 9.0 for the morton matcher, whose rare band misses have
+    unbounded distance."""
     mask = source_mask
+    if found is not None:  # grid matcher: unmatched rows leave the solve
+        mask = found if mask is None else (mask & found)
     if config.max_correspondence_dist is not None:
         gate = dmin <= (config.max_correspondence_dist ** 2)
         mask = gate if mask is None else (mask & gate)
@@ -331,7 +369,7 @@ def _matched_fraction(mask, source_mask, n_rows: int,
     if source_mask is not None:
         denom = source_mask.to(torch.float32).sum()
     else:
-        denom = torch.tensor(float(n_rows), device=device)
+        denom = torch.full((), float(n_rows), device=device)
     inliers = (mask > 0).to(torch.float32).sum()
     return inliers / torch.clamp(denom, min=1.0)
 
@@ -344,14 +382,14 @@ def icp_iteration(points: torch.Tensor, target: torch.Tensor,
                   matcher_state=None,
                   source_normals: Optional[torch.Tensor] = None):
     """One ICP iteration: returns ``(new_points, incremental_transform,
-    error, IterationAux)``. ``target_normals`` are needed by the plane and
-    symmetric metrics, ``source_normals`` (rotated to the current pose) by
-    the symmetric one, and the morton matcher its ``matcher_state``
-    (:func:`build_matcher_state`)."""
-    q_matched, n_matched, dmin = _correspondences(
+    error, IterationAux)``. ``target_normals`` are needed by the plane,
+    symmetric and gicp metrics, ``source_normals`` (rotated to the current
+    pose) by the last two, and the grid and morton matchers their
+    ``matcher_state`` (:func:`build_matcher_state`)."""
+    q_matched, n_matched, dmin, found = _correspondences(
         points, target, target_mask, target_normals, config, matcher_state,
         source_mask=source_mask)
-    mask = correspondence_weights(dmin, config, source_mask)
+    mask = correspondence_weights(dmin, found, config, source_mask)
     aux = IterationAux(matched_fraction=_matched_fraction(
         mask, source_mask, points.shape[0], points.device))
     if config.metric == "point":
@@ -373,6 +411,14 @@ def icp_iteration(points: torch.Tensor, target: torch.Tensor,
         inc = point_to_plane_transform(
             points, q_matched, source_normals + sgn * n_matched, mask,
             damping=config.damping)
+    elif config.metric == "gicp":
+        # Generalized-ICP (Segal et al. 2009): the anisotropic Mahalanobis
+        # residual of both clouds' surface covariances
+        if source_normals is None:
+            raise ValueError("metric='gicp' needs source_normals")
+        inc = gicp_transform(points, q_matched, source_normals, n_matched,
+                             mask, epsilon=config.gicp_epsilon,
+                             damping=config.damping)
     else:
         inc = point_to_plane_transform(points, q_matched, n_matched, mask,
                                        damping=config.damping)
@@ -396,19 +442,33 @@ def _normals_prepass(cloud, mask, config: ICPConfig) -> torch.Tensor:
                             banded_threshold=config.normals_banded_threshold)
 
 
-def run_icp(source, target, config: ICPConfig = ICPConfig(),
-            source_mask: Optional[torch.Tensor] = None,
-            target_mask: Optional[torch.Tensor] = None,
-            target_normals: Optional[torch.Tensor] = None,
-            source_normals: Optional[torch.Tensor] = None,
-            matcher_state=None) -> ICPResult:
-    """Register ``source`` onto ``target`` on their device.
+class _Prepared(NamedTuple):
+    """What a registration loop starts from: :func:`_prepare`'s result."""
 
-    ``target_normals`` (and ``source_normals`` for the symmetric metric)
-    are estimated when not given; ``matcher_state`` takes a prebuilt
-    :func:`build_matcher_state` to reuse the target's Morton tables."""
-    check_supported(config)
-    pin_f32_precision()
+    source: torch.Tensor  # in Morton order on the morton matcher
+    target: torch.Tensor
+    source_mask: Optional[torch.Tensor]
+    target_mask: Optional[torch.Tensor]
+    target_normals: Optional[torch.Tensor]
+    source_normals: Optional[torch.Tensor]  # symmetric and gicp only
+    matcher_state: object
+    unsort: Optional[torch.Tensor]  # rows back to the caller's order
+    config: ICPConfig  # after resolve_matcher
+
+
+def _prepare(source, target, config: ICPConfig,
+             source_mask: Optional[torch.Tensor] = None,
+             target_mask: Optional[torch.Tensor] = None,
+             target_normals: Optional[torch.Tensor] = None,
+             source_normals: Optional[torch.Tensor] = None,
+             matcher_state=None) -> _Prepared:
+    """The set-up that ``run_icp`` and ``run_aa_icp`` share: contiguous
+    float32 clouds on the source's device, the normals prepass of the
+    metrics that need normals, the matcher resolved for the source's size
+    and its state built (a prebuilt grid table above the limit is rebuilt
+    for morton), and on the morton matcher the source sorted along the
+    target's curve once: the solve and the error do not depend on the row
+    order, and the loop then reads bands only."""
     # the kernels take contiguous f32 rows; views are copied once here
     source = as_points(source).contiguous()
     device = source.device
@@ -418,8 +478,8 @@ def run_icp(source, target, config: ICPConfig = ICPConfig(),
     if source_mask is not None:
         source_mask = source_mask.to(device)
 
-    carries_normals = config.metric == "symmetric"
-    if config.metric in ("plane", "symmetric"):
+    carries_normals = config.metric in ("symmetric", "gicp")
+    if config.metric in ("plane", "symmetric", "gicp"):
         target_normals = (_normals_prepass(target, target_mask, config)
                           if target_normals is None else
                           as_points(target_normals, device=device))
@@ -428,15 +488,13 @@ def run_icp(source, target, config: ICPConfig = ICPConfig(),
         source_normals = (_normals_prepass(source, source_mask, config)
                           if source_normals is None else
                           as_points(source_normals, device=device))
-    if matcher_state is None:
-        matcher_state = build_matcher_state(target, target_mask, config,
+    resolved = resolve_matcher(config, source.shape[0])
+    if matcher_state is None or resolved.matcher != config.matcher:
+        matcher_state = build_matcher_state(target, target_mask, resolved,
                                             target_normals)
 
     unsort = None
-    if config.matcher == "morton":
-        # sort the source along the target's curve once: the solve and the
-        # error do not depend on the row order, and the loop then reads
-        # bands only
+    if resolved.matcher == "morton":
         order = source_morton_order(source, matcher_state[0][0]).long()
         source = source[order].contiguous()
         if source_mask is not None:
@@ -445,12 +503,38 @@ def run_icp(source, target, config: ICPConfig = ICPConfig(),
             source_normals = source_normals[order]
         unsort = torch.empty_like(order)
         unsort[order] = torch.arange(order.shape[0], device=device)
+    return _Prepared(source, target, source_mask, target_mask, target_normals,
+                     source_normals if carries_normals else None,
+                     matcher_state, unsort, resolved)
 
-    nan = torch.tensor(float("nan"), device=device)
+
+def run_icp(source, target, config: ICPConfig = ICPConfig(),
+            source_mask: Optional[torch.Tensor] = None,
+            target_mask: Optional[torch.Tensor] = None,
+            target_normals: Optional[torch.Tensor] = None,
+            source_normals: Optional[torch.Tensor] = None,
+            matcher_state=None) -> ICPResult:
+    """Register ``source`` onto ``target`` on their device.
+
+    ``target_normals`` (and ``source_normals`` for the symmetric and gicp
+    metrics) are estimated when not given; ``matcher_state`` takes a
+    prebuilt :func:`build_matcher_state` to reuse the target's voxel or
+    Morton tables. A grid config above the candidate limit degrades to the
+    morton matcher (:func:`resolve_matcher`), a prebuilt grid table
+    included, which is then rebuilt for the morton matcher."""
+    pin_f32_precision()
+    (source, target, source_mask, target_mask, target_normals,
+     source_normals, matcher_state, unsort, config) = _prepare(
+        source, target, config, source_mask, target_mask, target_normals,
+        source_normals, matcher_state)
+    device = source.device
+    carries_normals = source_normals is not None
+
+    nan = torch.full((), float("nan"), device=device)
     points = source
-    normals = source_normals if carries_normals else None
+    normals = source_normals
     transform = RigidTransform.identity(device=device)
-    prev_error = torch.tensor(float("inf"), device=device)
+    prev_error = torch.full((), float("inf"), device=device)
     done = torch.zeros((), dtype=torch.bool, device=device)
     num_iterations = torch.zeros((), dtype=torch.int32, device=device)
     errors, fractions, delta_t, delta_rot = [], [], [], []
@@ -516,7 +600,7 @@ def tune_morton(source, target, config: Optional[ICPConfig] = None, *,
         state = build_matcher_state(tgt, target_mask, cfg)
         order = source_morton_order(src, state[0][0]).long()
         p = src[order].contiguous()
-        _, _, dmin = _correspondences(
+        _, _, dmin, _ = _correspondences(
             p, tgt, target_mask, None,
             dataclasses.replace(cfg, morton_rescue=0), state)
         stride = max(1, -(-p.shape[0] // sample))
@@ -578,3 +662,9 @@ def icp_point_to_plane(source, target, **kwargs) -> ICPResult:
     """Point-to-plane ICP (PCA target normals, 6x6 solve), called as
     :func:`icp_point_to_point`."""
     return _metric_wrapper("plane", source, target, kwargs)
+
+
+def icp_generalized(source, target, **kwargs) -> ICPResult:
+    """Generalized-ICP (plane-to-plane, Segal et al. 2009), called as
+    :func:`icp_point_to_point`."""
+    return _metric_wrapper("gicp", source, target, kwargs)

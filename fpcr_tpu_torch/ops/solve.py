@@ -1,10 +1,12 @@
-"""Rigid-motion solvers: point-to-point (Kabsch) and point-to-plane (6x6).
+"""Rigid-motion solvers: point-to-point (Kabsch), similarity (Umeyama) and
+point-to-plane (6x6).
 
 Counterpart of ``fpcr_tpu/ops/solve.py``. Point-to-point: masked centroids,
 the 3x3 cross-covariance as one float32 matmul, and the rotation from a 3x3
 SVD on the device of the inputs (``torch.linalg.svd``), with the det(R) = +1
 reflection fix the reference lacks, or from the matmul-only Newton–Schulz
-polar iteration. Point-to-plane: J = [p × n, n], C = JᵀWJ and b = -JᵀWr as
+polar iteration; Umeyama adds the scale from the same SVD. Point-to-plane:
+J = [p × n, n], C = JᵀWJ and b = -JᵀWr as
 float32 reductions, and the 6x6 Cholesky solve on the device, with no host
 round trip. A mask may be boolean or float (IRLS weights).
 """
@@ -98,6 +100,37 @@ def kabsch_transform(p: torch.Tensor, q: torch.Tensor,
     else:
         raise ValueError(f"unknown solver {solver!r}")
     return RigidTransform(R, q_bar - torch.matmul(R, p_bar))
+
+
+def umeyama_transform(p: torch.Tensor, q: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None, *,
+                      with_scale: bool = True
+                      ) -> Tuple[torch.Tensor, RigidTransform]:
+    """Umeyama (TPAMI 1991) similarity alignment for known correspondences:
+    ``(scale, RigidTransform)`` minimising ``Σ w_i ‖q_i − (s·R·p_i + t)‖²``.
+    The sign fix ``d = sign(det U · det Vᵀ)`` and the scale stay on the
+    device; ``with_scale=False`` gives s = 1 and Kabsch with Umeyama's
+    reflection handling."""
+    pin_f32_precision()
+    p = p.to(torch.float32)
+    q = q.to(torch.float32)
+    w = _weights(mask, p)
+    wsum = torch.clamp(w.sum(), min=1.0)
+    p_bar = masked_centroid(p, mask)
+    q_bar = masked_centroid(q, mask)
+    W = cross_covariance(p, q, p_bar, q_bar, mask) / wsum
+    dev_p = p - p_bar
+    var_p = torch.sum(w * torch.sum(dev_p * dev_p, dim=1)) / wsum
+    U, D, Vt = torch.linalg.svd(W, full_matrices=False)
+    d = torch.sign(_det3(U) * _det3(Vt))
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    U[:, 2] *= d
+    R = torch.matmul(U, Vt)
+    if with_scale:
+        s = (D[0] + D[1] + d * D[2]) / torch.clamp(var_p, min=1e-30)
+    else:
+        s = torch.ones((), dtype=torch.float32, device=p.device)
+    return s, RigidTransform(R, q_bar - s * torch.matmul(R, p_bar))
 
 
 def plane_normal_equations(p: torch.Tensor, q: torch.Tensor,

@@ -172,10 +172,32 @@ def test_config_validation_matches_jax(bad):
     {"matcher": "grid"}, {"matcher": "grid", "metric": "plane"},
 ])
 def test_values_outside_the_slice_raise_at_run(kwargs):
-    cfg = ft.ICPConfig(**kwargs)  # constructs: the validation accepts it
-    s = ft.synthetic_scene(width=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ft.run_icp(s.source, s.target, cfg)
+    """The config values that once raised ``NotImplementedError`` (GICP
+    and the grid matcher) now run, to the JAX package's iterations and
+    within 1e-5 of its transform, JAX's normals handed to both."""
+    s = f.synthetic_scene(width=16)
+    src, tgt = np.array(s.source), np.array(s.target)
+    if kwargs.get("matcher") in ("grid", "morton"):  # near the target
+        src = np.array(s.ground_truth.inverse().apply(jnp.asarray(tgt))
+                       + 0.003)
+    normals = {}
+    if kwargs.get("metric") in ("gicp", "plane"):
+        normals = {k: np.array(f.estimate_normals(jnp.asarray(c)))
+                   for k, c in (("source_normals", src),
+                                ("target_normals", tgt))}
+        if kwargs["metric"] == "plane":
+            del normals["source_normals"]
+    j = f.run_icp(jnp.asarray(src), jnp.asarray(tgt),
+                  f.ICPConfig(max_iterations=40, **kwargs),
+                  **{k: jnp.asarray(v) for k, v in normals.items()})
+    t = ft.run_icp(torch.as_tensor(src), torch.as_tensor(tgt),
+                   ft.ICPConfig(max_iterations=40, **kwargs),
+                   **{k: torch.as_tensor(v) for k, v in normals.items()})
+    assert int(t.num_iterations) == int(j.num_iterations)
+    tj = ft.RigidTransform(torch.as_tensor(np.array(j.transform.rotation)),
+                           torch.as_tensor(np.array(j.transform.translation)))
+    assert float(ft.transform_rmse(t.transform, tj,
+                                   torch.as_tensor(src))) < 1e-5
 
 
 def test_interop_transform_and_result():
@@ -224,6 +246,22 @@ def test_imports_and_registers_without_jax():
         "r = ft.run_icp(s.source, s.target, ft.ICPConfig(max_iterations=40))\n"
         "e = float(ft.transform_rmse(r.transform, s.ground_truth, s.source))\n"
         "assert e < 1e-4, e\n"
+        "for run in (lambda: ft.icp_generalized(s.source, s.target),\n"
+        "            lambda: ft.run_aa_icp(s.source, s.target),\n"
+        "            lambda: ft.run_scaled_icp(s.source, s.target)):\n"
+        "    g = float(ft.transform_rmse(run().transform, s.ground_truth,\n"
+        "                                s.source))\n"
+        "    assert g < 1e-4, g\n"
+        "r = ft.run_sgd_icp(s.source, s.target, batch_size=64)\n"
+        "assert bool(r.converged)\n"
+        "near = s.ground_truth.inverse().apply(s.target) + 0.003\n"
+        "r = ft.run_icp(near, s.target, ft.ICPConfig(matcher='grid'))\n"
+        "assert float(ft.rmse(r.transform.apply(near), s.target)) < 5e-3\n"
+        "c, v = ft.voxel_downsample(s.source, 0.5)\n"
+        "assert 0 < int(v.sum()) < 256\n"
+        "q = ft.evaluate_registration(near, s.target, r.transform)\n"
+        "assert float(q['fitness']) == 1.0\n"
+        "ft.profile_icp(s.source, s.target, ft.ICPConfig(), iterations=2)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "import fpcr_tpu_torch._build as b\n"

@@ -1,6 +1,8 @@
 """Kernels K1, K2, the min-only sweep, K3, K3p, K4, Kernel S (the bf16
 split distance on the tensor cores) and the E1 distance forms on the card
-against their plain PyTorch versions.
+against their plain PyTorch versions; GICP, the loop variants and the voxel
+grid on the card against the port on the CPU, and no host sync in their
+iterations.
 
 Every test here needs a CUDA device and skips without one: a CUDA kernel
 has no CPU mode. On the card (which has no JAX, so the root conftest is
@@ -987,3 +989,216 @@ def test_tc_guard_holds_on_card(cuda, name):
              / (CERT_GUARD * (pn[:, None] + qn) ** 2)).max()
     print(f"{name}: largest |d~ - d64| / G {float(ratio):.4f}")
     assert float(ratio) <= 0.25
+
+
+# --- GICP, the loop variants and the voxel grid on the card against the
+# port on the CPU ----------------------------------------------------------
+
+SLICE_BAND = dict(morton_chunk=512, morton_window=64)
+
+
+def _slice_inputs(name):
+    """``(source, target, normals {name: [N, 3]}, config fields)`` on the
+    CPU; the normals are estimated once on the CPU and handed to both runs,
+    so the two devices' kNN near-ties on the regular grid cannot differ."""
+    import fpcr_tpu_torch as ft
+
+    if name.startswith("grid") or name == "gicp-morton":
+        src = ft.surface_grid(64, device="cpu")
+        gt = ft.gt_transform((0.004, -0.003, 0.002), (0.003, -0.002, 0.004),
+                             device="cpu")
+        tgt = gt.apply(src)
+    elif name == "scaled":
+        src = ft.data.synthetic.random_cloud(1500, seed=11, scale=2.0,
+                                             device="cpu")
+        gt = ft.gt_transform((0.01, -0.02, 0.015), (0.01, -0.008, 0.012),
+                             device="cpu")
+        tgt = 1.04 * gt.apply(src)
+    else:
+        s = ft.synthetic_scene(width=32, device="cpu")
+        src, tgt = s.source, s.target
+    kw = {"gicp": dict(metric="gicp", matcher="pallas"),
+          "gicp-morton": dict(metric="gicp", matcher="morton",
+                              morton_impl="pallas", max_iterations=25,
+                              **SLICE_BAND),
+          "aa-point": dict(matcher="pallas"),
+          "aa-plane": dict(metric="plane", matcher="pallas"),
+          "scaled": dict(matcher="pallas", max_iterations=60),
+          "grid": dict(matcher="grid", grid_cap=16, max_iterations=30),
+          "grid-gicp": dict(metric="gicp", matcher="grid", grid_cap=16,
+                            max_iterations=30)}[name]
+    kw.setdefault("max_iterations", 40)
+    if kw["matcher"] != "morton":
+        kw["exact_distances"] = True  # the plain version's difference form
+    normals = {}
+    if kw.get("metric") in ("gicp", "plane"):
+        normals["target_normals"] = ft.estimate_normals(tgt)
+    if kw.get("metric") == "gicp":
+        normals["source_normals"] = ft.estimate_normals(src)
+    return src, tgt, normals, kw
+
+
+def _slice_run(name, src, tgt, normals, kw):
+    import fpcr_tpu_torch as ft
+
+    cfg = ft.ICPConfig(**kw)
+    if name.startswith("aa"):
+        return ft.run_aa_icp(src, tgt, cfg,
+                             target_normals=normals.get("target_normals"))
+    if name == "scaled":
+        return ft.run_scaled_icp(src, tgt, cfg)
+    return ft.run_icp(src, tgt, cfg, **normals)
+
+
+@pytest.mark.parametrize("name", ["gicp", "gicp-morton", "aa-point",
+                                  "aa-plane", "scaled", "grid", "grid-gicp"])
+def test_slice_paths_on_card_match_cpu(cuda, name):
+    """Each new path registered on the card (K1, K3 or the grid) and on
+    the CPU (their plain versions): iteration counts within 1, transforms
+    within 1e-5 RMSE of each other, errors within 1e-5."""
+    import fpcr_tpu_torch as ft
+
+    src, tgt, normals, kw = _slice_inputs(name)
+    on = lambda d: {k: v.to(d) for k, v in normals.items()}  # noqa: E731
+    r_c = _slice_run(name, src, tgt, on("cpu"), kw)
+    r_g = _slice_run(name, src.to(cuda), tgt.to(cuda), on(cuda), kw)
+    assert r_g.transform.rotation.device.type == "cuda"
+    n_c, n_g = int(r_c.num_iterations), int(r_g.num_iterations)
+    assert abs(n_c - n_g) <= 1, (n_c, n_g)
+    tr = ft.RigidTransform(r_g.transform.rotation.cpu(),
+                           r_g.transform.translation.cpu())
+    assert float(ft.transform_rmse(tr, r_c.transform, src)) < 1e-5
+    k = min(n_c, n_g)
+    torch.testing.assert_close(r_g.errors.cpu()[:k], r_c.errors[:k],
+                               rtol=0, atol=1e-5)
+    if name == "scaled":
+        assert abs(float(r_g.scale) - float(r_c.scale)) < 1e-6
+        assert abs(float(r_g.scale) - 1.04) < 1e-3
+
+
+def test_sgd_loop_on_card_matches_cpu(cuda):
+    """``_sgd_loop`` fed the same batches on both devices (the generators'
+    streams differ between devices), and ``run_sgd_icp``'s own draw on the
+    card, reproducible per seed."""
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.models.sgd_icp import _sgd_loop
+
+    s = ft.synthetic_scene(width=32, device="cpu")
+    rng = np.random.default_rng(0)
+    draws = [torch.as_tensor(rng.integers(0, 1024, 256)) for _ in range(300)]
+    cfg = ft.ICPConfig(max_iterations=300, tolerance=1e-6)
+    kw = dict(batch_size=256, learning_rate=0.2, momentum=0.7, ema=0.9,
+              lr_decay=0.02)
+    r_c = _sgd_loop(s.source, s.target, cfg, lambda it: draws[it], **kw)
+    r_g = _sgd_loop(s.source.to(cuda), s.target.to(cuda), cfg,
+                    lambda it: draws[it].to(cuda), **kw)
+    assert abs(int(r_c.num_iterations) - int(r_g.num_iterations)) <= 1
+    tr = ft.RigidTransform(r_g.transform.rotation.cpu(),
+                           r_g.transform.translation.cpu())
+    assert float(ft.transform_rmse(tr, r_c.transform, s.source)) < 1e-5
+    a = ft.run_sgd_icp(s.source.to(cuda), s.target.to(cuda), cfg,
+                       batch_size=256, seed=3)
+    b = ft.run_sgd_icp(s.source.to(cuda), s.target.to(cuda), cfg,
+                       batch_size=256, seed=3)
+    assert torch.equal(a.transform.rotation, b.transform.rotation)
+    gt = ft.RigidTransform(s.ground_truth.rotation.to(cuda),
+                           s.ground_truth.translation.to(cuda))
+    assert float(ft.transform_rmse(a.transform, gt, s.source.to(cuda))) < 1e-4
+
+
+@pytest.mark.parametrize("cap", [4, 16])
+def test_grid_nn_equal_on_both_devices(cuda, cap):
+    """The voxel table bit for bit, and ``grid_nn``'s ``idx`` and
+    ``found`` equal on the card and the CPU, through several chunks, with
+    a masked target, duplicates and unreachable queries."""
+    from fpcr_tpu_torch.ops.grid import build_voxel_table, grid_nn
+
+    rng = np.random.default_rng(cap)
+    q = np.concatenate([rng.uniform(-2, 2, (20000, 3)),
+                        np.repeat(rng.uniform(-2, 2, (40, 3)), 25, axis=0)])
+    q = torch.as_tensor(q.astype(np.float32))
+    mask = torch.as_tensor(rng.uniform(size=q.shape[0]) < 0.8)
+    p = q[torch.as_tensor(rng.integers(0, q.shape[0], 30000))]
+    p = torch.cat([p + 0.01 * torch.as_tensor(rng.normal(size=p.shape)
+                                              .astype(np.float32)),
+                   torch.full((7, 3), 90.0)])
+    t_c = build_voxel_table(q, 0.15, q_mask=mask)
+    t_g = build_voxel_table(q.to(cuda), 0.15, q_mask=mask.to(cuda))
+    for a, b in zip(t_c[:5], t_g[:5]):
+        assert torch.equal(a, b.cpu())
+    i_c, d_c, f_c = grid_nn(p, t_c, cap=cap, chunk=8192)
+    i_g, d_g, f_g = grid_nn(p.to(cuda), t_g, cap=cap, chunk=8192)
+    assert torch.equal(i_g.cpu(), i_c) and torch.equal(f_g.cpu(), f_c)
+    torch.testing.assert_close(d_g.cpu(), d_c, rtol=1e-6, atol=0)
+    assert not f_g[-7:].any()
+
+
+def test_voxel_downsample_deterministic_on_card(cuda):
+    """Two card runs bit-equal (segment sums, no atomics), and equal to
+    the CPU's within float32 rounding."""
+    import fpcr_tpu_torch as ft
+
+    pts = ft.surface_grid(256, device=cuda)
+    mask = torch.arange(pts.shape[0], device=cuda) % 7 != 0
+    a = ft.voxel_downsample(pts, 0.05, mask)
+    b = ft.voxel_downsample(pts, 0.05, mask)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    c = ft.voxel_downsample(pts.cpu(), 0.05, mask.cpu())
+    assert torch.equal(a[1].cpu(), c[1])
+    torch.testing.assert_close(a[0].cpu(), c[0], rtol=1e-6, atol=1e-7)
+
+
+def test_evaluate_registration_and_profile_on_card(cuda):
+    import fpcr_tpu_torch as ft
+
+    s = ft.synthetic_scene(width=32, device="cpu")
+    far = torch.full((100, 3), 9.0)
+    src = torch.cat([s.source, far])
+    e_c = ft.evaluate_registration(src, s.target, s.ground_truth)
+    gt = ft.RigidTransform(s.ground_truth.rotation.to(cuda),
+                           s.ground_truth.translation.to(cuda))
+    e_g = ft.evaluate_registration(src.to(cuda), s.target.to(cuda), gt)
+    assert int(e_g["num_inliers"]) == int(e_c["num_inliers"]) == 1024
+    for k in ("fitness", "inlier_rmse", "max_correspondence_dist"):
+        assert e_g[k].device.type == "cuda"
+        torch.testing.assert_close(e_g[k].cpu(), e_c[k], rtol=1e-5,
+                                   atol=1e-6)
+    timer = ft.profile_icp(s.source.to(cuda), s.target.to(cuda),
+                           ft.ICPConfig(metric="plane"), iterations=3)
+    assert timer.device.type == "cuda"
+    assert list(timer.totals) == ["normals", "matching", "gather",
+                                  "minimization", "transformation", "error"]
+    assert all(v > 0 for v in timer.as_dict().values())
+
+
+@pytest.mark.parametrize("name", ["gicp", "aa-plane", "grid-gicp"])
+def test_no_host_sync_in_slice_iterations(cuda, name):
+    """Eight iterations of GICP (K1), AA-ICP (K1 three times an iteration)
+    and grid GICP, normals and tables prebuilt, under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in an iteration
+    waits for the card; the host reads ``done`` once per 8 iterations,
+    which 8 iterations never reach."""
+    from fpcr_tpu_torch.models.icp import build_matcher_state
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+
+    src, tgt, normals, kw = _slice_inputs(name)
+    kw["max_iterations"] = 8
+    src, tgt = src.to(cuda), tgt.to(cuda)
+    normals = {k: v.to(cuda) for k, v in normals.items()}
+    import fpcr_tpu_torch as ft
+
+    cfg = ft.ICPConfig(**kw)
+    state = build_matcher_state(tgt, None, cfg)
+    torch.cuda.synchronize()
+    before = mc.nn_argmin_cuda.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if name.startswith("aa"):
+            res = ft.run_aa_icp(src, tgt, cfg, **normals)
+        else:
+            res = ft.run_icp(src, tgt, cfg, matcher_state=state, **normals)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = (mc.nn_argmin_cuda.launches - before) // 2  # 2 a call
+    assert launches == {"gicp": 8, "aa-plane": 24, "grid-gicp": 0}[name]
+    assert int(res.num_iterations) >= 1

@@ -121,8 +121,8 @@ def test_rescue_rematches_the_worst_rows_through_nn_argmin():
     cfg = ft.ICPConfig(matcher="morton", morton_window=16)
     state = build_matcher_state(cloud, None, cfg)
     p = src[ft.source_morton_order(src, state[0][0]).long()]
-    _, _, d0 = _correspondences(p, cloud, None, None, cfg, state)
-    q1, _, d1 = _correspondences(
+    _, _, d0, _ = _correspondences(p, cloud, None, None, cfg, state)
+    q1, _, d1, _ = _correspondences(
         p, cloud, None, None, ft.ICPConfig(matcher="morton", morton_window=16,
                                            morton_rescue=128), state)
     assert (d1 <= d0).all() and (d1 < d0).sum() > 0
