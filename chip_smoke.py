@@ -35,7 +35,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    table's box, two staged tiles, the main path's grids), and one CUDA
    kernel per call; Kernel S (terms 6 and 3, every epilogue) and
    the five E1 launches against theirs at 16,384² and ragged shapes (m = 1,
-   m = 2^14 for the packed14 key, a cloud of duplicates);
+   m = 2^14 for the packed14 key, a cloud of duplicates); batched K1 and K2
+   (the element on ``blockIdx.z``) at the serving batch (32 x 4,096²), the
+   odometry pairs (11 x 4,096²), the closure batch with ragged masks (16 x
+   4,096²) and B = 1: two launches a batched call, no host sync, every
+   element bit for bit its own unbatched call and held against the plain
+   version, and a raise without a launch past gridDim.z;
 4. main path — each path driven with the launch counters set to 0 just
    before it and read just after, every scene to its ground-truth
    threshold: point-to-point ICP (``matcher='pallas'``, K1) on the
@@ -65,7 +70,22 @@ Phases, in order; any failure raises and the script exits nonzero:
    results (fitness, and its values equal to the same call on the plain
    route) and ``profile_icp``'s phase table, each to the JAX package's CPU
    iteration counts within 1 (SGD's draws are not JAX's: its polish must
-   converge) and 10x its GT error; then every ICP path
+   converge) and 10x its GT error; then serving,
+   ``register_batch`` of 32 synthetic 4,096-point scenes under their own
+   poses through batched K1 and, with ``packed6_idx``, batched K2 (one
+   batched call a loop pass, each element within 1 iteration of JAX's and of
+   its own ``run_icp`` on the card, or later only where it had converged by
+   then), the SLAM example's pipeline at T = 12 x 4,096 (each pair within 1
+   iteration of JAX's or within 5% of JAX's final error, where the stop
+   test fires at random on a noise plateau; ``register_sequence``,
+   ``detect_loop_closures``'s 16-pair batch,
+   the covariance and information of each closure, ``close_loops``, which
+   must lower the open loop's end-pose error, ``build_map``), ICP history
+   on the synthetic scene (``run_icp``'s transform and iterations, then a
+   checkpoint saved, loaded and resumed), global registration (Bunny under
+   a 1.2-rad pose to 1e-6 where plain ICP stays above 1e-4; the synthetic
+   scene under a large pose by chamfer) and ``register()``'s nine methods;
+   then every ICP path
    through K1 or K2 again on the CUDA-core sweep, to the same iterations,
    final error and GT error;
 5. times — ms/iter by the slope method (point ICP at 16,384 through K1 and
@@ -83,12 +103,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    their plain versions with their profiler kernel times, GICP (16,384
    through K1, 1M through K3), AA-ICP, grid ICP (262k, 1M) and an SGD step
    by the slope method, and ``build_voxel_table``, ``grid_nn``,
-   ``voxel_downsample`` and ``evaluate_registration`` by events, each
-   printed beside the card's name and power limit.
+   ``voxel_downsample`` and ``evaluate_registration`` by events;
+   ``register_batch``'s wall time a batch and registrations/s against 32
+   sequential ``run_icp`` calls (K1, K2, K2, K1), batched K1 and K2 alone
+   against 32 unbatched calls and the plain version, the SLAM pipeline's
+   stages and ``global_registration``'s (normals + FPFH, feature search,
+   RANSAC), each printed beside the card's name and power limit.
 
 The line before the last is a JSON object describing each kernel: its
 launches on the main path, its largest difference from its plain version,
-its time and its plain version's, and its bound, the least time the card
+its time and its plain version's (K1's and K2's entries also hold their
+batched call at 32 x 4,096², ``batched``), and its bound, the least time the card
 could take for the same work (the larger of its bytes over the HBM rate and
 its float32 operations over the float32 peak, from this run's inputs: the
 band kernels' over the pairs they evaluated after culling;
@@ -237,6 +262,105 @@ VOXEL = dict(size=0.05, iterations=60, threshold=1e-1, jax_iterations=43,
              centroids=(30066, 30326))
 
 
+# The batch paths: batch serving, odometry and the pose graph, ICP history,
+# global registration and register(). Each threshold is 10x what the JAX
+# package reaches on the CPU for the same run, rounded up to a decade, and
+# the card's iterations must be within 1 of JAX's (PERF.md §2; the test
+# files tests/test_torch_{batch,odometry_pose_graph,global_reg,registry}.py
+# run as scripts print those runs)
+# serving: JAX's largest GT error over the 32 elements 3.164e-6 (exact
+# matcher) and 2.614e-6 (packed6_idx, its TPU kernel in interpret mode)
+SERVING = dict(batch=32, width=64, iterations=20, seed=0, threshold=1e-4,
+               jax_iterations=(11, 5, 4, 12, 14, 10, 12, 10, 13, 8, 10, 13,
+                               7, 8, 5, 11, 7, 10, 13, 13, 11, 10, 4, 4, 11,
+                               11, 10, 11, 12, 6, 10, 6),
+               jax_packed_iterations=(11, 5, 4, 12, 14, 9, 13, 10, 13, 9,
+                                      10, 13, 6, 8, 5, 11, 7, 9, 13, 13, 11,
+                                      11, 5, 4, 11, 11, 10, 10, 12, 6, 10,
+                                      6))
+# Iteration counts may land further apart than 1 only where the run had
+# converged by the earlier stop: its error there below this, 10x the
+# tolerance. The converged error of the serving scenes, ~0.5-1.5e-6,
+# straddles the 1e-6 tolerance, so E < tol or |E - E_prev| < tol holds at
+# one iteration or the next by rounding (the batch's sums and a single
+# run's differ in their last bits; their SVDs are bit-equal)
+STOP_NOISE = 1e-5
+# SLAM, JAX: the pairs' iterations (25 is the cap) and final errors, the
+# closures (0, 11) (1, 10) (2, 9) (3, 8) of the 16-pair batch, end-pose
+# error 6.194e-3 open-loop and 6.844e-4 closed. The pairs that stop before
+# the cap stop on |E - E_prev| < 1e-6 while their trimmed error, ~1e-2,
+# moves by up to ~5e-6 an iteration: the stop falls at random on that
+# plateau. The port's CPU run of the same pairs (plain matcher, JAX's float
+# form) stops 4 iterations from JAX's on two pairs and 3 on a third, its
+# final errors within 2.1% of JAX's, its open-loop error 1.076e-2. So a
+# pair more than one iteration from JAX's must end within SLAM_FINAL_RTOL of
+# JAX's final error
+SLAM_FINAL_RTOL = 0.05
+SLAM = dict(frames=12, points=4096, iterations=25, voxel=0.02, gn=6,
+            detect=dict(radius=0.3, min_separation=4, max_error=1e-2,
+                        max_pairs=16),
+            jax_iterations=(25, 22, 25, 25, 18, 14, 20, 25, 25, 25, 25),
+            jax_final=(2.095512e-2, 2.839386e-2, 2.672613e-2, 2.495243e-2,
+                       1.689006e-2, 7.731006e-3, 1.614800e-2, 2.463255e-2,
+                       2.490392e-2, 2.666826e-2, 2.293426e-2),
+            closures=((0, 11), (1, 10), (2, 9), (3, 8)), open=1e-1,
+            closed=1e-2)
+HISTORY = dict(iterations=40, threshold=1e-5)
+# global registration: JAX's Bunny run 4.375e-8 in 2 ICP iterations (plain
+# run_icp 2.784e-3); under the large pose the synthetic scene at width 32
+# (1,024 points, tests/test_global_reg.py:70-79) reaches a chamfer RMSE of
+# 9.522e-7, but at width 128 JAX's own pipeline fails (0.7299: the clouds
+# are strided 4 and 2 along the grid's rows, so their FPFH differ), so that
+# run's bound, 10x JAX's, only says the card's run completes
+GLOBAL = dict(bunny_pose=((0.1, -0.05, 0.08), (0.4, 1.2, -0.8)),
+              bunny=1e-6, plain=1e-4,
+              synthetic_pose=((2.0, 1.0, 0.5), (0.2, -0.3, 0.8)),
+              chamfer={32: 1e-5, 128: 10.0})
+# register() on synthetic_scene(width=32) under tests/test_registry.py's
+# pose, 60 iterations: {method: (threshold, JAX iterations)}. JAX: point
+# 9.204e-7, plane 5.933e-7, symmetric 3.484e-7, gicp 1.448e-7, ndt
+# 8.912e-7, global 5.023e-7, coarse_to_fine 6.441e-7, aa 5.066e-7 (the ICP
+# or fine stage's iterations); RANSAC's and SGD's draws are not JAX's:
+# global is held by its chamfer RMSE (the saddle's symmetry gives a second
+# exact optimum) and its iterations are not compared, SGD by the JAX test's
+# 2e-3 (JAX 7.862e-7 in its 60 steps)
+REGISTER_POSE = ((0.02, -0.015, 0.01), (0.03, -0.02, 0.015))
+REGISTER_RUNS = {"point": (1e-5, 2), "plane": (1e-5, 2),
+                 "symmetric": (1e-5, 2), "gicp": (1e-5, 2), "ndt": (1e-5, 1),
+                 "global": (1e-5, None), "coarse_to_fine": (1e-5, 1),
+                 "aa": (1e-5, 2), "sgd": (2e-3, None)}
+
+
+def serving_poses(batch=32, seed=0):
+    """The serving batch's ground truths: B (translation, rotation) pairs,
+    U(±0.15) and U(±0.08) rad, from ``seed``: 4-14 iterations each."""
+    rng = np.random.default_rng(seed)
+    return [(tuple(rng.uniform(-0.15, 0.15, 3).tolist()),
+             tuple(rng.uniform(-0.08, 0.08, 3).tolist()))
+            for _ in range(batch)]
+
+
+def slam_frames(np, world, frames=12, points=4096, seed=0):
+    """The SLAM example's sequence (``examples/odometry_slam.py:36-63``) at
+    N = ``points``: a sensor sweeps +x over ``world`` (the 16,384-point
+    synthetic scene) and back, each frame the N points nearest its
+    viewpoint, in its own coordinates, with N(0, 4e-3) noise; consecutive
+    frames share ~75% of their points. Returns ``(frames [T, N, 3],
+    ground-truth poses [T, 4, 4])`` as numpy."""
+    rng = np.random.default_rng(seed)
+    xs = np.concatenate([np.linspace(0, 1.2, frames // 2),
+                         np.linspace(1.2, 0, frames - frames // 2)])
+    gt = np.tile(np.eye(4, dtype=np.float32), (frames, 1, 1))
+    gt[:, 0, 3] = xs
+    out = []
+    for t in range(frames):
+        crop = world[np.argsort(np.abs(world[:, 0] - xs[t]))[:points]]
+        local = crop - gt[t, :3, 3]
+        out.append((local + rng.normal(scale=4e-3, size=local.shape))
+                   .astype(np.float32))
+    return np.stack(out), gt
+
+
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
@@ -328,7 +452,10 @@ def phase_build():
         raise AssertionError("a tensor-core K1/K2 sweep issues no HGMMA")
     spills = tc_spills(res.log)
     log("build", f"ptxas spills of the tensor-core K1/K2 kernels: {spills}")
-    if len(spills) != len(sweeps) + 2 or any(spills.values()):
+    # the finish of K1 and of K2, each with and without the batch offsets
+    finishes = [k for k in spills if "nn_tc_finish_kernel" in k]
+    if (len(finishes) != 4 or len(spills) != len(sweeps) + len(finishes)
+            or any(spills.values())):
         raise AssertionError("a tensor-core K1/K2 kernel spills")
 
 
@@ -1401,6 +1528,481 @@ def slice3_paths(torch, np, ft, dev):
             ("profile_icp, K1", profile, "nn_argmin", k1_not)]
 
 
+def serving_batch(ft, dev):
+    """The serving batch: B copies of ``synthetic_scene(width=64)``'s source
+    (4,096 points) and each one's target under its own ground truth
+    (``serving_poses``). Returns ``(sources [B,N,3], targets [B,N,3],
+    ground truths)``."""
+    src = ft.synthetic_scene(width=SERVING["width"], device=dev).source
+    gts = [ft.gt_transform(t, r, device=dev)
+           for t, r in serving_poses(SERVING["batch"], SERVING["seed"])]
+    return (torch.stack([src] * len(gts)),
+            torch.stack([g.apply(src) for g in gts]).contiguous(), gts)
+
+
+def slam_inputs(ft, dev):
+    world = ft.synthetic_scene(width=128, device="cpu").source.numpy()
+    frames, gt = slam_frames(np, world, SLAM["frames"], SLAM["points"])
+    return torch.as_tensor(frames, device=dev), gt
+
+
+def batched_cases(torch, np, ft, dev):
+    """Batched K1 / K2 inputs ``(name, p [B,N,3], q [B,M,3], mask)``: the
+    serving batch (32 x 4,096²), the odometry pairs (11 x 4,096²), the
+    closure verification's shape with ragged masks (16 x 4,096², every
+    third element a third valid, every third none valid) and B = 1."""
+    srcs, tgts, _ = serving_batch(ft, dev)
+    frames, _ = slam_inputs(ft, dev)
+    rng = np.random.default_rng(9)
+    keep = np.ones((16, SLAM["points"]), bool)
+    keep[1::3] = rng.uniform(size=keep[1::3].shape) < 0.33
+    keep[2::3] = False
+    pick = torch.as_tensor(rng.integers(0, SLAM["frames"], 16), device=dev)
+    return [("serving 32x4096^2", srcs, tgts, None),
+            ("odometry 11x4096^2", frames[1:].contiguous(),
+             frames[:-1].contiguous(), None),
+            ("closures 16x4096^2, ragged masks", frames[pick].contiguous(),
+             frames[pick.flip(0)].contiguous(),
+             torch.as_tensor(keep, device=dev)),
+            ("B=1 4096^2", srcs[:1].contiguous(), tgts[:1].contiguous(),
+             None)]
+
+
+def phase_batched_vs_plain(torch, np, ft, dev):
+    """Batched K1 and K2 at the paths' shapes: two launches a batched call
+    and no host synchronisation in it; every element's index and distance
+    bits equal to its own unbatched call; every element against the plain
+    version (K1 as ``_check_k1`` holds it, K2 as ``_check_k2``); the
+    gridDim.z limit raises without a launch. Returns the largest error of
+    each against its plain version."""
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+    from fpcr_tpu_torch.ops.matching import packed_idx_bits
+
+    worst = {"nn_argmin": 0.0, "nn_argmin_packed": 0.0}
+    for name, p, q, mask in batched_cases(torch, np, ft, dev):
+        for key, wrapper, check in (
+                ("nn_argmin", mc.nn_argmin_cuda, _check_k1),
+                ("nn_argmin_packed", mc.nn_argmin_packed_cuda, _check_k2)):
+            kw = ({"idx_bits": packed_idx_bits(q.shape[1])}
+                  if key == "nn_argmin_packed" else {})
+            torch.cuda.synchronize()
+            before = wrapper.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                idx, dist = wrapper(p, q, mask, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if wrapper.launches - before != 2:
+                raise AssertionError(f"{key} {name}: {wrapper.launches - before}"
+                                     " launches, not 2")
+            for k in range(p.shape[0]):
+                m_k = None if mask is None else mask[k]
+                ei, ed = wrapper(p[k], q[k], m_k, **kw)
+                if not (torch.equal(idx[k], ei) and torch.equal(
+                        dist[k].view(torch.int32), ed.view(torch.int32))):
+                    raise AssertionError(f"{key} {name}: element {k} differs "
+                                         "from its unbatched call")
+                if k in (0, p.shape[0] - 1) or mask is not None:
+                    worst[key] = max(worst[key], check(
+                        f"{name} element {k}", p[k], q[k], m_k))
+            log("kernel", f"batched {key} {name}: 2 launches, no sync, every "
+                          f"element bit for bit its unbatched call -> ok")
+    big = torch.zeros((mc.MAX_BATCH + 1, 1, 3), device=dev)
+    before = mc.nn_argmin_cuda.launches
+    try:
+        mc.nn_argmin_cuda(big, big)
+    except ValueError as e:
+        log("kernel", f"batched K1 at {mc.MAX_BATCH + 1} elements raises: {e}"
+                      " -> ok")
+    else:
+        raise AssertionError("a batch past gridDim.z did not raise")
+    if mc.nn_argmin_cuda.launches != before:
+        raise AssertionError("K1 launched past gridDim.z")
+    return worst
+
+
+def _check_gt(ft, name, res, gt, probe, thr, jax_iters=None):
+    """Log a registration's iterations and GT error; raise past ``thr`` or
+    more than one iteration from JAX's."""
+    err = float(ft.transform_rmse(res.transform, gt, probe))
+    it = int(res.num_iterations)
+    log("main", f"{name}: iterations {it}"
+                + ("" if jax_iters is None else f" (JAX {jax_iters})")
+                + f", GT transform RMSE {err:.3e} (< {thr:g})")
+    if not err < thr:
+        raise AssertionError(f"{name}: GT transform RMSE {err} >= {thr}")
+    if jax_iters is not None and not stopped_on_noise(it, jax_iters,
+                                                      res.errors.cpu()):
+        raise AssertionError(f"{name}: {it} iterations, JAX {jax_iters}")
+    return err
+
+
+def stopped_on_noise(it, ref, errors):
+    """Whether a run that stopped after ``it`` iterations agrees with a
+    reference that stopped after ``ref``: within 1, or later and already
+    converged (its error below ``STOP_NOISE``) at the reference's stop, so
+    that only the stop test's landing on rounding parts them."""
+    return abs(it - ref) <= 1 or (it > ref
+                                  and float(errors[ref - 1]) < STOP_NOISE)
+
+
+def run_slam(torch, ft, dev):
+    """The SLAM example's pipeline on the card (``examples/odometry_slam.py``
+    at N = 4,096): ``register_sequence``, ``detect_loop_closures`` (one
+    16-pair batch), ``registration_covariance`` → ``information_from_
+    covariance`` per closure, ``close_loops`` (6 GN iterations) and
+    ``build_map``, each stage's wall time (synchronised) recorded."""
+    frames, gt = slam_inputs(ft, dev)
+    T = frames.shape[0]
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = round(time.perf_counter() - t0, 4)
+        return out
+
+    cfg = ft.ICPConfig(max_iterations=SLAM["iterations"], auto_trim=9.0)
+    odo = timed("register_sequence", lambda: ft.register_sequence(frames,
+                                                                  cfg))
+    ei, ej, Z, _ = timed("detect_loop_closures",
+                         lambda: ft.detect_loop_closures(frames, odo,
+                                                         **SLAM["detect"]))
+    pairs = [list(p) for p in zip(ei.tolist(), ej.tolist())]
+
+    def infos_fn():
+        out = []
+        for k, (i, j) in enumerate(pairs):
+            tf_k = ft.RigidTransform(Z[k, :3, :3], Z[k, :3, 3])
+            cov = ft.registration_covariance(frames[j], frames[i], tf_k,
+                                             ft.ICPConfig(auto_trim=9.0))
+            out.append(ft.information_from_covariance(cov, tf_k))
+        return torch.stack(out)
+
+    infos = timed("covariance + information", infos_fn)
+    lam = float(torch.diagonal(infos[0]).sum() / 6.0)
+    res = timed("close_loops", lambda: ft.close_loops(
+        odo, ei, ej, Z, infos, odometry_weight=lam / 20.0,
+        iterations=SLAM["gn"]))
+    _, valid = timed("build_map", lambda: ft.build_map(frames, res.poses,
+                                                       SLAM["voxel"]))
+    its = odo.relative.num_iterations.cpu().tolist()
+    errors = odo.relative.errors.cpu()
+    return {"iterations": its,
+            "final": [float(errors[k, it - 1]) for k, it in enumerate(its)],
+            "closures": pairs, "stages": stages, "map": int(valid.sum()),
+            "open": float(np.abs(odo.poses[T - 1].cpu().numpy()
+                                 - gt[T - 1]).max()),
+            "closed": float(np.abs(res.poses[T - 1].cpu().numpy()
+                                   - gt[T - 1]).max()),
+            "rms": [round(x, 6) for x in res.residual_rms.cpu().tolist()]}
+
+
+def slice4_paths(torch, np, ft, dev):
+    """The batch paths: ``[(path, run, the kernels it must launch, the
+    kernels it must not)]``: serving through batched K1 and K2, the SLAM
+    pipeline, ICP history with a checkpoint round trip, global
+    registration and ``register()``'s nine methods."""
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+
+    def serving(mode):
+        packed = bool(mode)
+        wrapper = mc.nn_argmin_packed_cuda if packed else mc.nn_argmin_cuda
+
+        def fn():
+            srcs, tgts, gts = serving_batch(ft, dev)
+            cfg = ft.ICPConfig(max_iterations=SERVING["iterations"],
+                               matcher="pallas", **mode)
+            before = wrapper.launches
+            t0 = time.perf_counter()
+            res = ft.register_batch(srcs, tgts, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            calls = (wrapper.launches - before) // 2
+            its = res.num_iterations.cpu().tolist()
+            passes = loop_passes(max(its), cfg.max_iterations)
+            label = "serving packed6_idx (K2)" if packed else "serving (K1)"
+            jax_its = SERVING["jax_packed_iterations" if packed
+                              else "jax_iterations"]
+            errs = [float(ft.transform_rmse(
+                ft.RigidTransform(res.transform.rotation[k],
+                                  res.transform.translation[k]), g,
+                srcs[k])) for k, g in enumerate(gts)]
+            singles = [ft.run_icp(srcs[k], tgts[k], cfg)
+                       for k in range(len(gts))]
+            own = [int(r.num_iterations) for r in singles]
+            log("main", f"{label} register_batch B={len(gts)} x "
+                        f"{srcs.shape[1]}: wall {wall:.3f} s, iterations "
+                        f"{its} (JAX {list(jax_its)}, "
+                        f"run_icp on the card {own}), largest GT transform "
+                        f"RMSE {max(errs):.3e} (< {SERVING['threshold']:g}), "
+                        f"{calls} batched calls in {passes} loop passes")
+            if calls != passes:
+                raise AssertionError(f"{label}: {calls} batched calls in "
+                                     f"{passes} passes, not one a pass")
+            if not max(errs) < SERVING["threshold"]:
+                raise AssertionError(f"{label}: GT error {max(errs)}")
+            errors = res.errors.cpu()
+            for k, it in enumerate(its):
+                single = singles[k].errors.cpu()
+                if abs(it - jax_its[k]) <= 1 and abs(it - own[k]) <= 1:
+                    continue
+                log("main", f"{label}: element {k} stopped at {it}, JAX "
+                            f"at {jax_its[k]}, its run_icp at {own[k]}; its "
+                            f"errors {errors[k, :it].tolist()}, run_icp's "
+                            f"{single[:own[k]].tolist()}")
+                if not (stopped_on_noise(it, jax_its[k], errors[k])
+                        and (stopped_on_noise(it, own[k], errors[k])
+                             or stopped_on_noise(own[k], it, single))):
+                    raise AssertionError(f"{label}: element {k} took {it} "
+                                         "iterations")
+        return fn
+
+    def slam():
+        out = run_slam(torch, ft, dev)
+        its, pairs = out["iterations"], out["closures"]
+        log("main", f"SLAM T={SLAM['frames']} x {SLAM['points']}: pair "
+                    f"iterations {its} (JAX {list(SLAM['jax_iterations'])}), "
+                    f"closures {pairs} (JAX {SLAM['closures']}), open-loop "
+                    f"end-pose error {out['open']:.3e}, closed "
+                    f"{out['closed']:.3e}, residual RMS {out['rms']}, map "
+                    f"{out['map']} voxels; stage walls (s) "
+                    f"{json.dumps(out['stages'])}")
+        for k, (it, ref, final, ref_final) in enumerate(zip(
+                its, SLAM["jax_iterations"], out["final"],
+                SLAM["jax_final"])):
+            gap = abs(final - ref_final) / ref_final
+            if abs(it - ref) > 1:
+                log("main", f"SLAM pair {k}: {it} iterations, JAX {ref}; "
+                            f"final error {final:.6e}, JAX {ref_final:.6e} "
+                            f"({gap:.4f} apart, < {SLAM_FINAL_RTOL:g})")
+                if not gap < SLAM_FINAL_RTOL:
+                    raise AssertionError(f"SLAM pair {k}: {it} iterations "
+                                         f"and final error {final}")
+        if pairs != [list(p) for p in SLAM["closures"]]:
+            raise AssertionError("SLAM: closures differ from JAX's")
+        if not (out["closed"] < out["open"] < SLAM["open"] and out["map"] > 0
+                and out["closed"] < SLAM["closed"]):
+            raise AssertionError("SLAM: an end-pose error missed its bound, "
+                                 "or closing the loops did not lower it")
+
+    def history():
+        import tempfile
+        from pathlib import Path
+
+        s = build_scene(ft, "synthetic", dev)
+        cfg = ft.ICPConfig(max_iterations=HISTORY["iterations"],
+                           matcher="pallas")
+        h = ft.run_icp_with_history(s.source, s.target, cfg)
+        r = ft.run_icp(s.source, s.target, cfg)
+        n = int(h.num_iterations)
+        same = (n == int(r.num_iterations)
+                and torch.equal(h.transform.rotation, r.transform.rotation)
+                and torch.equal(h.transform.translation,
+                                r.transform.translation))
+        err = _check_gt(ft, "history synthetic-16384 (K1)", h, s.ground_truth,
+                        s.source, HISTORY["threshold"])
+        idle = bool((h.incremental_translations[n:] == 0).all()
+                    and torch.isnan(h.matched_fraction[n:]).all()
+                    and (h.errors[n:] == h.errors[n - 1]).all()
+                    and not h.active[n:].any())
+        with tempfile.TemporaryDirectory() as d:
+            early = ft.run_icp_with_history(
+                s.source, s.target, ft.ICPConfig(max_iterations=2,
+                                                 matcher="pallas"))
+            path = ft.save_checkpoint(Path(d) / "run.ckpt", early, cfg)
+            loaded, cfg2 = ft.load_checkpoint(path)
+            resumed = ft.resume_icp(loaded, s.target, cfg2)
+        r_err = float(ft.transform_rmse(resumed.transform, s.ground_truth,
+                                        s.source))
+        log("main", f"history: equal to run_icp's transform and iterations "
+                    f"{same}, rows after the stop masked no-ops {idle}; "
+                    f"checkpoint {path.name} after 2 iterations, resumed "
+                    f"{int(resumed.num_iterations)} more, GT transform RMSE "
+                    f"{r_err:.3e} (< {HISTORY['threshold']:g})")
+        if not (same and idle and r_err < HISTORY["threshold"] and err):
+            raise AssertionError("history: the run, its rows or the resume "
+                                 "failed")
+
+    def global_reg():
+        src = ft.load_bunny(device=dev)
+        gt = ft.gt_transform(*GLOBAL["bunny_pose"], device=dev)
+        tgt = gt.apply(src)
+        cfg = ft.ICPConfig(max_iterations=40, matcher="pallas")
+        plain = float(ft.transform_rmse(ft.run_icp(
+            src, tgt, ft.ICPConfig(max_iterations=60, matcher="pallas"))
+            .transform, gt, src))
+        res = ft.register_global(src, tgt, cfg)
+        err = float(ft.transform_rmse(res.transform, gt, src))
+        log("main", f"global Bunny-8171 at 1.2 rad: plain run_icp GT error "
+                    f"{plain:.3e} (> {GLOBAL['plain']:g}), register_global "
+                    f"{err:.3e} (< {GLOBAL['bunny']:g}) in "
+                    f"{int(res.num_iterations)} ICP iterations (JAX 2)")
+        if not (plain > GLOBAL["plain"] and err < GLOBAL["bunny"]):
+            raise AssertionError("global registration on Bunny missed a "
+                                 "threshold")
+        g2 = ft.gt_transform(*GLOBAL["synthetic_pose"], device=dev)
+        for width, thr in GLOBAL["chamfer"].items():
+            s = ft.synthetic_scene(width=width, device=dev)
+            tgt2 = g2.apply(s.source)
+            res2 = ft.register_global(s.source, tgt2, cfg)
+            _, d = ft.nn_argmin(res2.transform.apply(s.source).contiguous(),
+                                tgt2, exact=True)
+            chamfer = float(torch.sqrt(d.mean()))
+            log("main", f"global synthetic-{width * width} at the large "
+                        f"pose: chamfer RMSE {chamfer:.3e} (< {thr:g}), GT "
+                        f"error {float(ft.transform_rmse(res2.transform, g2, s.source)):.3e}"
+                        " (the saddle's symmetry allows either optimum)")
+            if not chamfer < thr:
+                raise AssertionError(f"global synthetic-{width * width}: "
+                                     f"chamfer RMSE {chamfer}")
+
+    def registry():
+        s = ft.synthetic_scene(width=32, device=dev)
+        gt = ft.gt_transform(*REGISTER_POSE, device=dev)
+        tgt = gt.apply(s.source)
+        for method in ft.METHODS:
+            thr, jax_iters = REGISTER_RUNS[method]
+            res = ft.register(s.source, tgt, method=method, max_iterations=60)
+            if method == "global":  # either optimum of the saddle
+                _, d = ft.nn_argmin(res.transform.apply(s.source)
+                                    .contiguous(), tgt, exact=True)
+                chamfer = float(torch.sqrt(d.mean()))
+                log("main", f"register global synthetic-1024: chamfer RMSE "
+                            f"{chamfer:.3e} (< {thr:g}), "
+                            f"{int(res.num_iterations)} ICP iterations")
+                if not chamfer < thr:
+                    raise AssertionError("register global: chamfer RMSE")
+                continue
+            _check_gt(ft, f"register {method} synthetic-1024", res, gt,
+                      s.source, thr, jax_iters)
+
+    k1_not = CUDACORE + ("nn_argmin_packed",)
+    return [("serving register_batch, batched K1", serving({}), "nn_argmin",
+             k1_not),
+            ("serving register_batch packed6_idx, batched K2",
+             serving(PACKED), "nn_argmin_packed",
+             CUDACORE + ("nn_argmin",)),
+            ("SLAM: odometry, closures, covariance, pose graph, map, K1",
+             slam, "nn_argmin", k1_not),
+            ("ICP history + checkpoint + resume, K1", history, "nn_argmin",
+             k1_not),
+            ("global registration (FPFH + RANSAC) + ICP, K1", global_reg,
+             "nn_argmin", k1_not),
+            ("register() x 9 methods, K1 + K3", registry,
+             ("nn_argmin", "morton_nn"), CUDACORE)]
+
+
+
+def phase_times_slice4(torch, ft, dev, smi):
+    """The batch paths' times, each beside the card: ``register_batch``'s wall time a
+    batch and registrations/s against 32 sequential ``run_icp`` calls in the
+    same call (B = 32 x 4,096, 20 iterations, the stop test off), through K1
+    then K2; batched K1 and K2 alone (call by events, kernel by the
+    profiler) against 32 unbatched calls and the plain version, with the
+    bound; the SLAM pipeline's stages (a second, warm run); and
+    ``global_registration``'s stages on Bunny (normals + FPFH, the feature
+    search, RANSAC), by events. Returns K1's and K2's batched entries for
+    the ``kernels`` line."""
+    from fpcr_tpu_torch.models import global_reg as tgr
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+    from fpcr_tpu_torch.ops.matching import (nn_argmin_features,
+                                             nn_argmin_packed_plain,
+                                             nn_argmin_plain, packed_idx_bits)
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms
+
+    card = f"[card: {smi}]"
+    srcs, tgts, _ = serving_batch(ft, dev)
+    b, n, m = srcs.shape[0], srcs.shape[1], tgts.shape[1]
+    for label, mode in (("K1", {}), ("K2", PACKED), ("K2", PACKED),
+                        ("K1", {})):
+        cfg = ft.ICPConfig(max_iterations=SERVING["iterations"],
+                           tolerance=0.0, matcher="pallas", **mode)
+        batch = cuda_time_ms(lambda: ft.register_batch(srcs, tgts, cfg),
+                             repeats=3, warmup=1)["min"]
+        seq = cuda_time_ms(lambda: [ft.run_icp(srcs[k], tgts[k], cfg)
+                                    for k in range(b)], repeats=2,
+                           warmup=1)["min"]
+        log("times", f"serving B={b} x {n}, 20 iterations ({label}): "
+                     f"register_batch {batch:.3f} ms a batch = "
+                     f"{b / batch * 1e3:.1f} registrations/s; {b} sequential"
+                     f" run_icp {seq:.3f} ms = {b / seq * 1e3:.1f} "
+                     f"registrations/s; {seq / batch:.2f}x {card}")
+    out = {}
+    bits = packed_idx_bits(m)
+    for key, wrapper, plain, kw, flops in (
+            ("nn_argmin", mc.nn_argmin_cuda,
+             lambda: nn_argmin_plain(srcs, tgts, exact=True), {},
+             ARGMIN_PAIR_FLOPS),
+            ("nn_argmin_packed", mc.nn_argmin_packed_cuda,
+             lambda: nn_argmin_packed_plain(srcs, tgts, idx_bits=bits),
+             {"idx_bits": bits}, PACKED_PAIR_FLOPS)):
+        def one_by_one():
+            return [wrapper(srcs[k], tgts[k], **kw) for k in range(b)]
+
+        call = cuda_time_ms(lambda: wrapper(srcs, tgts, **kw), repeats=20,
+                            warmup=3)["min"]
+        seq = cuda_time_ms(one_by_one, repeats=5, warmup=1)["min"]
+        kern = kernel_ms(lambda: wrapper(srcs, tgts, **kw))
+        seq_kern = kernel_ms(one_by_one, repeats=3)
+        plain_ms = cuda_time_ms(plain, repeats=2, warmup=1)["min"]
+        bound_ms, bound_by = bound(b * (12 * n + 12 * m + 8 * n),
+                                   flops * b * n * m)
+        out[key] = {"batch": b, "n": n, "m": m, "ms": call,
+                    "kernel_ms": kern, "unbatched_ms": seq,
+                    "unbatched_kernel_ms": seq_kern, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+        log("times", f"batched {key} B={b} x {n}x{m}: call {call:.4f} ms, "
+                     f"kernel {kern:.4f} ms (profiler; bound {bound_ms:.4f} "
+                     f"ms by {bound_by}, {kern / bound_ms:.2f}x); {b} "
+                     f"unbatched calls {seq:.4f} ms, kernel {seq_kern:.4f} "
+                     f"ms; plain {plain_ms:.2f} ms {card}")
+    out_slam = run_slam(torch, ft, dev)
+    log("times", f"SLAM T={SLAM['frames']} x {SLAM['points']}, warm run: "
+                 f"stage walls (s) {json.dumps(out_slam['stages'])}, total "
+                 f"{sum(out_slam['stages'].values()):.4f} s {card}")
+    src = ft.load_bunny(device=dev)
+    tgt = ft.gt_transform(*GLOBAL["bunny_pose"], device=dev).apply(src)
+    src_sel, tgt_sel = src[::2].contiguous(), tgt.contiguous()
+
+    def describe():
+        feats = []
+        for c in (src_sel, tgt_sel):
+            nrm = ft.orient_normals(c, ft.estimate_normals(c, k=8))
+            feats.append(ft.fpfh_features(c, nrm, k=16))
+        return feats
+
+    f_sel, f_t = describe()
+
+    def search():
+        fwd, _ = nn_argmin_features(f_sel, f_t)
+        return nn_argmin_features(f_t[fwd.long()], f_sel)
+
+    q_corr, good = tgr._correspondences(src_sel, tgt_sel, 8, 16, True)
+    tau = 3.0 * tgr._estimate_spacing(tgt_sel)
+
+    def ransac():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        samples = torch.multinomial(good.to(torch.float32), 3 * 1024,
+                                    replacement=True,
+                                    generator=gen).reshape(1024, 3)
+        return tgr._ransac(src_sel, q_corr, good, samples, tau, 3)
+
+    stages = {k: cuda_time_ms(fn, repeats=3, warmup=1)["min"]
+              for k, fn in (("normals + FPFH", describe),
+                            ("feature search", search), ("RANSAC", ransac),
+                            ("global_registration", lambda:
+                             ft.global_registration(src, tgt)))}
+    log("times", "global_registration on Bunny-8171 (4,086 x 8,171 points) "
+                 "by stage (events, ms): "
+                 + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+                 + f" {card}")
+    return out
+
+
 def phase_main_path(torch, ft, dev):
     """Every path of the slice, each driven between counter reads; returns
     the launches of each kernel summed over the paths, and the
@@ -1556,7 +2158,8 @@ def phase_main_path(torch, ft, dev):
                "split x6 keep"), ("split x3 argmin",)),
              ("distance-form study E1", e1,
               ("e1 v1", "e1 v2", "e1 v4", "e1 v5", "e1 v6"),
-              ("nn_argmin_packed",))] + slice3_paths(torch, np, ft, dev)
+              ("nn_argmin_packed",))] + slice3_paths(torch, np, ft, dev) \
+        + slice4_paths(torch, np, ft, dev)
     totals = dict.fromkeys(counters(), 0)
     for path, fn, kernels, absent in paths:
         counts = drive(torch, path, fn)
@@ -2277,18 +2880,17 @@ def kernels_line(launches, errs, times, times2, times3, times5):
     matching = "fpcr_tpu_torch/csrc/matching.cu"
     nn_tc = "fpcr_tpu_torch/csrc/nn_tc.cu"
     morton = "fpcr_tpu_torch/csrc/morton.cu"
-    return {"kernels": [
-        kernel_entry("nn_argmin", nn_tc,
-                     "fpcr_tpu/ops/matching_pallas.py:196",
-                     launches["nn_argmin"], errs["nn_argmin"],
-                     times["k1_ms"], times["plain_ms"],
-                     12 * n + 12 * m + 8 * n, ARGMIN_PAIR_FLOPS * n * m),
-        kernel_entry("nn_argmin_packed", nn_tc,
-                     "fpcr_tpu/ops/matching_pallas.py:273",
-                     launches["nn_argmin_packed"],
-                     errs["nn_argmin_packed"], times["k2_ms"],
-                     times["k2_plain_ms"], 12 * n + 12 * m + 8 * n,
-                     PACKED_PAIR_FLOPS * n * m),
+    k1, k2 = (dict(kernel_entry(key, nn_tc,
+                                f"fpcr_tpu/ops/matching_pallas.py:{line}",
+                                launches[key], errs[key], times[ms],
+                                times[plain], 12 * n + 12 * m + 8 * n,
+                                flops * n * m),
+                   batched=times["batched"][key])
+              for key, line, ms, plain, flops in (
+                  ("nn_argmin", 196, "k1_ms", "plain_ms", ARGMIN_PAIR_FLOPS),
+                  ("nn_argmin_packed", 273, "k2_ms", "k2_plain_ms",
+                   PACKED_PAIR_FLOPS)))
+    return {"kernels": [k1, k2,
         kernel_entry("nn_min_only", matching,
                      "scripts/exp_packed_reduction.py:113",
                      launches["nn_min_only"], errs["nn_min_only"],
@@ -2429,6 +3031,8 @@ def main():
     errs.update(phase_band_vs_plain(torch, np, ft, dev))
     errs["ndt_fused_moments"] = phase_fused_vs_plain(torch, np, ft, dev)
     errs.update(phase_studies_vs_plain(torch, np, ft, dev))
+    for key, err in phase_batched_vs_plain(torch, np, ft, dev).items():
+        errs[key] = max(errs[key], err)
     launches, study, studies = phase_main_path(torch, ft, dev)
     phase_reference(torch, ft, dev)
     times = phase_times(torch, ft, dev, smi, study)
@@ -2436,6 +3040,7 @@ def main():
     times3 = phase_times_ndt(torch, np, ft, dev, smi)
     times5 = phase_times_studies(torch, dev, smi, studies)
     phase_times_slice3(torch, ft, dev, smi)
+    times["batched"] = phase_times_slice4(torch, ft, dev, smi)
     log("times", f"kernel_ms: {len(PROFILER_LOSSES)} profiler sessions lost "
                  f"events (seen, launched): {PROFILER_LOSSES}")
     legs = times["legs"]

@@ -7,9 +7,13 @@ voxel-hash grid matcher and the Morton band matcher for large clouds, the
 loop variants (scaled ICP, Anderson-accelerated AA-ICP, stochastic
 SGD-ICP), the coarse-to-fine pipeline, voxel downsampling,
 ``evaluate_registration`` and the per-stage profiler ``profile_icp``, NDT
-registration (the voxel Gaussian grid, ``run_ndt``, ``register_ndt``), and
-the packed (value|index) reduction of both matchers
-(``pallas_mode='packed6_idx'``). Its kernels are all CUDA C++ for
+registration (the voxel Gaussian grid, ``run_ndt``, ``register_ndt``), the
+packed (value|index) reduction of both matchers
+(``pallas_mode='packed6_idx'``), batch serving (``register_batch``: one
+launch pair of K1 or K2 an iteration for a whole batch), ICP history with
+checkpoint and resume, odometry (``register_sequence``, ``build_map``), the
+SE(3) pose graph and loop closure, registration uncertainty, FPFH + RANSAC
+global registration and the one front door ``register``. Its kernels are all CUDA C++ for
 ``sm_90a`` built with ``nvcc`` at first launch: the brute-force
 nearest-neighbour matcher K1 and its packed twin K2 (``csrc/nn_tc.cu``;
 ``csrc/matching.cu`` holds their CUDA-core sweep, the min-only sweep of the
@@ -42,14 +46,26 @@ from .data.ouster import hall_scene, load_hall_scan
 from .data.synthetic import (RegistrationScene, surface_grid, synthetic_scene,
                              transformed_scene)
 from .models.anderson import run_aa_icp
+from .models.batch import register_batch
+from .models.global_reg import (GlobalRegResult, global_registration,
+                                register_global)
+from .models.history import (ICPHistory, load_checkpoint, resume_icp,
+                             run_icp_with_history, save_checkpoint)
 from .models.icp import (ICPConfig, ICPResult, icp_generalized, icp_iteration,
                          icp_point_to_plane, icp_point_to_point, run_icp,
                          tune_morton)
 from .models.ndt import (NDTConfig, NDTResult, register_ndt,
                          resolve_ndt_config, run_ndt)
+from .models.odometry import OdometryResult, build_map, register_sequence
 from .models.pipeline import CoarseToFineResult, icp_coarse_to_fine
+from .models.pose_graph import (PoseGraphResult, close_loops,
+                                detect_loop_closures, optimize_pose_graph)
+from .models.registry import METHODS, register
 from .models.scaled_icp import ScaledICPResult, run_scaled_icp
 from .models.sgd_icp import run_sgd_icp
+from .models.uncertainty import (information_from_covariance,
+                                 registration_covariance)
+from .ops.fpfh import fpfh_features
 from .ops.grid import (build_voxel_table, grid_nn, suggest_cell_size,
                        voxel_downsample)
 from .ops.matching import (gather_correspondences, nn_argmin,
@@ -63,6 +79,27 @@ from .ops.solve import (kabsch_transform, point_to_plane_transform,
 from .utils.timing import PhaseTimer, profile_icp
 
 __all__ = [
+    "register",
+    "METHODS",
+    "register_batch",
+    "ICPHistory",
+    "run_icp_with_history",
+    "save_checkpoint",
+    "load_checkpoint",
+    "resume_icp",
+    "OdometryResult",
+    "register_sequence",
+    "build_map",
+    "PoseGraphResult",
+    "optimize_pose_graph",
+    "close_loops",
+    "detect_loop_closures",
+    "registration_covariance",
+    "information_from_covariance",
+    "fpfh_features",
+    "GlobalRegResult",
+    "global_registration",
+    "register_global",
     "bunny_scene",
     "load_bunny",
     "hall_scene",

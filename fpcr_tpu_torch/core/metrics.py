@@ -19,19 +19,20 @@ def masked_count(mask: Optional[torch.Tensor], n: int, dtype,
         # a fill on the device: torch.tensor would copy from the host and
         # synchronise
         return torch.full((), float(n), dtype=dtype, device=device)
-    return mask.to(dtype).sum()
+    return mask.to(dtype).sum(dim=-1)
 
 
 def rmse(p: torch.Tensor, q: torch.Tensor,
          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``sqrt(sum_i w_i ||p_i - q_i||^2 / sum_i w_i)`` over ``[N, 3]`` pairs —
-    the reference's ``Snrm2 / sqrt(N)`` when ``mask`` is None."""
+    the reference's ``Snrm2 / sqrt(N)`` when ``mask`` is None; ``[B, N,
+    3]`` pairs with a ``[B, N]`` mask give one value an element."""
     diff = p - q
     sq = torch.sum(diff * diff, dim=-1)
     if mask is not None:
         sq = sq * mask.to(sq.dtype)
-    count = masked_count(mask, p.shape[0], p.dtype, p.device)
-    return torch.sqrt(sq.sum() / torch.clamp(count, min=1.0))
+    count = masked_count(mask, p.shape[-2], p.dtype, p.device)
+    return torch.sqrt(sq.sum(dim=-1) / torch.clamp(count, min=1.0))
 
 
 def transform_rmse(t_est, t_ref, probe_points: torch.Tensor) -> torch.Tensor:

@@ -66,7 +66,8 @@ def _angle(a, dtype=torch.float32, device=None) -> torch.Tensor:
 
 
 def _rows(rows) -> torch.Tensor:
-    return torch.stack([torch.stack(r) for r in rows])
+    """A 3x3 from rows of scalars, or [..., 3, 3] from rows of batches."""
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
 def rotation_x(a) -> torch.Tensor:
@@ -127,10 +128,18 @@ def gt_transform(translation, rotation_rad, dtype=torch.float32,
     return RigidTransform(rotation_gt(rx, ry, rz).to(dtype), t)
 
 
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Cross-product matrices ``[..., 3, 3]`` of vectors ``[..., 3]``:
+    ``skew(v) @ x = v × x``."""
+    zero = torch.zeros_like(v[..., 0])
+    return _rows([[zero, -v[..., 2], v[..., 1]], [v[..., 2], zero, -v[..., 0]],
+                  [-v[..., 1], v[..., 0], zero]])
+
+
 def rotation_exp(w: torch.Tensor) -> torch.Tensor:
-    """SO(3) exponential map (Rodrigues): rotation vector [3] → matrix,
-    with Taylor-safe small-angle coefficients."""
-    theta2 = torch.sum(w * w)
+    """SO(3) exponential map (Rodrigues): rotation vectors [..., 3] →
+    matrices [..., 3, 3], with Taylor-safe small-angle coefficients."""
+    theta2 = torch.sum(w * w, dim=-1)[..., None, None]
     theta = torch.sqrt(theta2)
     one = torch.ones_like(theta)
     a = torch.where(theta < 1e-6, 1.0 - theta2 / 6.0,
@@ -138,9 +147,7 @@ def rotation_exp(w: torch.Tensor) -> torch.Tensor:
     b = torch.where(theta < 1e-6, 0.5 - theta2 / 24.0,
                     (1.0 - torch.cos(theta))
                     / torch.where(theta2 > 0, theta2, one))
-    zero = torch.zeros_like(w[0])
-    wx = _rows([[zero, -w[2], w[1]], [w[2], zero, -w[0]],
-                [-w[1], w[0], zero]])
+    wx = skew(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
     return eye + a * wx + b * torch.matmul(wx, wx)
 

@@ -73,6 +73,20 @@
 // the CUDA-core sweep's 0.104 ms in the same process; K2 0.085 ms against
 // 0.097 ms.
 //
+// The batch axis: B independent (p, q, mask) elements of equal shapes run
+// in one sweep launch and one finish launch, the element on blockIdx.z
+// (B <= 65,535), each block offsetting its inputs, partials, centres and
+// outputs by its element. This is the counterpart of vmap over
+// nn_argmin_pallas, which adds a batch axis to the TPU kernel's grid (the
+// serving path, fpcr_tpu/models/batch.py). A block computes exactly what
+// it computes unbatched, and the (least, tile, runner-up) state does not
+// depend on how the targets are sliced, so every element's picks and
+// distance bits equal those of a separate call. The finish has an instance
+// without the offsets for B = 1: offsetting its pointers in every launch
+// took the unbatched K1's kernel from 0.075 to 0.081 ms at 16,384^2 on this
+// card (both versions timed in one chip call; the finish's registers rose
+// from 57 to 64).
+//
 // C interface (loaded with ctypes). Pointers are device pointers; `stream`
 // is a cudaStream_t. Each function launches one kernel, does not
 // synchronise, allocates nothing, and returns cudaGetLastError().
@@ -301,6 +315,17 @@ nn_tc_sweep_kernel(const float* __restrict__ p, const float* __restrict__ q,
     __shared__ float4 centre;
     extern __shared__ float4 raw[];  // the slice's targets
 
+    // the batch element on blockIdx.z: its source rows, targets, mask,
+    // partials and centres
+    {
+        const size_t e = blockIdx.z;
+        p += e * 3 * n;
+        q += e * 3 * m;
+        if (mask != nullptr) mask += e * m;
+        part += e * 3 * gridDim.y * n;
+        part_c += e * gridDim.x;
+        if (dump != nullptr) dump += e * 64 * n;
+    }
     const int tid = threadIdx.x;
     const int group = tid >> 7;           // the warpgroup: A rows 64 * group
     const int warp = (tid >> 5) & 3;      // the warp in its warpgroup
@@ -507,7 +532,7 @@ constexpr int kOwned = kFinishRows / 32;  // rescued rows a warp may own
 // the block's uncertified rows go to a list, and its warps rescan all
 // targets for them exactly, each warp owning list entries w, w + 32, ...,
 // the targets staged once a tile for all of them in shared memory.
-template <bool kPacked>
+template <bool kPacked, bool kBatched>
 __global__ void __launch_bounds__(1024)
 nn_tc_finish_kernel(const float* __restrict__ p, const float* __restrict__ q,
                     const uint8_t* __restrict__ mask,
@@ -519,6 +544,18 @@ nn_tc_finish_kernel(const float* __restrict__ p, const float* __restrict__ q,
     __shared__ float4 tile[kRescueTile];
     __shared__ int list[kFinishRows];
     __shared__ int listed;
+    // the batch element on blockIdx.z (an unbatched launch takes the
+    // instance without the offsets)
+    if constexpr (kBatched) {
+        const size_t e = blockIdx.z;
+        p += e * 3 * n;
+        q += e * 3 * m;
+        if (mask != nullptr) mask += e * m;
+        part += e * 3 * slices * n;
+        part_c += e * ((n + rows_per_block - 1) / rows_per_block);
+        out_d += e * n;
+        out_i += e * n;
+    }
     const int tid = threadIdx.x;
     // every lane runs the merge's shuffles; a row past n repeats the last
     const int i = min(blockIdx.x * kFinishRows + (tid >> 3), n - 1);
@@ -705,21 +742,27 @@ extern "C" {
 // Source rows a block of the sweep.
 int fpcr_nn_tc_rows_per_block(void) { return kRows; }
 
+// Both kernels take `batch` independent elements on blockIdx.z, at most
+// 65,535: element e reads p + 3ne, q + 3me, q_mask + me and writes its own
+// slices of every output below (batch 1 is the unbatched call).
+//
 // The candidate sweep of rows [0, n) over target slices of `slice_len`
-// targets (a multiple of 128, at most 4096): part int32[3, slices, n] (per
-// row the least value's bits, its 128-target tile, and the least value of
-// every other tile) and part_c f32[ceil(n / 128), 4] (each row block's
-// centre), slices = ceil(m / slice_len). `mode` 0 the sweep; 1 also writes
-// d~ of targets [0, 64) to dump f32[n, 64]; 2, 3 and 4 the ablations
-// without the reduction, without restaging, or without either, whose
-// partials mean nothing.
+// targets (a multiple of 128, at most 4096): part int32[batch, 3, slices,
+// n] (per row the least value's bits, its 128-target tile, and the least
+// value of every other tile) and part_c f32[batch, ceil(n / 128), 4] (each
+// row block's centre), slices = ceil(m / slice_len). `mode` 0 the sweep; 1
+// also writes d~ of targets [0, 64) to dump f32[batch, n, 64]; 2, 3 and 4
+// the ablations without the reduction, without restaging, or without
+// either, whose partials mean nothing.
 int fpcr_nn_tc_sweep(const float* p, const float* q, const uint8_t* q_mask,
-                     int n, int m, int slice_len, int mode, int* part,
-                     float* part_c, float* dump, void* stream) {
-    if (slice_len % kTile != 0 || slice_len > kMaxSlice) {
+                     int batch, int n, int m, int slice_len, int mode,
+                     int* part, float* part_c, float* dump, void* stream) {
+    if (slice_len % kTile != 0 || slice_len > kMaxSlice || batch < 1
+        || batch > 65535) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const dim3 grid((n + kRows - 1) / kRows, (m + slice_len - 1) / slice_len);
+    const dim3 grid((n + kRows - 1) / kRows, (m + slice_len - 1) / slice_len,
+                    batch);
     const auto s = static_cast<cudaStream_t>(stream);
     const auto c = reinterpret_cast<float4*>(part_c);
     const int smem = slice_len * static_cast<int>(sizeof(float4));
@@ -742,25 +785,31 @@ int fpcr_nn_tc_sweep(const float* p, const float* q, const uint8_t* q_mask,
 }
 
 // The finish of K1 (`packed` 0) or K2 (`packed` 1, with idx_bits): out_d /
-// out_i [n] from the sweep's partials and centres (rows_per_block rows a
-// centre); each rescued row adds 1 to *rescued.
+// out_i [batch, n] from the sweep's partials and centres (rows_per_block
+// rows a centre); each rescued row adds 1 to *rescued.
 int fpcr_nn_tc_finish(const float* p, const float* q, const uint8_t* q_mask,
                       const int* part, const float* part_c,
-                      int rows_per_block, int n, int m, int slices,
+                      int rows_per_block, int batch, int n, int m, int slices,
                       int packed, int idx_bits, float* out_d, int* out_i,
                       unsigned long long* rescued, void* stream) {
-    const int blocks = (n + kFinishRows - 1) / kFinishRows;
+    if (batch < 1 || batch > 65535) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const dim3 blocks((n + kFinishRows - 1) / kFinishRows, 1, batch);
     const auto s = static_cast<cudaStream_t>(stream);
     const auto c = reinterpret_cast<const float4*>(part_c);
+#define FPCR_TC_FINISH(P, B)                                                  \
+    nn_tc_finish_kernel<P, B><<<blocks, 1024, 0, s>>>(                        \
+        p, q, q_mask, part, c, rows_per_block, n, m, slices,                  \
+        P ? idx_bits : 0, out_d, out_i, rescued)
     if (packed) {
-        nn_tc_finish_kernel<true><<<blocks, 1024, 0, s>>>(
-            p, q, q_mask, part, c, rows_per_block, n, m, slices, idx_bits,
-            out_d, out_i, rescued);
+        if (batch > 1) FPCR_TC_FINISH(true, true);
+        else FPCR_TC_FINISH(true, false);
     } else {
-        nn_tc_finish_kernel<false><<<blocks, 1024, 0, s>>>(
-            p, q, q_mask, part, c, rows_per_block, n, m, slices, 0, out_d,
-            out_i, rescued);
+        if (batch > 1) FPCR_TC_FINISH(false, true);
+        else FPCR_TC_FINISH(false, false);
     }
+#undef FPCR_TC_FINISH
     return static_cast<int>(cudaGetLastError());
 }
 

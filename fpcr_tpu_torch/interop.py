@@ -12,6 +12,8 @@ Tensors land on ``device``, the card when none is named:
     table = morton_table_from_numpy(jax_table, device="cuda")
     grid = ndt_grid_from_numpy(jax_grid, device="cuda")
     ndt_cfg = ndt_config_from_dict(dataclasses.asdict(fpcr_tpu.NDTConfig()))
+    hist = history_from_numpy(jax_history, device="cuda")  # for resume_icp
+    odo = odometry_from_numpy(jax_odometry, device="cuda")  # for close_loops
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ import numpy as np
 import torch
 
 from .core.transforms import RigidTransform
+from .models.history import ICPHistory
 from .models.icp import ICPConfig, ICPResult
 from .models.ndt import NDTConfig
+from .models.odometry import OdometryResult
 from .ops.morton import MortonTable
 from .ops.ndt import NDTGrid
 from .utils.device import resolve_device
@@ -106,3 +110,45 @@ def ndt_grid_from_numpy(grid, device=None) -> NDTGrid:
                    lo=t(grid.lo, torch.float32),
                    voxel_size=t(grid.voxel_size, torch.float32).reshape(()),
                    table=t(grid.table, torch.float32))
+
+
+def _tensor(x, device):
+    """``np.asarray(x)`` as a tensor of its own dtype on ``device``."""
+    return torch.as_tensor(np.array(np.asarray(x)), device=device)
+
+
+def history_from_numpy(history, device=None) -> ICPHistory:
+    """An ``ICPHistory`` of tensors from any object with the fields of one
+    (for example ``fpcr_tpu.ICPHistory``, or this package's
+    ``load_checkpoint`` result), each read with ``np.asarray``: a JAX run
+    resumes here with ``resume_icp``. Fields that are None stay None."""
+    device = resolve_device(device)
+    fields = {name: (None if getattr(history, name) is None
+                     else _tensor(getattr(history, name), device))
+              for name in ICPHistory._fields[1:]}
+    return ICPHistory(transform=transform_from_numpy(
+        history.transform.rotation, history.transform.translation, device),
+        **fields)
+
+
+def _result_from_numpy(result, device=None) -> ICPResult:
+    """An ``ICPResult`` of tensors (a batch's leading axis kept) from any
+    object with the fields of one, each read with ``np.asarray``."""
+    device = resolve_device(device)
+    return ICPResult(
+        transform=transform_from_numpy(result.transform.rotation,
+                                       result.transform.translation, device),
+        **{name: _tensor(getattr(result, name), device)
+           for name in ICPResult._fields[1:]})
+
+
+def odometry_from_numpy(odometry, device=None) -> OdometryResult:
+    """An ``OdometryResult`` (the poses and the batched relative
+    registrations) from any object with its fields, for example
+    ``fpcr_tpu.OdometryResult``: ``close_loops`` then runs on the JAX
+    package's odometry."""
+    device = resolve_device(device)
+    return OdometryResult(
+        poses=torch.tensor(np.asarray(odometry.poses), dtype=torch.float32,
+                           device=device),
+        relative=_result_from_numpy(odometry.relative, device))

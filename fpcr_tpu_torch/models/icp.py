@@ -150,9 +150,10 @@ class IterationAux(NamedTuple):
 
 
 def rotation_angle(rotation: torch.Tensor) -> torch.Tensor:
-    """Rotation angle (radians) of a 3×3 rotation: θ = arccos((tr R − 1)/2)."""
-    return torch.arccos(torch.clamp(0.5 * (torch.trace(rotation) - 1.0),
-                                    -1.0, 1.0))
+    """Rotation angle (radians) of a 3×3 rotation, or of each of a batch:
+    θ = arccos((tr R − 1)/2)."""
+    trace = rotation.diagonal(dim1=-2, dim2=-1).sum(dim=-1)
+    return torch.arccos(torch.clamp(0.5 * (trace - 1.0), -1.0, 1.0))
 
 
 def resolve_matcher(config: ICPConfig, n_source: int) -> ICPConfig:
@@ -292,15 +293,19 @@ def _correspondences(points, target, target_mask, target_normals,
 
 def _trimmed_mean(dmin: torch.Tensor, base: torch.Tensor,
                   passes: int) -> torch.Tensor:
-    """Mean of ``dmin`` over ``base``, then ``passes`` times the mean over
-    the entries at or below the previous mean."""
+    """Mean of ``dmin`` over ``base`` along its last axis (each batch
+    element on its own), then ``passes`` times the mean over the entries at
+    or below the previous mean; the last axis kept, of length 1."""
     zero = torch.zeros_like(dmin)
-    t = (torch.where(base, dmin, zero).sum()
-         / torch.clamp(base.to(dmin.dtype).sum(), min=1.0))
+
+    def mean(keep):
+        return (torch.where(keep, dmin, zero).sum(dim=-1, keepdim=True)
+                / torch.clamp(keep.to(dmin.dtype).sum(dim=-1, keepdim=True),
+                              min=1.0))
+
+    t = mean(base)
     for _ in range(passes):
-        keep = (dmin <= t) & base
-        t = (torch.where(keep, dmin, zero).sum()
-             / torch.clamp(keep.to(dmin.dtype).sum(), min=1.0))
+        t = mean((dmin <= t) & base)
     return t
 
 
@@ -340,10 +345,11 @@ def correspondence_weights(dmin: torch.Tensor, found: Optional[torch.Tensor],
                            config: ICPConfig,
                            source_mask: Optional[torch.Tensor] = None):
     """The grid matcher's ``found`` → distance gate → auto-trim → IRLS
-    weights, shared by :func:`icp_iteration` and AA-ICP's safeguard.
-    Returns the solve mask: None, bool, or float weights. ``auto_trim``
-    defaults to 9.0 for the morton matcher, whose rare band misses have
-    unbounded distance."""
+    weights, shared by :func:`icp_iteration`, AA-ICP's safeguard and the
+    batched loop (``dmin`` [B, N]: the trimmed means and IRLS scales of
+    each element on its own). Returns the solve mask: None, bool, or float
+    weights. ``auto_trim`` defaults to 9.0 for the morton matcher, whose
+    rare band misses have unbounded distance."""
     mask = source_mask
     if found is not None:  # grid matcher: unmatched rows leave the solve
         mask = found if mask is None else (mask & found)
@@ -363,14 +369,15 @@ def correspondence_weights(dmin: torch.Tensor, found: Optional[torch.Tensor],
 
 def _matched_fraction(mask, source_mask, n_rows: int,
                       device) -> torch.Tensor:
-    """Fraction of (valid) source points entering the solve."""
+    """Fraction of (valid) source points entering the solve, one value a
+    batch element."""
     if mask is None:
         return torch.ones((), dtype=torch.float32, device=device)
     if source_mask is not None:
-        denom = source_mask.to(torch.float32).sum()
+        denom = source_mask.to(torch.float32).sum(dim=-1)
     else:
         denom = torch.full((), float(n_rows), device=device)
-    inliers = (mask > 0).to(torch.float32).sum()
+    inliers = (mask > 0).to(torch.float32).sum(dim=-1)
     return inliers / torch.clamp(denom, min=1.0)
 
 

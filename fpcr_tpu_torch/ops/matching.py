@@ -14,6 +14,16 @@ argmin inside a tile returns the first occurrence and tiles are combined in
 index order with a strict ``<``. A row with no valid target gets index 0
 and distance ``inf``.
 
+Both brute-force matchers take a batch as well: ``p`` [B, N, 3], ``q``
+[B, M, 3] and ``q_mask`` [B, M] give ``[B, N]`` outputs, each element
+matched against its own targets (the JAX package's ``vmap`` over the
+matcher, ``fpcr_tpu/models/batch.py``). A CUDA batch is one launch pair of
+K1 or K2 for all B elements; the plain versions run element by element.
+
+:func:`nn_argmin_features` is the feature-space search of global
+registration (33-D FPFH descriptors): JAX computes it in XLA, outside any
+Pallas kernel, so it is the plain streaming expansion on both devices.
+
 :func:`nn_argmin_packed` is the packed (value|index) reduction, the JAX
 package's ``nn_argmin_pallas(mode='packed6_idx')``: one int32 min over keys
 ``(bits(d_ij) & ~(2^b - 1)) | j``, so picks are quantized to the distance
@@ -63,6 +73,17 @@ def pairwise_sqdist_exact(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.sum(diff * diff, dim=-1)
 
 
+def _per_element(fn, p, q, q_mask, **kw):
+    """A batch ``[B, N, D]`` against ``[B, M, D]`` (mask ``[B, M]``) by one
+    call of ``fn`` an element, outputs stacked to ``[B, N]``."""
+    outs = [fn(p[b], q[b], None if q_mask is None else q_mask[b], **kw)
+            for b in range(p.shape[0])]
+    return (torch.stack([o[0] for o in outs]) if outs else
+            torch.empty(p.shape[:-1], dtype=torch.int32, device=p.device),
+            torch.stack([o[1] for o in outs]) if outs else
+            torch.empty(p.shape[:-1], dtype=torch.float32, device=p.device))
+
+
 def nn_argmin_plain(
     p: torch.Tensor,
     q: torch.Tensor,
@@ -73,7 +94,11 @@ def nn_argmin_plain(
     exact: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of K1, on any device:
-    ``(idx int32[N], sqdist f32[N])``."""
+    ``(idx int32[N], sqdist f32[N])``, or ``[B, N]`` for a batch."""
+    if p.ndim == 3:
+        return _per_element(nn_argmin_plain, p, q, q_mask,
+                            source_chunk=source_chunk,
+                            target_tile=target_tile, exact=exact)
     p = p.to(torch.float32)
     q = q.to(torch.float32)
     dist_fn = pairwise_sqdist_exact if exact else pairwise_sqdist
@@ -108,11 +133,13 @@ def nn_argmin(
     exact: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """For every source point, the index of its nearest target point and the
-    squared distance: ``(idx int32[N], sqdist f32[N])``.
+    squared distance: ``(idx int32[N], sqdist f32[N])``; a batch ``p`` [B,
+    N, 3], ``q`` [B, M, 3] gives ``[B, N]``.
 
-    On a CUDA tensor this launches kernel K1, which always computes the
-    difference form; ``source_chunk``, ``target_tile`` and ``exact`` shape
-    only the plain version that a CPU tensor takes.
+    On a CUDA tensor this launches kernel K1 (one launch pair for a whole
+    batch), which always computes the difference form; ``source_chunk``,
+    ``target_tile`` and ``exact`` shape only the plain version that a CPU
+    tensor takes.
     """
     pin_f32_precision()
     if p.device.type == "cuda":
@@ -122,6 +149,27 @@ def nn_argmin(
                          f"{p.device}")
     return nn_argmin_plain(p, q, q_mask, source_chunk=source_chunk,
                            target_tile=target_tile, exact=exact)
+
+
+def nn_argmin_features(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    q_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest neighbour of every row of ``p`` [N, D] among the rows of
+    ``q`` [M, D], for any width D (FPFH's 33): ``(idx int32[N], sqdist
+    f32[N])``, what the JAX package's XLA ``nn_argmin(exact=False)``
+    computes. The streaming expansion ``|p|² − 2p·q + |q|²`` in tiles of
+    2,048 rows and targets, float32 with TF32 off, first minimum, on the
+    inputs' device: the TPU computed it outside any Pallas kernel, so it
+    has no kernel here either. :func:`nn_argmin` keeps to width 3."""
+    pin_f32_precision()
+    if p.ndim != 2 or q.ndim != 2 or p.shape[1] != q.shape[1]:
+        raise ValueError(f"nn_argmin_features takes [N, D] and [M, D], got "
+                         f"{tuple(p.shape)} and {tuple(q.shape)}")
+    if q.shape[0] == 0:
+        raise ValueError("nn_argmin_features needs at least one target")
+    return nn_argmin_plain(p, q, q_mask, exact=False)
 
 
 def packed_idx_bits(m: int, block_m: int = 8192) -> int:
@@ -157,7 +205,12 @@ def nn_argmin_packed_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of K2, on any device: the tiled difference
     form, keys by :func:`packed_keys`, their ``amin``, and the exact
-    distance to the pick. ``(idx int32[N], sqdist f32[N])``."""
+    distance to the pick. ``(idx int32[N], sqdist f32[N])``, or ``[B, N]``
+    for a batch."""
+    if p.ndim == 3:
+        return _per_element(nn_argmin_packed_plain, p, q, q_mask,
+                            idx_bits=idx_bits, source_chunk=source_chunk,
+                            target_tile=target_tile)
     p = p.to(torch.float32)
     q = q.to(torch.float32)
     n, m = p.shape[0], q.shape[0]
@@ -194,13 +247,13 @@ def nn_argmin_packed(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest valid target by the packed (value|index) reduction: ``(idx
     int32[N], sqdist f32[N])``, the JAX package's
-    ``nn_argmin_pallas(mode='packed6_idx')``. ``idx_bits`` defaults to
-    :func:`packed_idx_bits` of the target count, which raises past its
-    2^16 gate. On a CUDA tensor this launches kernel K2; a CPU tensor takes
-    :func:`nn_argmin_packed_plain`."""
+    ``nn_argmin_pallas(mode='packed6_idx')``; a batch as :func:`nn_argmin`
+    takes it. ``idx_bits`` defaults to :func:`packed_idx_bits` of the
+    target count, which raises past its 2^16 gate. On a CUDA tensor this
+    launches kernel K2; a CPU tensor takes :func:`nn_argmin_packed_plain`."""
     pin_f32_precision()
     if idx_bits is None:
-        idx_bits = packed_idx_bits(q.shape[0])
+        idx_bits = packed_idx_bits(q.shape[-2])
     if p.device.type == "cuda":
         return nn_argmin_packed_cuda(p, q, q_mask, idx_bits=idx_bits)
     if p.device.type != "cpu":
@@ -490,5 +543,10 @@ def nn_e1(p: torch.Tensor, q: torch.Tensor, variant: str,
 
 
 def gather_correspondences(q: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Matched target points in source order (the reference's ``Q_index``)."""
+    """Matched target points in source order (the reference's ``Q_index``):
+    ``q`` [M, D] at ``idx`` [N], or a batch, ``q`` [B, M, D] at ``idx``
+    [B, N]."""
+    if idx.ndim == 2:
+        return torch.gather(q, 1, idx.long()[..., None].expand(
+            -1, -1, q.shape[-1]))
     return torch.index_select(q, 0, idx)

@@ -3,8 +3,10 @@ neighbour, CUDA C++ (``csrc/nn_tc.cu``, ``csrc/matching.cu``).
 
 * :func:`nn_argmin_cuda` launches K1, exact NN, which replaces the TPU
   kernel ``fpcr_tpu/ops/matching_pallas.py::nn_argmin_pallas``: the
-  tensor-core candidate sweep and the certified finish of ``nn_tc.cu``;
-  plain version ``ops.matching.nn_argmin_plain``, dispatcher
+  tensor-core candidate sweep and the certified finish of ``nn_tc.cu``,
+  one pair of clouds or a batch of B pairs in the same two launches (the
+  element on ``blockIdx.z``, the counterpart of ``vmap`` over the TPU
+  kernel); plain version ``ops.matching.nn_argmin_plain``, dispatcher
   ``ops.matching.nn_argmin``, the finish's CPU mirror
   ``ops.matching.nn_certified_plain``;
 * :func:`nn_argmin_packed_cuda` launches K2, the packed (value|index)
@@ -45,6 +47,7 @@ from ..core.cloud import round_up
 SLICE_QUANTUM = 256  # a target slice is a multiple of this many targets
 BLOCKS_PER_SM = 4  # the launch aims at this many blocks per SM
 TC_MAX_SLICE = 4096  # targets a sweep block holds in shared memory
+MAX_BATCH = 65535  # batch elements a launch takes: gridDim.z's limit
 # the sweep's modes (csrc/nn_tc.cu): the sweep, the sweep that also writes
 # one tile's values, and the ablations without the reduction, without
 # restaging, or without either
@@ -53,19 +56,19 @@ TC_MODES = {"sweep": 0, "dump": 1, "no reduce": 2, "no staging": 3,
 
 
 def plan_slices(n: int, m: int, rows_per_block: int,
-                sm_count: int) -> Tuple[int, int]:
+                sm_count: int, batch: int = 1) -> Tuple[int, int]:
     """``(slices, slice_len)``: split the M targets into slices over
-    ``blockIdx.y`` so that ``ceil(n / rows_per_block) * slices`` blocks
-    fill the card, with every slice a multiple of ``SLICE_QUANTUM`` and
-    none empty. One slice means no combine pass."""
-    row_blocks = max(1, math.ceil(n / rows_per_block))
+    ``blockIdx.y`` so that ``batch * ceil(n / rows_per_block) * slices``
+    blocks fill the card, with every slice a multiple of ``SLICE_QUANTUM``
+    and none empty. One slice means no combine pass."""
+    row_blocks = batch * max(1, math.ceil(n / rows_per_block))
     want = math.ceil(BLOCKS_PER_SM * sm_count / row_blocks)
     slices = max(1, min(want, math.ceil(m / SLICE_QUANTUM)))
     slice_len = round_up(math.ceil(m / slices), SLICE_QUANTUM)
     return math.ceil(m / slice_len), slice_len
 
 
-def _check_points(name: str, x: torch.Tensor, device) -> None:
+def _check_points(name: str, x: torch.Tensor, device, ndim: int = 2) -> None:
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor")
     if x.device.type != "cuda":
@@ -75,11 +78,12 @@ def _check_points(name: str, x: torch.Tensor, device) -> None:
         raise ValueError(f"{name} lies on {x.device}, p on {device}")
     if x.dtype != torch.float32:
         raise ValueError(f"{name} must be float32, got {x.dtype}")
-    if x.ndim != 2 or x.shape[1] != 3:
-        raise ValueError(f"{name} must be [*, 3], got {tuple(x.shape)}")
+    if x.ndim != ndim or x.shape[-1] != 3:
+        shape = "[*, 3]" if ndim == 2 else "[B, *, 3]"
+        raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if 3 * x.shape[0] >= 2 ** 31:
+    if 3 * x.shape[-2] >= 2 ** 31:
         raise ValueError(f"{name} has too many rows for int32 offsets")
 
 
@@ -89,14 +93,25 @@ def _raise_on(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def _check_inputs(what: str, p, q, q_mask) -> Optional[int]:
-    """Check the points and the mask of a brute-force launch; returns the
-    mask's pointer (None for no mask)."""
-    _check_points("p", p, getattr(p, "device", None))
-    _check_points("q", q, p.device)
-    m = q.shape[0]
+def _check_inputs(what: str, p, q, q_mask,
+                  batched: bool = False) -> Optional[int]:
+    """Check the points and the mask of a brute-force launch, ``p`` [N, 3],
+    ``q`` [M, 3] and ``q_mask`` [M], or with ``batched`` a batch of them,
+    [B, N, 3], [B, M, 3] and [B, M] with 1 <= B <= ``MAX_BATCH``; returns
+    the mask's pointer (None for no mask)."""
+    ndim = 3 if batched and getattr(p, "ndim", 2) == 3 else 2
+    _check_points("p", p, getattr(p, "device", None), ndim)
+    _check_points("q", q, p.device, ndim)
+    m = q.shape[-2]
     if m == 0:
         raise ValueError(f"{what} needs at least one target")
+    if ndim == 3:
+        if q.shape[0] != p.shape[0]:
+            raise ValueError(f"p holds {p.shape[0]} batch elements, q "
+                             f"{q.shape[0]}")
+        if not 1 <= p.shape[0] <= MAX_BATCH:
+            raise ValueError(f"a batched launch takes 1 to {MAX_BATCH} "
+                             f"elements (gridDim.z), got {p.shape[0]}")
     mask_ptr = None
     if q_mask is not None:
         if q_mask.device != p.device:
@@ -105,9 +120,9 @@ def _check_inputs(what: str, p, q, q_mask) -> Optional[int]:
         if q_mask.dtype not in (torch.bool, torch.uint8):
             raise ValueError(f"q_mask must be bool or uint8, got "
                              f"{q_mask.dtype}")
-        if q_mask.shape != (m,):
-            raise ValueError(f"q_mask must be [{m}], got "
-                             f"{tuple(q_mask.shape)}")
+        if q_mask.shape != q.shape[:-1]:
+            raise ValueError(f"q_mask must be {list(q.shape[:-1])}, got "
+                             f"{list(q_mask.shape)}")
         if not q_mask.is_contiguous():
             raise ValueError("q_mask must be contiguous")
         mask_ptr = q_mask.data_ptr()
@@ -115,13 +130,15 @@ def _check_inputs(what: str, p, q, q_mask) -> Optional[int]:
 
 
 def _plan(p: torch.Tensor, m: int, tensor_cores: bool = False):
-    """``(lib, slices, slice_len)`` of a brute-force launch over ``p``: the
-    CUDA-core sweep's rows per block, or the tensor-core sweep's."""
+    """``(lib, slices, slice_len)`` of a brute-force launch over ``p``
+    ([N, 3], or [B, N, 3] for the tensor-core sweep): the CUDA-core sweep's
+    rows per block, or the tensor-core sweep's."""
     lib = _build.load_library()
     sms = torch.cuda.get_device_properties(p.device).multi_processor_count
     rows = (lib.fpcr_nn_tc_rows_per_block() if tensor_cores
             else lib.fpcr_nn_rows_per_block())
-    slices, slice_len = plan_slices(p.shape[0], m, rows, sms)
+    batch = p.shape[0] if p.ndim == 3 else 1
+    slices, slice_len = plan_slices(p.shape[-2], m, rows, sms, batch)
     if tensor_cores and slice_len > TC_MAX_SLICE:  # a slice fits in smem
         slices = math.ceil(m / TC_MAX_SLICE)
         slice_len = round_up(math.ceil(m / slices), SLICE_QUANTUM)
@@ -156,15 +173,19 @@ def reset_rescued(device) -> None:
 
 def _sweep(lib, p, q, mask_ptr, slice_len: int, mode: str, stream,
            dump: Optional[torch.Tensor] = None):
-    """Launch the tensor-core sweep; returns its partials int32[3, slices,
-    N] and the row blocks' centres f32[blocks, 4]."""
-    n, m = p.shape[0], q.shape[0]
+    """Launch the tensor-core sweep over ``p`` [N, 3] or [B, N, 3]; returns
+    its partials int32[B, 3, slices, N] and the row blocks' centres
+    f32[B, blocks, 4] (B = 1 unbatched)."""
+    batch = p.shape[0] if p.ndim == 3 else 1
+    n, m = p.shape[-2], q.shape[-2]
     slices = math.ceil(m / slice_len)
-    part = torch.empty((3, slices, n), dtype=torch.int32, device=p.device)
-    centres = torch.empty((math.ceil(n / lib.fpcr_nn_tc_rows_per_block()),
-                           4), dtype=torch.float32, device=p.device)
+    part = torch.empty((batch, 3, slices, n), dtype=torch.int32,
+                       device=p.device)
+    centres = torch.empty(
+        (batch, math.ceil(n / lib.fpcr_nn_tc_rows_per_block()), 4),
+        dtype=torch.float32, device=p.device)
     rc = lib.fpcr_nn_tc_sweep(
-        p.data_ptr(), q.data_ptr(), mask_ptr, n, m, slice_len,
+        p.data_ptr(), q.data_ptr(), mask_ptr, batch, n, m, slice_len,
         TC_MODES[mode], part.data_ptr(), centres.data_ptr(),
         None if dump is None else dump.data_ptr(), stream)
     _raise_on(lib, rc, f"nn_tc_sweep ({mode})")
@@ -173,14 +194,16 @@ def _sweep(lib, p, q, mask_ptr, slice_len: int, mode: str, stream,
 
 def _nn_tc(fn, p, q, q_mask, idx_bits: Optional[int]):
     """Launch the tensor-core sweep and the certified finish of K1
-    (``idx_bits`` None) or K2, counting both launches on ``fn``."""
+    (``idx_bits`` None) or K2 over one pair or a batch of pairs, counting
+    both launches on ``fn``."""
     packed = idx_bits is not None
-    mask_ptr = _check_inputs(fn.__name__, p, q, q_mask)
-    n, m = p.shape[0], q.shape[0]
+    mask_ptr = _check_inputs(fn.__name__, p, q, q_mask, batched=True)
+    batch = p.shape[0] if p.ndim == 3 else 1
+    n, m = p.shape[-2], q.shape[-2]
     if packed:
         check_idx_bits(m, idx_bits)
-    idx = torch.empty(n, dtype=torch.int32, device=p.device)
-    dist = torch.empty(n, dtype=torch.float32, device=p.device)
+    idx = torch.empty(p.shape[:-1], dtype=torch.int32, device=p.device)
+    dist = torch.empty(p.shape[:-1], dtype=torch.float32, device=p.device)
     if n == 0:
         return idx, dist
     lib, slices, slice_len = _plan(p, m, tensor_cores=True)
@@ -191,8 +214,8 @@ def _nn_tc(fn, p, q, q_mask, idx_bits: Optional[int]):
         fn.launches += 1
         rc = lib.fpcr_nn_tc_finish(
             p.data_ptr(), q.data_ptr(), mask_ptr, part.data_ptr(),
-            centres.data_ptr(), lib.fpcr_nn_tc_rows_per_block(), n, m,
-            slices, int(packed), idx_bits or 0, dist.data_ptr(),
+            centres.data_ptr(), lib.fpcr_nn_tc_rows_per_block(), batch, n,
+            m, slices, int(packed), idx_bits or 0, dist.data_ptr(),
             idx.data_ptr(),
             _rescue_counter(p.device).data_ptr() + 8 * int(packed), stream)
         _raise_on(lib, rc, "nn_tc_finish")
@@ -213,7 +236,11 @@ def nn_argmin_cuda(
     ``p`` f32[N,3] and ``q`` f32[M,3] (M >= 1), contiguous, on one CUDA
     device; ``q_mask`` optional bool/uint8[M]. Returns ``(idx int32[N],
     sqdist f32[N])``: ties go to the lowest index; a row with no valid
-    target gets idx 0 and ``inf``. Two launches: the sweep and the finish.
+    target gets idx 0 and ``inf``. A batch ``p`` f32[B,N,3], ``q``
+    f32[B,M,3], ``q_mask`` [B,M] (1 <= B <= 65,535; more raises, the batch
+    is never split) gives ``idx`` int32[B,N] and ``sqdist`` f32[B,N], each
+    element's bits those of its own call. Two launches, batched or not: the
+    sweep and the finish.
     """
     return _nn_tc(nn_argmin_cuda, p, q, q_mask, None)
 
@@ -233,11 +260,12 @@ def nn_argmin_packed_cuda(
     finish): the int32 min over j of ``(bits(d_ij) & ~(2^idx_bits - 1)) |
     j``, then the exact distance to the pick.
 
-    Inputs as :func:`nn_argmin_cuda`, and ``idx_bits`` in [1, 23] with
-    ``M <= 2^idx_bits``. Returns ``(idx int32[N], sqdist f32[N])``: ties
-    within a bucket go to the lowest index; the distance is the exact one
-    of the selected target; a row with no valid target gets idx 0 and
-    ``inf``. Two launches: the sweep and the finish.
+    Inputs as :func:`nn_argmin_cuda`, a batch included, and ``idx_bits``
+    in [1, 23] with ``M <= 2^idx_bits``. Returns ``(idx int32[N], sqdist
+    f32[N])`` ([B, N] for a batch): ties within a bucket go to the lowest
+    index; the distance is the exact one of the selected target; a row with
+    no valid target gets idx 0 and ``inf``. Two launches: the sweep and the
+    finish.
     """
     return _nn_tc(nn_argmin_packed_cuda, p, q, q_mask, idx_bits)
 
@@ -262,7 +290,7 @@ def _nn_tc_tile_values(p: torch.Tensor, q: torch.Tensor,
                             "dump", stream, dump=out)
     rows = (torch.arange(p.shape[0], device=p.device)
             // lib.fpcr_nn_tc_rows_per_block())
-    return out, centres[rows, :3]
+    return out, centres[0, rows, :3]
 
 
 def _nn_tc_sweep_only(p: torch.Tensor, q: torch.Tensor,

@@ -9,6 +9,11 @@ polar iteration; Umeyama adds the scale from the same SVD. Point-to-plane:
 J = [p × n, n], C = JᵀWJ and b = -JᵀWr as
 float32 reductions, and the 6x6 Cholesky solve on the device, with no host
 round trip. A mask may be boolean or float (IRLS weights).
+
+Every solver takes leading batch axes, ``p`` and ``q`` [..., N, 3] with a
+mask [..., N], and solves each element on its own (the JAX package's
+``vmap``; ``models/batch.py``, RANSAC's hypotheses): one batched SVD, one
+batched ``cholesky_ex``, a det correction per element.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from ..utils.precision import pin_f32_precision
 
 def _weights(mask: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     if mask is None:
-        return torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+        return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
     return mask.to(x.dtype)
 
 
@@ -31,22 +36,24 @@ def masked_centroid(x: torch.Tensor,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean of the valid (or weighted) points."""
     w = _weights(mask, x)
-    return torch.sum(x * w[:, None], dim=0) / torch.clamp(w.sum(), min=1.0)
+    return (torch.sum(x * w[..., None], dim=-2)
+            / torch.clamp(w.sum(dim=-1, keepdim=True), min=1.0))
 
 
 def cross_covariance(p: torch.Tensor, q: torch.Tensor, p_bar: torch.Tensor,
                      q_bar: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``W = Σ_i w_i (q_i - q̄)(p_i - p̄)ᵀ`` as a [3,N]x[N,3] matmul."""
-    dev_p = (p - p_bar) * _weights(mask, p)[:, None]
-    dev_q = q - q_bar
-    return torch.matmul(dev_q.T, dev_p)
+    dev_p = (p - p_bar[..., None, :]) * _weights(mask, p)[..., None]
+    dev_q = q - q_bar[..., None, :]
+    return torch.matmul(dev_q.transpose(-1, -2), dev_p)
 
 
 def _det3(a: torch.Tensor) -> torch.Tensor:
-    """Determinant of a 3x3 as the triple product r0 · (r1 × r2): two small
+    """Determinant of 3x3s as the triple product r0 · (r1 × r2): two small
     ops on the device, where ``torch.linalg.det`` would factorize."""
-    return torch.dot(a[0], torch.linalg.cross(a[1], a[2]))
+    return torch.sum(a[..., 0, :] * torch.linalg.cross(a[..., 1, :],
+                                                       a[..., 2, :]), dim=-1)
 
 
 def rotation_from_svd(W: torch.Tensor,
@@ -57,7 +64,7 @@ def rotation_from_svd(W: torch.Tensor,
     U, _, Vt = torch.linalg.svd(W, full_matrices=False)
     R = torch.matmul(U, Vt)
     if det_correction:
-        U[:, 2] *= torch.sign(_det3(R))
+        U[..., :, 2] *= torch.sign(_det3(R))[..., None]
         R = torch.matmul(U, Vt)
     return R
 
@@ -73,13 +80,16 @@ def rotation_polar_newton_schulz(W: torch.Tensor,
     check falls back to the identity when the limit is not orthogonal or not
     finite, rather than returning a projection as a rotation."""
     eye = torch.eye(3, dtype=W.dtype, device=W.device)
-    norm = torch.sqrt(torch.sum(W * W)) + 1e-30
+    norm = torch.sqrt(torch.sum(W * W, dim=(-2, -1), keepdim=True)) + 1e-30
     # scale so all singular values < sqrt(3) (the convergence region)
     X = W / norm + 1e-6 * eye
     for _ in range(iterations):
-        X = 1.5 * X - 0.5 * torch.matmul(X, torch.matmul(X.T, X))
-    ortho_err = torch.max(torch.abs(torch.matmul(X, X.T) - eye))
-    good = torch.isfinite(X).all() & (ortho_err < 1e-3)
+        X = 1.5 * X - 0.5 * torch.matmul(
+            X, torch.matmul(X.transpose(-1, -2), X))
+    ortho_err = torch.abs(torch.matmul(X, X.transpose(-1, -2)) - eye).amax(
+        dim=(-2, -1), keepdim=True)
+    good = torch.isfinite(X).all(dim=-1, keepdim=True).all(
+        dim=-2, keepdim=True) & (ortho_err < 1e-3)
     return torch.where(good, X, eye)
 
 
@@ -99,7 +109,14 @@ def kabsch_transform(p: torch.Tensor, q: torch.Tensor,
         R = rotation_polar_newton_schulz(W)
     else:
         raise ValueError(f"unknown solver {solver!r}")
-    return RigidTransform(R, q_bar - torch.matmul(R, p_bar))
+    return RigidTransform(R, q_bar - _matvec(R, p_bar))
+
+
+def _matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` for a matrix and a vector, or batches of them."""
+    if A.ndim == 2:
+        return torch.matmul(A, x)
+    return torch.matmul(A, x[..., None])[..., 0]
 
 
 def umeyama_transform(p: torch.Tensor, q: torch.Tensor,
@@ -140,11 +157,11 @@ def plane_normal_equations(p: torch.Tensor, q: torch.Tensor,
     """The 6x6 normal equations ``C x = b`` of point-to-plane ICP: per point
     ``J_i = [p_i × n_i, n_i]`` and ``r_i = (p_i - q_i)·n_i``; ``C = Σ w_i
     J_iᵀJ_i`` and ``b = -Σ w_i J_iᵀ r_i``."""
-    J = torch.cat([torch.linalg.cross(p, normals), normals], dim=1)  # [N, 6]
-    r = torch.sum((p - q) * normals, dim=1)
-    Jw = J * _weights(mask, p)[:, None]
-    C = torch.matmul(Jw.T, J)
-    b = -torch.sum(Jw * r[:, None], dim=0)
+    J = torch.cat([torch.linalg.cross(p, normals), normals], dim=-1)  # [N,6]
+    r = torch.sum((p - q) * normals, dim=-1)
+    Jw = J * _weights(mask, p)[..., None]
+    C = torch.matmul(Jw.transpose(-1, -2), J)
+    b = -torch.sum(Jw * r[..., None], dim=-2)
     return C, b
 
 
@@ -163,12 +180,14 @@ def plane_solve_update(C: torch.Tensor, b: torch.Tensor,
     eye = torch.eye(6, dtype=C.dtype, device=C.device)
     if damping:
         C = C + damping * eye
-    C = C + (1e-7 * (torch.trace(C) / 6.0) + 1e-30) * eye
+    trace = C.diagonal(dim1=-2, dim2=-1).sum(dim=-1)[..., None, None]
+    C = C + (1e-7 * (trace / 6.0) + 1e-30) * eye
     L, info = torch.linalg.cholesky_ex(C)
-    x = torch.cholesky_solve(b[:, None], L)[:, 0]
-    good = (info == 0) & torch.isfinite(x).all()
-    x = torch.where(good, x, torch.zeros_like(x))
-    return RigidTransform(rotation_zyx(x[0], x[1], x[2]), x[3:6]), x
+    x = torch.cholesky_solve(b[..., None], L)[..., 0]
+    good = (info == 0) & torch.isfinite(x).all(dim=-1)
+    x = torch.where(good[..., None], x, torch.zeros_like(x))
+    return RigidTransform(rotation_zyx(x[..., 0], x[..., 1], x[..., 2]),
+                          x[..., 3:6]), x
 
 
 def point_to_plane_transform(p: torch.Tensor, q: torch.Tensor,

@@ -262,6 +262,21 @@ def test_imports_and_registers_without_jax():
         "q = ft.evaluate_registration(near, s.target, r.transform)\n"
         "assert float(q['fitness']) == 1.0\n"
         "ft.profile_icp(s.source, s.target, ft.ICPConfig(), iterations=2)\n"
+        "import torch\n"
+        "b = ft.register_batch(torch.stack([s.source] * 2),\n"
+        "                      torch.stack([s.target] * 2))\n"
+        "assert tuple(b.num_iterations.shape) == (2,)\n"
+        "h = ft.run_icp_with_history(s.source, s.target)\n"
+        "assert abs(int(h.num_iterations) - int(b.num_iterations[0])) <= 1\n"
+        "frames = torch.stack([s.source, near, s.source])\n"
+        "odo = ft.register_sequence(frames)\n"
+        "ei, ej, Z, w = ft.detect_loop_closures(frames, odo, min_separation=2,\n"
+        "                                       max_error=1e-2)\n"
+        "ft.close_loops(odo, ei, ej, Z, w, iterations=2)\n"
+        "ft.build_map(frames, odo.poses, 0.2)\n"
+        "ft.registration_covariance(s.source, s.target, r.transform)\n"
+        "g = ft.register(s.source, s.target, method='global')\n"
+        "assert g.transform.rotation.shape == (3, 3)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "import fpcr_tpu_torch._build as b\n"

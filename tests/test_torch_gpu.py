@@ -1202,3 +1202,161 @@ def test_no_host_sync_in_slice_iterations(cuda, name):
     launches = (mc.nn_argmin_cuda.launches - before) // 2  # 2 a call
     assert launches == {"gicp": 8, "aa-plane": 24, "grid-gicp": 0}[name]
     assert int(res.num_iterations) >= 1
+
+
+def _batch_case(cuda, b, n, m, seed, masks):
+    """A batch of B random pairs with ragged masks: all valid, a third
+    valid, none valid, alternating."""
+    rng = np.random.default_rng(seed)
+    p = torch.as_tensor(_cloud(rng, b * n).reshape(b, n, 3), device=cuda)
+    q = torch.as_tensor(_cloud(rng, b * m).reshape(b, m, 3), device=cuda)
+    mask = None
+    if masks:
+        keep = np.ones((b, m), bool)
+        keep[1::3] = rng.uniform(size=keep[1::3].shape) < 0.33
+        keep[2::3] = False
+        mask = torch.as_tensor(keep, device=cuda)
+    return p, q, mask
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("b,n,m,masks", [(1, 4096, 4096, False),
+                                         (3, 300, 500, True),
+                                         (32, 4096, 4096, False),
+                                         (16, 4096, 4096, True),
+                                         (7, 131, 20000, True)])
+def test_batched_kernel_equals_separate_calls(cuda, packed, b, n, m, masks):
+    """A batched K1 / K2 call: two launches for the whole batch (one sweep,
+    one finish), no host synchronisation, and every element's index and
+    distance bits those of its own unbatched call, ragged masks and B = 1
+    included."""
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+    from fpcr_tpu_torch.ops.matching import packed_idx_bits
+
+    p, q, mask = _batch_case(cuda, b, n, m, b * 31 + n, masks)
+    wrapper = mc.nn_argmin_packed_cuda if packed else mc.nn_argmin_cuda
+    kw = dict(idx_bits=packed_idx_bits(m)) if packed else {}
+    torch.cuda.synchronize()
+    before = wrapper.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx, dist = wrapper(p, q, mask, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert wrapper.launches - before == 2
+    assert idx.shape == (b, n) and dist.dtype == torch.float32
+    for k in range(b):
+        ei, ed = wrapper(p[k], q[k], None if mask is None else mask[k], **kw)
+        assert torch.equal(idx[k], ei)
+        assert torch.equal(dist[k].view(torch.int32), ed.view(torch.int32))
+
+
+def test_batched_kernel_raises_past_gridz(cuda):
+    """65,536 elements exceed gridDim.z: the wrapper raises and launches
+    nothing; it never splits the batch. 65,535 runs."""
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+
+    p = torch.zeros((65536, 1, 3), device=cuda)
+    before = mc.nn_argmin_cuda.launches
+    with pytest.raises(ValueError, match="65535"):
+        mc.nn_argmin_cuda(p, p)
+    with pytest.raises(ValueError, match="batch elements"):
+        mc.nn_argmin_cuda(p[:3].contiguous(), p[:2].contiguous())
+    with pytest.raises(ValueError, match=r"\[B, \*, 3\]"):
+        mc.nn_argmin_cuda(p[:3], torch.zeros((1, 3), device=cuda))
+    assert mc.nn_argmin_cuda.launches == before
+    idx, d = mc.nn_argmin_cuda(p[:65535].contiguous(), p[:65535].contiguous())
+    assert idx.shape == (65535, 1) and (d == 0).all()
+
+
+@pytest.mark.parametrize("mode", ["packed6", "packed6_idx"])
+def test_no_host_sync_in_batched_iterations(cuda, mode):
+    """Eight batched plane iterations (normals given) of 8 pairs: one
+    batched matcher call an iteration (two launches of K1 or K2) and no
+    host synchronisation; the result equals the same batch registered on
+    the CPU to f32 noise."""
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+
+    s = ft.synthetic_scene(width=32, device="cpu")
+    rng = np.random.default_rng(3)
+    tgts = torch.stack([ft.gt_transform(tuple(0.02 * rng.standard_normal(3)),
+                                        tuple(0.03 * rng.standard_normal(3)),
+                                        device="cpu").apply(s.source)
+                        for _ in range(8)])
+    srcs = torch.stack([s.source] * 8)
+    nrm = torch.stack([ft.estimate_normals(t) for t in tgts])
+    cfg = ft.ICPConfig(metric="plane", matcher="pallas", pallas_mode=mode,
+                       max_iterations=8)
+    wrapper = (mc.nn_argmin_packed_cuda if mode == "packed6_idx"
+               else mc.nn_argmin_cuda)
+    args = [x.to(cuda) for x in (srcs, tgts, nrm)]
+    torch.cuda.synchronize()
+    before = wrapper.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = ft.register_batch(args[0], args[1], cfg, args[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert wrapper.launches - before == 2 * 8
+    ref = ft.register_batch(srcs, tgts, cfg, nrm)
+    assert (res.num_iterations.cpu() - ref.num_iterations).abs().max() <= 1
+    torch.testing.assert_close(res.transform.rotation.cpu(),
+                               ref.transform.rotation, atol=1e-5, rtol=0)
+
+
+def test_batched_route_matches_per_element_run_icp_on_card(cuda):
+    """``register_batch`` on the card: every element within one iteration
+    of its own ``run_icp`` on the card, its transform within 1e-5."""
+    import fpcr_tpu_torch as ft
+
+    s = ft.synthetic_scene(width=64, device=cuda)
+    rng = np.random.default_rng(4)
+    tgts = torch.stack([ft.gt_transform(tuple(0.03 * rng.standard_normal(3)),
+                                        tuple(0.05 * rng.standard_normal(3)),
+                                        device=cuda).apply(s.source)
+                        for _ in range(6)])
+    srcs = torch.stack([s.source] * 6)
+    cfg = ft.ICPConfig(matcher="pallas", max_iterations=20)
+    res = ft.register_batch(srcs, tgts, cfg)
+    for k in range(6):
+        one = ft.run_icp(srcs[k], tgts[k], cfg)
+        assert abs(int(res.num_iterations[k]) - int(one.num_iterations)) <= 1
+        assert float(ft.transform_rmse(
+            ft.RigidTransform(res.transform.rotation[k],
+                              res.transform.translation[k]),
+            one.transform, s.source)) < 1e-5
+
+
+def test_pose_graph_bit_equal_across_calls(cuda):
+    """``optimize_pose_graph`` on the card twice, with duplicate edges:
+    bit-equal poses (the dense assembly sums each block in a fixed order,
+    no atomics), and within 1e-4 of the CPU run."""
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.models import pose_graph as tpg
+
+    rng = np.random.default_rng(5)
+    T = 10
+    steps = torch.as_tensor(np.concatenate([rng.normal(0, 0.3, (T - 1, 3)),
+                                            rng.normal(0, 0.1, (T - 1, 3))],
+                                           1), dtype=torch.float32)
+    rel = tpg.se3_exp(steps)
+    poses = [torch.eye(4)]
+    for r in rel:
+        poses.append(poses[-1] @ r)
+    poses = torch.stack(poses)
+    ei = torch.tensor(list(range(T - 1)) + [0, 0, 2], dtype=torch.int32)
+    ej = torch.tensor(list(range(1, T)) + [T - 1, T - 1, 7], dtype=torch.int32)
+    meas = torch.cat([rel, torch.stack([
+        torch.linalg.inv(poses[int(i)]) @ poses[int(j)] @ tpg.se3_exp(
+            torch.as_tensor(rng.normal(0, 0.02, 6), dtype=torch.float32))
+        for i, j in zip(ei[T - 1:], ej[T - 1:])])])
+    w = torch.as_tensor(rng.uniform(0.5, 2.0, len(ei)), dtype=torch.float32)
+    a = ft.optimize_pose_graph(poses.to(cuda), ei.to(cuda), ej.to(cuda),
+                               meas.to(cuda), w.to(cuda), iterations=6)
+    b = ft.optimize_pose_graph(poses.to(cuda), ei.to(cuda), ej.to(cuda),
+                               meas.to(cuda), w.to(cuda), iterations=6)
+    assert torch.equal(a.poses, b.poses)
+    assert torch.equal(a.residual_rms, b.residual_rms)
+    c = ft.optimize_pose_graph(poses, ei, ej, meas, w, iterations=6)
+    torch.testing.assert_close(a.poses.cpu(), c.poses, atol=1e-4, rtol=0)
