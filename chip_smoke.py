@@ -108,19 +108,33 @@ Phases, in order; any failure raises and the script exits nonzero:
    sequential ``run_icp`` calls (K1, K2, K2, K1), batched K1 and K2 alone
    against 32 unbatched calls and the plain version, the SLAM pipeline's
    stages and ``global_registration``'s (normals + FPFH, feature search,
-   RANSAC), each printed beside the card's name and power limit.
+   RANSAC), each printed beside the card's name and power limit;
+6. parallel — the sharded paths (``fpcr_tpu_torch/parallel/dist_icp.py``)
+   on a one-rank NCCL group in this process: ``distributed_icp`` point
+   through K1 and K2 on the synthetic scene and the hall scan, plane
+   through K1, Morton through K3 at 1,048,576 points and
+   ``distributed_ndt`` banded through K4 at 1,048,576, each driven between
+   counter reads and bit for bit its unsharded run with the same launches,
+   with the all-reduces an iteration and ms/iter against ``run_icp`` by the
+   slope; NCCL's answer to two ranks on one card (logged); the same paths
+   on two ranks sharing this card over gloo (spawned processes), each
+   within 1e-5 of the single card, its iterations within 1, to its GT
+   threshold, every rank's transform bit-equal and each rank's kernels
+   launched on its half of the rows; and the CLI as a user starts it, as
+   subprocesses: ``python -m fpcr_tpu_torch info``, ``run --dataset
+   bunny`` to 1e-5 and ``match-bench`` at 16,384.
 
 The line before the last is a JSON object describing each kernel: its
-launches on the main path, its largest difference from its plain version,
-its time and its plain version's (K1's and K2's entries also hold their
-batched call at 32 x 4,096², ``batched``), and its bound, the least time the card
-could take for the same work (the larger of its bytes over the HBM rate and
-its float32 operations over the float32 peak, from this run's inputs: the
-band kernels' over the pairs they evaluated after culling;
-Kernel S's the largest of its bytes, its bf16 tensor-core products over the
-bf16 peak and its reduction's CUDA-core instructions over their rate). The
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
-script exits 1 and prints no result.
+launches on the main path (the world-1 sharded paths included), its largest
+difference from its plain version, its time and its plain version's (K1's
+and K2's entries also hold their batched call at 32 x 4,096², ``batched``),
+and its bound, the least time the card could take for the same work (the
+larger of its bytes over the HBM rate and its float32 operations over the
+float32 peak, from this run's inputs: the band kernels' over the pairs they
+evaluated after culling; Kernel S's the largest of its bytes, its bf16
+tensor-core products over the bf16 peak and its reduction's CUDA-core
+instructions over their rate). The last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA device the script exits 1 and prints no result.
 """
 
 import dataclasses
@@ -932,26 +946,44 @@ def _check_band(name, p, table, extra, chunk, window, packed):
     return err
 
 
-def device_events(fn):
+# cycles of torch.cuda._sleep's spin kernel on each side of a profiled run
+# (~50 us at the H100's clock)
+PAD_CYCLES = 100_000
+
+
+def device_events(fn, required=True):
     """The device events of one run of ``fn`` under ``torch.profiler``,
-    after a warm-up run. A session now and then reports no device event at
-    all (seen once in ~20 sessions of one process): the next one is taken,
-    up to three."""
+    after a warm-up run. Sessions lose a few events at their edges (one or
+    two of 10-20 in most short sessions) and now and then report none at
+    all, so the run sits between two spin kernels that are left out of the
+    result, and a session that reports no event of ``fn`` is retaken, up
+    to five times. After that an empty list is returned, or, where
+    ``required``, an error raised."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(PAD_CYCLES)
             fn()
+            torch.cuda._sleep(PAD_CYCLES)
             torch.cuda.synchronize()
         events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+                  if e.device_type == DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
         if events:
             return events
-    raise AssertionError("the profiler saw no device event")
+        PROFILER_EMPTY.append(attempt)
+    if required:
+        raise AssertionError("the profiler saw no device event")
+    return []
+
+
+# device_events sessions that reported no event of the profiled run
+PROFILER_EMPTY = []
 
 
 def phase_band_vs_plain(torch, np, ft, dev):
@@ -2365,9 +2397,21 @@ def kernel_ms(fn, repeats=10):
     (``torch.profiler``'s CUDA kernel events over ``repeats`` calls, the
     wrapper's torch glue left out), in ms. A session may lose some events
     (a count short of a whole number a call), so a call's time is each
-    kernel's mean event time times its launches a call."""
+    kernel's mean event time times its launches a call. Where five
+    sessions in a row report no device event, the call is timed whole with
+    CUDA events instead (the wrapper's glue included) and logged."""
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms
+
+    events = device_events(lambda: [fn() for _ in range(repeats)],
+                           required=False)
+    if not events:
+        ms = cuda_time_ms(fn, repeats=repeats)["min"]
+        PROFILER_FALLBACKS.append(round(ms, 4))
+        log("times", f"the profiler saw no device event in 5 sessions: "
+                     f"{ms:.4f} ms from CUDA events, glue included")
+        return ms
     ours = {}
-    for e in device_events(lambda: [fn() for _ in range(repeats)]):
+    for e in events:
         if any(k in e.name for k in OUR_KERNELS):
             ours.setdefault(e.name, []).append(e.time_range.elapsed_us())
     if not ours:
@@ -2381,6 +2425,8 @@ def kernel_ms(fn, repeats=10):
 
 # kernel_ms sessions that lost events: (events seen, events launched)
 PROFILER_LOSSES = []
+# kernel_ms calls timed with CUDA events because the profiler saw nothing
+PROFILER_FALLBACKS = []
 
 
 def phase_times(torch, ft, dev, smi, study):
@@ -2815,6 +2861,412 @@ def phase_times_slice3(torch, ft, dev, smi):
     return out
 
 
+# The sharded paths (parallel/dist_icp.py), each driven at a world of one
+# rank on NCCL and against its unsharded run: (name, scene kind, loop,
+# config fields, kernel, GT threshold). A world-1 run must equal its
+# unsharded run bit for bit and make the same launches; a world-2 run on
+# one card (gloo) must come within PARALLEL_TOL of the single-card
+# transform, within 1 iteration, and reach its threshold
+PARALLEL_PATHS = [
+    ("dist point synthetic-16384, K1", "synthetic", "icp",
+     dict(max_iterations=40, matcher="pallas"), "nn_argmin", 1e-5),
+    ("dist point hall-16384, K1", "hall", "icp",
+     dict(max_iterations=100, matcher="pallas"), "nn_argmin", 1e-4),
+    ("dist point synthetic-16384 packed6_idx, K2", "synthetic", "icp",
+     dict(max_iterations=40, matcher="pallas", **PACKED),
+     "nn_argmin_packed", 1e-5),
+    ("dist point hall-16384 packed6_idx, K2", "hall", "icp",
+     dict(max_iterations=100, matcher="pallas", **PACKED),
+     "nn_argmin_packed", 1e-4),
+    ("dist plane synthetic-16384, K1", "synthetic", "icp",
+     dict(metric="plane", max_iterations=50, matcher="pallas"), "nn_argmin",
+     1e-5),
+    ("dist morton point synthetic-1048576, K3", "grid-1", "icp",
+     dict(matcher="morton", max_iterations=30, **BAND), "morton_nn", 1e-5),
+    ("dist ndt synthetic-1048576 banded, K4", "ndt-1024", "ndt",
+     dict(voxel_size=NDT_VOXEL, max_iterations=50, lookup="banded",
+          lookup_impl="pallas"), "ndt_fused_moments", 1e-4),
+]
+PARALLEL_TOL = 1e-5  # world 2 against the single card: transform entries
+PARALLEL_WORLD = 2
+# the CLI's run on Bunny: BASELINE.md's 1e-5
+CLI_BUNNY_GT = 1e-5
+
+
+def parallel_scene(torch, np, ft, kind, dev):
+    if kind.startswith("ndt-"):
+        return ndt_scene(torch, np, ft, int(kind[4:]), dev)
+    return build_scene(ft, kind, dev)
+
+
+def parallel_run(ft, loop, fields, sharded, mesh=None):
+    """``run(source, target)`` of one sharded path or its unsharded twin."""
+    from fpcr_tpu_torch.parallel.dist_icp import (distributed_icp,
+                                                  distributed_ndt)
+
+    if loop == "icp":
+        cfg = ft.ICPConfig(**fields)
+        if sharded:
+            return lambda a, b: distributed_icp(a, b, cfg, mesh=mesh)
+        return lambda a, b: ft.run_icp(a, b, cfg)
+    cfg = ft.NDTConfig(**fields)
+    if sharded:
+        return lambda a, b: distributed_ndt(a, b, cfg, mesh=mesh)
+    return lambda a, b: ft.run_ndt(a, b, cfg)
+
+
+def _bits(res):
+    """A result's tensors as integers, so NaN rows compare by their bits."""
+    return [x.contiguous().view(torch.int32) if x.is_floating_point() else x
+            for x in (res.transform.rotation, res.transform.translation,
+                      res.errors, res.num_iterations, res.points)]
+
+
+def _rows_spy():
+    """Patch the kernels' wrappers where the package looks them up with
+    spies that record the rows of each launch: ``{kernel: [rows, ...]}``."""
+    from fpcr_tpu_torch.ops import matching, morton_cuda, ndt_cuda
+
+    rows = {}
+
+    class Spy:
+        """Records the rows, calls the wrapper; its launch count is the
+        wrapper's (a wrapper counts through its module's name for itself,
+        which is now the spy)."""
+
+        def __init__(self, real, key):
+            self.real, self.key = real, key
+
+        def __call__(self, p, *a, **k):
+            rows.setdefault(self.key, []).append(int(p.shape[-2]))
+            return self.real(p, *a, **k)
+
+        @property
+        def launches(self):
+            return self.real.launches
+
+        @launches.setter
+        def launches(self, n):
+            self.real.launches = n
+
+    def spy(module, attr, key):
+        setattr(module, attr, Spy(getattr(module, attr), key))
+
+    spy(matching, "nn_argmin_cuda", "nn_argmin")
+    spy(matching, "nn_argmin_packed_cuda", "nn_argmin_packed")
+    spy(morton_cuda, "morton_nn_cuda", "morton_nn")
+    spy(ndt_cuda, "ndt_fused_moments_cuda", "ndt_fused_moments")
+    return rows
+
+
+def _parallel_rank(rank, world, store, out_path):
+    """One rank of the world-2 run on one card: a gloo group over CUDA
+    tensors (the caller passes the mesh, which the package requires for
+    gloo on CUDA tensors), every sharded path, the rows each kernel launch
+    saw, and rank 0's ms/iter of the point path by the slope."""
+    import torch.distributed as dist
+
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.parallel.dist_icp import distributed_icp, make_mesh
+    from fpcr_tpu_torch.utils.timing import slope_ms_per_iter
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh()
+    wrappers = _wrappers()  # the counting wrappers, before the spies
+    rows = _rows_spy()
+    out = {}
+    for name, kind, loop, fields, kernel, thr in PARALLEL_PATHS:
+        s = parallel_scene(torch, np, ft, kind, dev)
+        wrapper = wrappers[kernel]
+        before, rows[kernel] = wrapper.launches, []
+        res = parallel_run(ft, loop, fields, True, mesh)(s.source, s.target)
+        torch.cuda.synchronize()
+        out[name] = {
+            "rotation": res.transform.rotation.cpu(),
+            "translation": res.transform.translation.cpu(),
+            "iterations": int(res.num_iterations),
+            "gt": float(ft.transform_rmse(res.transform, s.ground_truth,
+                                          s.source)),
+            "launches": wrapper.launches - before,
+            "rows": sorted(set(rows[kernel])), "n": s.source.shape[0],
+            "points_ok": bool(torch.allclose(
+                res.points, res.transform.apply(s.source), atol=1e-4))}
+    # what each rank builds from the whole clouds, nothing broadcast: the
+    # normals, the Morton table and the NDT grid, compared across ranks
+    s = build_scene(ft, "synthetic", dev)
+    big = build_scene(ft, "grid-1", dev)
+    out["tables"] = {
+        "target normals": ft.estimate_normals(s.target).cpu(),
+        "morton table": ft.build_morton_table(big.target).points_sorted.cpu(),
+        "ndt grid": ft.build_ndt_grid(big.target, NDT_VOXEL).table.cpu()}
+    out["slope"] = slope_ms_per_iter(lambda k: distributed_icp(
+        s.source, s.target, ft.ICPConfig(max_iterations=k, tolerance=0.0,
+                                         matcher="pallas"), mesh=mesh),
+        k_lo=5, k_hi=25, repeats=3)
+    torch.save(out, f"{out_path}.{rank}")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+NCCL_TWO_ON_ONE = """
+import sys, torch, torch.distributed as dist
+rank = int(sys.argv[1])
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="file://" + sys.argv[2],
+                        world_size=2, rank=rank)
+try:
+    x = torch.ones(1, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    print("NCCL accepted two ranks on one device: sum", float(x))
+except Exception as e:
+    print("NCCL refused:", type(e).__name__, str(e).splitlines()[0][:300])
+"""
+
+
+def _start_side_runs(cmds):
+    """``{label: argv}`` started at once as subprocesses from the repo's
+    root, with it on ``PYTHONPATH``: ``{label: Popen}``."""
+    import os
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return {k: subprocess.Popen(c, cwd=root, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+            for k, c in cmds.items()}
+
+
+def _finish_side_runs(procs, timeout=240):
+    """Wait for the side runs (killing any that outlive ``timeout``) and
+    return ``{label: (returncode, stdout, stderr)}``."""
+    out = {}
+    t_end = time.perf_counter() + timeout
+    for label, p in procs.items():
+        try:
+            so, se = p.communicate(timeout=max(1.0, t_end
+                                               - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+            so += f"\n(killed after {timeout} s)"
+        out[label] = (p.returncode, so, se)
+    return out
+
+
+def phase_parallel(torch, ft, dev, smi):
+    """The sharded paths on the card. A world of one rank on NCCL, in this
+    process (a ``file://`` store in a temporary directory): each path
+    against its unsharded run, bit for bit, with the same launches; the
+    collectives an iteration; ms/iter of ``distributed_icp`` against
+    ``run_icp`` by the slope (their difference is the all-reduces' cost).
+    Then a world of two ranks on this one card over gloo (NCCL refuses two
+    ranks on one device, which is confirmed and logged): every path within
+    ``PARALLEL_TOL`` of the single card, each rank launching its kernels on
+    half of the rows, every rank's transform bit-equal. And the CLI as a
+    user starts it: ``info``, ``run --dataset bunny`` to its GT threshold
+    and ``match-bench`` at 16,384. Returns the world-1 launches, summed
+    over the paths."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from fpcr_tpu_torch.core import metrics
+    from fpcr_tpu_torch.parallel.dist_icp import distributed_icp
+    from fpcr_tpu_torch.utils.timing import slope_ms_per_iter
+
+    card = f"[card: {smi}]"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="fpcr_parallel_")
+    # NCCL's answer to two ranks on one card, beside the world-1 paths
+    nccl_procs = _start_side_runs({f"nccl rank {r}": [
+        sys.executable, "-c", NCCL_TWO_ON_ONE, str(r), f"{tmp}/nccl_store"]
+        for r in range(2)})
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store1",
+                            world_size=1, rank=0)
+    totals = dict.fromkeys(counters(), 0)
+    single = {}
+    try:
+        for name, kind, loop, fields, kernel, thr in PARALLEL_PATHS:
+            s = parallel_scene(torch, np, ft, kind, dev)
+            # K2 launches its sweep and its epilogue every iteration
+            per_iteration = 2 if kernel == "nn_argmin_packed" else 1
+            got = {}
+            for sharded in (True, False):
+                label = name if sharded else f"{name} (unsharded)"
+
+                def fn():
+                    got[sharded] = register(
+                        torch, ft, label, s,
+                        parallel_run(ft, loop, fields, sharded), thr, kernel,
+                        per_iteration=per_iteration)
+                reads = metrics._psum.launches
+                counts = drive(torch, label, fn)
+                reads = metrics._psum.launches - reads
+                if counts[kernel] == 0:
+                    raise AssertionError(f"'{label}' never launched {kernel}")
+                got[(sharded, "counts")] = counts
+                if sharded:
+                    # the loop runs masked passes up to its next done read
+                    passes = loop_passes(int(got[True].num_iterations),
+                                         fields["max_iterations"])
+                    log("parallel", f"{name}: {reads} all-reduces in "
+                                    f"{passes} loop passes, "
+                                    f"{reads / passes:.2f} an iteration "
+                                    "(NCCL, world of 1)")
+                    for k, v in counts.items():
+                        totals[k] += v
+            if got[(True, "counts")] != got[(False, "counts")]:
+                raise AssertionError(f"{name}: launches "
+                                     f"{got[(True, 'counts')]} against "
+                                     f"{got[(False, 'counts')]}")
+            for field, a, b in zip(("rotation", "translation", "errors",
+                                    "iterations", "points"),
+                                   _bits(got[True]), _bits(got[False])):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name}: world 1's {field} differ "
+                                         "from the unsharded run's")
+            log("parallel", f"{name}: world 1 equals the unsharded run bit "
+                            "for bit, same launches")
+            single[name] = got[False]
+        # the timings below have the card to themselves
+        nccl = _finish_side_runs(nccl_procs)
+        # one all-reduce of 8 floats alone: host time a call, and the time
+        # to the device's completion
+        x = torch.ones(8, device=dev)
+        for _ in range(20):
+            metrics._psum(x, dist.group.WORLD)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            metrics._psum(x, dist.group.WORLD)
+        host = (time.perf_counter() - t0) * 2.0  # ms a call, 500 calls
+        torch.cuda.synchronize()
+        done = (time.perf_counter() - t0) * 2.0
+        log("times", f"one all-reduce of 8 floats (NCCL, world of 1, the "
+                     f"clone included): {host:.4f} ms of host time a call, "
+                     f"{done:.4f} ms to the device's completion {card}")
+        # the all-reduces' cost: world-1 distributed_icp against run_icp in
+        # this call, legs run, dist, dist, run
+        s = build_scene(ft, "synthetic", dev)
+
+        def cfg(k):
+            return ft.ICPConfig(max_iterations=k, tolerance=0.0,
+                                matcher="pallas")
+        legs = {}
+        for label, fn in (("run_icp", ft.run_icp),
+                          ("distributed_icp world 1", distributed_icp),
+                          ("distributed_icp world 1 again", distributed_icp),
+                          ("run_icp again", ft.run_icp)):
+            r = slope_ms_per_iter(lambda k: fn(s.source, s.target, cfg(k)),
+                                  k_lo=10, k_hi=60, repeats=5)
+            legs[label] = r["ms_per_iter"]
+            log("times", f"point ICP N=16384 (K1), {label}: "
+                         f"{r['ms_per_iter']:.4f} ms/iter (slope of min-of-5"
+                         f", 10 and 60 iterations: {r['lo_ms']:.3f} / "
+                         f"{r['hi_ms']:.3f} ms) {card}")
+    finally:
+        for p in nccl_procs.values():  # stopped, where a phase failed
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        dist.destroy_process_group()
+    cost = (legs["distributed_icp world 1"] - legs["run_icp"],
+            legs["distributed_icp world 1 again"] - legs["run_icp again"])
+    log("times", "all-reduces' cost at world 1, point ICP N=16384: "
+                 f"{cost[0]:.4f} / {cost[1]:.4f} ms/iter {card}")
+
+    for r in range(2):
+        rc, so, se = nccl[f"nccl rank {r}"]
+        last = (so.strip() or se.strip() or "(no output)").splitlines()[-1]
+        log("parallel", f"NCCL, two ranks on one card, rank {r}: exit {rc}: "
+                        f"{last}")
+
+    mp.spawn(_parallel_rank, args=(PARALLEL_WORLD, f"{tmp}/store2",
+                                   f"{tmp}/world2"),
+             nprocs=PARALLEL_WORLD, join=True)
+    ranks = [torch.load(f"{tmp}/world2.{r}", weights_only=False)
+             for r in range(PARALLEL_WORLD)]
+    for name, kind, loop, fields, kernel, thr in PARALLEL_PATHS:
+        ref = single[name]
+        for r, rec in enumerate(ranks):
+            got = rec[name]
+            dr = float((got["rotation"] - ref.transform.rotation.cpu())
+                       .abs().max())
+            dt = float((got["translation"]
+                        - ref.transform.translation.cpu()).abs().max())
+            di = abs(got["iterations"] - int(ref.num_iterations))
+            half = got["n"] // PARALLEL_WORLD
+            log("parallel", f"{name}, world 2 (gloo, one card), rank {r}: "
+                            f"{got['iterations']} iterations (single card "
+                            f"{int(ref.num_iterations)}), |dR| {dr:.2e}, "
+                            f"|dt| {dt:.2e}, GT {got['gt']:.3e} (< {thr:g}),"
+                            f" {kernel} launches {got['launches']} on "
+                            f"{got['rows']} rows")
+            if max(dr, dt) > PARALLEL_TOL or di > 1 or not got["gt"] < thr:
+                raise AssertionError(f"{name}: world 2 rank {r} off the "
+                                     "single-card run")
+            if got["rows"] != [half] or not got["points_ok"]:
+                raise AssertionError(f"{name}: rank {r} launched on rows "
+                                     f"{got['rows']}, not its half {half}")
+            if not (torch.equal(got["rotation"], ranks[0][name]["rotation"])
+                    and torch.equal(got["translation"],
+                                    ranks[0][name]["translation"])):
+                raise AssertionError(f"{name}: ranks disagree")
+    for key, ref in ranks[0]["tables"].items():
+        for r, rec in enumerate(ranks[1:], 1):
+            if not torch.equal(rec["tables"][key].view(torch.int32),
+                               ref.view(torch.int32)):
+                raise AssertionError(f"rank {r}'s {key} differs from rank 0's")
+    log("parallel", "world 2: each rank's normals, Morton table and NDT grid"
+                    " (built from the whole clouds, nothing broadcast) are "
+                    "bit-equal to rank 0's")
+    sl = ranks[0]["slope"]
+    log("times", f"point ICP N=16384 (K1), world 2 on one card over gloo "
+                 f"(the record only): {sl['ms_per_iter']:.4f} ms/iter (slope"
+                 f" of min-of-3, 5 and 25 iterations: {sl['lo_ms']:.3f} / "
+                 f"{sl['hi_ms']:.3f} ms) {card}")
+
+    # the CLI as a user starts it: info and a run together, then the
+    # microbenchmark alone on the card
+    cli = [sys.executable, "-m", "fpcr_tpu_torch"]
+    side = _finish_side_runs(_start_side_runs({
+        "cli info": cli + ["info"],
+        "cli run bunny": cli + ["run", "--dataset", "bunny", "--json"]}))
+    side.update(_finish_side_runs(_start_side_runs({
+        "cli match-bench": cli + ["match-bench", "--n", "16384",
+                                  "--repeats", "3"]})))
+    for label in ("cli info", "cli run bunny", "cli match-bench"):
+        rc, so, se = side[label]
+        log("cli", f"python -m fpcr_tpu_torch {label[4:]}: exit {rc}; "
+                   + " | ".join(so.strip().splitlines()[:6]))
+        if rc != 0:
+            raise AssertionError(f"{label} failed: {se[-2000:]}")
+    info = side["cli info"][1]
+    if "platform: gpu" not in info or "device count:" not in info:
+        raise AssertionError("cli info did not report the card")
+    bunny = json.loads(side["cli run bunny"][1])
+    log("cli", f"run bunny: {bunny['iterations']} iterations, GT transform "
+               f"RMSE {bunny['transform_rmse_vs_gt']:.3e} (< "
+               f"{CLI_BUNNY_GT:g}), platform {bunny['platform']}, wall "
+               f"{bunny['wall_seconds']:.3f} s {card}")
+    if not (bunny["platform"] == "gpu"
+            and bunny["transform_rmse_vs_gt"] < CLI_BUNNY_GT):
+        raise AssertionError("cli run bunny missed its threshold")
+    bench = json.loads(side["cli match-bench"][1])
+    log("cli", f"match-bench N={bench['n']}: "
+               + ", ".join(f"{k} {v:.4f} ms" for k, v in bench.items()
+                           if k != "n") + f" (events) {card}")
+    log("parallel", f"phase done in {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def bound(nbytes, flops, ops_ms=0.0):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``nbytes`` of device-memory traffic (each input read once, each output
@@ -3041,8 +3493,14 @@ def main():
     times5 = phase_times_studies(torch, dev, smi, studies)
     phase_times_slice3(torch, ft, dev, smi)
     times["batched"] = phase_times_slice4(torch, ft, dev, smi)
+    for key, n in phase_parallel(torch, ft, dev, smi).items():
+        launches[key] += n
     log("times", f"kernel_ms: {len(PROFILER_LOSSES)} profiler sessions lost "
-                 f"events (seen, launched): {PROFILER_LOSSES}")
+                 f"events (seen, launched): {PROFILER_LOSSES}; "
+                 f"{len(PROFILER_EMPTY)} sessions saw no device event "
+                 f"(attempt numbers {PROFILER_EMPTY}); kernel_ms fell back "
+                 f"to CUDA events {len(PROFILER_FALLBACKS)} times (ms "
+                 f"{PROFILER_FALLBACKS})")
     legs = times["legs"]
     log("tc", "K1 / K2 at N=M=16384, (call, kernel) ms per leg, CUDA-core "
               f"then tensor-core: {json.dumps(legs)}; sweep ablations "

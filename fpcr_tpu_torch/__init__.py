@@ -13,19 +13,21 @@ packed (value|index) reduction of both matchers
 launch pair of K1 or K2 an iteration for a whole batch), ICP history with
 checkpoint and resume, odometry (``register_sequence``, ``build_map``), the
 SE(3) pose graph and loop closure, registration uncertainty, FPFH + RANSAC
-global registration and the one front door ``register``. Its kernels are all CUDA C++ for
-``sm_90a`` built with ``nvcc`` at first launch: the brute-force
-nearest-neighbour matcher K1 and its packed twin K2 (``csrc/nn_tc.cu``;
-``csrc/matching.cu`` holds their CUDA-core sweep, the min-only sweep of the
-packed-reduction study ``bench/packed_reduction.py`` and the E1 forms), the
-Morton band matcher K3 and its packed twin K3p (``csrc/morton.cu``), NDT's
-fused direct7 moments K4 (``csrc/ndt.cu``) and the studies' Kernel S
-(``csrc/split_mma.cu``); a CPU tensor takes their plain PyTorch versions. Every
-entry point runs on the card unless the caller asks for the CPU: loaders
-and scene builders take ``device="cpu"`` for that, and a function given
-tensors runs on their device. The layout and the public names follow
-``fpcr_tpu``, which stays the reference the port is tested against. The
-package imports torch and numpy, never JAX.
+global registration, the one front door ``register``, the sharded ICP and
+NDT loops over ``torch.distributed`` ranks (``parallel/``), PLY/PCD file
+I/O, and the command line (``python -m fpcr_tpu_torch``). Its kernels are
+all CUDA C++ for ``sm_90a`` built with ``nvcc`` at first launch: the
+brute-force nearest-neighbour matcher K1 and its packed twin K2
+(``csrc/nn_tc.cu``; ``csrc/matching.cu`` holds their CUDA-core sweep, the
+min-only sweep of the packed-reduction study ``bench/packed_reduction.py``
+and the E1 forms), the Morton band matcher K3 and its packed twin K3p
+(``csrc/morton.cu``), NDT's fused direct7 moments K4 (``csrc/ndt.cu``) and
+the studies' Kernel S (``csrc/split_mma.cu``); a CPU tensor takes their
+plain PyTorch versions. Every entry point runs on the card unless the
+caller asks for the CPU: loaders and scene functions take ``device="cpu"``
+for that, and a function given tensors runs on their device. The layout and
+the public names follow ``fpcr_tpu``, which stays the reference the port is
+tested against. The package imports torch and numpy, never JAX.
 """
 
 __version__ = "0.4.0"
@@ -42,6 +44,8 @@ from .core.transforms import (
     rotation_zyx,
 )
 from .data.bunny import bunny_scene, load_bunny
+from .data.pointcloud_io import (load_points, read_pcd, read_ply, write_pcd,
+                                 write_ply)
 from .data.ouster import hall_scene, load_hall_scan
 from .data.synthetic import (RegistrationScene, surface_grid, synthetic_scene,
                              transformed_scene)
@@ -102,6 +106,11 @@ __all__ = [
     "register_global",
     "bunny_scene",
     "load_bunny",
+    "load_points",
+    "read_ply",
+    "write_ply",
+    "read_pcd",
+    "write_pcd",
     "hall_scene",
     "load_hall_scan",
     "RigidTransform",

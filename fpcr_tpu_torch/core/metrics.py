@@ -4,35 +4,80 @@ The reference's per-iteration error is the Frobenius RMS of the residual
 between the transformed source and its matched target points,
 ``E = ||p - q_idx||_F / sqrt(N)``. Every metric is mask-aware; a mask may
 be boolean (valid/invalid) or float (IRLS weights).
+
+Sums over points take ``group``, a ``torch.distributed`` process group over
+which the rows are sharded (``parallel/dist_icp.py``): :func:`_psum` and
+:func:`_psum_all` all-reduce the local sums over it, where the JAX package
+``psum``s over a mesh axis. ``group=None`` reduces nothing and leaves every
+result as it was, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 
+def _all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` in place over ``group``'s ranks; every all-reduce adds one
+    to ``_psum.launches``."""
+    import torch.distributed as dist
+
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    _psum.launches += 1
+    return x
+
+
+def _psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (a copy; ``x`` is left as
+    it is), or ``x`` itself for ``group=None``."""
+    return x if group is None else _all_reduce_(x.clone(), group)
+
+
+_psum.launches = 0
+
+
+def _psum_all(xs: Sequence[torch.Tensor], group=None
+              ) -> Tuple[torch.Tensor, ...]:
+    """Sums that do not depend on each other, reduced by one all-reduce of
+    their concatenation (elementwise the same SUM as one ``_psum`` each);
+    the tensors come back in their shapes. ``group=None``: ``xs`` as given."""
+    if group is None:
+        return tuple(xs)
+    flat = _all_reduce_(torch.cat([x.reshape(-1) for x in xs]), group)
+    out, at = [], 0
+    for x in xs:
+        out.append(flat[at:at + x.numel()].reshape(x.shape))
+        at += x.numel()
+    return tuple(out)
+
+
 def masked_count(mask: Optional[torch.Tensor], n: int, dtype,
-                 device=None) -> torch.Tensor:
+                 device=None, group=None) -> torch.Tensor:
     if mask is None:
         # a fill on the device: torch.tensor would copy from the host and
         # synchronise
-        return torch.full((), float(n), dtype=dtype, device=device)
-    return mask.to(dtype).sum(dim=-1)
+        count = torch.full((), float(n), dtype=dtype, device=device)
+    else:
+        count = mask.to(dtype).sum(dim=-1)
+    return _psum(count, group)
 
 
 def rmse(p: torch.Tensor, q: torch.Tensor,
-         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+         mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """``sqrt(sum_i w_i ||p_i - q_i||^2 / sum_i w_i)`` over ``[N, 3]`` pairs —
     the reference's ``Snrm2 / sqrt(N)`` when ``mask`` is None; ``[B, N,
-    3]`` pairs with a ``[B, N]`` mask give one value an element."""
+    3]`` pairs with a ``[B, N]`` mask give one value an element. Both sums
+    are taken over ``group``'s ranks in one all-reduce."""
     diff = p - q
     sq = torch.sum(diff * diff, dim=-1)
     if mask is not None:
         sq = sq * mask.to(sq.dtype)
-    count = masked_count(mask, p.shape[-2], p.dtype, p.device)
-    return torch.sqrt(sq.sum(dim=-1) / torch.clamp(count, min=1.0))
+    total, count = _psum_all(
+        (sq.sum(dim=-1), masked_count(mask, p.shape[-2], p.dtype, p.device)),
+        group)
+    return torch.sqrt(total / torch.clamp(count, min=1.0))
 
 
 def transform_rmse(t_est, t_ref, probe_points: torch.Tensor) -> torch.Tensor:

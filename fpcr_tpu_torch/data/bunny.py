@@ -2,7 +2,9 @@
 
 Two files ship in ``assets/``: ``Bunny_res.csv`` (8,171 points,
 whitespace-separated, what the reference drivers load) and ``Bunny.csv``
-(35,947 points, semicolon-separated). The delimiter is sniffed so both load.
+(35,947 points, semicolon-separated). The delimiter is sniffed so both load;
+the native C++ tokenizer parses them where it builds, with numpy as the
+fallback.
 The Bunny scene's ground truth is the reference's t=(0.01,-0.04,0.02),
 r=(0.15,-0.1,0.05). Clouds land on the ``device`` asked for, the card when
 none is named.
@@ -36,8 +38,17 @@ def parse_xyz(path: Path) -> np.ndarray:
 
 
 def load_xyz_csv(path: Union[str, Path], device=None) -> torch.Tensor:
-    return torch.as_tensor(parse_xyz(Path(path)),
-                           device=resolve_device(device))
+    """An ``x y z`` cloud file as a ``[N, 3]`` float32 tensor: the native
+    tokenizer (``utils/native.py``) where it builds, else :func:`parse_xyz`,
+    as the JAX package loads it."""
+    from ..utils.native import read_xyz
+
+    try:
+        pts = read_xyz(str(path))
+    except Exception:
+        pts = parse_xyz(Path(path))
+    # a copy: the native array is a read-only view of the parser's bytes
+    return torch.tensor(pts, device=resolve_device(device))
 
 
 def load_bunny(resampled: bool = True,

@@ -2,15 +2,16 @@
 
 Counterpart of ``fpcr_tpu/data/ouster.py``, the reference's hall-scan
 ingest. The packet walk is numpy gather arithmetic on the file's byte
-values: the initial encoder count comes from lines 13/14 of the first packet
-(lo | hi<<8), and each range is a 20-bit word reassembled from 3 bytes at
-line ``17 + 12*channel + 788*block + 12608*packet`` for channels 2, 6, ...,
-62. The polar→Cartesian conversion runs in torch on the requested device:
-per return i, azimuth block i//16 and channel i%16; encoder counter
-``(enc0 + block*88) mod 90112``; theta = 2π(counter/90112 + azimuth/360),
-phi = 2π·altitude/360; x = r·cosθ·cosφ, y = -r·sinθ·cosφ, z = r·sinφ.
-Ranges are millimetres; ``meters=True`` scales by 1e-3 afterwards. The
-cloud lands on the ``device`` asked for, the card when none is named.
+values (tokenized by the native parser, ``utils/native.py``, where it
+builds, else by numpy): the initial encoder count comes from lines 13/14 of
+the first packet (lo | hi<<8), and each range is a 20-bit word reassembled
+from 3 bytes at line ``17 + 12*channel + 788*block + 12608*packet`` for
+channels 2, 6, ..., 62. The polar→Cartesian conversion runs in torch on the
+requested device: per return i, azimuth block i//16 and channel i%16;
+encoder counter ``(enc0 + block*88) mod 90112``; theta = 2π(counter/90112 +
+azimuth/360), phi = 2π·altitude/360; x = r·cosθ·cosφ, y = -r·sinθ·cosφ, z =
+r·sinφ. Ranges are millimetres; ``meters=True`` scales by 1e-3 afterwards.
+The cloud lands on the ``device`` asked for, the card when none is named.
 """
 
 from __future__ import annotations
@@ -45,11 +46,22 @@ class OusterFrame(NamedTuple):
     azimuth_deg: np.ndarray  # [16]
 
 
+def _read_byte_lines(path: Path) -> np.ndarray:
+    """Every integer token of the packet dump: the native tokenizer
+    (``utils/native.py``) where it builds, else numpy."""
+    from ..utils.native import read_int_lines
+
+    try:
+        return read_int_lines(str(path))
+    except Exception:
+        return np.array(path.read_text().split(), dtype=np.int64)
+
+
 def parse_packets(path: Union[str, Path, None] = None) -> OusterFrame:
     """Parse the raw packet byte dump + beam intrinsics into ranges/angles."""
     if path is None:
         path = asset("Donut_1024x16.csv")
-    raw = np.array(Path(path).read_text().split(), dtype=np.int64)
+    raw = _read_byte_lines(Path(path))
 
     # encoder counter: 1-indexed lines 13, 14 of the first packet
     encoder_start = int(raw[12]) | (int(raw[13]) << 8)

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core.transforms import RigidTransform
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_numpy
 from ..utils.precision import pin_f32_precision
 from .icp import (DONE_CHECK_EVERY, ICPConfig, _prepare, icp_iteration,
                   rotation_angle)
@@ -55,11 +55,13 @@ class ICPHistory(NamedTuple):
 def run_icp_with_history(source, target, config: ICPConfig = ICPConfig(),
                          target_normals: Optional[torch.Tensor] = None,
                          source_mask: Optional[torch.Tensor] = None,
-                         target_mask: Optional[torch.Tensor] = None
-                         ) -> ICPHistory:
+                         target_mask: Optional[torch.Tensor] = None,
+                         group=None) -> ICPHistory:
     """Register ``source`` onto ``target`` on their device, recording every
     iteration; ``[max_iterations]``-long rows, those after the stop JAX's
-    masked no-op rows."""
+    masked no-op rows. With ``group`` the source is one rank's shard and
+    every sum is all-reduced over it (``run_icp``'s sharded form), so the
+    rows are replicated and ``points`` is the shard's."""
     pin_f32_precision()
     prep = _prepare(source, target, config, source_mask, target_mask,
                     target_normals)
@@ -77,7 +79,7 @@ def run_icp_with_history(source, target, config: ICPConfig = ICPConfig(),
             break
         new_points, inc, error, aux = icp_iteration(
             points, prep.target, config, prep.source_mask, prep.target_mask,
-            prep.target_normals, prep.matcher_state, normals)
+            prep.target_normals, prep.matcher_state, normals, group)
         # a converged run's iteration is a masked no-op
         inc = RigidTransform(torch.where(done, eye, inc.rotation),
                              torch.where(done, zero3, inc.translation))
@@ -123,11 +125,6 @@ def _checkpoint_paths(path: Union[str, Path]) -> tuple:
     return npz, sidecar
 
 
-def _numpy(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
-
-
 def save_checkpoint(path: Union[str, Path], history: ICPHistory,
                     config: ICPConfig) -> Path:
     """Persist a registration run (npz arrays + json config sidecar).
@@ -136,10 +133,10 @@ def save_checkpoint(path: Union[str, Path], history: ICPHistory,
     npz.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(
         npz,
-        **{k: _numpy(v) for k, v in history._asdict().items()
+        **{k: to_numpy(v) for k, v in history._asdict().items()
            if k != "transform"},
-        rotation=_numpy(history.transform.rotation),
-        translation=_numpy(history.transform.translation),
+        rotation=to_numpy(history.transform.rotation),
+        translation=to_numpy(history.transform.translation),
     )
     sidecar.write_text(json.dumps(dataclasses.asdict(config), indent=2))
     return npz
@@ -170,13 +167,13 @@ def resume_icp(checkpoint: ICPHistory, target, config: ICPConfig,
     history composes on top of the checkpoint's transform."""
     device = (target.device if isinstance(target, torch.Tensor)
               else resolve_device())
-    points = torch.as_tensor(_numpy(checkpoint.points), dtype=torch.float32,
+    points = torch.as_tensor(to_numpy(checkpoint.points), dtype=torch.float32,
                              device=device)
     cont = run_icp_with_history(points, target, config, **kwargs)
     dev = cont.transform.rotation.device
 
     def t(x):
-        return torch.as_tensor(_numpy(x), dtype=torch.float32, device=dev)
+        return torch.as_tensor(to_numpy(x), dtype=torch.float32, device=dev)
 
     total = cont.transform.compose(RigidTransform(
         t(checkpoint.transform.rotation), t(checkpoint.transform.translation)))

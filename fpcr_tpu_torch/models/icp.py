@@ -33,6 +33,20 @@ changes nothing. The host reads ``done`` only every ``DONE_CHECK_EVERY``
 iterations, never per iteration; the results equal those of a
 per-iteration check.
 
+Every sum over points takes ``group``, a ``torch.distributed`` process group
+over which the source rows are sharded (``parallel/dist_icp.py``), as the
+JAX loop takes ``axis_name``: the trimmed means, the IRLS scale, the matched
+fraction, the solver's moments and the error are all-reduced, so every rank
+solves the same system and the loop state stays replicated. Sums that do not
+depend on each other share one all-reduce; an iteration makes three (point:
+centroids, cross-covariance, error) or two (plane, symmetric, GICP: the 6x6
+system, error), one more for the matched fraction where a mask enters the
+solve, and one for each trimmed-mean pass (four with the morton matcher's
+auto-trim, two with IRLS). ``done`` follows from the replicated error, so
+reading it needs no collective. ``group=None`` is the single-process loop.
+:func:`utils.diagnostics.debug_nans` makes the loop raise at the first
+non-finite error.
+
 ``matcher='grid'`` degrades to ``'morton'`` (:func:`resolve_matcher`) above
 ``ops.grid.MAX_CANDIDATE_GATHERS`` candidate rows, as in the JAX package;
 the port's limit is set by the card and admits 1M points at cap 8, where
@@ -50,7 +64,7 @@ import numpy as np
 import torch
 
 from ..core.cloud import as_points
-from ..core.metrics import rmse
+from ..core.metrics import _psum_all, rmse
 from ..core.transforms import RigidTransform
 from ..ops import grid
 from ..ops.gicp import gicp_transform
@@ -60,6 +74,7 @@ from ..ops.morton import (build_morton_table, miss_floors, morton_nn,
                           morton_nn_band, source_morton_order)
 from ..ops.normals import estimate_normals
 from ..ops.solve import kabsch_transform, point_to_plane_transform
+from ..utils import diagnostics
 from ..utils.precision import pin_f32_precision
 
 # The host reads the device `done` flag once per this many iterations: a
@@ -291,17 +306,19 @@ def _correspondences(points, target, target_mask, target_normals,
     return q_m, n_m, dmin, found
 
 
-def _trimmed_mean(dmin: torch.Tensor, base: torch.Tensor,
-                  passes: int) -> torch.Tensor:
+def _trimmed_mean(dmin: torch.Tensor, base: torch.Tensor, passes: int,
+                  group=None) -> torch.Tensor:
     """Mean of ``dmin`` over ``base`` along its last axis (each batch
     element on its own), then ``passes`` times the mean over the entries at
-    or below the previous mean; the last axis kept, of length 1."""
+    or below the previous mean; the last axis kept, of length 1. Each pass
+    depends on the last, so each takes its own all-reduce over ``group``."""
     zero = torch.zeros_like(dmin)
 
     def mean(keep):
-        return (torch.where(keep, dmin, zero).sum(dim=-1, keepdim=True)
-                / torch.clamp(keep.to(dmin.dtype).sum(dim=-1, keepdim=True),
-                              min=1.0))
+        total, count = _psum_all(
+            (torch.where(keep, dmin, zero).sum(dim=-1, keepdim=True),
+             keep.to(dmin.dtype).sum(dim=-1, keepdim=True)), group)
+        return total / torch.clamp(count, min=1.0)
 
     t = mean(base)
     for _ in range(passes):
@@ -310,7 +327,7 @@ def _trimmed_mean(dmin: torch.Tensor, base: torch.Tensor,
 
 
 def _robust_weights(dmin: torch.Tensor, mask: Optional[torch.Tensor],
-                    loss: str) -> torch.Tensor:
+                    loss: str, group=None) -> torch.Tensor:
     """IRLS weights from squared match distances. Scale = sqrt of the
     trimmed mean squared distance. Huber: w = min(1, k·s/r); Tukey
     biweight: w = (1 - (r/(k·s))²)² inside, 0 outside."""
@@ -318,7 +335,8 @@ def _robust_weights(dmin: torch.Tensor, mask: Optional[torch.Tensor],
     finite = torch.isfinite(dmin)
     base = finite if mask is None else (
         (mask if mask.dtype == torch.bool else mask > 0) & finite)
-    s = torch.sqrt(torch.clamp(_trimmed_mean(dmin, base, 1), min=1e-30))
+    s = torch.sqrt(torch.clamp(_trimmed_mean(dmin, base, 1, group),
+                               min=1e-30))
     r = torch.sqrt(dmin)
     if loss == "huber":
         k = 1.345 * s
@@ -331,19 +349,20 @@ def _robust_weights(dmin: torch.Tensor, mask: Optional[torch.Tensor],
 
 
 def _auto_trim_gate(dmin: torch.Tensor, mask: Optional[torch.Tensor],
-                    factor: float) -> torch.Tensor:
+                    factor: float, group=None) -> torch.Tensor:
     """Outlier gate: iteratively re-trimmed mean of the squared match
     distances (3 passes) scaled by ``factor``."""
     finite = torch.isfinite(dmin)
     base = finite if mask is None else (mask & finite)
     dmin = torch.clamp(dmin, min=0.0)  # guard f32 cancellation noise
-    gate = dmin <= factor * _trimmed_mean(dmin, base, 3) + 1e-12
+    gate = dmin <= factor * _trimmed_mean(dmin, base, 3, group) + 1e-12
     return gate if mask is None else (mask & gate)
 
 
 def correspondence_weights(dmin: torch.Tensor, found: Optional[torch.Tensor],
                            config: ICPConfig,
-                           source_mask: Optional[torch.Tensor] = None):
+                           source_mask: Optional[torch.Tensor] = None,
+                           group=None):
     """The grid matcher's ``found`` → distance gate → auto-trim → IRLS
     weights, shared by :func:`icp_iteration`, AA-ICP's safeguard and the
     batched loop (``dmin`` [B, N]: the trimmed means and IRLS scales of
@@ -360,24 +379,25 @@ def correspondence_weights(dmin: torch.Tensor, found: Optional[torch.Tensor],
     if auto_trim is None and config.matcher == "morton":
         auto_trim = 9.0
     if auto_trim:
-        mask = _auto_trim_gate(dmin, mask, auto_trim)
+        mask = _auto_trim_gate(dmin, mask, auto_trim, group)
     if config.robust_loss is not None:
-        weights = _robust_weights(dmin, mask, config.robust_loss)
+        weights = _robust_weights(dmin, mask, config.robust_loss, group)
         mask = weights if mask is None else mask.to(torch.float32) * weights
     return mask
 
 
-def _matched_fraction(mask, source_mask, n_rows: int,
-                      device) -> torch.Tensor:
+def _matched_fraction(mask, source_mask, n_rows: int, device,
+                      group=None) -> torch.Tensor:
     """Fraction of (valid) source points entering the solve, one value a
-    batch element."""
+    batch element; both counts over ``group``'s ranks in one all-reduce."""
     if mask is None:
         return torch.ones((), dtype=torch.float32, device=device)
     if source_mask is not None:
         denom = source_mask.to(torch.float32).sum(dim=-1)
     else:
         denom = torch.full((), float(n_rows), device=device)
-    inliers = (mask > 0).to(torch.float32).sum(dim=-1)
+    inliers, denom = _psum_all(
+        ((mask > 0).to(torch.float32).sum(dim=-1), denom), group)
     return inliers / torch.clamp(denom, min=1.0)
 
 
@@ -387,23 +407,26 @@ def icp_iteration(points: torch.Tensor, target: torch.Tensor,
                   target_mask: Optional[torch.Tensor] = None,
                   target_normals: Optional[torch.Tensor] = None,
                   matcher_state=None,
-                  source_normals: Optional[torch.Tensor] = None):
+                  source_normals: Optional[torch.Tensor] = None,
+                  group=None):
     """One ICP iteration: returns ``(new_points, incremental_transform,
     error, IterationAux)``. ``target_normals`` are needed by the plane,
     symmetric and gicp metrics, ``source_normals`` (rotated to the current
     pose) by the last two, and the grid and morton matchers their
-    ``matcher_state`` (:func:`build_matcher_state`)."""
+    ``matcher_state`` (:func:`build_matcher_state`). ``points`` and
+    ``source_mask`` may be a rank's shard of ``group``; ``target`` is
+    whole."""
     q_matched, n_matched, dmin, found = _correspondences(
         points, target, target_mask, target_normals, config, matcher_state,
         source_mask=source_mask)
-    mask = correspondence_weights(dmin, found, config, source_mask)
+    mask = correspondence_weights(dmin, found, config, source_mask, group)
     aux = IterationAux(matched_fraction=_matched_fraction(
-        mask, source_mask, points.shape[0], points.device))
+        mask, source_mask, points.shape[0], points.device, group))
     if config.metric == "point":
         inc = kabsch_transform(
             points, q_matched, mask, solver=config.solver,
             det_correction=config.det_correction
-            and not config.strict_reference)
+            and not config.strict_reference, group=group)
     elif n_matched is None:
         raise ValueError(f"metric={config.metric!r} needs target_normals")
     elif config.metric == "symmetric":
@@ -417,7 +440,7 @@ def icp_iteration(points: torch.Tensor, target: torch.Tensor,
         sgn = torch.where(sgn == 0, torch.ones_like(sgn), sgn)
         inc = point_to_plane_transform(
             points, q_matched, source_normals + sgn * n_matched, mask,
-            damping=config.damping)
+            damping=config.damping, group=group)
     elif config.metric == "gicp":
         # Generalized-ICP (Segal et al. 2009): the anisotropic Mahalanobis
         # residual of both clouds' surface covariances
@@ -425,12 +448,12 @@ def icp_iteration(points: torch.Tensor, target: torch.Tensor,
             raise ValueError("metric='gicp' needs source_normals")
         inc = gicp_transform(points, q_matched, source_normals, n_matched,
                              mask, epsilon=config.gicp_epsilon,
-                             damping=config.damping)
+                             damping=config.damping, group=group)
     else:
         inc = point_to_plane_transform(points, q_matched, n_matched, mask,
-                                       damping=config.damping)
+                                       damping=config.damping, group=group)
     new_points = inc.apply(points)
-    error = rmse(new_points, q_matched, mask)
+    error = rmse(new_points, q_matched, mask, group)
     return new_points, inc, error, aux
 
 
@@ -529,6 +552,20 @@ def run_icp(source, target, config: ICPConfig = ICPConfig(),
     Morton tables. A grid config above the candidate limit degrades to the
     morton matcher (:func:`resolve_matcher`), a prebuilt grid table
     included, which is then rebuilt for the morton matcher."""
+    return _run_icp(source, target, config, source_mask, target_mask,
+                    target_normals, source_normals, matcher_state)
+
+
+def _run_icp(source, target, config: ICPConfig,
+             source_mask: Optional[torch.Tensor] = None,
+             target_mask: Optional[torch.Tensor] = None,
+             target_normals: Optional[torch.Tensor] = None,
+             source_normals: Optional[torch.Tensor] = None,
+             matcher_state=None, group=None) -> ICPResult:
+    """:func:`run_icp` on one rank's shard of the source when ``group`` is
+    set: the shard is Morton-sorted on its own (morton matcher), every sum
+    is all-reduced over ``group``, and ``points`` is the shard's, in its
+    input row order."""
     pin_f32_precision()
     (source, target, source_mask, target_mask, target_normals,
      source_normals, matcher_state, unsort, config) = _prepare(
@@ -550,8 +587,9 @@ def run_icp(source, target, config: ICPConfig = ICPConfig(),
             break
         new_points, inc, error, aux = icp_iteration(
             points, target, config, source_mask, target_mask,
-            target_normals, matcher_state, normals)
+            target_normals, matcher_state, normals, group)
         active = ~done
+        diagnostics.check_iteration(error, active, it, "run_icp")
         errors.append(torch.where(active, error, nan))
         fractions.append(torch.where(active, aux.matched_fraction, nan))
         delta_t.append(torch.where(active, torch.linalg.vector_norm(

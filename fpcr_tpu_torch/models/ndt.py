@@ -24,8 +24,12 @@ masked by the device condition ``step norm > tolerance``; the host reads it
 every ``DONE_CHECK_EVERY`` iterations. The per-point Gauss-Newton pieces of
 every iteration go through one stacked reduction.
 
-Not ported: the ``axis_name`` / ``source_mask`` arguments of the sharded
-loop (ROADMAP.md item 7) and the traced-grid branches, which serve ``jit``.
+The sharded loop (``parallel/dist_icp.py::distributed_ndt``) runs
+:func:`_ndt_loop` on a rank's shard with its ``source_mask`` and ``group``,
+as JAX's takes ``source_mask`` and ``axis_name``: an iteration all-reduces
+the linearisation centroid's sum, then H, g, the error's two sums and the
+hit count in one call, two all-reduces in all. Not ported: the traced-grid
+branches, which serve ``jit``.
 """
 
 from __future__ import annotations
@@ -37,12 +41,14 @@ import numpy as np
 import torch
 
 from ..core.cloud import as_points
+from ..core.metrics import _psum, _psum_all
 from ..core.transforms import RigidTransform, rotation_exp
 from ..ops.ndt import (DIRECT7_OFFSETS, _AXIS_BITS, _KEY_PAD, NDTGrid,
                        _cells_raw, _clipped_keys, _dot3, _sym_apply,
                        build_ndt_grid, cell_key_order, gauss_d1_d2,
                        ndt_fused_moments, ndt_lookup, ndt_lookup_banded,
                        prepare_fused_tables, sym_upper)
+from ..utils import diagnostics
 from ..utils.precision import pin_f32_precision
 from .icp import DONE_CHECK_EVERY
 
@@ -270,20 +276,22 @@ def _gn_map() -> np.ndarray:
 
 
 def _assemble_Hg(s: torch.Tensor, sr: torch.Tensor, y: torch.Tensor,
-                 extra: torch.Tensor, gn_map: torch.Tensor):
+                 extra: torch.Tensor, gn_map: torch.Tensor, group=None):
     """The Gauss-Newton system ``H = Σ JᵀSJ``, ``g = Σ JᵀSr`` for ``J =
     [I | −[y]×]`` from the weighted per-point ``s = Σ w S`` [N, 6] (00 01 02
     11 12 22) and ``sr = Σ w S r`` [N, 3]. Every per-point product of a
     feature with a monomial of ``y``, and the ``extra`` [N, E] columns, is
     summed by one ``[9 + E, N] × [N, 10]`` matmul; ``gn_map`` (``_gn_map``
     on the device) turns the moments into ``H`` and ``g``. Returns ``(H
-    [6,6], g [6], sums of extra [E])``."""
+    [6,6], g [6], sums of extra [E])``, all-reduced over ``group`` in one
+    call."""
     y0, y1, y2 = y[:, 0], y[:, 1], y[:, 2]
     mono = torch.stack([torch.ones_like(y0), y0, y1, y2, y0 * y0, y0 * y1,
                         y0 * y2, y1 * y1, y1 * y2, y2 * y2], dim=1)
     moments = torch.matmul(torch.cat([s, sr, extra], dim=1).T, mono)
     hg = torch.matmul(gn_map, moments[:9].reshape(90))
-    return hg[:36].reshape(6, 6), hg[36:], moments[9:, 0]
+    hg, sums = _psum_all((hg, moments[9:, 0]), group)
+    return hg[:36].reshape(6, 6), hg[36:], sums
 
 
 class NDTResult(NamedTuple):
@@ -295,10 +303,12 @@ class NDTResult(NamedTuple):
     matched_fraction: torch.Tensor  # source points with a neighbour voxel
 
 
-def _moments_fn(source: torch.Tensor, grid: NDTGrid, config: NDTConfig):
+def _moments_fn(source: torch.Tensor, grid: NDTGrid, config: NDTConfig,
+                source_mask: Optional[torch.Tensor] = None):
     """``x -> (s [N,6], sr [N,3], qsum [N], count [N])``: the per-point
     weighted neighbourhood moments of the configured lookup, summed over the
-    offsets (the assembly is linear in them)."""
+    offsets (the assembly is linear in them); rows off ``source_mask`` hit
+    nothing."""
     d1f, d2f = gauss_d1_d2(config.outlier_ratio, config.voxel_size)
     d1f = abs(d1f)  # d1 < 0 in the score convention; the weight uses |d1|
     impl = config.lookup_impl
@@ -313,7 +323,8 @@ def _moments_fn(source: torch.Tensor, grid: NDTGrid, config: NDTConfig):
             rows, xp = ndt_fused_moments(
                 x, grid, tables, voxel_size=float(config.voxel_size),
                 d1=d1f, d2=d2f, neighborhood=config.neighborhood,
-                chunk=config.lookup_chunk, window=win)
+                chunk=config.lookup_chunk, window=win,
+                source_mask=source_mask)
             s = rows[:, 0:6]
             # Σ w S r = WS·x′ − WSμ′ (x′ and μ′ share the chunk's anchor)
             return s, _sym_apply(s, xp) - rows[:, 6:9], rows[:, 11], \
@@ -339,6 +350,8 @@ def _moments_fn(source: torch.Tensor, grid: NDTGrid, config: NDTConfig):
         qsum, count = x.new_zeros(n), x.new_zeros(n)
         for off in offsets:
             mu, sinv, hit = lookup(x, off)
+            if source_mask is not None:
+                hit = hit & source_mask
             s = sym_upper(sinv)
             r = x - mu
             sr = _sym_apply(s, r)
@@ -353,12 +366,27 @@ def _moments_fn(source: torch.Tensor, grid: NDTGrid, config: NDTConfig):
     return per_offset
 
 
-def _ndt_loop(source: torch.Tensor, grid: NDTGrid, config: NDTConfig):
+def _ndt_loop(source: torch.Tensor, grid: NDTGrid, config: NDTConfig,
+              source_mask: Optional[torch.Tensor] = None, group=None):
     """The Gauss-Newton loop on ``source`` (voxel-key-sorted for the banded
-    lookups): ``(R, t, iterations, errors, converged, matched_fraction)``."""
+    lookups): ``(R, t, iterations, errors, converged, matched_fraction)``.
+    ``source`` may be one rank's shard of ``group`` and ``source_mask`` its
+    valid rows: the centroid, H, g and the counts are all-reduced."""
     dev = source.device
     n = source.shape[0]
-    moments = _moments_fn(source, grid, config)
+    moments = _moments_fn(source, grid, config, source_mask)
+    if source_mask is None:
+        w_c = None
+        # equal shards: the valid rows are known on the host
+        world = 1
+        if group is not None:
+            import torch.distributed as dist
+
+            world = dist.get_world_size(group)
+        n_valid = float(max(n * world, 1))
+    else:
+        w_c = source_mask.to(torch.float32)
+        n_valid = torch.clamp(_psum(w_c.sum(), group), min=1.0)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     gn_map = torch.tensor(_gn_map().reshape(42, 90), dtype=torch.float32,
                           device=dev)
@@ -376,12 +404,13 @@ def _ndt_loop(source: torch.Tensor, grid: NDTGrid, config: NDTConfig):
         x = torch.matmul(source, R.T) + t
         # linearize about the centroid: the rotation block of H then scales
         # with the cloud's extent, not with |x|²
-        c = x.sum(dim=0) / float(max(n, 1))
+        c = _psum(x.sum(dim=0) if w_c is None else
+                  torch.matmul(w_c, x), group) / n_valid
         y = x - c
         s, sr, qsum, count = moments(x)
         extra = torch.stack([qsum, count, (count > 0).to(torch.float32)], 1)
         H, g, (err_num, err_den, n_hit) = _assemble_Hg(s, sr, y, extra,
-                                                       gn_map)
+                                                       gn_map, group)
 
         floor = config.damping + 1e-7 * (torch.trace(H) / 6.0) + 1e-30
         L, info = torch.linalg.cholesky_ex(H + floor * eye6)
@@ -403,10 +432,11 @@ def _ndt_loop(source: torch.Tensor, grid: NDTGrid, config: NDTConfig):
                         + torch.sum(delta[3:6] ** 2))
         dn = torch.where(finite, dn, torch.full_like(dn, float("inf")))
 
+        diagnostics.check_iteration(err, active, it, "run_ndt")
         R = torch.where(active, R_new, R)
         t = torch.where(active, t_new, t)
         errors.append(torch.where(active, err, nan))
-        frac = torch.where(active, n_hit / float(max(n, 1)), frac)
+        frac = torch.where(active, n_hit / n_valid, frac)
         iterations = iterations + active.to(torch.int32)
         delta_norm = torch.where(active, dn, delta_norm)
     errs = torch.full((config.max_iterations,), float("nan"),

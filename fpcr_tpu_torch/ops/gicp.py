@@ -15,7 +15,9 @@ H and g are [N,3] cross products and [3,N]x[N,3] float32 matmuls
 adjugate inverse, stays as the general-covariance reference the tests hold
 the Woodbury form against. The solve is the plane solve's 6x6 Cholesky on
 the device, with an identity update where the factor fails, and the
-rotation is the exact SO(3) exponential.
+rotation is the exact SO(3) exponential. ``group`` all-reduces H and g
+in one call when the rows are a rank's shard, as JAX's ``axis_name`` psums
+them.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.metrics import _psum_all
 from ..core.transforms import RigidTransform, rotation_exp
 from ..utils.precision import pin_f32_precision
 
@@ -81,7 +84,7 @@ def gicp_normal_equations(p: torch.Tensor, q: torch.Tensor,
                           source_normals: torch.Tensor,
                           target_normals: torch.Tensor,
                           mask: Optional[torch.Tensor] = None, *,
-                          epsilon: float = 1e-3
+                          epsilon: float = 1e-3, group=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The 6x6 GICP system ``H x = -g`` linearised at the current pose
     (``p`` transformed, ``source_normals`` rotated to it). Residual model
@@ -150,7 +153,7 @@ def gicp_normal_equations(p: torch.Tensor, q: torch.Tensor,
     B11 = 0.5 * (p_sq * eye - mm(p, p)) + mm(axp, atxp) + mm(bxp, btxp)
     H = torch.cat([torch.cat([B11, B12], dim=1),
                    torch.cat([B12.T, B22], dim=1)], dim=0)
-    return H, torch.cat([g1, g2])
+    return _psum_all((H, torch.cat([g1, g2])), group)
 
 
 def gicp_solve_update(H: torch.Tensor, g: torch.Tensor, damping: float = 0.0
@@ -175,12 +178,12 @@ def gicp_solve_update(H: torch.Tensor, g: torch.Tensor, damping: float = 0.0
 def gicp_transform(p: torch.Tensor, q: torch.Tensor,
                    source_normals: torch.Tensor, target_normals: torch.Tensor,
                    mask: Optional[torch.Tensor] = None, *,
-                   epsilon: float = 1e-3,
-                   damping: float = 0.0) -> RigidTransform:
+                   epsilon: float = 1e-3, damping: float = 0.0,
+                   group=None) -> RigidTransform:
     """One GICP Gauss-Newton step: the current points, their matched
     targets and both clouds' normals (the source's rotated to the current
     pose) give the incremental rigid transform."""
     pin_f32_precision()
     H, g = gicp_normal_equations(p, q, source_normals, target_normals, mask,
-                                 epsilon=epsilon)
+                                 epsilon=epsilon, group=group)
     return gicp_solve_update(H, g, damping)[0]

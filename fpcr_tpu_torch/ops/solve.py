@@ -14,6 +14,12 @@ Every solver takes leading batch axes, ``p`` and ``q`` [..., N, 3] with a
 mask [..., N], and solves each element on its own (the JAX package's
 ``vmap``; ``models/batch.py``, RANSAC's hypotheses): one batched SVD, one
 batched ``cholesky_ex``, a det correction per element.
+
+Every sum over points takes ``group`` (``core/metrics.py::_psum``), as the
+JAX solvers take ``axis_name``: the rows are one rank's shard and the
+moments are all-reduced before the solve, sums that do not depend on each
+other in one all-reduce. Kabsch makes two (centroids, cross-covariance),
+Umeyama two, the plane system one.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.metrics import _psum, _psum_all
 from ..core.transforms import RigidTransform, rotation_zyx
 from ..utils.precision import pin_f32_precision
 
@@ -32,21 +39,36 @@ def _weights(mask: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return mask.to(x.dtype)
 
 
-def masked_centroid(x: torch.Tensor,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean of the valid (or weighted) points."""
+def _centroid_sums(x: torch.Tensor, mask: Optional[torch.Tensor]):
+    """The two sums of a masked centroid: ``(Σ w x, Σ w)``."""
     w = _weights(mask, x)
-    return (torch.sum(x * w[..., None], dim=-2)
-            / torch.clamp(w.sum(dim=-1, keepdim=True), min=1.0))
+    return torch.sum(x * w[..., None], dim=-2), w.sum(dim=-1, keepdim=True)
+
+
+def masked_centroid(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                    group=None) -> torch.Tensor:
+    """Mean of the valid (or weighted) points."""
+    s, c = _psum_all(_centroid_sums(x, mask), group)
+    return s / torch.clamp(c, min=1.0)
+
+
+def _centroids(p: torch.Tensor, q: torch.Tensor,
+               mask: Optional[torch.Tensor], group, *extra):
+    """``masked_centroid`` of ``p`` and of ``q`` with one all-reduce, which
+    also carries the independent sums ``extra``: ``(p̄, q̄, *extra)``."""
+    sp, cp, sq, cq, *extra = _psum_all(
+        _centroid_sums(p, mask) + _centroid_sums(q, mask) + extra, group)
+    return (sp / torch.clamp(cp, min=1.0), sq / torch.clamp(cq, min=1.0),
+            *extra)
 
 
 def cross_covariance(p: torch.Tensor, q: torch.Tensor, p_bar: torch.Tensor,
-                     q_bar: torch.Tensor,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     q_bar: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                     group=None) -> torch.Tensor:
     """``W = Σ_i w_i (q_i - q̄)(p_i - p̄)ᵀ`` as a [3,N]x[N,3] matmul."""
     dev_p = (p - p_bar[..., None, :]) * _weights(mask, p)[..., None]
     dev_q = q - q_bar[..., None, :]
-    return torch.matmul(dev_q.transpose(-1, -2), dev_p)
+    return _psum(torch.matmul(dev_q.transpose(-1, -2), dev_p), group)
 
 
 def _det3(a: torch.Tensor) -> torch.Tensor:
@@ -95,14 +117,13 @@ def rotation_polar_newton_schulz(W: torch.Tensor,
 
 def kabsch_transform(p: torch.Tensor, q: torch.Tensor,
                      mask: Optional[torch.Tensor] = None, *,
-                     solver: str = "svd",
-                     det_correction: bool = True) -> RigidTransform:
+                     solver: str = "svd", det_correction: bool = True,
+                     group=None) -> RigidTransform:
     """Closed-form least-squares rigid transform aligning p onto q:
     centroids, cross-covariance, R by 3x3 SVD (or polar), ``t = q̄ - R·p̄``."""
     pin_f32_precision()
-    p_bar = masked_centroid(p, mask)
-    q_bar = masked_centroid(q, mask)
-    W = cross_covariance(p, q, p_bar, q_bar, mask)
+    p_bar, q_bar = _centroids(p, q, mask, group)
+    W = cross_covariance(p, q, p_bar, q_bar, mask, group)
     if solver == "svd":
         R = rotation_from_svd(W, det_correction=det_correction)
     elif solver == "polar":
@@ -121,7 +142,7 @@ def _matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def umeyama_transform(p: torch.Tensor, q: torch.Tensor,
                       mask: Optional[torch.Tensor] = None, *,
-                      with_scale: bool = True
+                      with_scale: bool = True, group=None
                       ) -> Tuple[torch.Tensor, RigidTransform]:
     """Umeyama (TPAMI 1991) similarity alignment for known correspondences:
     ``(scale, RigidTransform)`` minimising ``Σ w_i ‖q_i − (s·R·p_i + t)‖²``.
@@ -132,12 +153,14 @@ def umeyama_transform(p: torch.Tensor, q: torch.Tensor,
     p = p.to(torch.float32)
     q = q.to(torch.float32)
     w = _weights(mask, p)
-    wsum = torch.clamp(w.sum(), min=1.0)
-    p_bar = masked_centroid(p, mask)
-    q_bar = masked_centroid(q, mask)
-    W = cross_covariance(p, q, p_bar, q_bar, mask) / wsum
+    p_bar, q_bar, wsum = _centroids(p, q, mask, group, w.sum())
+    wsum = torch.clamp(wsum, min=1.0)
     dev_p = p - p_bar
-    var_p = torch.sum(w * torch.sum(dev_p * dev_p, dim=1)) / wsum
+    W, var_p = _psum_all((cross_covariance(p, q, p_bar, q_bar, mask),
+                          torch.sum(w * torch.sum(dev_p * dev_p, dim=1))),
+                         group)
+    W = W / wsum
+    var_p = var_p / wsum
     U, D, Vt = torch.linalg.svd(W, full_matrices=False)
     d = torch.sign(_det3(U) * _det3(Vt))
     d = torch.where(d == 0, torch.ones_like(d), d)
@@ -152,7 +175,7 @@ def umeyama_transform(p: torch.Tensor, q: torch.Tensor,
 
 def plane_normal_equations(p: torch.Tensor, q: torch.Tensor,
                            normals: torch.Tensor,
-                           mask: Optional[torch.Tensor] = None
+                           mask: Optional[torch.Tensor] = None, group=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The 6x6 normal equations ``C x = b`` of point-to-plane ICP: per point
     ``J_i = [p_i × n_i, n_i]`` and ``r_i = (p_i - q_i)·n_i``; ``C = Σ w_i
@@ -162,7 +185,7 @@ def plane_normal_equations(p: torch.Tensor, q: torch.Tensor,
     Jw = J * _weights(mask, p)[..., None]
     C = torch.matmul(Jw.transpose(-1, -2), J)
     b = -torch.sum(Jw * r[..., None], dim=-2)
-    return C, b
+    return _psum_all((C, b), group)
 
 
 def plane_solve_update(C: torch.Tensor, b: torch.Tensor,
@@ -193,9 +216,10 @@ def plane_solve_update(C: torch.Tensor, b: torch.Tensor,
 def point_to_plane_transform(p: torch.Tensor, q: torch.Tensor,
                              normals: torch.Tensor,
                              mask: Optional[torch.Tensor] = None, *,
-                             damping: float = 0.0) -> RigidTransform:
+                             damping: float = 0.0,
+                             group=None) -> RigidTransform:
     """One linearised point-to-plane solve: p, the matched q and the matched
     target normals give the incremental rigid transform."""
     pin_f32_precision()
-    C, b = plane_normal_equations(p, q, normals, mask)
+    C, b = plane_normal_equations(p, q, normals, mask, group)
     return plane_solve_update(C, b, damping)[0]

@@ -3,10 +3,12 @@
 The port runs on the card unless the caller asks for the CPU: every loader,
 scene builder and ``interop.*_from_numpy`` takes ``device=None`` to mean
 CUDA, and never falls back to the CPU when there is no card.
+:func:`to_numpy` brings a tensor from any device back to the host.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +22,10 @@ def resolve_device(device=None) -> torch.device:
             "fpcr_tpu_torch runs on the CUDA card by default and found none; "
             'pass device="cpu" to run on the CPU')
     return torch.device("cuda")
+
+
+def to_numpy(x) -> np.ndarray:
+    """A numpy array of a tensor on any device, or of an array-like."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

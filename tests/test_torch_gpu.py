@@ -2,7 +2,8 @@
 split distance on the tensor cores) and the E1 distance forms on the card
 against their plain PyTorch versions; GICP, the loop variants and the voxel
 grid on the card against the port on the CPU, and no host sync in their
-iterations.
+iterations; the sharded loops on a one-rank NCCL group against the
+unsharded ones, bit for bit; the CLI on the card.
 
 Every test here needs a CUDA device and skips without one: a CUDA kernel
 has no CPU mode. On the card (which has no JAX, so the root conftest is
@@ -1360,3 +1361,77 @@ def test_pose_graph_bit_equal_across_calls(cuda):
     assert torch.equal(a.residual_rms, b.residual_rms)
     c = ft.optimize_pose_graph(poses, ei, ej, meas, w, iterations=6)
     torch.testing.assert_close(a.poses.cpu(), c.poses, atol=1e-4, rtol=0)
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda, tmp_path):
+    """A one-rank NCCL process group in this process (a ``file://`` store,
+    no port), destroyed after the test."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    yield cuda
+    dist.destroy_process_group()
+
+
+def _same_bits(a, b):
+    """Equal bits, NaN rows (the errors after the stop) included."""
+    for x, y in ((a.transform.rotation, b.transform.rotation),
+                 (a.transform.translation, b.transform.translation),
+                 (a.errors, b.errors), (a.num_iterations, b.num_iterations),
+                 (a.points, b.points)):
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y)
+
+
+def test_distributed_icp_world_of_one_is_run_icp_k1(nccl_world_of_one):
+    """``distributed_icp`` on one NCCL rank equals ``run_icp`` bit for bit,
+    with the same K1 launches."""
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.parallel.dist_icp import distributed_icp
+
+    s = ft.synthetic_scene(width=64, device=nccl_world_of_one)
+    cfg = ft.ICPConfig(max_iterations=40, matcher="pallas")
+    before = nn_argmin_cuda.launches
+    a = distributed_icp(s.source, s.target, cfg)
+    mid = nn_argmin_cuda.launches
+    b = ft.run_icp(s.source, s.target, cfg)
+    assert mid - before == nn_argmin_cuda.launches - mid > 0
+    _same_bits(a, b)
+
+
+def test_distributed_ndt_world_of_one_is_run_ndt_k4(nccl_world_of_one):
+    """``distributed_ndt`` banded through K4 on one NCCL rank equals
+    ``run_ndt`` bit for bit, with the same K4 launches."""
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
+    from fpcr_tpu_torch.parallel.dist_icp import distributed_ndt
+
+    s = ft.synthetic_scene(width=128, device=nccl_world_of_one)
+    gt = ft.gt_transform((0.02, -0.015, 0.01), (0.03, -0.02, 0.015),
+                         device=nccl_world_of_one)
+    tgt = gt.apply(s.source)
+    cfg = ft.NDTConfig(voxel_size=0.2, max_iterations=30, lookup="banded",
+                       lookup_impl="pallas")
+    before = ndt_fused_moments_cuda.launches
+    a = distributed_ndt(s.source, tgt, cfg)
+    mid = ndt_fused_moments_cuda.launches
+    b = ft.run_ndt(s.source, tgt, cfg)
+    assert mid - before == ndt_fused_moments_cuda.launches - mid > 0
+    _same_bits(a, b)
+
+
+def test_cli_run_on_the_card(cuda, capsys):
+    """``python -m fpcr_tpu_torch run`` without ``--cpu`` runs on the card
+    and reaches the synthetic scene's 1e-5."""
+    import json
+
+    from fpcr_tpu_torch.cli import main
+
+    assert main(["run", "--dataset", "synthetic", "--width", "64",
+                 "--json"]) == 0
+    payload = json.loads(capsys.readouterr().out)
+    assert payload["platform"] == "gpu"
+    assert payload["transform_rmse_vs_gt"] < 1e-5
