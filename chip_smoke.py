@@ -10,12 +10,15 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. build — kernels K1 and K2 (the tensor-core sweep and the certified
    finish, ``fpcr_tpu_torch/csrc/nn_tc.cu``), their CUDA-core sweep, the
    min-only sweep and the E1 forms (``csrc/matching.cu``), K3 and K3p
-   (``csrc/morton.cu``), K4 (``csrc/ndt.cu``) and Kernel S
-   (``csrc/split_mma.cu``) with one nvcc per source, started together, into
-   one library; ptxas' registers and spills of each kernel, the bf16 HMMA
-   instructions of each Kernel S instance and the HGMMA (wgmma) of each
-   instance of the K1/K2 sweep in the library's SASS (``cuobjdump``; none
-   fails), and no spill in the K1/K2 kernels;
+   (``csrc/morton.cu``), K4 (``csrc/ndt.cu``) and Kernel S (the wgmma
+   sweep ``csrc/split_wgmma.cu``, and its first design, the mma.sync
+   yardstick ``csrc/split_mma.cu``) with one nvcc per source, started
+   together, into one library; ptxas' registers and spills of each kernel,
+   the HGMMA (wgmma) of each instance of the K1/K2 sweep and of the Kernel
+   S sweep (none may also issue HMMA) and the bf16 HMMA of each yardstick
+   instance in the library's SASS (``cuobjdump``; none fails), no spill in
+   the K1/K2 kernels or the Kernel S sweep, and no C7514 or C7512 (wgmma
+   serialised) in ptxas' log of ``split_wgmma.cu``;
 3. kernel vs plain — the tensor-core K1 and K2 against their CUDA-core
    sweep bit for bit (index and distance bits) on the kernel cases, the
    hall scan, E1's ±300 cloud, duplicates and 200 x 1,048,576, each call
@@ -35,7 +38,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    table's box, two staged tiles, the main path's grids), and one CUDA
    kernel per call; Kernel S (terms 6 and 3, every epilogue) and
    the five E1 launches against theirs at 16,384² and ragged shapes (m = 1,
-   m = 2^14 for the packed14 key, a cloud of duplicates); batched K1 and K2
+   m = 2^14 for the packed14 key, a cloud of duplicates), with the share of
+   Kernel S's picks equal to the mma.sync yardstick's; batched K1 and K2
    (the element on ``blockIdx.z``) at the serving batch (32 x 4,096²), the
    odometry pairs (11 x 4,096²), the closure batch with ragged masks (16 x
    4,096²) and B = 1: two launches a batched call, no host sync, every
@@ -99,7 +103,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    packed-reduction study
    (``fpcr_tpu_torch.bench.packed_reduction.main``), normals, the plane
    solve, the NDT grid build and the share of each stage of a point
-   iteration, Kernel S's five launch types and the E1 forms alone against
+   iteration, Kernel S's five launch types (in legs against the mma.sync
+   yardstick: yardstick, wgmma, wgmma, yardstick; with the sweep's
+   ablations and slice plans) and the E1 forms alone against
    their plain versions with their profiler kernel times, GICP (16,384
    through K1, 1M through K3), AA-ICP, grid ICP (262k, 1M) and an SGD step
    by the slope method, and ``build_voxel_table``, ``grid_nn``,
@@ -419,8 +425,9 @@ def phase_device(torch):
 
 def sass_counts(path):
     """``{kernel: {"HMMA": n, "HGMMA": n, "FFMA": n}}`` of every Kernel S
-    instance and every instance of the tensor-core K1/K2 sweep in the
-    library's SASS, read with the toolkit's ``cuobjdump``."""
+    instance (the wgmma sweep and the mma.sync yardstick) and every
+    instance of the tensor-core K1/K2 sweep in the library's SASS, read
+    with the toolkit's ``cuobjdump``."""
     from pathlib import Path
 
     from fpcr_tpu_torch import _build
@@ -433,6 +440,7 @@ def sass_counts(path):
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
             if not any(k in name for k in ("split_partial_kernel",
+                                            "split_wgmma_kernel",
                                             "nn_tc_sweep_kernel")):
                 name = None
             else:
@@ -460,7 +468,26 @@ def phase_build():
                      f"{c['HGMMA']} HGMMA (wgmma), {c['FFMA']} FFMA")
     split = [c for k, c in counts.items() if "split_partial_kernel" in k]
     if len(split) != 8 or not all(c["HMMA"] for c in split):
-        raise AssertionError("a Kernel S instance issues no bf16 HMMA")
+        raise AssertionError("a Kernel S yardstick instance issues no bf16 "
+                             "HMMA")
+    # the wgmma sweep: terms 6 and 3 x four epilogues, and x two ablations
+    wgmma = [c for k, c in counts.items() if "split_wgmma_kernel" in k]
+    if len(wgmma) != 12 or not all(c["HGMMA"] and not c["HMMA"]
+                                   for c in wgmma):
+        raise AssertionError("a Kernel S wgmma instance issues no HGMMA, or "
+                             "HMMA")
+    split_spills = tc_spills(res.log, "split_wgmma_kernel")
+    log("build", f"ptxas spills of the Kernel S sweep: {split_spills}")
+    if len(split_spills) != 12 or any(split_spills.values()):
+        raise AssertionError("a Kernel S wgmma instance spills")
+    # C7514 and C7512: ptxas serialises the wgmma (the pipeline's form,
+    # or too few registers)
+    serialised = [line.strip() for line in nvcc_section(res.log,
+                                                        "split_wgmma.cu")
+                  if "C7514" in line or "C7512" in line]
+    if serialised:
+        raise AssertionError(f"ptxas serialises Kernel S's wgmma: "
+                             f"{serialised}")
     sweeps = [c for k, c in counts.items() if "nn_tc_sweep_kernel" in k]
     if not sweeps or not all(c["HGMMA"] for c in sweeps):
         raise AssertionError("a tensor-core K1/K2 sweep issues no HGMMA")
@@ -473,21 +500,33 @@ def phase_build():
         raise AssertionError("a tensor-core K1/K2 kernel spills")
 
 
-def tc_spills(log_text):
-    """``{kernel: spill bytes}`` of every ``nn_tc`` kernel in ptxas' log
-    (the stores and loads of its "Function properties" line)."""
+def tc_spills(log_text, key="nn_tc"):
+    """``{kernel: spill bytes}`` of every kernel whose name holds ``key`` in
+    ptxas' log (the stores and loads of its "Function properties" line)."""
     import re
 
     spills, name = {}, None
     for line in log_text.splitlines():
         found = re.search(r"Function properties for (\S+)", line)
         if found:
-            name = found.group(1) if "nn_tc" in found.group(1) else None
+            name = found.group(1) if key in found.group(1) else None
         elif name and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill", line)
             spills[name] = int(st) + int(ld)
             name = None
     return spills
+
+
+def nvcc_section(log_text, source):
+    """The lines of the build log that the nvcc command compiling
+    ``source`` printed (the log holds each command after a ``$ ``)."""
+    lines, inside = [], False
+    for line in log_text.splitlines():
+        if line.startswith("$ "):
+            inside = source in line and " -c " in line
+        elif inside:
+            lines.append(line)
+    return lines
 
 
 def kernel_cases(torch, np, ft, dev):
@@ -1204,12 +1243,17 @@ def phase_studies_vs_plain(torch, np, ft, dev):
     """Kernel S (terms 6 and 3, every epilogue) and the five E1 launches
     against their plain versions (``bench/kernel_checks.py``: picks equal
     on 0.999 of the rows, the rest and every value within the order bound
-    of the sum); the largest error of each launch type."""
-    from fpcr_tpu_torch.bench.kernel_checks import check_form, check_split
+    of the sum); the largest error of each launch type. Kernel S's wgmma
+    sweep is also held against its mma.sync yardstick on every case: the
+    share of equal picks and the largest difference are logged, and
+    differing picks or values must lie within the same bound."""
+    from fpcr_tpu_torch.bench.kernel_checks import (check_form, check_split,
+                                                    split_bound)
     from fpcr_tpu_torch.bench.split_matmul import split_pads
     from fpcr_tpu_torch.ops.matching import E1_VARIANTS
     from fpcr_tpu_torch.ops.split import split_operands
-    from fpcr_tpu_torch.ops.split_cuda import EPILOGUES
+    from fpcr_tpu_torch.ops.split_cuda import (EPILOGUES, _split_nn_mma_sync,
+                                               split_nn_cuda)
 
     worst = {}
     split, e1 = study_cases(torch, np, ft, dev)
@@ -1227,6 +1271,23 @@ def phase_studies_vs_plain(torch, np, ft, dev):
                 log("kernel", f"{label}: picks equal on {st['equal']}/"
                               f"{st['rows']} rows, max |err| "
                               f"{st['max_abs_err']:.3e} -> ok")
+                if epi == "packed14" and q_in.shape[0] > 1 << 14:
+                    continue
+                kw = dict(keep=m - 1, clamp=terms == 3 and epi == "argmin")
+                ki, kd = split_nn_cuda(p_in, q_in, n, m, epi, **kw)
+                oi, od = _split_nn_mma_sync(p_in, q_in, n, m, epi, **kw)
+                same = ki == oi
+                diff = (kd.double() - od.double()).abs()
+                bound = split_bound(p_in, q_in, n, m)
+                if epi == "packed14":  # one bucket more where picks differ
+                    bound = bound + 2.0 ** -9 * od.double().abs()
+                share = float(same.double().mean())
+                log("kernel", f"{label} against the mma.sync yardstick: "
+                              f"picks equal on {share:.6f} of the rows, max "
+                              f"|d - d_mma| {float(diff.max()):.3e}")
+                if share < 0.999 or bool((diff > bound).any()):
+                    raise AssertionError(f"{label}: the wgmma sweep and the "
+                                         f"mma.sync yardstick disagree")
     for name, p, q in e1:
         for v in E1_VARIANTS:
             label = f"E1 {v} {E1_VARIANTS[v]} {name}"
@@ -1261,6 +1322,9 @@ def _wrappers():
 
 # the CUDA-core sweep of K1 and K2: the yardstick, on no path of the package
 CUDACORE = ("nn_argmin_cudacore", "nn_argmin_packed_cudacore")
+# Kernel S's mma.sync yardstick, on no path either: its launch types
+SPLIT_MMA = tuple(f"split mma x{t} {e}" for t in (6, 3)
+                  for e in ("argmin", "packed14", "min", "keep"))
 # while the ICP paths rerun on the CUDA-core sweep: the wrapper that counts
 # a kernel's launches in its place
 KERNEL_ALIAS = {}
@@ -1273,9 +1337,10 @@ def _keyed_wrappers():
     """Wrappers that count per launch type, in a dict: Kernel S's
     ``"x<terms> <epilogue>"`` and the E1 forms' ``"v<k>"``."""
     from fpcr_tpu_torch.ops.matching_cuda import nn_form_cuda
-    from fpcr_tpu_torch.ops.split_cuda import split_nn_cuda
+    from fpcr_tpu_torch.ops.split_cuda import _split_nn_mma_sync, split_nn_cuda
 
-    return {"split": split_nn_cuda, "e1": nn_form_cuda}
+    return {"split": split_nn_cuda, "split mma": _split_nn_mma_sync,
+            "e1": nn_form_cuda}
 
 
 def counters():
@@ -2184,10 +2249,11 @@ def phase_main_path(torch, ft, dev):
              ("packed-reduction study, K1 + K2 + min-only", study,
               "nn_min_only", ("morton_nn", "morton_nn_packed")),
              ("split-distance study E4, Kernel S", e4,
-              ("split x6 argmin", "split x3 argmin"), ("nn_argmin_packed",)),
+              ("split x6 argmin", "split x3 argmin"),
+              ("nn_argmin_packed",) + SPLIT_MMA),
              ("reduction study E3, Kernel S", e3,
               ("split x6 argmin", "split x6 packed14", "split x6 min",
-               "split x6 keep"), ("split x3 argmin",)),
+               "split x6 keep"), ("split x3 argmin",) + SPLIT_MMA),
              ("distance-form study E1", e1,
               ("e1 v1", "e1 v2", "e1 v4", "e1 v5", "e1 v6"),
               ("nn_argmin_packed",))] + slice3_paths(torch, np, ft, dev) \
@@ -2389,7 +2455,8 @@ OUR_KERNELS = ("nn_tc_sweep_kernel", "nn_tc_finish_kernel",
                "nn_partial_kernel", "nn_combine_kernel",
                "nn_packed_epilogue_kernel", "nn_min_combine_kernel",
                "morton_band_kernel", "ndt_moments_kernel",
-               "split_partial_kernel", "split_combine_kernel")
+               "split_partial_kernel", "split_combine_kernel",
+               "split_wgmma_kernel", "split_wgmma_combine_kernel")
 
 
 def kernel_ms(fn, repeats=10):
@@ -3367,14 +3434,18 @@ def kernels_line(launches, errs, times, times2, times3, times5):
 
 def study_entries(launches, errs, times5):
     """The ``kernels`` entries of Kernel S's five launch types (bytes: the
-    bf16 operands read once, idx and d written once) and the five E1 forms
+    bf16 operands read once, idx and d written once; with the wgmma
+    sweep's and the mma.sync yardstick's kernel times from the legs) and
+    the five E1 forms
     (bytes: p, q, the staged lane and |p|² read, idx and d written; 6 flops
     a pair for an argmin, 7 for a packed key, as K1 and K2)."""
-    return [kernel_entry(
-        key, "fpcr_tpu_torch/csrc/split_mma.cu", SPLIT_REPLACES[key],
+    return [dict(kernel_entry(
+        key, "fpcr_tpu_torch/csrc/split_wgmma.cu", SPLIT_REPLACES[key],
         launches[key], errs[key], t["ms"], t["plain_ms"],
         2 * t["k"] * (t["n"] + t["m"]) + 8 * t["n"], 0,
-        split_ops_ms(t["n"], t["m"], t["k"], key.split()[-1]))
+        split_ops_ms(t["n"], t["m"], t["k"], key.split()[-1])),
+        kernel_ms=min(k for _, k in t["legs"]["wgmma"]),
+        yardstick_kernel_ms=min(k for _, k in t["legs"]["mma.sync"]))
         for key, t in times5.items() if key.startswith("split")
     ] + [kernel_entry(
         key, "fpcr_tpu_torch/csrc/matching.cu", E1_REPLACES[key],
@@ -3401,16 +3472,22 @@ E1_REPLACES = {"e1 v1": "scripts/exp_match_kernels.py:297",
 def phase_times_studies(torch, dev, smi, studies):
     """Kernel S's five launch types at E3's N = M = 16,384 (the E3
     decomposition: keep column, min, argmin and packed key on the same
-    operands, and x3's argmin) and the E1 forms at E1's, each alone
-    against its plain version, with the profiler's kernel time and, for the
-    forms, K1's on the same inputs; then the three studies' results."""
+    operands, and x3's argmin), each in legs against the mma.sync yardstick
+    (yardstick, wgmma, wgmma, yardstick: the call's CUDA-event time and
+    the profiler's kernel time a leg) and alone against its plain version;
+    the wgmma sweep's ablations (without the reduction; without the
+    reduction and the staging) and slice plans; then the E1 forms at E1's,
+    with the profiler's kernel time and K1's on the same inputs; then the
+    three studies' results."""
     from fpcr_tpu_torch.bench import match_kernels, reduction2
     from fpcr_tpu_torch.ops.matching import (E1_VARIANTS, e1_idx_bits,
                                              form_lanes, nn_form_plain)
     from fpcr_tpu_torch.ops.matching_cuda import (_nn_argmin_cudacore,
                                                   nn_argmin_cuda, nn_form_cuda)
     from fpcr_tpu_torch.ops.split import split_nn_plain, split_operands
-    from fpcr_tpu_torch.ops.split_cuda import split_nn_cuda
+    from fpcr_tpu_torch.ops.split_cuda import (WGMMA_MODES, _split_nn_mma_sync,
+                                               _split_wgmma_only,
+                                               split_nn_cuda)
     from fpcr_tpu_torch.utils.timing import cuda_time_ms
 
     card = f"[card: {smi}]"
@@ -3426,6 +3503,20 @@ def phase_times_studies(torch, dev, smi, studies):
                      f"{ms['mean']:.4f} ms; kernel {kern:.4f} ms "
                      f"(profiler); plain min {plain_ms:.4f} ms {card}")
 
+    def legs(key, new, old):
+        """(call, kernel) ms of each leg, yardstick first and last."""
+        rec = {"mma.sync": [], "wgmma": []}
+        fallbacks = len(PROFILER_FALLBACKS)
+        for leg in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
+            fn = new if leg == "wgmma" else old
+            call = cuda_time_ms(fn, repeats=20, warmup=3)["min"]
+            kern = kernel_ms(fn)
+            rec[leg].append((call, kern))
+            log("times", f"leg {key} {leg} N=M={n}: call {call:.4f} ms, "
+                         f"kernel {kern:.4f} ms {card}")
+        rec["fallbacks"] = len(PROFILER_FALLBACKS) - fallbacks
+        return rec
+
     src, tgt = reduction2.study_inputs(dev)
     n = m = src.shape[0]
     keep = (m // 8192 - 1) * 8192
@@ -3433,10 +3524,52 @@ def phase_times_studies(torch, dev, smi, studies):
                         (3, ("argmin",))):
         p_in, q_in = split_operands(src, tgt, terms, n, m)
         for epi in epis:
-            measure(f"split x{terms} {epi}",
-                    lambda: split_nn_cuda(p_in, q_in, n, m, epi, keep=keep),
+            key = f"split x{terms} {epi}"
+            new = lambda: split_nn_cuda(p_in, q_in, n, m, epi,  # noqa: E731
+                                        keep=keep)
+            measure(key, new,
                     lambda: split_nn_plain(p_in, q_in, n, m, epi, keep=keep),
                     n, m, k=8 * terms)
+            rec = legs(key, new, lambda: _split_nn_mma_sync(
+                p_in, q_in, n, m, epi, keep=keep))
+            out[key]["legs"] = rec
+            log("times", f"{key}: wgmma kernel "
+                         f"{min(k for _, k in rec['wgmma']):.4f} ms, "
+                         f"mma.sync {min(k for _, k in rec['mma.sync']):.4f} "
+                         f"ms (min of two legs each; {rec['fallbacks']} "
+                         f"profiler fallbacks) {card}")
+        ablation = {"sweep": min(k for _, k in out[f"split x{terms} min"][
+            "legs"]["wgmma"]) if terms == 6 else out[
+            f"split x{terms} argmin"]["kernel_ms"]}
+        for mode in WGMMA_MODES:
+            ablation[mode] = kernel_ms(lambda: _split_wgmma_only(
+                p_in, q_in, n, m, mode))
+        out[f"ablation x{terms}"] = ablation
+        log("times", f"Kernel S wgmma sweep x{terms} N=M={n}, kernel ms "
+                     f"(profiler; 'sweep' = the "
+                     f"{'min' if terms == 6 else 'argmin'} epilogue): "
+                     f"{json.dumps(ablation)} {card}")
+        plans = {sl: kernel_ms(lambda: split_nn_cuda(
+            p_in, q_in, n, m, "argmin", _slice_len=sl))
+            for sl in (m, m // 2, m // 4)}
+        out[f"slices x{terms}"] = plans
+        log("times", f"Kernel S wgmma x{terms} argmin by slice length at "
+                     f"N=M={n}: " + ", ".join(f"{k} targets {v:.4f} ms"
+                                              for k, v in plans.items())
+            + f" (profiler) {card}")
+        # the same argmin over the targets in a random order: the study's
+        # raster grids improve a row's best in about half of its tiles,
+        # shuffled targets in under a tenth (each improving tile costs a
+        # vote, two shuffles and a copy of the row's values)
+        perm = torch.randperm(m, generator=torch.Generator().manual_seed(0))
+        q_shuf = q_in[perm.to(dev)].contiguous()
+        shuffled = {k: kernel_ms(lambda: f(p_in, q_shuf, n, m, "argmin"))
+                    for k, f in (("wgmma", split_nn_cuda),
+                                 ("mma.sync", _split_nn_mma_sync))}
+        out[f"shuffled x{terms}"] = shuffled
+        log("times", f"Kernel S x{terms} argmin, targets shuffled, N=M={n}: "
+                     + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                 shuffled.items()) + f" (profiler) {card}")
         if terms == 6:  # every product issued: time grows with M
             grow = {mm: kernel_ms(lambda: split_nn_cuda(
                 p_in, q_in, n, mm, "keep", keep=mm - 1))

@@ -22,7 +22,8 @@ brute-force nearest-neighbour matcher K1 and its packed twin K2
 min-only sweep of the packed-reduction study ``bench/packed_reduction.py``
 and the E1 forms), the Morton band matcher K3 and its packed twin K3p
 (``csrc/morton.cu``), NDT's fused direct7 moments K4 (``csrc/ndt.cu``) and
-the studies' Kernel S (``csrc/split_mma.cu``); a CPU tensor takes their
+the studies' Kernel S (``csrc/split_wgmma.cu``; ``csrc/split_mma.cu`` holds
+its first design, the yardstick); a CPU tensor takes their
 plain PyTorch versions. Every entry point runs on the card unless the
 caller asks for the CPU: loaders and scene functions take ``device="cpu"``
 for that, and a function given tensors runs on their device. The layout and

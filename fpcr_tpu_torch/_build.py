@@ -171,6 +171,13 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_split_combine.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr,
                                        ptr, ptr]
     lib.fpcr_split_combine.restype = i32
+    lib.fpcr_split_wgmma_rows_per_block.argtypes = []
+    lib.fpcr_split_wgmma_rows_per_block.restype = i32
+    lib.fpcr_split_wgmma.argtypes = [ptr, ptr] + [i32] * 10 + [ptr, ptr, ptr]
+    lib.fpcr_split_wgmma.restype = i32
+    lib.fpcr_split_wgmma_combine.argtypes = [ptr, ptr, i32, i32, i32, i32,
+                                             ptr, ptr, ptr]
+    lib.fpcr_split_wgmma_combine.restype = i32
     f32 = ctypes.c_float
     lib.fpcr_ndt_moments.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr,
                                      i32, i32, i32, i32, i32, f32, f32, ptr,

@@ -4,7 +4,7 @@ counterpart of ``scripts/exp_reduction2.py``:
     python -m fpcr_tpu_torch.bench.reduction2
 
 Seven reductions of the K=48 bf16x6 split distance (``ops/split.py``), each
-through Kernel S (``csrc/split_mma.cu``) with the epilogue its function
+through Kernel S (``csrc/split_wgmma.cu``) with the epilogue its function
 needs. On the TPU they were seven ablated kernels; here variants that
 compute one function share one launch:
 

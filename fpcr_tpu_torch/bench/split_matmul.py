@@ -5,7 +5,7 @@
 
 The brute-force NN over the K-packed multi-bf16 distance of
 ``ops/split.py``: ``terms=6`` (K=48, f32 grade) and ``terms=3`` (K=24,
-~2⁻¹⁶ of |p|² + |q|²), reduced by Kernel S (``csrc/split_mma.cu``) on the
+~2⁻¹⁶ of |p|² + |q|²), reduced by Kernel S (``csrc/split_wgmma.cu``) on the
 tensor cores, against K1. On the script's inputs, the width-128 synthetic
 scene, "far" = the source and "near" = the source after 12 iterations of
 ``run_icp``, it prints for each split the mismatches against K1, the

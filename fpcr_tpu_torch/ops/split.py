@@ -26,11 +26,12 @@ import torch
 
 from ..utils.precision import pin_f32_precision
 from .matching import sq_norm
-from .split_cuda import (PACKED14_BITS, PACKED14_KEY_INIT, check_split_args,
-                         split_nn_cuda)
+from .split_cuda import (PACKED14_BITS, PACKED14_KEY_INIT, TILE,
+                         check_split_args, split_nn_cuda)
 
 LANES = 8  # augmented lanes: 5 used, padded to 8
 INVALID_SURROGATE = 1e30  # the |q|² lane of a padded target
+INF_BITS = 0x7F800000  # the bits of +inf: above every finite key bucket
 # the kept (p part, q part) pairs of the K packing, largest first; parts
 # are 0 = h, 1 = m, 2 = l
 PAIRS = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))
@@ -137,21 +138,48 @@ def split_nn_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of Kernel S, on any device: the f32 product
     ``p_in[:n].float() @ q_in.float().T`` over target tiles of the first
-    ``m`` targets, then the epilogue. It is the split distance because
-    every bf16×bf16 product is exact in f32; only the order of the sums
-    differs from the kernel's. Returns ``(idx int32[n], d f32[n])``."""
+    ``m`` targets, then the epilogue (:func:`split_reduce_plain`). It is
+    the split distance because every bf16×bf16 product is exact in f32;
+    only the order of the sums differs from the kernel's. Returns ``(idx
+    int32[n], d f32[n])``."""
     check_split_args(p_in, q_in, n, m, epilogue, keep)
     a = p_in[:n].to(torch.float32)
-    dev = a.device
-    idx = torch.zeros(n, dtype=torch.int32, device=dev)
     if epilogue == "keep":
         d = (a @ q_in[keep:keep + 1].to(torch.float32).T)[:, 0]
-        return idx, d.contiguous()
+        return (torch.zeros(n, dtype=torch.int32, device=a.device),
+                d.contiguous())
+    tiles = ((t0, a @ q_in[t0:min(m, t0 + target_tile)].to(torch.float32).T)
+             for t0 in range(0, m, target_tile))
+    return _reduce_tiles(tiles, n, epilogue, clamp, a.device)
+
+
+def split_reduce_plain(values: torch.Tensor, epilogue: str, *,
+                       keep: Optional[int] = None, clamp: bool = False,
+                       target_tile: int = 2048
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`split_nn_plain`'s reduction of given values f32[n, m]: the
+    epilogue over target tiles of ``target_tile`` columns."""
+    n, m = values.shape
+    if epilogue == "keep":
+        return (torch.zeros(n, dtype=torch.int32, device=values.device),
+                values[:, keep].contiguous())
+    tiles = ((t0, values[:, t0:t0 + target_tile])
+             for t0 in range(0, m, target_tile))
+    return _reduce_tiles(tiles, n, epilogue, clamp, values.device)
+
+
+def _reduce_tiles(tiles, n: int, epilogue: str, clamp: bool, dev
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The argmin (first minimum), ``packed14`` key or least value over
+    ``(first column, values [n, width])`` tiles in column order. A NaN
+    counts as +inf: it never wins."""
+    idx = torch.zeros(n, dtype=torch.int32, device=dev)
     best = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
     key = torch.full((n,), PACKED14_KEY_INIT, dtype=torch.int32, device=dev)
     low = (1 << PACKED14_BITS) - 1
-    for t0 in range(0, m, target_tile):
-        d = a @ q_in[t0:min(m, t0 + target_tile)].to(torch.float32).T
+    for t0, d in tiles:
+        d = torch.nan_to_num(d, nan=float("inf"), posinf=float("inf"),
+                             neginf=float("-inf"))
         if epilogue == "argmin":
             arg = torch.argmin(d, dim=1)  # first minimum in the tile
             dmin = torch.gather(d, 1, arg[:, None])[:, 0]
@@ -163,7 +191,9 @@ def split_nn_plain(
         else:
             cols = torch.arange(t0, t0 + d.shape[1], dtype=torch.int32,
                                 device=dev)
-            bits = torch.clamp_min(d, 0.0).contiguous().view(torch.int32)
+            # -0 counts as 0: its bits would read as a negative key
+            bits = torch.clamp_min(d, 0.0).contiguous().view(
+                torch.int32).clamp_min(0)
             k = (bits & ~low) | cols[None, :]
             key = torch.minimum(key, k.amin(dim=1))
     if epilogue == "packed14":
@@ -171,6 +201,112 @@ def split_nn_plain(
     if clamp:
         best = torch.clamp_min(best, 0.0)
     return idx, best
+
+
+def split_wgmma_mirror(values: torch.Tensor, epilogue: str, *,
+                       slice_len: int, m: Optional[int] = None,
+                       keep: Optional[int] = None, clamp: bool = False,
+                       tile: int = TILE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reduction of ``csrc/split_wgmma.cu`` in its own order, in plain
+    torch, over the kernel's values f32[n, >= m] (the CPU tests' mirror of
+    the kernel, which runs on the card only): the first ``m`` columns
+    (default all) are the targets; a tile reads the columns past them as
+    the kernel does (the operand's padded rows, then the zeros of a copy
+    past its end) and masks them.
+
+    Per target slice of ``slice_len`` columns and 128-column tile, columns
+    at or past the slice's end read +inf. Thread ``t`` of a row's quad
+    holds columns 8c + 2t + e (slot 2c + e) of each tile. Per tile, each
+    thread's least value (the int32 min of the bits where no sign bit is
+    set, else the float min; a NaN never wins) and the quad's least of
+    those; where that is strictly below the row's best (``packed14``: its
+    bucket, max(bits, 0) & ~0x3FFF, strictly below the best bucket) the
+    quad keeps the tile's values. After the slice each thread takes its
+    first kept column equal to the best (``packed14``: in the best bucket)
+    and the quad the least column; ``min`` keeps a running min a thread
+    and takes the quad's at the end. The slices combine in order (strict
+    ``<``), by an int32 min of keys, or by a min."""
+    n, width = values.shape
+    m = width if m is None else m
+    dev = values.device
+    inf = float("inf")
+    idx = torch.zeros(n, dtype=torch.int32, device=dev)
+    if epilogue == "keep":
+        return idx, values[:, keep].contiguous()
+    low = (1 << PACKED14_BITS) - 1
+    slot_col = torch.tensor([[8 * (k >> 1) + 2 * t + (k & 1)
+                              for k in range(32)] for t in range(4)],
+                            device=dev)  # [thread, slot] -> column
+    big = torch.iinfo(torch.int32).max
+    best_d = torch.full((n,), inf, dtype=torch.float32, device=dev)
+    best_i = torch.zeros(n, dtype=torch.int32, device=dev)
+    best_key = torch.full((n,), PACKED14_KEY_INIT, dtype=torch.int32,
+                          device=dev)
+    for j_begin in range(0, m, slice_len):
+        j_end = min(m, j_begin + slice_len)
+        run = torch.full((n,), inf, dtype=torch.float32, device=dev)
+        run_t = torch.full((n, 4), inf, dtype=torch.float32, device=dev)
+        bucket = torch.full((n,), INF_BITS, dtype=torch.int32, device=dev)
+        kept = torch.zeros((n, 4, 32), dtype=torch.float32, device=dev)
+        kept_t0 = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        for t0 in range(j_begin, j_end, tile):
+            cols = t0 + slot_col  # [4, 32]
+            v = torch.zeros((n, 4, 32), dtype=torch.float32, device=dev)
+            read = cols < width
+            v[:, read] = values[:, cols[read]]
+            v = torch.where(cols < j_end, v, inf)  # past the slice's end
+            bits = v.view(torch.int32)
+            lo = bits.amin(dim=2)  # [n, 4]
+            if epilogue == "packed14":
+                b = lo.clamp_min(0).amin(dim=1) & ~low  # the quad's bucket
+                better = b < bucket
+                bucket = torch.where(better, b, bucket)
+            else:
+                no_nan = torch.where(v.isnan(), inf, v)
+                m_t = torch.where(lo >= 0, lo.view(torch.float32),
+                                  no_nan.amin(dim=2))
+                m_t = torch.where(m_t.isnan(), inf, m_t)
+                if epilogue == "min":
+                    run_t = torch.minimum(run_t, m_t)
+                    continue
+                quad = m_t.amin(dim=1)
+                better = quad < run
+                run = torch.where(better, quad, run)
+            kept = torch.where(better[:, None, None], v, kept)
+            kept_t0 = torch.where(better, t0, kept_t0)
+        found = kept_t0 >= 0
+        if epilogue == "min":
+            part = run_t.amin(dim=1)
+            best_d = torch.minimum(best_d, part)
+            continue
+        if epilogue == "argmin":
+            hit = kept <= run[:, None, None]
+        else:
+            edge = (bucket | low)[:, None, None]
+            hit = kept.view(torch.int32).clamp_min(0) <= edge
+        first = torch.where(hit, slot_col[None], big).amin(dim=2)  # [n, 4]
+        col = first.amin(dim=1)  # the quad's least column
+        c = col.clamp_max(tile - 1).long()
+        thread = (c & 7) >> 1
+        slot_k = 2 * (c >> 3) + (c & 1)
+        val = kept[torch.arange(n, device=dev), thread, slot_k]
+        j = (kept_t0 + col).to(torch.int32)
+        if epilogue == "argmin":
+            d = torch.where(found, val, inf)
+            j = torch.where(found, j, 0)
+            better = d < best_d  # strict: the earlier slice wins ties
+            best_d = torch.where(better, d, best_d)
+            best_i = torch.where(better, j, best_i)
+        else:
+            key = torch.where(found, bucket | j, PACKED14_KEY_INIT)
+            best_key = torch.minimum(best_key, key)
+    if epilogue == "packed14":
+        return best_key & low, best_key.view(torch.float32)
+    if epilogue == "min":
+        return idx, best_d
+    if clamp:
+        best_d = torch.clamp_min(best_d, 0.0)
+    return best_i, best_d
 
 
 def split_nn(

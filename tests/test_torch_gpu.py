@@ -625,6 +625,85 @@ def test_split_kernel_matches_plain(cuda, terms, epilogue, n, m):
                 clamp=epilogue == "argmin")
 
 
+# the wgmma sweep's tile (128) and slice edges: one target, a tile short,
+# whole, one over; 2^14 targets in 64 slices of 256 (64 and 300 rows) and
+# in three of 5,504 (16,384 rows)
+SPLIT_EDGE_SHAPES = [(1, 127), (1, 128), (1, 129), (129, 257), (64, 16384),
+                     (300, 16384), (16384, 16384)]
+
+
+@pytest.mark.parametrize("terms", [6, 3])
+@pytest.mark.parametrize("epilogue", ["argmin", "packed14", "min", "keep"])
+@pytest.mark.parametrize("n,m", SPLIT_EDGE_SHAPES)
+def test_split_kernel_matches_plain_at_edges(cuda, terms, epilogue, n, m):
+    """The wgmma sweep against its plain version across the tile and slice
+    edges (``bench/kernel_checks.py::check_split``, as at SPLIT_SHAPES)."""
+    from fpcr_tpu_torch.bench.kernel_checks import check_split
+
+    p_in, q_in = _split_case(cuda, n, m, terms, seed=1)
+    check_split(p_in, q_in, n, m, epilogue, keep=m - 1,
+                clamp=epilogue == "argmin")
+
+
+@pytest.mark.parametrize("slice_len", [128, 384, 8192, 16384])
+def test_split_kernel_equal_under_any_slice_plan(cuda, slice_len):
+    """The picks and distance bits do not depend on how the targets are
+    sliced: the first minimum of the kernel's own values, combined in
+    slice order."""
+    from fpcr_tpu_torch.ops.split_cuda import split_nn_cuda
+
+    p_in, q_in = _split_case(cuda, 700, 16384, 6, seed=2)
+    for epi in ("argmin", "packed14", "min"):
+        ri, rd = split_nn_cuda(p_in, q_in, 700, 16384, epi)
+        ki, kd = split_nn_cuda(p_in, q_in, 700, 16384, epi,
+                               _slice_len=slice_len)
+        assert torch.equal(ri, ki), epi
+        assert torch.equal(rd.view(torch.int32), kd.view(torch.int32)), epi
+
+
+@pytest.mark.parametrize("terms", [6, 3])
+@pytest.mark.parametrize("n,m", [(300, 500), (4099, 20001), (16384, 16384)])
+def test_split_kernel_against_mma_sync(cuda, terms, n, m):
+    """The wgmma sweep against the mma.sync yardstick (``csrc/split_mma.cu``)
+    on the same operands: the same function summed in another order, so
+    picks equal on 0.999 of the rows and the rest, and every distance,
+    within the order bound. Prints the share of equal picks and the
+    largest difference."""
+    from fpcr_tpu_torch.bench.kernel_checks import split_bound
+    from fpcr_tpu_torch.ops.split_cuda import _split_nn_mma_sync, split_nn_cuda
+
+    p_in, q_in = _split_case(cuda, n, m, terms, seed=3)
+    bound = split_bound(p_in, q_in, n, m)
+    for epi in ("argmin", "min", "keep"):
+        ki, kd = split_nn_cuda(p_in, q_in, n, m, epi, keep=m - 1)
+        oi, od = _split_nn_mma_sync(p_in, q_in, n, m, epi, keep=m - 1)
+        same = ki == oi
+        diff = (kd.double() - od.double()).abs()
+        print(f"x{terms} {epi} {n}x{m}: picks equal "
+              f"{float(same.double().mean()):.6f}, max |d - d_mma| "
+              f"{float(diff.max()):.3e}")
+        assert float(same.double().mean()) >= 0.999
+        assert bool((diff <= bound).all())
+
+
+def test_split_kernel_ablations_and_yardstick_count(cuda):
+    """The sweep's ablations launch (no count); the yardstick counts on its
+    own wrapper, never on split_nn_cuda's."""
+    from fpcr_tpu_torch.ops.split_cuda import (WGMMA_MODES, _split_nn_mma_sync,
+                                               _split_wgmma_only,
+                                               split_nn_cuda)
+
+    p_in, q_in = _split_case(cuda, 300, 4096, 3)
+    before = dict(split_nn_cuda.launches)
+    for mode in WGMMA_MODES:
+        assert _split_wgmma_only(p_in, q_in, 300, 4096, mode).shape == (300,)
+    old = dict(_split_nn_mma_sync.launches)
+    _split_nn_mma_sync(p_in, q_in, 300, 4096, "argmin")
+    torch.cuda.synchronize()
+    assert split_nn_cuda.launches == before
+    assert _split_nn_mma_sync.launches["x3 argmin"] == old["x3 argmin"] + 2
+
+
 @pytest.mark.parametrize("m", [8, 16, 24, 1000])
 def test_split_kernel_finds_known_neighbours(cuda, m):
     """p on a shuffled lattice of spacing 0.1 and q = p shifted by a
