@@ -143,6 +143,7 @@ instructions over their rate). The last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits 1 and prints no result.
 """
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -166,9 +167,10 @@ HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 # and bf16 tensor-core operations per second (dense), and CUDA-core
 # instructions per second (132 SMs x 128 lanes at the FP32 peak's clock)
 BF16_FLOPS, CORE_IPS = 989e12, 33.5e12
-# Kernel S's reduction: CUDA-core instructions a pair (argmin compare and
-# two selects, the packed key's LOP3 and min, a min, the keep select)
-SPLIT_REDUCE_INSTR = {"argmin": 3, "packed14": 2, "min": 1, "keep": 1}
+# Kernel S's reduction: CUDA-core instructions a pair that its functions
+# need at most, one comparison (an argmin, a least key or a least value;
+# the keep column needs one select a row), whatever a design executes
+SPLIT_REDUCE_INSTR = 1
 # float32 operations a (source, target) pair needs, counted in the norm
 # form d = |p|^2 - 2 p.q + |q|^2 that the TPU kernels use, with |q|^2
 # precomputed: an argmin or a min over targets needs |q|^2 - 2 p.q alone,
@@ -2459,18 +2461,21 @@ OUR_KERNELS = ("nn_tc_sweep_kernel", "nn_tc_finish_kernel",
                "split_wgmma_kernel", "split_wgmma_combine_kernel")
 
 
-def kernel_ms(fn, repeats=10):
+def kernel_ms(fn, repeats=10, fallback=True):
     """Device time per call of the port's own kernels that ``fn`` launches
     (``torch.profiler``'s CUDA kernel events over ``repeats`` calls, the
     wrapper's torch glue left out), in ms. A session may lose some events
     (a count short of a whole number a call), so a call's time is each
     kernel's mean event time times its launches a call. Where five
     sessions in a row report no device event, the call is timed whole with
-    CUDA events instead (the wrapper's glue included) and logged."""
+    CUDA events instead (the wrapper's glue included) and logged, or,
+    without ``fallback``, None is returned."""
     from fpcr_tpu_torch.utils.timing import cuda_time_ms
 
     events = device_events(lambda: [fn() for _ in range(repeats)],
                            required=False)
+    if not events and not fallback:
+        return None
     if not events:
         ms = cuda_time_ms(fn, repeats=repeats)["min"]
         PROFILER_FALLBACKS.append(round(ms, 4))
@@ -3344,13 +3349,14 @@ def bound(nbytes, flops, ops_ms=0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def split_ops_ms(n, m, k, epilogue):
+def split_ops_ms(n, m, k):
     """Kernel S's operation time: the larger of its bf16 products, 2 K_pad
-    N M over the tensor cores' dense peak (K padded to 16), and its
-    reduction's CUDA-core instructions over their rate."""
+    N M over the tensor cores' dense peak (K padded to 16), and the
+    reduction's needed instructions over the CUDA cores' rate (the
+    products at K >= 24)."""
     k_pad = -(-k // 16) * 16
     return max(2 * k_pad * n * m / BF16_FLOPS,
-               SPLIT_REDUCE_INSTR[epilogue] * n * m / CORE_IPS) * 1e3
+               SPLIT_REDUCE_INSTR * n * m / CORE_IPS) * 1e3
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, nbytes,
@@ -3443,9 +3449,8 @@ def study_entries(launches, errs, times5):
         key, "fpcr_tpu_torch/csrc/split_wgmma.cu", SPLIT_REPLACES[key],
         launches[key], errs[key], t["ms"], t["plain_ms"],
         2 * t["k"] * (t["n"] + t["m"]) + 8 * t["n"], 0,
-        split_ops_ms(t["n"], t["m"], t["k"], key.split()[-1])),
-        kernel_ms=min(k for _, k in t["legs"]["wgmma"]),
-        yardstick_kernel_ms=min(k for _, k in t["legs"]["mma.sync"]))
+        split_ops_ms(t["n"], t["m"], t["k"])),
+        **leg_fields(t["legs"]))
         for key, t in times5.items() if key.startswith("split")
     ] + [kernel_entry(
         key, "fpcr_tpu_torch/csrc/matching.cu", E1_REPLACES[key],
@@ -3454,6 +3459,19 @@ def study_entries(launches, errs, times5):
         (ARGMIN_PAIR_FLOPS if key in ("e1 v1", "e1 v6") else
          PACKED_PAIR_FLOPS) * t["n"] * t["m"])
         for key, t in times5.items() if key.startswith("e1")]
+
+
+def leg_fields(legs):
+    """The legs' least call and kernel times of the wgmma sweep and of the
+    mma.sync yardstick; a kernel time is a profiler kernel time or null
+    (every leg of that side fell back to CUDA events)."""
+    def least(side, i):
+        got = [leg[i] for leg in legs[side] if leg[i] is not None]
+        return min(got) if got else None
+
+    return dict(call_ms=least("wgmma", 0), kernel_ms=least("wgmma", 1),
+                yardstick_call_ms=least("mma.sync", 0),
+                yardstick_kernel_ms=least("mma.sync", 1))
 
 
 # the TPU kernel each new launch type replaces
@@ -3467,6 +3485,20 @@ E1_REPLACES = {"e1 v1": "scripts/exp_match_kernels.py:297",
                "e1 v4": "scripts/exp_match_kernels.py:361",
                "e1 v5": "scripts/exp_match_kernels.py:137",
                "e1 v6": "scripts/exp_match_kernels.py:166"}
+
+
+@contextlib.contextmanager
+def split_plan(slice_len):
+    """``split_nn_cuda`` with its target slices of ``slice_len`` in place of
+    ``ops/split_cuda.py::plan_split``'s, to time other plans."""
+    from fpcr_tpu_torch.ops import split_cuda
+
+    saved = split_cuda._plan
+    split_cuda._plan = lambda dev, n, m: (-(-m // slice_len), slice_len)
+    try:
+        yield
+    finally:
+        split_cuda._plan = saved
 
 
 def phase_times_studies(torch, dev, smi, studies):
@@ -3504,17 +3536,22 @@ def phase_times_studies(torch, dev, smi, studies):
                      f"(profiler); plain min {plain_ms:.4f} ms {card}")
 
     def legs(key, new, old):
-        """(call, kernel) ms of each leg, yardstick first and last."""
-        rec = {"mma.sync": [], "wgmma": []}
-        fallbacks = len(PROFILER_FALLBACKS)
+        """(call, kernel) ms of each leg, yardstick first and last. The
+        kernel time is the profiler's alone: a leg whose sessions saw no
+        device event is retaken twice, then kept as None."""
+        rec = {"mma.sync": [], "wgmma": [], "retaken": 0}
         for leg in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
             fn = new if leg == "wgmma" else old
             call = cuda_time_ms(fn, repeats=20, warmup=3)["min"]
-            kern = kernel_ms(fn)
+            kern = kernel_ms(fn, fallback=False)
+            for _ in range(2):
+                if kern is not None:
+                    break
+                rec["retaken"] += 1
+                kern = kernel_ms(fn, fallback=False)
             rec[leg].append((call, kern))
             log("times", f"leg {key} {leg} N=M={n}: call {call:.4f} ms, "
-                         f"kernel {kern:.4f} ms {card}")
-        rec["fallbacks"] = len(PROFILER_FALLBACKS) - fallbacks
+                         f"kernel {kern} ms {card}")
         return rec
 
     src, tgt = reduction2.study_inputs(dev)
@@ -3533,14 +3570,12 @@ def phase_times_studies(torch, dev, smi, studies):
             rec = legs(key, new, lambda: _split_nn_mma_sync(
                 p_in, q_in, n, m, epi, keep=keep))
             out[key]["legs"] = rec
-            log("times", f"{key}: wgmma kernel "
-                         f"{min(k for _, k in rec['wgmma']):.4f} ms, "
-                         f"mma.sync {min(k for _, k in rec['mma.sync']):.4f} "
-                         f"ms (min of two legs each; {rec['fallbacks']} "
-                         f"profiler fallbacks) {card}")
-        ablation = {"sweep": min(k for _, k in out[f"split x{terms} min"][
-            "legs"]["wgmma"]) if terms == 6 else out[
-            f"split x{terms} argmin"]["kernel_ms"]}
+            log("times", f"{key}, the least of two legs each (call, "
+                         f"kernel) ms: {json.dumps(leg_fields(rec))} "
+                         f"({rec['retaken']} legs retaken) {card}")
+        ablation = {"sweep": leg_fields(out[
+            f"split x{terms} {'min' if terms == 6 else 'argmin'}"][
+            "legs"])["kernel_ms"]}
         for mode in WGMMA_MODES:
             ablation[mode] = kernel_ms(lambda: _split_wgmma_only(
                 p_in, q_in, n, m, mode))
@@ -3549,9 +3584,11 @@ def phase_times_studies(torch, dev, smi, studies):
                      f"(profiler; 'sweep' = the "
                      f"{'min' if terms == 6 else 'argmin'} epilogue): "
                      f"{json.dumps(ablation)} {card}")
-        plans = {sl: kernel_ms(lambda: split_nn_cuda(
-            p_in, q_in, n, m, "argmin", _slice_len=sl))
-            for sl in (m, m // 2, m // 4)}
+        plans = {}
+        for sl in (m, m // 2, m // 4):
+            with split_plan(sl):
+                plans[sl] = kernel_ms(lambda: split_nn_cuda(
+                    p_in, q_in, n, m, "argmin"))
         out[f"slices x{terms}"] = plans
         log("times", f"Kernel S wgmma x{terms} argmin by slice length at "
                      f"N=M={n}: " + ", ".join(f"{k} targets {v:.4f} ms"

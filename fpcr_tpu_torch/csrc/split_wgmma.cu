@@ -57,13 +57,18 @@
 // the first column in the best bucket, and the key is bucket | column);
 // `min` keeps a running fminf a row and combines the quad at the end;
 // `keep` selects the kept column in its one tile and reads nothing else.
-// A NaN never wins an argmin or a min and counts as +inf in the key (as
-// ops/split.py::split_nn_plain does), taking the tensor cores' NaN to be
-// the canonical positive 0x7FFFFFFF. Source rows past n are computed and
+// NaN, as ops/split.py::split_nn_plain treats it: an argmin never picks
+// it (E3/E4's pass over the whole block of columns that holds it), it
+// keys above every finite value (E3's max(d, 0) keeps it, and its bits
+// lie above +inf's), and it makes a row's least value NaN (`min` also
+// takes a tree of integer maxes a tile, above +inf's bits only where a
+// NaN is among the 32; the combine keeps it). -0 keys as +0 (E3's
+// max(-0, 0)). The tensor cores' NaN is the canonical positive
+// 0x7FFFFFFF. Source rows past n are computed and
 // never written; rows past n_pad read as zeros. With one slice the sweep
 // writes the outputs itself; with more it writes [slices, n] partials that
 // a second kernel combines (slice order for the argmin, an int32 min for
-// the key, a min for the least distance).
+// the key, a min that keeps a NaN for the least distance).
 //
 // Instances: terms 6 and 3 x the four epilogues, and the ablations
 // (terms 6 and 3, Mode): kNoReduce keeps the ring and the products and
@@ -88,6 +93,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kGroups = 3;                      // warpgroups a block
@@ -103,6 +110,8 @@ constexpr int kKeyInit = 0x7F7FFFFF;            // bits of FLT_MAX
 constexpr int kLow = (1 << 14) - 1;             // E3's 14 index bits
 constexpr int kInfBits = 0x7F800000;            // bits of +inf
 constexpr int kIntMax = 0x7FFFFFFF;
+constexpr int kMaxDevices = 64;                // devices a process launches on
+constexpr int kMapCache = 16;                   // TMA maps kept for reuse
 
 enum class Epilogue { kArgmin = 0, kPacked14 = 1, kMin = 2, kKeepColumn = 3 };
 enum Mode { kFull = 0, kNoReduce = 1, kProductsOnly = 2 };
@@ -245,6 +254,24 @@ __device__ __forceinline__ int min_bits(const float (&acc)[64], int h) {
     return min(min(x, y), min(z, min(m[9], m[10])));
 }
 
+// the greatest of a thread's 32 values of row h as int32 bits, the same
+// tree with maxes: above +inf's bits where one of them is a NaN
+__device__ __forceinline__ int max_bits(const float (&acc)[64], int h) {
+    int m[11];
+#pragma unroll
+    for (int i = 0; i < 11; ++i) {
+        const int a = __float_as_int(acc[slot(h, 3 * i)]);
+        const int b = __float_as_int(acc[slot(h, 3 * i + 1)]);
+        m[i] = 3 * i + 2 < 32
+                   ? max(a, max(b, __float_as_int(acc[slot(h, 3 * i + 2)])))
+                   : max(a, b);
+    }
+    const int x = max(m[0], max(m[1], m[2]));
+    const int y = max(m[3], max(m[4], m[5]));
+    const int z = max(m[6], max(m[7], m[8]));
+    return max(max(x, y), max(z, max(m[9], m[10])));
+}
+
 // the first of a lane's 32 copied values of a row that passes `hit`, as
 // (column offset 8c + 2t + e, value); (kIntMax, 0) where none does
 template <typename Hit>
@@ -335,6 +362,7 @@ split_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     float best[2] = {CUDART_INF_F, CUDART_INF_F};
     int bucket[2] = {kInfBits, kInfBits};
     int best_tile[2] = {-1, -1};
+    bool nan_seen[2] = {false, false};  // min: a NaN in the row
     float kept[2][32];
     float acc[64];
 #pragma unroll
@@ -423,6 +451,7 @@ split_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                 }
                 if constexpr (E == Epilogue::kMin) {
                     best[h] = fminf(best[h], v);
+                    nan_seen[h] |= max_bits(acc, h) > kInfBits;
                 } else if (__any_sync(0xffffffffu, v < best[h])) {
                     v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
                     v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -455,7 +484,10 @@ split_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             float v = best[h];
             v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
             v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-            if (t4 == 0 && row < n) part_d[o] = v;
+            int nan = nan_seen[h];
+            nan |= __shfl_xor_sync(0xffffffffu, nan, 1);
+            nan |= __shfl_xor_sync(0xffffffffu, nan, 2);
+            if (t4 == 0 && row < n) part_d[o] = nan ? CUDART_NAN_F : v;
         } else {
             int col;
             float val;
@@ -510,7 +542,7 @@ split_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // The [slices, n] partials into out_d / out_i [n]: the argmin in slice
 // order, first minimum winning (clamped at 0 when asked); the key by an
 // int32 min, unpacked to its 14 index bits and read as f32; the least
-// distance with an index of zeros.
+// distance (a NaN kept) with an index of zeros.
 template <Epilogue E>
 __global__ void split_wgmma_combine_kernel(const float* __restrict__ part_d,
                                            const int* __restrict__ part_i,
@@ -531,8 +563,9 @@ __global__ void split_wgmma_combine_kernel(const float* __restrict__ part_d,
             }
         } else if constexpr (E == Epilogue::kPacked14) {
             bi = min(bi, part_i[o]);
-        } else {
-            bd = fminf(bd, part_d[o]);
+        } else {  // a NaN stays
+            const float d = part_d[o];
+            bd = (d != d || bd != bd) ? CUDART_NAN_F : fminf(bd, d);
         }
     }
     if constexpr (E == Epilogue::kPacked14) {
@@ -573,16 +606,78 @@ EncodeTiled encode_tiled() {
     return fn;
 }
 
+// The TMA map of q_in as [row][K slots], a box of 128 rows x (the
+// swizzle's width) slots: the slots past K (and the rows past q_rows) land
+// as zeros. A map is a function of (q_in, q_rows, terms) alone, so the
+// last kMapCache are kept and a repeated call encodes nothing.
+CUresult tensor_map(const void* q_in, int q_rows, int terms,
+                    CUtensorMap* out) {
+    struct Entry {
+        const void* q;
+        int rows, terms;
+        CUtensorMap map;
+    };
+    static std::mutex lock;
+    static Entry cache[kMapCache] = {};
+    static int next = 0;
+    std::lock_guard<std::mutex> hold(lock);
+    for (const Entry& e : cache) {
+        if (e.q == q_in && e.q != nullptr && e.rows == q_rows
+            && e.terms == terms) {
+            *out = e.map;
+            return CUDA_SUCCESS;
+        }
+    }
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return CUDA_ERROR_NOT_SUPPORTED;
+    const int span = terms == 6 ? Shape<6>::kSpan : Shape<3>::kSpan;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(8 * terms),
+                                static_cast<cuuint64_t>(q_rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(16 * terms)};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(span / 2), kTile};
+    const cuuint32_t unit[2] = {1, 1};
+    const CUresult rc = encode(
+        out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(q_in),
+        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+        : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                     : CU_TENSOR_MAP_SWIZZLE_32B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (rc == CUDA_SUCCESS) {
+        cache[next] = Entry{q_in, q_rows, terms, *out};
+        next = (next + 1) % kMapCache;
+    }
+    return rc;
+}
+
 template <int kTerms, Epilogue E, int kMode>
 cudaError_t launch(const CUtensorMap& map, dim3 grid, cudaStream_t stream,
                    const uint32_t* p, int n, int n_pad, int m, int slice_len,
                    int keep, int clamp, float* part_d, int* part_i) {
     constexpr int kSmem = Shape<kTerms>::kSmem;
-    cudaFuncSetAttribute(split_wgmma_kernel<kTerms, E, kMode>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    cudaFuncSetAttribute(split_wgmma_kernel<kTerms, E, kMode>,
-                         cudaFuncAttributePreferredSharedMemoryCarveout,
-                         cudaSharedmemCarveoutMaxShared);
+    // the instance's attributes, set once a device
+    static std::mutex lock;
+    static bool set[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc != cudaSuccess) return rc;
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    {
+        std::lock_guard<std::mutex> hold(lock);
+        if (!set[dev]) {
+            rc = cudaFuncSetAttribute(
+                split_wgmma_kernel<kTerms, E, kMode>,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+            if (rc == cudaSuccess) {
+                rc = cudaFuncSetAttribute(
+                    split_wgmma_kernel<kTerms, E, kMode>,
+                    cudaFuncAttributePreferredSharedMemoryCarveout,
+                    cudaSharedmemCarveoutMaxShared);
+            }
+            if (rc != cudaSuccess) return rc;
+            set[dev] = true;
+        }
+    }
     split_wgmma_kernel<kTerms, E, kMode><<<grid, kThreads, kSmem, stream>>>(
         map, p, n, n_pad, m, slice_len, keep, clamp, part_d, part_i);
     return cudaGetLastError();
@@ -636,25 +731,8 @@ int fpcr_split_wgmma(const void* p_in, const void* q_in, int q_rows,
         || m < 1) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    // q_in as [row][K slots], a box of 128 rows x (the swizzle's width)
-    // slots: the slots past K (and the rows past q_rows) land as zeros
-    const int span = terms == 6 ? Shape<6>::kSpan : Shape<3>::kSpan;
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(8 * terms),
-                                static_cast<cuuint64_t>(q_rows)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(16 * terms)};
-    const cuuint32_t box[2] = {static_cast<cuuint32_t>(span / 2), kTile};
-    const cuuint32_t unit[2] = {1, 1};
     CUtensorMap map;
-    const CUresult enc = encode(
-        &map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(q_in),
-        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-        span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-        : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                     : CU_TENSOR_MAP_SWIZZLE_32B,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    const CUresult enc = tensor_map(q_in, q_rows, terms, &map);
     if (enc != CUDA_SUCCESS) return 1000 + static_cast<int>(enc);
     const dim3 grid((n + kRows - 1) / kRows, (m + slice_len - 1) / slice_len);
     const auto p = static_cast<const uint32_t*>(p_in);

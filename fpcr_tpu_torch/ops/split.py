@@ -148,9 +148,12 @@ def split_nn_plain(
         d = (a @ q_in[keep:keep + 1].to(torch.float32).T)[:, 0]
         return (torch.zeros(n, dtype=torch.int32, device=a.device),
                 d.contiguous())
-    tiles = ((t0, a @ q_in[t0:min(m, t0 + target_tile)].to(torch.float32).T)
-             for t0 in range(0, m, target_tile))
-    return _reduce_tiles(tiles, n, epilogue, clamp, a.device)
+
+    def tile(t0, rows):
+        q = q_in[t0:min(m, t0 + target_tile)].to(torch.float32)
+        return (a if rows is None else a[rows]) @ q.T
+
+    return _reduce_tiles(tile, m, target_tile, n, epilogue, clamp, a.device)
 
 
 def split_reduce_plain(values: torch.Tensor, epilogue: str, *,
@@ -163,26 +166,37 @@ def split_reduce_plain(values: torch.Tensor, epilogue: str, *,
     if epilogue == "keep":
         return (torch.zeros(n, dtype=torch.int32, device=values.device),
                 values[:, keep].contiguous())
-    tiles = ((t0, values[:, t0:t0 + target_tile])
-             for t0 in range(0, m, target_tile))
-    return _reduce_tiles(tiles, n, epilogue, clamp, values.device)
+
+    def tile(t0, rows):
+        return (values if rows is None else values[rows])[
+            :, t0:t0 + target_tile]
+
+    return _reduce_tiles(tile, m, target_tile, n, epilogue, clamp,
+                         values.device)
 
 
-def _reduce_tiles(tiles, n: int, epilogue: str, clamp: bool, dev
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The argmin (first minimum), ``packed14`` key or least value over
-    ``(first column, values [n, width])`` tiles in column order. A NaN
-    counts as +inf: it never wins."""
+def _reduce_tiles(tile, m: int, target_tile: int, n: int, epilogue: str,
+                  clamp: bool, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The argmin (first minimum), ``packed14`` key or least value of the
+    values ``tile(t0, rows)`` [rows, width] of the columns from ``t0`` on
+    (every row where ``rows`` is None), over tiles of ``target_tile`` in
+    column order. A NaN is never the argmin: the rows in which a tile's
+    first minimum was a NaN are searched again at the end, a NaN read as
+    +inf (one host read a call). It keys above every finite value and
+    makes the least value NaN; -0 keys as +0, as E3's ``max(d, 0)`` gives
+    it."""
+    inf = float("inf")
     idx = torch.zeros(n, dtype=torch.int32, device=dev)
-    best = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    best = torch.full((n,), inf, dtype=torch.float32, device=dev)
     key = torch.full((n,), PACKED14_KEY_INIT, dtype=torch.int32, device=dev)
+    nan = torch.zeros(n, dtype=torch.bool, device=dev)
     low = (1 << PACKED14_BITS) - 1
-    for t0, d in tiles:
-        d = torch.nan_to_num(d, nan=float("inf"), posinf=float("inf"),
-                             neginf=float("-inf"))
+    for t0 in range(0, m, target_tile):
+        d = tile(t0, None)
         if epilogue == "argmin":
-            arg = torch.argmin(d, dim=1)  # first minimum in the tile
+            arg = torch.argmin(d, dim=1)  # first minimum (or NaN) in the tile
             dmin = torch.gather(d, 1, arg[:, None])[:, 0]
+            nan |= dmin.isnan()
             better = dmin < best  # strict: the earlier tile wins ties
             best = torch.where(better, dmin, best)
             idx = torch.where(better, (arg + t0).to(torch.int32), idx)
@@ -191,11 +205,20 @@ def _reduce_tiles(tiles, n: int, epilogue: str, clamp: bool, dev
         else:
             cols = torch.arange(t0, t0 + d.shape[1], dtype=torch.int32,
                                 device=dev)
-            # -0 counts as 0: its bits would read as a negative key
-            bits = torch.clamp_min(d, 0.0).contiguous().view(
-                torch.int32).clamp_min(0)
-            k = (bits & ~low) | cols[None, :]
+            # max(d, 0) keeps a NaN and -0: without the sign bit -0 keys
+            # as +0, and a NaN of either sign above +inf
+            bits = torch.clamp_min(d, 0.0).contiguous().view(torch.int32)
+            k = (bits & (0x7FFFFFFF & ~low)) | cols[None, :]
             key = torch.minimum(key, k.amin(dim=1))
+    if epilogue == "argmin":
+        rows = torch.nonzero(nan)[:, 0]
+        if len(rows):
+            def no_nan(t0, _rows):
+                v = tile(t0, rows)
+                return torch.where(v.isnan(), inf, v)
+
+            idx[rows], best[rows] = _reduce_tiles(
+                no_nan, m, target_tile, len(rows), "argmin", False, dev)
     if epilogue == "packed14":
         return key & low, key.view(torch.float32)
     if clamp:
@@ -224,8 +247,10 @@ def split_wgmma_mirror(values: torch.Tensor, epilogue: str, *,
     quad keeps the tile's values. After the slice each thread takes its
     first kept column equal to the best (``packed14``: in the best bucket)
     and the quad the least column; ``min`` keeps a running min a thread
-    and takes the quad's at the end. The slices combine in order (strict
-    ``<``), by an int32 min of keys, or by a min."""
+    and whether the int32 max of a tile's bits lay above +inf's (a NaN),
+    and takes the quad's at the end, NaN where any thread saw one. The
+    slices combine in order (strict ``<``), by an int32 min of keys, or by
+    a min that keeps a NaN (the card's NaN, 0x7FFFFFFF)."""
     n, width = values.shape
     m = width if m is None else m
     dev = values.device
@@ -238,6 +263,8 @@ def split_wgmma_mirror(values: torch.Tensor, epilogue: str, *,
                               for k in range(32)] for t in range(4)],
                             device=dev)  # [thread, slot] -> column
     big = torch.iinfo(torch.int32).max
+    nan = torch.tensor(0x7FFFFFFF, dtype=torch.int32,
+                       device=dev).view(torch.float32)  # the card's NaN
     best_d = torch.full((n,), inf, dtype=torch.float32, device=dev)
     best_i = torch.zeros(n, dtype=torch.int32, device=dev)
     best_key = torch.full((n,), PACKED14_KEY_INIT, dtype=torch.int32,
@@ -249,6 +276,7 @@ def split_wgmma_mirror(values: torch.Tensor, epilogue: str, *,
         bucket = torch.full((n,), INF_BITS, dtype=torch.int32, device=dev)
         kept = torch.zeros((n, 4, 32), dtype=torch.float32, device=dev)
         kept_t0 = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        nan_t = torch.zeros((n, 4), dtype=torch.bool, device=dev)
         for t0 in range(j_begin, j_end, tile):
             cols = t0 + slot_col  # [4, 32]
             v = torch.zeros((n, 4, 32), dtype=torch.float32, device=dev)
@@ -268,6 +296,7 @@ def split_wgmma_mirror(values: torch.Tensor, epilogue: str, *,
                 m_t = torch.where(m_t.isnan(), inf, m_t)
                 if epilogue == "min":
                     run_t = torch.minimum(run_t, m_t)
+                    nan_t |= bits.amax(dim=2) > INF_BITS
                     continue
                 quad = m_t.amin(dim=1)
                 better = quad < run
@@ -275,9 +304,10 @@ def split_wgmma_mirror(values: torch.Tensor, epilogue: str, *,
             kept = torch.where(better[:, None, None], v, kept)
             kept_t0 = torch.where(better, t0, kept_t0)
         found = kept_t0 >= 0
-        if epilogue == "min":
-            part = run_t.amin(dim=1)
-            best_d = torch.minimum(best_d, part)
+        if epilogue == "min":  # the quad's least; a NaN kept, as combined
+            part = torch.where(nan_t.any(dim=1), nan, run_t.amin(dim=1))
+            best_d = torch.where(part.isnan() | best_d.isnan(), nan,
+                                 torch.minimum(best_d, part))
             continue
         if epilogue == "argmin":
             hit = kept <= run[:, None, None]

@@ -21,6 +21,7 @@ sweep's ablations.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -131,7 +132,6 @@ def split_nn_cuda(
     *,
     keep: Optional[int] = None,
     clamp: bool = False,
-    _slice_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The split-distance reduction of source rows [0, n) over targets
     [0, m), computed by the wgmma sweep of ``csrc/split_wgmma.cu``.
@@ -141,26 +141,23 @@ def split_nn_cuda(
     round_up(m, 8)``. ``epilogue`` one of :data:`EPILOGUES`; ``keep`` the
     column of ``'keep'``; ``clamp`` clamps the argmin's distance at 0.
     Returns ``(idx int32[n], d f32[n])``; ``'min'`` and ``'keep'`` give an
-    index of zeros. One launch where the plan has one target slice (and
-    for ``'keep'``), else two (sweep and combine). ``_slice_len`` (a
-    multiple of 128) overrides :func:`plan_split`, to time other plans.
+    index of zeros. One launch where the plan (:func:`plan_split`) has one
+    target slice (and for ``'keep'``), else two (sweep and combine).
     """
     terms = _checked(p_in, q_in, n, m, epilogue, keep)
     code = EPILOGUES.index(epilogue)
     name = f"x{terms} {epilogue}"
     dev = p_in.device
-    idx = (torch.zeros if epilogue in ("keep", "min") else torch.empty)(
+    slices, slice_len = _plan(dev, n, m) if n else (1, TILE)
+    direct = slices == 1 or epilogue == "keep"
+    # the combine writes every index; the sweep writes none for these
+    zero_idx = epilogue == "keep" or (epilogue == "min" and direct)
+    idx = (torch.zeros if zero_idx else torch.empty)(
         n, dtype=torch.int32, device=dev)
     dist = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return idx, dist
     lib = _build.load_library()
-    if _slice_len is None:
-        slices, slice_len = _plan(lib, dev, n, m)
-    else:
-        slice_len = _slice_len
-        slices = math.ceil(m / slice_len)
-    direct = slices == 1 or epilogue == "keep"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         part_d = dist if direct else (None if epilogue == "packed14" else
@@ -190,12 +187,18 @@ def split_nn_cuda(
     return idx, dist
 
 
-def _plan(lib, dev, n: int, m: int) -> Tuple[int, int]:
-    if lib.fpcr_split_wgmma_rows_per_block() != SPLIT_ROWS:
+def _plan(dev: torch.device, n: int, m: int) -> Tuple[int, int]:
+    """The wgmma sweep's ``(slices, slice_len)`` on ``dev``."""
+    return plan_split(n, m, SPLIT_ROWS, _sm_count(dev.index))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: Optional[int]) -> int:
+    if _build.load_library().fpcr_split_wgmma_rows_per_block() != SPLIT_ROWS:
         raise RuntimeError("csrc/split_wgmma.cu's rows a block differ from "
                            "SPLIT_ROWS")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return plan_split(n, m, SPLIT_ROWS, sms)
+    return torch.cuda.get_device_properties(
+        torch.device("cuda", index)).multi_processor_count
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -216,7 +219,7 @@ def _split_wgmma_only(p_in: torch.Tensor, q_in: torch.Tensor, n: int, m: int,
     only: no launch count."""
     terms = _checked(p_in, q_in, n, m, "min", None)
     lib = _build.load_library()
-    _, slice_len = _plan(lib, p_in.device, n, m)
+    _, slice_len = _plan(p_in.device, n, m)
     d = torch.empty(max(n, 1), dtype=torch.float32, device=p_in.device)
     with torch.cuda.device(p_in.device):
         stream = torch.cuda.current_stream(p_in.device).cuda_stream

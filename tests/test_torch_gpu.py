@@ -646,17 +646,21 @@ def test_split_kernel_matches_plain_at_edges(cuda, terms, epilogue, n, m):
 
 
 @pytest.mark.parametrize("slice_len", [128, 384, 8192, 16384])
-def test_split_kernel_equal_under_any_slice_plan(cuda, slice_len):
+def test_split_kernel_equal_under_any_slice_plan(cuda, slice_len,
+                                                 monkeypatch):
     """The picks and distance bits do not depend on how the targets are
     sliced: the first minimum of the kernel's own values, combined in
-    slice order."""
+    slice order (another plan put in place of ``split_cuda._plan``)."""
+    from fpcr_tpu_torch.ops import split_cuda
     from fpcr_tpu_torch.ops.split_cuda import split_nn_cuda
 
     p_in, q_in = _split_case(cuda, 700, 16384, 6, seed=2)
     for epi in ("argmin", "packed14", "min"):
         ri, rd = split_nn_cuda(p_in, q_in, 700, 16384, epi)
-        ki, kd = split_nn_cuda(p_in, q_in, 700, 16384, epi,
-                               _slice_len=slice_len)
+        with monkeypatch.context() as mp:
+            mp.setattr(split_cuda, "_plan", lambda dev, n, m: (
+                -(-m // slice_len), slice_len))
+            ki, kd = split_nn_cuda(p_in, q_in, 700, 16384, epi)
         assert torch.equal(ri, ki), epi
         assert torch.equal(rd.view(torch.int32), kd.view(torch.int32)), epi
 
@@ -684,6 +688,40 @@ def test_split_kernel_against_mma_sync(cuda, terms, n, m):
               f"{float(diff.max()):.3e}")
         assert float(same.double().mean()) >= 0.999
         assert bool((diff <= bound).all())
+
+
+@pytest.mark.parametrize("terms", [6, 3])
+@pytest.mark.parametrize("m", [500, 16384])
+def test_split_kernel_nan_as_plain(cuda, terms, m):
+    """A NaN source point (a row of NaN) and a NaN target point (a column
+    of NaN), in one slice and in several: the argmin and the packed key
+    never pick the NaN column and give the NaN row the plain version's
+    (index 0, +inf) and initial key; ``min`` is NaN in every row, as the
+    plain version's (``tests/test_torch_split_wgmma.py`` holds these
+    against E3/E4)."""
+    from fpcr_tpu_torch.bench.split_matmul import split_pads
+    from fpcr_tpu_torch.ops.split import split_nn_plain, split_operands
+    from fpcr_tpu_torch.ops.split_cuda import split_nn_cuda
+
+    rng = np.random.default_rng(m + terms)
+    p, q = _cloud(rng, 700), _cloud(rng, m)
+    p[3], q[100] = np.nan, np.nan
+    p_in, q_in = split_operands(torch.as_tensor(p, device=cuda),
+                                torch.as_tensor(q, device=cuda), terms,
+                                *split_pads(700, m))
+    for epi in ("argmin", "packed14", "min"):
+        if epi == "packed14" and q_in.shape[0] > 1 << 14:
+            continue
+        ki, kd = split_nn_cuda(p_in, q_in, 700, m, epi)
+        pi, pd = split_nn_plain(p_in, q_in, 700, m, epi)
+        if epi == "min":
+            assert bool(kd.isnan().all()) and bool(pd.isnan().all())
+            continue
+        assert not bool((ki == 100).any()) and not bool((pi == 100).any())
+        assert int(ki[3]) == int(pi[3])
+        assert int(kd.view(torch.int32)[3]) == int(pd.view(torch.int32)[3])
+        assert bool(torch.isfinite(kd[torch.arange(700, device=cuda) != 3]
+                                   ).all())
 
 
 def test_split_kernel_ablations_and_yardstick_count(cuda):

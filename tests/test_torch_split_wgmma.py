@@ -10,7 +10,7 @@ past the slice, then the slice combine. Fed the same values, it must equal
 ``split_reduce_plain`` (``split_nn_plain``'s reduction) bit for bit, for
 every epilogue at terms 6 and 3: indices equal, and distances equal in
 their bits (the least value of ``'min'`` may differ only in the sign of a
-zero). Then once against E4 (``scripts/exp_split_matmul.py``) and E3
+zero or the bits of a NaN). Then once against E4 (``scripts/exp_split_matmul.py``) and E3
 (``scripts/exp_reduction2.py``) in interpret mode at N=512, with the
 tolerances of ``tests/test_torch_studies.py``: both sum the same exact
 split products in another order, so values agree within ``ORDER_ULPS`` of
@@ -109,8 +109,9 @@ def _same(a, b, epilogue):
     assert ad.dtype == bd.dtype == torch.float32
     assert torch.equal(ai, bi), "picks differ"
     same_bits = ad.view(torch.int32) == bd.view(torch.int32)
-    if epilogue == "min":  # fminf leaves the sign of a zero open
-        same_bits |= (ad == 0) & (bd == 0)
+    if epilogue == "min":  # fminf leaves the sign of a zero open, and
+        # torch the bits of a NaN it passes on
+        same_bits |= ((ad == 0) & (bd == 0)) | (ad.isnan() & bd.isnan())
     assert bool(same_bits.all()), "distance bits differ"
 
 
@@ -276,15 +277,55 @@ def test_mirror_matches_e3(variant):
     assert math.isfinite(float(np.abs(td).max()))
 
 
-def test_split_variants_edit_the_source_and_need_a_card(monkeypatch):
-    """Every constant ``bench/split_variants.py`` changes is in the kernel's
-    source as written, and the study raises without a card."""
-    from fpcr_tpu_torch.bench import split_variants as sv
 
-    text = sv.SOURCE.read_text()
-    for name, subs in sv.VARIANTS.items():
-        for old, _ in subs:
-            assert text.count(old) == 1, (name, old)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        sv.main()
+@pytest.mark.parametrize("study", ["e4 argmin", "e3 fullx", "e3 packed",
+                                   "e3 minonly"])
+def test_nan_against_e3_e4(study):
+    """What E4 and E3 do with a NaN, in interpret mode at N=512 with blocks
+    of 128 targets, against the plain version (which the mirror, and so
+    the kernel, equals bit for bit above): a NaN source point gives a row
+    of NaN, a NaN target point a column of NaN.
+
+    ``packed``: a NaN keys above every finite value in both, so the picks
+    are equal and the NaN row keeps the initial key; -0 keys as +0, as
+    JAX's ``max(-0, 0)`` is +0. ``minonly``: a NaN makes the least value
+    NaN in both. The argmin: the NaN row picks nothing (index 0, +inf) in
+    both, and neither picks the NaN column; JAX passes over the whole
+    block of 128 columns that holds it (the block's min is NaN, which
+    never compares less), which depends on its block width, so only rows
+    whose pick lies outside that block are held equal."""
+    e3, e4 = _load("exp_reduction2"), _load("exp_split_matmul")
+    rng = np.random.default_rng(3)
+    p = rng.uniform(-2, 2, (N, 3)).astype(np.float32)
+    q = rng.uniform(-2, 2, (500, 3)).astype(np.float32)
+    p[3], q[100] = np.nan, np.nan
+    p_in, q_in = sp.split_operands(torch.as_tensor(p), torch.as_tensor(q), 6,
+                                   *split_pads(N, 500))
+    name, variant = study.split()
+    if name == "e4":
+        ji, jd = e4.nn_argmin_packed(jnp.asarray(p), jnp.asarray(q), terms=6,
+                                     block_n=64, block_m=128)
+    else:
+        ji, jd = e3.run_variant(jnp.asarray(p), jnp.asarray(q),
+                                variant=variant, bn=64, bm=128)
+    ji, jd = np.asarray(ji), np.asarray(jd)
+    epi = "argmin" if name == "e4" else r2.EPILOGUE[variant]
+    ti, td = sp.split_nn_plain(p_in, q_in, N, 500, epi, clamp=name == "e4")
+    ti, td = ti.numpy(), td.numpy()
+    assert not (ti == 100).any() and not (ji == 100).any()
+    if epi == "min":
+        assert np.isnan(jd).all() and np.isnan(td).all()
+        return
+    if epi == "packed14":
+        np.testing.assert_array_equal(ti, ji)
+        assert ti[3] == 0x3FFF and td.view(np.int32)[3] == 0x7F7FFFFF
+        assert jd.view(np.int32)[3] == 0x7F7FFFFF
+        zero = jnp.maximum(jnp.float32(-0.0), 0.0).view(jnp.int32)
+        assert int(zero) == 0
+        return
+    assert (ti[3], ji[3]) == (0, 0) and np.isinf(td[3]) and np.isinf(jd[3])
+    assert not ((ji < 128) & (np.arange(N) != 3)).any()
+    out = (ti >= 128) & (np.arange(N) != 3)
+    assert out.sum() > N // 2
+    _argmin_agrees(p[out], q, ti[out], ji[out], td[out], jd[out],
+                   _norm_bound(p[out], np.delete(q, 100, 0)))
