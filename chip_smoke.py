@@ -8,8 +8,11 @@ Phases, in order; any failure raises and the script exits nonzero:
 1. device — the card's name, ``nvidia-smi``'s name and power limit, the
    torch and CUDA versions, and the float32 precision settings;
 2. build — kernels K1 and K2 (the tensor-core sweep and the certified
-   finish, ``fpcr_tpu_torch/csrc/nn_tc.cu``), their CUDA-core sweep, the
-   min-only sweep and the E1 forms (``csrc/matching.cu``), K3 and K3p
+   finish, ``fpcr_tpu_torch/csrc/nn_tc.cu``), the min-only sweep and the
+   E1 forms (the register-tiled sweep ``csrc/nn_forms.cu``, 19 instances:
+   SASS opcode counts of each, FFMA, FADD, FMNMX, LOP3, IMNMX, VIMNMX3,
+   ..., and ptxas' spills, logged), their first design and K1/K2's
+   CUDA-core sweep (``csrc/matching.cu``, the yardsticks), K3 and K3p
    (``csrc/morton.cu``), K4 (``csrc/ndt.cu``) and Kernel S (the wgmma
    sweep ``csrc/split_wgmma.cu``, and its first design, the mma.sync
    yardstick ``csrc/split_mma.cu``) with one nvcc per source, started
@@ -39,7 +42,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    kernel per call; Kernel S (terms 6 and 3, every epilogue) and
    the five E1 launches against theirs at 16,384² and ragged shapes (m = 1,
    m = 2^14 for the packed14 key, a cloud of duplicates), with the share of
-   Kernel S's picks equal to the mma.sync yardstick's; batched K1 and K2
+   Kernel S's picks equal to the mma.sync yardstick's; the E1 launches and
+   the min-only sweep also bit for bit their ``matching.cu`` yardstick (NaN
+   rows as integer views) on every case, a NaN target, a NaN source row,
+   both, masked NaN targets (min-only) and values of exactly -0.0 (lanes
+   given), NaN and inf in the same rows as the plain version; batched K1 and K2
    (the element on ``blockIdx.z``) at the serving batch (32 x 4,096²), the
    odometry pairs (11 x 4,096²), the closure batch with ragged masks (16 x
    4,096²) and B = 1: two launches a batched call, no host sync, every
@@ -104,9 +111,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    (``fpcr_tpu_torch.bench.packed_reduction.main``), normals, the plane
    solve, the NDT grid build and the share of each stage of a point
    iteration, Kernel S's five launch types (in legs against the mma.sync
-   yardstick: yardstick, wgmma, wgmma, yardstick; with the sweep's
-   ablations and slice plans) and the E1 forms alone against
-   their plain versions with their profiler kernel times, GICP (16,384
+   yardstick: yardstick, wgmma, wgmma, yardstick, yardstick, wgmma, the
+   least call and the median profiler kernel time a side; with the
+   sweep's ablations and slice plans), the E1 forms and the min-only sweep
+   in the same legs against their ``matching.cu`` yardstick and alone
+   against their plain versions, with the new sweep's ablations (the sums
+   alone, + the staging, + the reduction, + the finish), GICP (16,384
    through K1, 1M through K3), AA-ICP, grid ICP (262k, 1M) and an SGD step
    by the slope method, and ``build_voxel_table``, ``grid_nn``,
    ``voxel_downsample`` and ``evaluate_registration`` by events;
@@ -139,7 +149,11 @@ larger of its bytes over the HBM rate and its float32 operations over the
 float32 peak, from this run's inputs: the band kernels' over the pairs they
 evaluated after culling; Kernel S's the largest of its bytes, its bf16
 tensor-core products over the bf16 peak and its reduction's CUDA-core
-instructions over their rate). The last line is ``{"ok": true, "device":
+instructions over their rate; the E1 forms' and the min-only sweep's their
+form's FP32 instructions and one comparison a pair over the CUDA cores'
+rate, FORM_PAIR_INSTR; the entries of Kernel S, the E1 forms and the
+min-only sweep also carry the legs' call and kernel times of both sides).
+The last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits 1 and prints no result.
 """
 
@@ -179,6 +193,13 @@ SPLIT_REDUCE_INSTR = 1
 # (3 sub, 3 FMA) for accuracy; DESIGN_PAIR_FLOPS is that design's cost,
 # logged beside the bound but not the bound
 ARGMIN_PAIR_FLOPS, PACKED_PAIR_FLOPS, DESIGN_PAIR_FLOPS = 6, 7, 9
+# The E1 forms and the min-only sweep on the CUDA cores, where the form's
+# arithmetic and the reduction issue on the same lanes: the form's own FP32
+# instructions a pair (3 FMA, plus v4's, v5's and v6's add; the difference
+# form's 3 subtractions and 3 FMA) and the one comparison the function
+# needs, over CORE_IPS (as SPLIT_REDUCE_INSTR counts Kernel S's reduction)
+FORM_PAIR_INSTR = {"e1 v1": 4, "e1 v2": 4, "e1 v4": 5, "e1 v5": 5,
+                   "e1 v6": 5, "nn_min_only": 7}
 # K4's float32 operations per hit neighbour (r, S r, q, w, S mu', the 12
 # sums; csrc/ndt.cu) and per query (x')
 K4_HIT_FLOPS, K4_QUERY_FLOPS = 71, 6
@@ -426,10 +447,12 @@ def phase_device(torch):
 
 
 def sass_counts(path):
-    """``{kernel: {"HMMA": n, "HGMMA": n, "FFMA": n}}`` of every Kernel S
+    """``({kernel: {"HMMA": n, "HGMMA": n, "FFMA": n}}`` of every Kernel S
     instance (the wgmma sweep and the mma.sync yardstick) and every
-    instance of the tensor-core K1/K2 sweep in the library's SASS, read
-    with the toolkit's ``cuobjdump``."""
+    instance of the tensor-core K1/K2 sweep, ``{kernel: {opcode: n}}`` of
+    every instance of the E1 / min-only sweeps (``nn_forms_kernel`` and the
+    yardstick's ``nn_partial_kernel``, FORM_OPS)) in the library's SASS,
+    read with the toolkit's ``cuobjdump``."""
     from pathlib import Path
 
     from fpcr_tpu_torch import _build
@@ -437,10 +460,14 @@ def sass_counts(path):
     tool = str(Path(_build.find_nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    counts, name = {}, None
+    counts, forms, name, form = {}, {}, None, None
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
+            form = name if any(k in name for k in (
+                "nn_forms_kernel", "nn_partial_kernel")) else None
+            if form:
+                forms[form] = dict.fromkeys(FORM_OPS, 0)
             if not any(k in name for k in ("split_partial_kernel",
                                             "split_wgmma_kernel",
                                             "nn_tc_sweep_kernel")):
@@ -450,7 +477,21 @@ def sass_counts(path):
         elif name:
             for op in ("HMMA", "HGMMA", "FFMA"):
                 counts[name][op] += f" {op}." in line or f" {op} " in line
-    return counts
+        elif form and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            op = words[0].split(".")[0] if words else ""
+            if op in forms[form]:
+                forms[form][op] += 1
+    return counts, forms
+
+
+# the opcodes counted in the E1 / min-only sweeps' SASS
+FORM_OPS = ("FFMA", "FADD", "FMNMX", "LOP3", "IMNMX", "VIMNMX3", "VIMNMX",
+            "ISETP", "FSETP", "SEL", "FSEL", "LDS")
+# pairs of the new sweep's unrolled sub-tile body: 32 targets x 8 rows
+FORMS_BODY_PAIRS = 256
 
 
 def phase_build():
@@ -464,7 +505,20 @@ def phase_build():
                                    "error", "warning")):
             log("build", "ptxas: " + line.strip())
     _build.load_library()
-    counts = sass_counts(res.path)
+    counts, forms = sass_counts(res.path)
+    for name, c in sorted(forms.items()):
+        per = {k: v for k, v in c.items() if v}
+        est = ("" if "nn_forms_kernel" not in name else
+               f"; per pair of the unrolled sub-tile (prologue and rescan "
+               f"included): " + ", ".join(
+                   f"{k} {v / FORMS_BODY_PAIRS:.2f}" for k, v in per.items()
+                   if k != "LDS"))
+        log("build", f"SASS {name}: {per}{est}")
+    if len([k for k in forms if "nn_forms_kernel" in k]) != 19:
+        raise AssertionError("csrc/nn_forms.cu does not hold its 19 "
+                             "instances")
+    log("build", f"ptxas spills of the E1 / min-only sweep: "
+                 f"{tc_spills(res.log, 'nn_forms_kernel')}")
     for name, c in counts.items():
         log("build", f"SASS {name}: {c['HMMA']} HMMA (bf16 mma.sync), "
                      f"{c['HGMMA']} HGMMA (wgmma), {c['FFMA']} FFMA")
@@ -687,21 +741,40 @@ def _check_k2(name, p, q, mask):
 
 
 def _check_min_only(name, p, q, mask):
-    from fpcr_tpu_torch.bench.packed_reduction import nn_min_only_plain
-    from fpcr_tpu_torch.ops.matching_cuda import nn_min_only_cuda
+    """The min-only sweep (``csrc/nn_forms.cu``) against its plain version
+    (NaN and inf in the same rows, the rest within kernel_checks'
+    MIN_RTOL / MIN_ATOL, CASE_TOL's values) and bit for bit against its
+    yardstick (``csrc/matching.cu``)."""
+    from fpcr_tpu_torch.bench.kernel_checks import check_min_only
 
-    kd = nn_min_only_cuda(p, q, mask)
-    torch.cuda.synchronize()
-    od = nn_min_only_plain(p, q, mask)
-    kd, od = kd.cpu().numpy(), od.cpu().numpy()
-    if not np.array_equal(np.isinf(kd), np.isinf(od)):
-        raise AssertionError(f"min-only {name}: inf rows differ")
-    fin = np.isfinite(od)
-    np.testing.assert_allclose(kd[fin], od[fin], **CASE_TOL,
-                               err_msg=f"min-only {name}")
-    err = float(np.abs(kd[fin] - od[fin]).max()) if fin.any() else 0.0
-    log("kernel", f"min-only {name}: max |sqdist err| {err:.3e} -> ok")
+    err = check_min_only(p, q, mask, label=f"min-only {name}")
+    log("kernel", f"min-only {name}: max |sqdist err| {err:.3e}, bit for "
+                  f"bit the yardstick's -> ok")
     return err
+
+
+def min_only_nan_cases(torch, np, dev):
+    """NaN inputs of the min-only sweep: a NaN target (every row NaN), a
+    NaN source row, a masked NaN target (no NaN anywhere), a NaN source
+    row whose targets are all masked (inf), at 300 x 3,000 (one slice or
+    two) and 2,000 x 16,384 (several)."""
+    rng = np.random.default_rng(81)
+    out = []
+    for n, m in ((300, 3000), (2000, 16384)):
+        p = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+        q = rng.uniform(-2, 2, (m, 3)).astype(np.float32)
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        qn, pn = q.copy(), p.copy()
+        qn[m // 3, 1] = np.nan
+        pn[7] = np.nan
+        mask = np.ones(m, bool)
+        mask[m // 3] = False
+        out += [(f"{n}x{m} NaN target", t(p), t(qn), None),
+                (f"{n}x{m} NaN source row", t(pn), t(q), None),
+                (f"{n}x{m} masked NaN target", t(p), t(qn), t(mask)),
+                (f"{n}x{m} NaN row, all masked", t(pn), t(q),
+                 t(np.zeros(m, bool)))]
+    return out
 
 
 def phase_kernel_vs_plain(torch, np, ft, dev):
@@ -719,6 +792,14 @@ def phase_kernel_vs_plain(torch, np, ft, dev):
     for name, p, q in path_k1_cases(torch, ft, dev):
         worst["nn_argmin"] = max(worst["nn_argmin"], _check_k1(
             name, p, q, None, chunk=PLAIN_CHUNK))
+    from fpcr_tpu_torch.bench import packed_reduction
+
+    for name, p, q, mask in ([("E2 study 16384^2",
+                               *packed_reduction.study_inputs(16384, dev),
+                               None)]
+                             + min_only_nan_cases(torch, np, dev)):
+        worst["nn_min_only"] = max(worst["nn_min_only"],
+                                   _check_min_only(name, p, q, mask))
     before = nn_argmin_packed_cuda.launches
     q = torch.zeros((70000, 3), device=dev)
     try:
@@ -1236,9 +1317,34 @@ def study_cases(torch, np, ft, dev):
     split = ([("synthetic-16384^2", s.source, s.target),
               ("saddle-16384^2", *reduction2.study_inputs(dev))]
              + ragged(2.0))
-    e1 = ([("study-16384^2", *match_kernels.study_inputs(16384, dev))]
-          + ragged(300.0))
+    p, q = match_kernels.study_inputs(16384, dev)
+    qn, pn = q.clone(), p.clone()
+    qn[5, 1] = float("nan")
+    pn[3] = float("nan")
+    e1 = ([("study-16384^2", p, q)] + ragged(300.0)
+          + [("NaN target 16384^2", p, qn),
+             ("NaN source row 2000x16384", pn[:2000].contiguous(), q),
+             ("NaN target and row 700x999", pn[:700].contiguous(),
+              qn[:999].contiguous())])
     return split, e1
+
+
+def e1_zero_case(torch, dev):
+    """Lanes that make a value exactly -0.0: source rows at the origin
+    (a = -2p = -0.0) against targets with positive coordinates, the staged
+    lane +0.0 on target 3 and -0.0 on target 5 (|p|^2 lanes -0.0), the rest
+    positive. The argmin's first minimum is target 3 with +0.0 (v1, v6: -0.0
+    ties it); v2's key of -0.0 (bits 0x80000000) is the least, so target 5;
+    v4's and v5's clamp keys -0.0 as +0.0 (``jnp.maximum``), so target 3
+    wins the shared bucket as the lower index."""
+    n, m = 64, 300
+    p = torch.zeros((n, 3), device=dev)
+    q = torch.rand((m, 3), generator=torch.Generator().manual_seed(5)).to(
+        dev) + 0.5
+    q_w = torch.linspace(1.0, 2.0, m, device=dev)
+    q_w[3], q_w[5] = 0.0, -0.0
+    p_sq = torch.full((n,), -0.0, device=dev)
+    return p, q, q_w, p_sq
 
 
 def phase_studies_vs_plain(torch, np, ft, dev):
@@ -1249,10 +1355,13 @@ def phase_studies_vs_plain(torch, np, ft, dev):
     sweep is also held against its mma.sync yardstick on every case: the
     share of equal picks and the largest difference are logged, and
     differing picks or values must lie within the same bound."""
-    from fpcr_tpu_torch.bench.kernel_checks import (check_form, check_split,
+    from fpcr_tpu_torch.bench.kernel_checks import (check_form,
+                                                    check_form_yardstick,
+                                                    check_split, e1_args,
                                                     split_bound)
     from fpcr_tpu_torch.bench.split_matmul import split_pads
-    from fpcr_tpu_torch.ops.matching import E1_VARIANTS
+    from fpcr_tpu_torch.ops.matching import E1_VARIANTS, nn_form_plain
+    from fpcr_tpu_torch.ops.matching_cuda import nn_form_cuda
     from fpcr_tpu_torch.ops.split import split_operands
     from fpcr_tpu_torch.ops.split_cuda import (EPILOGUES, _split_nn_mma_sync,
                                                split_nn_cuda)
@@ -1296,15 +1405,37 @@ def phase_studies_vs_plain(torch, np, ft, dev):
             st = check_form(p, q, v, label=label)
             worst[f"e1 {v}"] = max(worst.get(f"e1 {v}", 0.0),
                                    st["max_abs_err"])
+            ys = check_form_yardstick(p, q, v, label=label)
             log("kernel", f"{label}: picks equal on {st['equal']}/"
                           f"{st['rows']} rows, max |err| "
-                          f"{st['max_abs_err']:.3e} -> ok")
+                          f"{st['max_abs_err']:.3e}; bit for bit the "
+                          f"yardstick's ({ys['nan_rows']} NaN, "
+                          f"{ys['inf_rows']} inf rows) -> ok")
+    p, q, q_w, p_sq = e1_zero_case(torch, dev)
+    for v, (form, reduce) in E1_VARIANTS.items():
+        label = f"E1 {v} -0.0 lanes"
+        lanes = (q_w, p_sq)
+        check_form_yardstick(p, q, v, lanes=lanes, label=label)
+        qw, psq, kw = e1_args(p, q, v, lanes=lanes)
+        ki, kd = nn_form_cuda(p, q, qw, psq, **kw)
+        oi, od = nn_form_plain(p, q, qw, psq, **kw)
+        want = 5 if form == "biased" and reduce == "packed" else 3
+        bits_ok = reduce == "packed" or torch.equal(kd.view(torch.int32),
+                                                    od.view(torch.int32))
+        if not (bool((ki == want).all()) and torch.equal(ki, oi)
+                and bits_ok):
+            raise AssertionError(f"{label}: picked {ki[:4].tolist()}, plain "
+                                 f"{oi[:4].tolist()}, expected {want}")
+        log("kernel", f"{label}: every row picks target {want}, value bits "
+                      f"{hex(int(kd.view(torch.int32)[0]) & 0xFFFFFFFF)}, "
+                      f"as the plain version and the yardstick -> ok")
     return worst
 
 
 def _wrappers():
     from fpcr_tpu_torch.ops.matching_cuda import (_nn_argmin_cudacore,
                                                   _nn_argmin_packed_cudacore,
+                                                  _nn_min_only_yardstick,
                                                   nn_argmin_cuda,
                                                   nn_argmin_packed_cuda,
                                                   nn_min_only_cuda)
@@ -1319,7 +1450,8 @@ def _wrappers():
             "morton_nn_packed": morton_nn_packed_cuda,
             "ndt_fused_moments": ndt_fused_moments_cuda,
             "nn_argmin_cudacore": _nn_argmin_cudacore,
-            "nn_argmin_packed_cudacore": _nn_argmin_packed_cudacore}
+            "nn_argmin_packed_cudacore": _nn_argmin_packed_cudacore,
+            "nn_min_only_yardstick": _nn_min_only_yardstick}
 
 
 # the CUDA-core sweep of K1 and K2: the yardstick, on no path of the package
@@ -1327,6 +1459,11 @@ CUDACORE = ("nn_argmin_cudacore", "nn_argmin_packed_cudacore")
 # Kernel S's mma.sync yardstick, on no path either: its launch types
 SPLIT_MMA = tuple(f"split mma x{t} {e}" for t in (6, 3)
                   for e in ("argmin", "packed14", "min", "keep"))
+# the E1 forms' and the min-only sweep's first design (csrc/matching.cu),
+# on no path: the yardstick of csrc/nn_forms.cu
+FORM_YARDSTICKS = tuple(f"e1 yardstick {v}"
+                        for v in ("v1", "v2", "v4", "v5", "v6")) + (
+    "nn_min_only_yardstick",)
 # while the ICP paths rerun on the CUDA-core sweep: the wrapper that counts
 # a kernel's launches in its place
 KERNEL_ALIAS = {}
@@ -1337,12 +1474,14 @@ RECORDS = {}
 
 def _keyed_wrappers():
     """Wrappers that count per launch type, in a dict: Kernel S's
-    ``"x<terms> <epilogue>"`` and the E1 forms' ``"v<k>"``."""
-    from fpcr_tpu_torch.ops.matching_cuda import nn_form_cuda
+    ``"x<terms> <epilogue>"`` and the E1 forms' ``"v<k>"`` (the new sweep
+    and its yardstick)."""
+    from fpcr_tpu_torch.ops.matching_cuda import (_nn_form_yardstick,
+                                                  nn_form_cuda)
     from fpcr_tpu_torch.ops.split_cuda import _split_nn_mma_sync, split_nn_cuda
 
     return {"split": split_nn_cuda, "split mma": _split_nn_mma_sync,
-            "e1": nn_form_cuda}
+            "e1": nn_form_cuda, "e1 yardstick": _nn_form_yardstick}
 
 
 def counters():
@@ -2249,7 +2388,8 @@ def phase_main_path(torch, ft, dev):
               CUDACORE),
              k1_paths[4],
              ("packed-reduction study, K1 + K2 + min-only", study,
-              "nn_min_only", ("morton_nn", "morton_nn_packed")),
+              "nn_min_only",
+              ("morton_nn", "morton_nn_packed") + FORM_YARDSTICKS),
              ("split-distance study E4, Kernel S", e4,
               ("split x6 argmin", "split x3 argmin"),
               ("nn_argmin_packed",) + SPLIT_MMA),
@@ -2258,7 +2398,7 @@ def phase_main_path(torch, ft, dev):
                "split x6 keep"), ("split x3 argmin",) + SPLIT_MMA),
              ("distance-form study E1", e1,
               ("e1 v1", "e1 v2", "e1 v4", "e1 v5", "e1 v6"),
-              ("nn_argmin_packed",))] + slice3_paths(torch, np, ft, dev) \
+              ("nn_argmin_packed",) + FORM_YARDSTICKS)] + slice3_paths(torch, np, ft, dev) \
         + slice4_paths(torch, np, ft, dev)
     totals = dict.fromkeys(counters(), 0)
     for path, fn, kernels, absent in paths:
@@ -2454,6 +2594,7 @@ def phase_reference(torch, ft, dev):
 
 
 OUR_KERNELS = ("nn_tc_sweep_kernel", "nn_tc_finish_kernel",
+               "nn_forms_kernel", "nn_forms_finish_kernel",
                "nn_partial_kernel", "nn_combine_kernel",
                "nn_packed_epilogue_kernel", "nn_min_combine_kernel",
                "morton_band_kernel", "ndt_moments_kernel",
@@ -2610,7 +2751,6 @@ def phase_times(torch, ft, dev, smi, study):
                      f"of {per_iter:.4f} ms/iter {card}")
     return {"k1_ms": k1["min"], "plain_ms": plain_exact["min"],
             "k2_ms": k2["min"], "k2_plain_ms": k2_plain["min"],
-            "min_only_ms": mo["min"], "min_only_plain_ms": mo_plain["min"],
             "n": p.shape[0], "m": q.shape[0],
             "plain_expand_ms": plain_expand["min"], "ms_per_iter": per_iter,
             "svd_ms": stage_ms["svd + det fix"], "legs": legs,
@@ -3402,7 +3542,6 @@ def kernels_line(launches, errs, times, times2, times3, times5):
                      f"(packed key); the difference form's "
                      f"{DESIGN_PAIR_FLOPS} flops a pair would take "
                      f"{DESIGN_PAIR_FLOPS * pairs / FP32_FLOPS * 1e3:.6f} ms")
-    matching = "fpcr_tpu_torch/csrc/matching.cu"
     nn_tc = "fpcr_tpu_torch/csrc/nn_tc.cu"
     morton = "fpcr_tpu_torch/csrc/morton.cu"
     k1, k2 = (dict(kernel_entry(key, nn_tc,
@@ -3416,11 +3555,8 @@ def kernels_line(launches, errs, times, times2, times3, times5):
                   ("nn_argmin_packed", 273, "k2_ms", "k2_plain_ms",
                    PACKED_PAIR_FLOPS)))
     return {"kernels": [k1, k2,
-        kernel_entry("nn_min_only", matching,
-                     "scripts/exp_packed_reduction.py:113",
-                     launches["nn_min_only"], errs["nn_min_only"],
-                     times["min_only_ms"], times["min_only_plain_ms"],
-                     12 * n + 12 * m + 4 * n, ARGMIN_PAIR_FLOPS * n * m),
+        form_entry("nn_min_only", "scripts/exp_packed_reduction.py:113",
+                   launches, errs, times5["nn_min_only"]),
         kernel_entry("morton_nn", morton,
                      "fpcr_tpu/ops/morton_pallas.py:328",
                      launches["morton_nn"], errs["morton_nn"],
@@ -3452,26 +3588,48 @@ def study_entries(launches, errs, times5):
         split_ops_ms(t["n"], t["m"], t["k"])),
         **leg_fields(t["legs"]))
         for key, t in times5.items() if key.startswith("split")
-    ] + [kernel_entry(
-        key, "fpcr_tpu_torch/csrc/matching.cu", E1_REPLACES[key],
-        launches[key], errs[key], t["ms"], t["plain_ms"],
-        12 * t["n"] + 12 * t["m"] + 4 * t["m"] + 4 * t["n"] + 8 * t["n"],
-        (ARGMIN_PAIR_FLOPS if key in ("e1 v1", "e1 v6") else
-         PACKED_PAIR_FLOPS) * t["n"] * t["m"])
-        for key, t in times5.items() if key.startswith("e1")]
+    ] + [form_entry(key, E1_REPLACES[key], launches, errs, t)
+         for key, t in times5.items() if key.startswith("e1")]
+
+
+def form_entry(key, replaces, launches, errs, t):
+    """The ``kernels`` entry of an E1 launch type or of the min-only sweep
+    (``csrc/nn_forms.cu``): bytes p, q, the staged lane and |p|^2 read (E1),
+    idx and d written; operations FORM_PAIR_INSTR a pair over CORE_IPS;
+    the legs' call and kernel times of the new sweep and the yardstick."""
+    n, m = t["n"], t["m"]
+    nbytes = (12 * n + 12 * m + 4 * n if key == "nn_min_only" else
+              12 * n + 12 * m + 4 * m + 4 * n + 8 * n)
+    ops_ms = FORM_PAIR_INSTR[key] * n * m / CORE_IPS * 1e3
+    flops = (ARGMIN_PAIR_FLOPS if key in ("e1 v1", "e1 v6", "nn_min_only")
+             else PACKED_PAIR_FLOPS)
+    log("bound", f"{key} N={n} M={m}: {FORM_PAIR_INSTR[key]} instructions "
+                 f"a pair over CORE_IPS, {ops_ms:.6f} ms; the earlier "
+                 f"{flops} flops a pair over FP32_FLOPS "
+                 f"{flops * n * m / FP32_FLOPS * 1e3:.6f} ms")
+    return dict(kernel_entry(key, "fpcr_tpu_torch/csrc/nn_forms.cu",
+                             replaces, launches[key], errs[key], t["ms"],
+                             t["plain_ms"], nbytes, 0, ops_ms),
+                **leg_fields(t["legs"]))
 
 
 def leg_fields(legs):
-    """The legs' least call and kernel times of the wgmma sweep and of the
-    mma.sync yardstick; a kernel time is a profiler kernel time or null
-    (every leg of that side fell back to CUDA events)."""
+    """The legs' least call time and median kernel time (three legs a
+    side: a profiler session now and then reads a kernel at half its time,
+    PERF.md section 7) of the new kernel and of its yardstick; a kernel
+    time is a profiler kernel time or null (every leg of that side saw no
+    profiler event)."""
     def least(side, i):
         got = [leg[i] for leg in legs[side] if leg[i] is not None]
         return min(got) if got else None
 
-    return dict(call_ms=least("wgmma", 0), kernel_ms=least("wgmma", 1),
-                yardstick_call_ms=least("mma.sync", 0),
-                yardstick_kernel_ms=least("mma.sync", 1))
+    def median(side, i):
+        got = sorted(leg[i] for leg in legs[side] if leg[i] is not None)
+        return got[(len(got) - 1) // 2] if got else None
+
+    return dict(call_ms=least("new", 0), kernel_ms=median("new", 1),
+                yardstick_call_ms=least("yardstick", 0),
+                yardstick_kernel_ms=median("yardstick", 1))
 
 
 # the TPU kernel each new launch type replaces
@@ -3505,17 +3663,27 @@ def phase_times_studies(torch, dev, smi, studies):
     """Kernel S's five launch types at E3's N = M = 16,384 (the E3
     decomposition: keep column, min, argmin and packed key on the same
     operands, and x3's argmin), each in legs against the mma.sync yardstick
-    (yardstick, wgmma, wgmma, yardstick: the call's CUDA-event time and
-    the profiler's kernel time a leg) and alone against its plain version;
+    (yardstick, wgmma, wgmma, yardstick, yardstick, wgmma: the call's
+    CUDA-event time and the profiler's kernel time a leg) and alone
+    against its plain version;
     the wgmma sweep's ablations (without the reduction; without the
-    reduction and the staging) and slice plans; then the E1 forms at E1's,
-    with the profiler's kernel time and K1's on the same inputs; then the
-    three studies' results."""
-    from fpcr_tpu_torch.bench import match_kernels, reduction2
-    from fpcr_tpu_torch.ops.matching import (E1_VARIANTS, e1_idx_bits,
-                                             form_lanes, nn_form_plain)
+    reduction and the staging) and slice plans; then the five E1 launch
+    types at E1's inputs and the min-only sweep at E2's, each in the same
+    legs against its ``csrc/matching.cu`` yardstick and alone against its
+    plain version, with the new sweep's ablations (the sums alone; the
+    sums and the staging; the sweep without the finish; each the median of
+    three sessions) and K1's kernel time on E1's inputs; then the three
+    studies' results."""
+    from fpcr_tpu_torch.bench import (match_kernels, packed_reduction,
+                                      reduction2)
+    from fpcr_tpu_torch.bench.kernel_checks import e1_args
+    from fpcr_tpu_torch.ops.matching import E1_VARIANTS, nn_form_plain
     from fpcr_tpu_torch.ops.matching_cuda import (_nn_argmin_cudacore,
-                                                  nn_argmin_cuda, nn_form_cuda)
+                                                  _nn_form_yardstick,
+                                                  _nn_forms_only,
+                                                  _nn_min_only_yardstick,
+                                                  nn_argmin_cuda, nn_form_cuda,
+                                                  nn_min_only_cuda)
     from fpcr_tpu_torch.ops.split import split_nn_plain, split_operands
     from fpcr_tpu_torch.ops.split_cuda import (WGMMA_MODES, _split_nn_mma_sync,
                                                _split_wgmma_only,
@@ -3536,12 +3704,14 @@ def phase_times_studies(torch, dev, smi, studies):
                      f"(profiler); plain min {plain_ms:.4f} ms {card}")
 
     def legs(key, new, old):
-        """(call, kernel) ms of each leg, yardstick first and last. The
-        kernel time is the profiler's alone: a leg whose sessions saw no
-        device event is retaken twice, then kept as None."""
-        rec = {"mma.sync": [], "wgmma": [], "retaken": 0}
-        for leg in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
-            fn = new if leg == "wgmma" else old
+        """(call, kernel) ms of each leg: yardstick, new, new, yardstick,
+        yardstick, new. The kernel time is the profiler's alone: a leg
+        whose sessions saw no device event is retaken twice, then kept as
+        None."""
+        rec = {"yardstick": [], "new": [], "retaken": 0}
+        for leg in ("yardstick", "new", "new", "yardstick", "yardstick",
+                    "new"):
+            fn = new if leg == "new" else old
             call = cuda_time_ms(fn, repeats=20, warmup=3)["min"]
             kern = kernel_ms(fn, fallback=False)
             for _ in range(2):
@@ -3570,7 +3740,7 @@ def phase_times_studies(torch, dev, smi, studies):
             rec = legs(key, new, lambda: _split_nn_mma_sync(
                 p_in, q_in, n, m, epi, keep=keep))
             out[key]["legs"] = rec
-            log("times", f"{key}, the least of two legs each (call, "
+            log("times", f"{key}, three legs a side (least call, median "
                          f"kernel) ms: {json.dumps(leg_fields(rec))} "
                          f"({rec['retaken']} legs retaken) {card}")
         ablation = {"sweep": leg_fields(out[
@@ -3623,16 +3793,42 @@ def phase_times_studies(torch, dev, smi, studies):
     log("times", f"K1 at E1's inputs (±300) N=M=16384: kernel {k1:.4f} ms "
                  f"on the CUDA cores, {k1_tc:.4f} ms on the tensor cores "
                  f"(profiler) {card}")
+
+    def form_legs(key, new, old, plain, sweep, pq):
+        n_, m_ = pq[0].shape[0], pq[1].shape[0]
+        measure(key, new, plain, n_, m_)
+        rec = legs(key, new, old)
+        out[key]["legs"] = rec
+        ablation = {mode: sorted(kernel_ms(lambda: sweep(mode))
+                                 for _ in range(3))[1]  # the median
+                    for mode in ("sums only", "no reduce", "sweep")}
+        ablation["call"] = leg_fields(rec)["kernel_ms"]
+        out[key]["ablation"] = ablation
+        log("times", f"{key}, three legs a side (least call, median kernel) "
+                     f"ms: {json.dumps(leg_fields(rec))} ({rec['retaken']} "
+                     f"legs retaken); new sweep's kernel ms: the sums alone "
+                     f"{ablation['sums only']:.4f}, + staging "
+                     f"{ablation['no reduce']:.4f}, + reduction "
+                     f"{ablation['sweep']:.4f}, + finish "
+                     f"{ablation['call']} (profiler) {card}")
+
     for v, (form, reduce) in E1_VARIANTS.items():
-        q_w, p_sq, _ = form_lanes(p, q, form)
-        psq = None if form == "biased" else p_sq
-        kw = dict(form=form, reduce=reduce, idx_bits=e1_idx_bits(
-            16384) if reduce == "packed" else None)
-        measure(f"e1 {v}", lambda: nn_form_cuda(p, q, q_w, psq, **kw),
-                lambda: nn_form_plain(p, q, q_w, psq, **kw), 16384, 16384)
+        q_w, psq, kw = e1_args(p, q, v)
+        form_legs(f"e1 {v}", lambda: nn_form_cuda(p, q, q_w, psq, **kw),
+                  lambda: _nn_form_yardstick(p, q, q_w, psq, **kw),
+                  lambda: nn_form_plain(p, q, q_w, psq, **kw),
+                  lambda mode: _nn_forms_only(p, q, q_w, psq, mode=mode,
+                                              **kw), (p, q))
         log("times", f"e1 {v} ({form}, {reduce}): kernel "
                      f"{out[f'e1 {v}']['kernel_ms'] / k1:.3f}x the CUDA-core "
                      f"K1's {card}")
+    src, tgt = packed_reduction.study_inputs(16384, dev)
+    form_legs("nn_min_only", lambda: nn_min_only_cuda(src, tgt),
+              lambda: _nn_min_only_yardstick(src, tgt),
+              lambda: packed_reduction.nn_min_only_plain(src, tgt),
+              lambda mode: _nn_forms_only(src, tgt, None, None, form="diff",
+                                          reduce="min", mode=mode),
+              (src, tgt))
     for name, res in studies.items():
         log("times", f"study {name}: {json.dumps(res)} {card}")
     return out

@@ -163,6 +163,14 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_nn_form_partial.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                          i32, i32, i32, ptr, ptr, ptr]
     lib.fpcr_nn_form_partial.restype = i32
+    lib.fpcr_nn_forms_rows_per_block.argtypes = []
+    lib.fpcr_nn_forms_rows_per_block.restype = i32
+    lib.fpcr_nn_forms_max_slice.argtypes = []
+    lib.fpcr_nn_forms_max_slice.restype = i32
+    lib.fpcr_nn_forms_partial.argtypes = [ptr] * 5 + [i32] * 7 + [ptr] * 3
+    lib.fpcr_nn_forms_partial.restype = i32
+    lib.fpcr_nn_forms_finish.argtypes = [ptr] * 4 + [i32] * 6 + [ptr] * 5
+    lib.fpcr_nn_forms_finish.restype = i32
     lib.fpcr_split_rows_per_block.argtypes = []
     lib.fpcr_split_rows_per_block.restype = i32
     lib.fpcr_split_partial.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,

@@ -24,7 +24,10 @@
 //
 // The min-only sweep replaces scripts/exp_packed_reduction.py::_kern_min:
 // the least squared distance per row and nothing else, the floor of the two
-// reductions above.
+// reductions above. A NaN among a row's values makes its minimum NaN
+// (min.NaN.f32, as _kern_min's jnp.minimum); a masked target is staged as
+// (0, 0, 0, +inf) and contributes +inf whatever its coordinates, and a slice
+// with no valid target writes +inf, as the plain version masks its values.
 //
 // The E1 forms replace the distance forms of the brute-matcher study
 // scripts/exp_match_kernels.py (make_v1/v3, make_v2, make_v4, make_v5,
@@ -37,8 +40,16 @@
 // Their argmin (v1, v6) keeps the raw value, which the wrapper turns into
 // the script's output; their packed key buckets the raw value (v2, which a
 // negative rounding of it wins, as on the TPU) or the value clamped at 0
-// (v4, v5), and K2's epilogue unpacks it and recomputes the exact distance.
+// (v4, v5: max.NaN.f32, which keeps a NaN, whose key then lies above every
+// finite key, and keys -0.0 as +0.0, as the script's jnp.maximum), and K2's
+// epilogue unpacks it and recomputes the exact distance. A NaN is never
+// picked: the argmin's strict '<' passes over it, and the card's NaN
+// (0x7FFFFFFF) keys above the initial key.
 // K1, K2 and the min-only sweep keep the difference form (kDiff).
+//
+// The E1 forms and the min-only sweep run csrc/nn_forms.cu since its
+// redesign; their instances here stay as its yardstick (bit for bit the
+// same outputs), on no path of the package.
 //
 // What bounds them on this card: FP32 arithmetic over the N*M pairs. The
 // targets are tiny (16 bytes each once staged) and live in shared memory
@@ -81,6 +92,19 @@ constexpr int kPPT = 2;        // source points held per thread
 constexpr int kTile = 1024;    // targets staged in shared memory per step
 constexpr int kKeyInit = 0x7F7FFFFF;  // bits of the largest finite float
 
+// the least and the greatest of two floats, NaN if either is NaN
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+
 enum class Reduce { kArgmin, kPacked, kMin };
 enum class Form { kDiff = 0, kBiased = 1, kExpand = 2, kExpand5 = 3 };
 
@@ -122,21 +146,30 @@ nn_partial_kernel(const float* __restrict__ p, const float* __restrict__ q,
         best_i[k] = R == Reduce::kPacked ? kKeyInit : 0;
     }
 
+    int any_valid = 0;  // the slice holds a valid target (kMin)
     for (int t0 = j_begin; t0 < j_end; t0 += kTile) {
         const int count = min(kTile, j_end - t0);
         __syncthreads();  // every thread is done with the previous tile
+        int mine = 0;
         for (int s = threadIdx.x; s < count; s += kThreads) {
             const int j = t0 + s;
             float w;
+            bool valid = true;
             if constexpr (kDiffForm) {
-                const bool valid = (q_mask == nullptr) || (q_mask[j] != 0);
+                valid = (q_mask == nullptr) || (q_mask[j] != 0);
                 w = valid ? 0.0f : CUDART_INF_F;
             } else {
                 w = q_w[j];
             }
-            tile[s] = make_float4(q[3 * j], q[3 * j + 1], q[3 * j + 2], w);
+            mine |= valid;
+            if (R == Reduce::kMin && !valid) {  // +inf whatever its point
+                tile[s] = make_float4(0.0f, 0.0f, 0.0f, w);
+            } else {
+                tile[s] = make_float4(q[3 * j], q[3 * j + 1], q[3 * j + 2],
+                                      w);
+            }
         }
-        __syncthreads();
+        any_valid |= __syncthreads_or(mine);
 #pragma unroll 4
         for (int s = 0; s < count; ++s) {
             const float4 t = tile[s];
@@ -160,10 +193,10 @@ nn_partial_kernel(const float* __restrict__ p, const float* __restrict__ q,
                         best_i[k] = j;
                     }
                 } else if constexpr (R == Reduce::kPacked) {
-                    if constexpr (kClampKey) d = fmaxf(d, 0.0f);
+                    if constexpr (kClampKey) d = fmax_nan(d, 0.0f);
                     best_i[k] = min(best_i[k], (__float_as_int(d) & keep) | j);
                 } else {
-                    best_d[k] = fminf(best_d[k], d);
+                    best_d[k] = fmin_nan(best_d[k], d);
                 }
             }
         }
@@ -174,7 +207,11 @@ nn_partial_kernel(const float* __restrict__ p, const float* __restrict__ q,
         const int i = row0 + k * kThreads;
         if (i < n) {
             const size_t o = static_cast<size_t>(slice) * n + i;
-            if constexpr (R != Reduce::kPacked) part_d[o] = best_d[k];
+            if constexpr (R == Reduce::kMin) {
+                part_d[o] = any_valid ? best_d[k] : CUDART_INF_F;
+            } else if constexpr (R == Reduce::kArgmin) {
+                part_d[o] = best_d[k];
+            }
             if constexpr (R != Reduce::kMin) part_i[o] = best_i[k];
         }
     }
@@ -235,7 +272,7 @@ __global__ void nn_min_combine_kernel(const float* __restrict__ part_d, int n,
     if (i >= n) return;
     float bd = CUDART_INF_F;
     for (int s = 0; s < slices; ++s) {
-        bd = fminf(bd, part_d[static_cast<size_t>(s) * n + i]);
+        bd = fmin_nan(bd, part_d[static_cast<size_t>(s) * n + i]);
     }
     out_d[i] = bd;
 }
@@ -318,7 +355,8 @@ int fpcr_nn_min_partial(const float* p, const float* q, const uint8_t* q_mask,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The least of the [slices, n] partial distances into out_d [n].
+// The least of the [slices, n] partial distances into out_d [n] (NaN where
+// a partial is NaN).
 int fpcr_nn_min_combine(const float* part_d, int n, int slices, float* out_d,
                         void* stream) {
     nn_min_combine_kernel<<<combine_blocks(n), kCombineThreads, 0,

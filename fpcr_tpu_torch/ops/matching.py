@@ -37,8 +37,12 @@ K2.
 formula, through :func:`nn_form`: the biased form ``|q|² + C − 2p·q``
 (C = max|p|²), the expansion ``(|q|² − 2p·q) + |p|²`` and the 5-lane sum
 p̂·q̂, with an argmin or a packed reduction. A CPU tensor takes
-:func:`nn_form_plain`, a CUDA tensor launches ``csrc/matching.cu``'s form
-instances.
+:func:`nn_form_plain`, a CUDA tensor launches ``csrc/nn_forms.cu``'s sweep,
+whose reduction :func:`nn_forms_mirror` mirrors on the CPU. A NaN value is
+never picked: the argmin passes over the NaN pair only, a NaN's key lies
+above every finite key, and a row whose every value is NaN gets index 0 and
+``inf``; the clamp of v4 and v5 keys ``-0.0`` as ``+0.0``, as the script's
+``jnp.maximum`` gives it.
 """
 
 from __future__ import annotations
@@ -56,6 +60,8 @@ PACKED_KEY_INIT = 0x7F7FFFFF  # bits of the largest finite float: a packed
 # key that stays at it found no valid target (a masked target's key, from
 # +inf's bits 0x7F800000, never gets below it)
 PACKED_IDX_MAX_BITS = 16  # the JAX package's gate: m_pad <= 2^16
+CARD_NAN_BITS = 0x7FFFFFFF  # the NaN the card's arithmetic gives
+FORMS_SUB = 32  # targets a sub-tile of csrc/nn_forms.cu's reduction
 
 
 def pairwise_sqdist(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -438,10 +444,12 @@ def nn_form_plain(
     target_tile: int = 2048,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of ``nn_form_cuda``, on any device:
-    ``'argmin'`` gives ``(idx, the raw value of the first minimum)``,
-    ``'packed'`` the keys of the raw value (``'biased'``) or of the value
-    clamped at 0, their ``amin``, and ``(idx, the exact distance to the
-    pick)``."""
+    ``'argmin'`` gives ``(idx, the raw value of the first minimum)``, a NaN
+    value passed over (``(0, inf)`` where every value is NaN); ``'packed'``
+    the keys of the raw value (``'biased'``) or of the value clamped at
+    +0.0 (:func:`form_key_bits`), their ``amin``, and ``(idx, the exact
+    distance to the pick)``, ``(0, inf)`` where no key lies below
+    ``PACKED_KEY_INIT``."""
     if (form, reduce) not in FORM_LAUNCHES:
         raise ValueError(f"(form, reduce) must be one of "
                          f"{sorted(FORM_LAUNCHES)}, got {(form, reduce)}")
@@ -464,6 +472,8 @@ def nn_form_plain(
             tl = slice(t0, t0 + target_tile)
             d = form_values(p[sl], q[tl], q_w[tl], p_sq[sl], form)
             if reduce == "argmin":
+                # a NaN is never the first minimum: only its pair is passed
+                d = torch.where(d.isnan(), float("inf"), d)
                 arg = torch.argmin(d, dim=1)  # first minimum in the tile
                 dmin = torch.gather(d, 1, arg[:, None])[:, 0]
                 better = dmin < best_d[sl]  # strict: the earlier tile wins
@@ -471,15 +481,146 @@ def nn_form_plain(
                 best_i[sl] = torch.where(better, (arg + t0).to(torch.int32),
                                          best_i[sl])
             else:
-                if form != "biased":
-                    d = torch.clamp_min(d, 0.0)
-                k = packed_keys(d, cols[tl][None, :], idx_bits)
+                k = form_key_bits(d, form != "biased") & -(1 << idx_bits)
+                k = k | cols[tl][None, :]
                 key[sl] = torch.minimum(key[sl], k.amin(dim=1))
     if reduce == "argmin":
         return best_i, best_d
-    idx = torch.clamp(key & ((1 << idx_bits) - 1), max=m - 1)
+    return _unpack_form_keys(p, q, key, idx_bits)
+
+
+def form_key_bits(d: torch.Tensor, clamp: bool) -> torch.Tensor:
+    """The int32 bits by which an E1 form's packed key orders the values
+    ``d``: a NaN as the card's NaN (``CARD_NAN_BITS``, above every finite
+    value's bits), and with ``clamp`` (v4, v5) the bits clamped at 0, so a
+    negative value and ``-0.0`` key as ``+0.0`` (the script's ``jnp.maximum(d,
+    0.0)``; ``torch.clamp_min`` would keep ``-0.0``, whose key wins every
+    row)."""
+    bits = torch.where(d.isnan(), CARD_NAN_BITS, d.contiguous().view(
+        torch.int32))
+    return bits.clamp_min(0) if clamp else bits
+
+
+def _unpack_form_keys(p, q, key, idx_bits):
+    """K2's epilogue of the E1 keys: ``(idx, the exact distance to the
+    pick)``, idx 0 and ``inf`` where the key stayed at
+    ``PACKED_KEY_INIT``."""
+    none = key == PACKED_KEY_INIT
+    idx = torch.clamp(key & ((1 << idx_bits) - 1), max=q.shape[0] - 1)
+    idx = torch.where(none, 0, idx).to(torch.int32)
     diff = p - q[idx.long()]
-    return idx, torch.sum(diff * diff, dim=1)
+    d = torch.sum(diff * diff, dim=1)
+    return idx, torch.where(none, float("inf"), d)
+
+
+def nn_forms_mirror(values: torch.Tensor, reduce: str, *, slice_len: int,
+                    idx_bits: Optional[int] = None, clamp: bool = False,
+                    sub: int = FORMS_SUB) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """The reduction of ``csrc/nn_forms.cu`` in its own order, in plain
+    torch, over the kernel's values f32[n, m] (the CPU tests' mirror of the
+    kernel, which runs on the card only).
+
+    The sweep, per target slice of ``slice_len`` columns padded with
+    ``+inf`` to whole sub-tiles of ``sub``: ``'argmin'`` takes fminf over
+    each sub-tile (a NaN is passed over; an all-NaN sub-tile gives NaN) and
+    records the first sub-tile whose minimum lies strictly below the row's
+    best; the slice's partial is (its least value, that sub-tile), or
+    (``inf``, none). ``'packed'`` takes the int32 min of each sub-tile's
+    bits (a NaN as ``CARD_NAN_BITS``), clamped at 0 with ``clamp``, and its
+    bucket (``& ~(2^idx_bits - 1)``), records the first strictly lower
+    bucket, and writes bucket | sub-tile. The finish takes the least
+    partial (argmin: the lower value, then the lower sub-tile; packed: the
+    int32 min) and rescans that sub-tile for the first column equal to the
+    least value (returning ``(column, its value)``, ``(0, inf)`` where no
+    sub-tile was recorded) or in the least bucket (returning ``(idx,
+    key)``, key = ``min(bucket | column, PACKED_KEY_INIT)``, idx 0 where the
+    key is ``PACKED_KEY_INIT``, else the key's low bits). ``'min'`` returns
+    ``(zeros, the least value, NaN where a slice's values hold one)``.
+    """
+    if slice_len % sub:
+        raise ValueError(f"a slice of {slice_len} is not whole sub-tiles of "
+                         f"{sub}")
+    n, m = values.shape
+    dev = values.device
+    inf = float("inf")
+    keep = -(1 << idx_bits) if reduce == "packed" else 0
+    idx = torch.zeros(n, dtype=torch.int32, device=dev)
+    subs_all = -(-m // sub)
+    padded = torch.cat([values, torch.full((n, subs_all * sub - m), inf,
+                                           device=dev)], dim=1)
+    out_d = torch.full((n,), inf, dtype=torch.float32, device=dev)
+    best_sub = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_part = torch.full((n,), CARD_NAN_BITS, dtype=torch.int32,
+                           device=dev)  # packed: bucket | sub-tile
+    for j0 in range(0, m, slice_len):
+        count = min(slice_len, m - j0)
+        subs = -(-count // sub)
+        v = values[:, j0:j0 + count]
+        pad = torch.full((n, subs * sub - count), inf, dtype=torch.float32,
+                         device=dev)
+        v = torch.cat([v, pad], dim=1).reshape(n, subs, sub)
+        if reduce == "min":
+            out_d = torch.minimum(out_d, v.amin(dim=(1, 2)))  # keeps a NaN
+            continue
+        best_f = torch.full((n,), inf, dtype=torch.float32, device=dev)
+        best_b = torch.full((n,), CARD_NAN_BITS, dtype=torch.int32,
+                            device=dev)
+        rec = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        for s in range(subs):
+            vs = v[:, s]
+            if reduce == "argmin":
+                nan = vs.isnan()
+                run = torch.where(nan, inf, vs).amin(dim=1)
+                run = torch.where(nan.all(dim=1), float("nan"), run)
+                better = run < best_f
+                best_f = torch.where(better, run, best_f)
+            else:
+                run = form_key_bits(vs, False).amin(dim=1)
+                b = (run.clamp_min(0) if clamp else run) & keep
+                better = b < best_b
+                best_b = torch.where(better, b, best_b)
+            rec = torch.where(better, s, rec)
+        got = rec >= 0
+        glob = torch.where(got, j0 // sub + rec, -1)
+        if reduce == "argmin":  # the lower value, then the lower sub-tile
+            better = (best_f < out_d) | ((best_f == out_d) & got
+                                         & ((best_sub < 0) | (glob <
+                                                              best_sub)))
+            out_d = torch.where(better, best_f, out_d)
+            best_sub = torch.where(better, glob, best_sub)
+        else:
+            part = torch.where(got, best_b | glob.to(torch.int32),
+                               CARD_NAN_BITS)
+            best_part = torch.minimum(best_part, part)
+    if reduce == "min":
+        return idx, out_d
+    if reduce == "packed":
+        found = best_part != CARD_NAN_BITS
+        best_sub = torch.where(found, (best_part & ~keep).to(torch.int64),
+                               -1)
+    found = best_sub >= 0
+    rows = torch.arange(n, device=dev)
+    sv = padded[rows[:, None], best_sub.clamp_min(0)[:, None] * sub
+                + torch.arange(sub, device=dev)]  # [n, sub]
+    if reduce == "argmin":
+        hit = (sv == out_d[:, None]) & found[:, None]
+    else:
+        hit = ((form_key_bits(sv, clamp) & keep)
+               == (best_part & keep)[:, None]) & found[:, None]
+    t = torch.argmax(hit.to(torch.int8), dim=1)  # the first hit
+    col = (best_sub.clamp_min(0) * sub + t).to(torch.int32)
+    got = hit.any(dim=1)
+    if reduce == "argmin":
+        return (torch.where(got, col, 0),
+                torch.where(got, sv[rows, t], inf))
+    key = torch.where(got, torch.minimum(
+        (best_part & keep) | col,
+        torch.tensor(PACKED_KEY_INIT, device=dev)), PACKED_KEY_INIT)
+    low = (1 << idx_bits) - 1
+    idx = torch.where(key == PACKED_KEY_INIT, 0,
+                      torch.clamp(key & low, max=m - 1)).to(torch.int32)
+    return idx, key
 
 
 def nn_form(
@@ -492,7 +633,7 @@ def nn_form(
     reduce: str,
     idx_bits: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """An E1 form's brute-force NN: ``csrc/matching.cu`` on a CUDA tensor,
+    """An E1 form's brute-force NN: ``csrc/nn_forms.cu`` on a CUDA tensor,
     :func:`nn_form_plain` on a CPU tensor, a raise otherwise."""
     pin_f32_precision()
     if p.device.type == "cuda":

@@ -1,5 +1,6 @@
-"""Kernels K1, K2 and the min-only sweep on Hopper: brute-force nearest
-neighbour, CUDA C++ (``csrc/nn_tc.cu``, ``csrc/matching.cu``).
+"""Kernels K1, K2, the min-only sweep and the E1 forms on Hopper:
+brute-force nearest neighbour, CUDA C++ (``csrc/nn_tc.cu``,
+``csrc/nn_forms.cu``, ``csrc/matching.cu``).
 
 * :func:`nn_argmin_cuda` launches K1, exact NN, which replaces the TPU
   kernel ``fpcr_tpu/ops/matching_pallas.py::nn_argmin_pallas``: the
@@ -19,19 +20,27 @@ neighbour, CUDA C++ (``csrc/nn_tc.cu``, ``csrc/matching.cu``).
   yardstick of the studies and of the card's checks, on no path;
   :func:`rescued_rows` reads how many rows the finish rescanned exactly;
 * :func:`nn_min_only_cuda` launches the min-only sweep of
-  ``scripts/exp_packed_reduction.py::make_minonly``; plain version and
-  dispatcher in ``bench/packed_reduction.py``;
+  ``scripts/exp_packed_reduction.py::make_minonly``
+  (``csrc/nn_forms.cu``); plain version and dispatcher in
+  ``bench/packed_reduction.py``;
 * :func:`nn_form_cuda` launches the E1 distance forms of
   ``scripts/exp_match_kernels.py`` (``make_v1``–``make_v6``) with an
-  argmin or a packed reduction; plain version ``ops.matching.nn_form_plain``,
-  dispatcher ``ops.matching.nn_form``, the script's variants
-  ``ops.matching.nn_e1``.
+  argmin or a packed reduction (``csrc/nn_forms.cu``); plain version
+  ``ops.matching.nn_form_plain``, dispatcher ``ops.matching.nn_form``, the
+  script's variants ``ops.matching.nn_e1``, the new reduction's CPU mirror
+  ``ops.matching.nn_forms_mirror``;
+* ``_nn_min_only_yardstick`` and ``_nn_form_yardstick`` launch the same two
+  functions by their first design (``matching.cu``'s sweep): the
+  yardsticks the new sweep is held to bit for bit and timed against, on no
+  path, with launch counters of their own; ``_nn_forms_only`` launches the
+  new sweep's ablations.
 
 Each wrapper checks the inputs, plans the launch, allocates the outputs and
 scratch with ``torch.empty``, launches on PyTorch's current stream, raises
 when a launch is refused, and counts its launches in its own ``.launches``.
-They take CUDA tensors only. :func:`nn_form_cuda` counts per launch type,
-keyed by the E1 variant (``"v1"``, ``"v2"``, ``"v4"``, ``"v5"``, ``"v6"``).
+They take CUDA tensors only. :func:`nn_form_cuda` and its yardstick count
+per launch type, keyed by the E1 variant (``"v1"``, ``"v2"``, ``"v4"``,
+``"v5"``, ``"v6"``).
 """
 
 from __future__ import annotations
@@ -396,6 +405,68 @@ def check_idx_bits(m: int, idx_bits: int) -> None:
         raise ValueError(f"{m} targets do not fit in {idx_bits} index bits")
 
 
+# the new sweep's launch modes (csrc/nn_forms.cu): the sweep, and the
+# ablations without the reduction and without the staging as well
+FORMS_MODES = {"sweep": 0, "no reduce": 1, "sums only": 2}
+
+
+def _plan_forms(p: torch.Tensor, m: int):
+    """``(lib, slices, slice_len)`` of a ``csrc/nn_forms.cu`` launch over
+    ``p`` [N, 3], each slice held whole in a block's shared memory (32
+    slices of 512 at 16,384²)."""
+    lib = _build.load_library()
+    sms = torch.cuda.get_device_properties(p.device).multi_processor_count
+    slices, slice_len = plan_slices(p.shape[0], m,
+                                    lib.fpcr_nn_forms_rows_per_block(), sms)
+    most = lib.fpcr_nn_forms_max_slice()
+    if slice_len > most:
+        slices = math.ceil(m / most)
+        slice_len = round_up(math.ceil(m / slices), SLICE_QUANTUM)
+    return lib, slices, slice_len
+
+
+def _forms_sweep(lib, p, q, q_w, p_sq, mask_ptr, form: int, reduce: int,
+                 mode: str, slice_len: int, idx_bits: int, part_d, part_i,
+                 stream) -> None:
+    rc = lib.fpcr_nn_forms_partial(
+        p.data_ptr(), q.data_ptr(), None if q_w is None else q_w.data_ptr(),
+        None if p_sq is None else p_sq.data_ptr(), mask_ptr, form, reduce,
+        FORMS_MODES[mode], p.shape[0], q.shape[0], slice_len, idx_bits,
+        part_d, part_i, stream)
+    _raise_on(lib, rc, f"nn_forms_partial ({form}, {reduce}, {mode})")
+
+
+def _min_only(fn, p, q, q_mask, yardstick: bool) -> torch.Tensor:
+    """The min-only sweep (``csrc/nn_forms.cu``, or with ``yardstick``
+    ``csrc/matching.cu``'s) and, over several slices, the combine, each
+    launch counted on ``fn``."""
+    mask_ptr = _check_inputs(fn.__name__, p, q, q_mask)
+    n, m = p.shape[0], q.shape[0]
+    dist = torch.empty(n, dtype=torch.float32, device=p.device)
+    if n == 0:
+        return dist
+    lib, slices, slice_len = _plan(p, m) if yardstick else _plan_forms(p, m)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        part = dist if slices == 1 else torch.empty(
+            (slices, n), dtype=torch.float32, device=p.device)
+        if yardstick:
+            rc = lib.fpcr_nn_min_partial(p.data_ptr(), q.data_ptr(),
+                                         mask_ptr, n, m, slice_len,
+                                         part.data_ptr(), stream)
+            _raise_on(lib, rc, "nn_min_partial")
+        else:
+            _forms_sweep(lib, p, q, None, None, mask_ptr, 0, 2, "sweep",
+                         slice_len, 0, part.data_ptr(), None, stream)
+        fn.launches += 1
+        if slices > 1:
+            rc = lib.fpcr_nn_min_combine(part.data_ptr(), n, slices,
+                                         dist.data_ptr(), stream)
+            _raise_on(lib, rc, "nn_min_combine")
+            fn.launches += 1
+    return dist
+
+
 def nn_min_only_cuda(
     p: torch.Tensor,
     q: torch.Tensor,
@@ -403,33 +474,32 @@ def nn_min_only_cuda(
 ) -> torch.Tensor:
     """The least squared distance f32[N] of every source point to a valid
     target (``inf`` where none is valid), by the min-only sweep on the
-    card. Inputs as :func:`nn_argmin_cuda`."""
-    mask_ptr = _check_inputs("nn_min_only_cuda", p, q, q_mask)
-    n, m = p.shape[0], q.shape[0]
-    dist = torch.empty(n, dtype=torch.float32, device=p.device)
-    if n == 0:
-        return dist
-    lib, slices, slice_len = _plan(p, m)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        part = dist if slices == 1 else torch.empty(
-            (slices, n), dtype=torch.float32, device=p.device)
-        rc = lib.fpcr_nn_min_partial(p.data_ptr(), q.data_ptr(), mask_ptr, n,
-                                     m, slice_len, part.data_ptr(), stream)
-        _raise_on(lib, rc, "nn_min_partial")
-        nn_min_only_cuda.launches += 1
-        if slices > 1:
-            rc = lib.fpcr_nn_min_combine(part.data_ptr(), n, slices,
-                                         dist.data_ptr(), stream)
-            _raise_on(lib, rc, "nn_min_combine")
-            nn_min_only_cuda.launches += 1
-    return dist
+    card (``csrc/nn_forms.cu``). Inputs as :func:`nn_argmin_cuda`. A NaN
+    among a row's values (a NaN coordinate in the row or a valid target)
+    makes its minimum NaN; a masked target counts as ``inf``, whatever its
+    coordinates."""
+    return _min_only(nn_min_only_cuda, p, q, q_mask, yardstick=False)
 
 
 nn_min_only_cuda.launches = 0  # kernel launches made by this wrapper
 
 
-FORMS = ("biased", "expand", "expand5")  # csrc/matching.cu's Form 1, 2, 3
+def _nn_min_only_yardstick(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    q_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`nn_min_only_cuda`'s function by its first design,
+    ``csrc/matching.cu``'s ``nn_partial_kernel<kDiff, kMin>``: the
+    yardstick the new sweep is held to bit for bit and timed against. No
+    path of the package calls it."""
+    return _min_only(_nn_min_only_yardstick, p, q, q_mask, yardstick=True)
+
+
+_nn_min_only_yardstick.launches = 0  # kernel launches made by this wrapper
+
+
+FORMS = ("biased", "expand", "expand5")  # the kernels' Form 1, 2, 3
 REDUCES = ("argmin", "packed")
 # the (form, reduction) of each of E1's launch types, by its variant
 FORM_LAUNCHES = {("biased", "argmin"): "v1", ("biased", "packed"): "v2",
@@ -447,30 +517,13 @@ def _check_lane(name: str, x, rows: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def nn_form_cuda(
-    p: torch.Tensor,
-    q: torch.Tensor,
-    q_w: torch.Tensor,
-    p_sq: Optional[torch.Tensor],
-    *,
-    form: str,
-    reduce: str,
-    idx_bits: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The brute-force NN under one of E1's distance forms, computed on the
-    card by ``csrc/matching.cu``'s ``nn_partial_kernel<Form, Reduce>``.
-
-    ``p`` f32[N,3] and ``q`` f32[M,3] (M >= 1) as :func:`nn_argmin_cuda`
-    takes them, without a mask; ``q_w`` f32[M] the staged lane and ``p_sq``
-    f32[N] |p|² (None for ``'biased'``), from
-    ``ops.matching.form_lanes``. ``(form, reduce)`` is one of
-    :data:`FORM_LAUNCHES`. ``'argmin'`` returns ``(idx, the raw form value
-    of the first minimum)``; ``'packed'`` the int32 min over ``(bits(v) &
-    ~(2^idx_bits - 1)) | j`` of the raw value (``'biased'``) or of the value
-    clamped at 0, then ``(idx, the exact distance to the pick)`` by K2's
-    epilogue.
-    """
-    _check_inputs("nn_form_cuda", p, q, None)
+def _form(fn, p, q, q_w, p_sq, form: str, reduce: str,
+          idx_bits: Optional[int], yardstick: bool):
+    """One E1 launch type by ``csrc/nn_forms.cu``'s sweep and finish (two
+    launches), or, with ``yardstick``, by ``csrc/matching.cu``'s sweep and
+    its combine (argmin over several slices) or K2's epilogue (packed),
+    each launch counted on ``fn`` under the launch type."""
+    _check_inputs(fn.__name__, p, q, None)
     if (form, reduce) not in FORM_LAUNCHES:
         raise ValueError(f"(form, reduce) must be one of "
                          f"{sorted(FORM_LAUNCHES)}, got {(form, reduce)}")
@@ -485,18 +538,36 @@ def nn_form_cuda(
     dist = torch.empty(n, dtype=torch.float32, device=p.device)
     if n == 0:
         return idx, dist
-    lib, slices, slice_len = _plan(p, m)
-    psq_ptr = None if form == "biased" else p_sq.data_ptr()
+    lib, slices, slice_len = _plan(p, m) if yardstick else _plan_forms(p, m)
+    psq = None if form == "biased" else p_sq
+    f, r = FORMS.index(form) + 1, REDUCES.index(reduce)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
+        if not yardstick:
+            part_i = torch.empty((slices, n), dtype=torch.int32,
+                                 device=p.device)
+            part_d = torch.empty((slices, n) if reduce == "argmin" else 0,
+                                 dtype=torch.float32, device=p.device)
+            _forms_sweep(lib, p, q, q_w, psq, None, f, r, "sweep", slice_len,
+                         idx_bits or 0, part_d.data_ptr(), part_i.data_ptr(),
+                         stream)
+            fn.launches[name] += 1
+            rc = lib.fpcr_nn_forms_finish(
+                p.data_ptr(), q.data_ptr(), q_w.data_ptr(),
+                None if psq is None else psq.data_ptr(), f, r, n, m, slices,
+                idx_bits or 0, part_d.data_ptr(), part_i.data_ptr(),
+                dist.data_ptr(), idx.data_ptr(), stream)
+            _raise_on(lib, rc, f"nn_forms_finish {name}")
+            fn.launches[name] += 1
+            return idx, dist
 
         def sweep(part_d, part_i):
             rc = lib.fpcr_nn_form_partial(
-                p.data_ptr(), q.data_ptr(), q_w.data_ptr(), psq_ptr,
-                FORMS.index(form) + 1, REDUCES.index(reduce), n, m,
+                p.data_ptr(), q.data_ptr(), q_w.data_ptr(),
+                None if psq is None else psq.data_ptr(), f, r, n, m,
                 slice_len, idx_bits or 0, part_d, part_i, stream)
             _raise_on(lib, rc, f"nn_form_partial {name}")
-            nn_form_cuda.launches[name] += 1
+            fn.launches[name] += 1
 
         if reduce == "argmin" and slices == 1:
             sweep(dist.data_ptr(), idx.data_ptr())
@@ -516,9 +587,84 @@ def nn_form_cuda(
                                      slices, dist.data_ptr(), idx.data_ptr(),
                                      stream)
             _raise_on(lib, rc, f"nn_combine {name}")
-        nn_form_cuda.launches[name] += 1
+        fn.launches[name] += 1
     return idx, dist
+
+
+def nn_form_cuda(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    q_w: torch.Tensor,
+    p_sq: Optional[torch.Tensor],
+    *,
+    form: str,
+    reduce: str,
+    idx_bits: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The brute-force NN under one of E1's distance forms, computed on the
+    card by ``csrc/nn_forms.cu``'s register-tiled sweep.
+
+    ``p`` f32[N,3] and ``q`` f32[M,3] (M >= 1) as :func:`nn_argmin_cuda`
+    takes them, without a mask; ``q_w`` f32[M] the staged lane and ``p_sq``
+    f32[N] |p|² (None for ``'biased'``), from
+    ``ops.matching.form_lanes``. ``(form, reduce)`` is one of
+    :data:`FORM_LAUNCHES`. ``'argmin'`` returns ``(idx, the raw form value
+    of the first minimum)``, a NaN never picked (idx 0 and ``inf`` where
+    every value is NaN); ``'packed'`` the int32 min over ``(bits(v) &
+    ~(2^idx_bits - 1)) | j`` of the raw value (``'biased'``) or of the value
+    clamped at +0.0 (a NaN keys above every finite value), then ``(idx,
+    the exact distance to the pick)`` as K2's epilogue computes it (idx 0
+    and ``inf`` where no key lies below the initial one). Two launches: the
+    sweep and the finish.
+    """
+    return _form(nn_form_cuda, p, q, q_w, p_sq, form, reduce, idx_bits,
+                 yardstick=False)
 
 
 # kernel launches made by this wrapper, per E1 launch type
 nn_form_cuda.launches = dict.fromkeys(FORM_LAUNCHES.values(), 0)
+
+
+def _nn_form_yardstick(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    q_w: torch.Tensor,
+    p_sq: Optional[torch.Tensor],
+    *,
+    form: str,
+    reduce: str,
+    idx_bits: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`nn_form_cuda`'s function by its first design,
+    ``csrc/matching.cu``'s ``nn_partial_kernel<Form, Reduce>``: the
+    yardstick the new sweep is held to bit for bit and timed against. No
+    path of the package calls it."""
+    return _form(_nn_form_yardstick, p, q, q_w, p_sq, form, reduce,
+                 idx_bits, yardstick=True)
+
+
+_nn_form_yardstick.launches = dict.fromkeys(FORM_LAUNCHES.values(), 0)
+
+
+def _nn_forms_only(p: torch.Tensor, q: torch.Tensor,
+                   q_w: Optional[torch.Tensor], p_sq: Optional[torch.Tensor],
+                   *, form: str, reduce: str, mode: str,
+                   idx_bits: Optional[int] = None) -> None:
+    """Launch ``csrc/nn_forms.cu``'s sweep alone, planned as the wrappers
+    plan it, in ``mode`` (:data:`FORMS_MODES`): the ablations that split its
+    kernel time. ``(form, reduce)`` is one of :data:`FORM_LAUNCHES` or
+    ``('diff', 'min')``, the min-only sweep (no mask). The outputs, the
+    sweep's partials or the ablations' words, are dropped."""
+    _check_inputs("_nn_forms_only", p, q, None)
+    n, m = p.shape[0], q.shape[0]
+    lib, slices, slice_len = _plan_forms(p, m)
+    if (form, reduce) == ("diff", "min"):
+        f, r = 0, 2
+    else:
+        f, r = FORMS.index(form) + 1, REDUCES.index(reduce)
+    part = torch.empty((2, slices, n), dtype=torch.float32, device=p.device)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        _forms_sweep(lib, p, q, q_w, None if form == "biased" else p_sq,
+                     None, f, r, mode, slice_len, idx_bits or 0,
+                     part[0].data_ptr(), part[1].data_ptr(), stream)

@@ -1,6 +1,8 @@
 """Kernels K1, K2, the min-only sweep, K3, K3p, K4, Kernel S (the bf16
 split distance on the tensor cores) and the E1 distance forms on the card
-against their plain PyTorch versions; GICP, the loop variants and the voxel
+against their plain PyTorch versions, and the E1 forms and the min-only
+sweep (``csrc/nn_forms.cu``) bit for bit against their first design
+(``csrc/matching.cu``); GICP, the loop variants and the voxel
 grid on the card against the port on the CPU, and no host sync in their
 iterations; the sharded loops on a one-rank NCCL group against the
 unsharded ones, bit for bit; the CLI on the card.
@@ -481,19 +483,18 @@ def test_packed_kernel_ties_gate_counter_and_checks(cuda):
                                       (300, 3000, 0.4), (300, 3000, 0.0),
                                       (16384, 16384, 1.0)])
 def test_min_only_kernel_matches_plain(cuda, n, m, keep):
-    from fpcr_tpu_torch.bench.packed_reduction import (nn_min_only,
-                                                       nn_min_only_plain)
+    """The min-only sweep against its plain version (NaN and inf in the
+    same rows, the rest within RTOL / ATOL) and bit for bit against its
+    yardstick (``bench/kernel_checks.py::check_min_only``)."""
+    from fpcr_tpu_torch.bench.kernel_checks import check_min_only
+    from fpcr_tpu_torch.bench.packed_reduction import nn_min_only
     from fpcr_tpu_torch.ops.matching_cuda import nn_min_only_cuda
 
     rng = np.random.default_rng(n + m)
     p = torch.as_tensor(_cloud(rng, n), device=cuda)
     q = torch.as_tensor(_cloud(rng, m), device=cuda)
     mask = torch.as_tensor(rng.uniform(size=m) < keep, device=cuda)
-    kd = nn_min_only_cuda(p, q, mask).cpu().numpy()
-    od = nn_min_only_plain(p, q, mask).cpu().numpy()
-    np.testing.assert_array_equal(np.isinf(kd), np.isinf(od))
-    fin = np.isfinite(od)
-    np.testing.assert_allclose(kd[fin], od[fin], rtol=RTOL, atol=ATOL)
+    check_min_only(p, q, mask)
     before = nn_min_only_cuda.launches
     idx, d = nn_min_only(p, q)
     assert nn_min_only_cuda.launches > before and not bool(idx.any())
@@ -839,6 +840,158 @@ def test_form_kernel_ties_counter_and_study_outputs(cuda):
         assert float(same.double().mean()) > 0.99, v
         np.testing.assert_allclose(gd.cpu()[same].numpy(),
                                    cd[same].numpy(), rtol=1e-3, atol=0.5)
+
+
+# the new sweep's slice (at most 2,048 targets) and sub-tile (32) edges
+FORM_SHAPES = [(1, 1), (5, 3), (131, 259), (1025, 31), (1025, 33),
+               (300, 2047), (300, 2049), (4099, 20001), (16384, 16384)]
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2", "v4", "v5", "v6"])
+@pytest.mark.parametrize("n,m", FORM_SHAPES)
+def test_form_kernel_equals_yardstick(cuda, variant, n, m):
+    """``csrc/nn_forms.cu`` against its yardstick, ``csrc/matching.cu``'s
+    instance, on the same lanes: picks and values bit for bit."""
+    from fpcr_tpu_torch.bench.kernel_checks import check_form_yardstick
+
+    rng = np.random.default_rng(n * 5 + m)
+    p = torch.as_tensor(_cloud(rng, n, 300.0), device=cuda)
+    q = torch.as_tensor(_cloud(rng, m, 300.0), device=cuda)
+    check_form_yardstick(p, q, variant)
+
+
+def _nan_case(cuda, case, n=700, m=3000):
+    rng = np.random.default_rng(len(case))
+    p, q = _cloud(rng, n, 300.0), _cloud(rng, m, 300.0)
+    if case in ("target", "both"):
+        q[m // 3, 2] = np.nan
+    if case in ("row", "both"):
+        p[9] = np.nan
+    if case == "negative NaN":
+        q[m // 3, 0] = -np.nan
+    return torch.as_tensor(p, device=cuda), torch.as_tensor(q, device=cuda)
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2", "v4", "v5", "v6"])
+@pytest.mark.parametrize("case", ["target", "row", "both", "negative NaN"])
+def test_form_kernel_nan_as_plain(cuda, variant, case):
+    """A NaN target, a NaN source row (every value of every row NaN under
+    v1, v2, v4, whose lanes carry C = max|p|^2), both, and a NaN of
+    negative sign: the new sweep equals its yardstick bit for bit and its
+    plain version (NaN and inf rows alike, the NaN target never picked)."""
+    from fpcr_tpu_torch.bench.kernel_checks import (check_form,
+                                                    check_form_yardstick)
+    from fpcr_tpu_torch.ops.matching import nn_e1
+
+    p, q = _nan_case(cuda, case)
+    check_form_yardstick(p, q, variant)
+    check_form(p, q, variant)
+    if case in ("target", "negative NaN"):
+        assert not bool((nn_e1(p, q, variant)[0] == 1000).any())
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2", "v4", "v5", "v6"])
+def test_form_kernel_negative_zero(cuda, variant):
+    """Values of exactly -0.0 and +0.0 (lanes given, rows at the origin):
+    the argmin's first zero (target 3, +0.0), v2's key of -0.0 (target 5),
+    v4's and v5's clamp of -0.0 to +0.0 (target 3): the new sweep, its
+    yardstick (the PTX max.NaN.f32 clamp) and the plain version alike."""
+    from fpcr_tpu_torch.bench.kernel_checks import (check_form_yardstick,
+                                                    e1_args)
+    from fpcr_tpu_torch.ops.matching import E1_VARIANTS, nn_form_plain
+    from fpcr_tpu_torch.ops.matching_cuda import nn_form_cuda
+
+    n, m = 64, 300
+    p = torch.zeros((n, 3), device=cuda)
+    q = torch.as_tensor(np.random.default_rng(5).uniform(0.5, 1.5, (m, 3))
+                        .astype(np.float32), device=cuda)
+    q_w = torch.linspace(1.0, 2.0, m, device=cuda)
+    q_w[3], q_w[5] = 0.0, -0.0
+    lanes = (q_w, torch.full((n,), -0.0, device=cuda))
+    check_form_yardstick(p, q, variant, lanes=lanes)
+    qw, psq, kw = e1_args(p, q, variant, lanes=lanes)
+    ki, kd = nn_form_cuda(p, q, qw, psq, **kw)
+    oi, od = nn_form_plain(p, q, qw, psq, **kw)
+    want = 5 if variant == "v2" else 3
+    assert ki.tolist() == [want] * n and torch.equal(ki, oi)
+    if E1_VARIANTS[variant][1] == "argmin":
+        assert kd.view(torch.int32).tolist() == [0] * n
+
+
+@pytest.mark.parametrize("case", ["target", "row", "masked target",
+                                  "row, all masked"])
+@pytest.mark.parametrize("m", [3000, 16384])
+def test_min_only_kernel_nan_as_plain(cuda, case, m):
+    """A NaN target makes every row NaN, a NaN source row its own; a masked
+    NaN target counts as inf, and a NaN row with every target masked is
+    inf: as the plain version, and bit for bit the yardstick."""
+    from fpcr_tpu_torch.bench.kernel_checks import check_min_only
+
+    p, q = _nan_case(cuda, "row" if case.startswith("row") else "target",
+                     m=m)
+    mask = None
+    if case == "masked target":
+        mask = torch.ones(m, dtype=torch.bool, device=cuda)
+        mask[m // 3] = False
+    elif case == "row, all masked":
+        mask = torch.zeros(m, dtype=torch.bool, device=cuda)
+    check_min_only(p, q, mask)
+
+
+@pytest.mark.parametrize("slice_len", [32, 256, 2048])
+def test_forms_equal_under_any_slice_plan(cuda, slice_len, monkeypatch):
+    """The outputs do not depend on the slice plan (another plan put in
+    place of ``matching_cuda._plan_forms``)."""
+    from fpcr_tpu_torch.bench.kernel_checks import e1_args
+    from fpcr_tpu_torch.ops import matching_cuda
+    from fpcr_tpu_torch.ops.matching_cuda import (nn_form_cuda,
+                                                  nn_min_only_cuda)
+
+    p, q = _nan_case(cuda, "target", n=1500, m=5000)
+    runs = []
+    for plan in (None, slice_len):
+        with monkeypatch.context() as mp:
+            if plan:
+                lib = matching_cuda._build.load_library()
+                mp.setattr(matching_cuda, "_plan_forms", lambda p_, m_: (
+                    lib, -(-m_ // plan), plan))
+            out = [nn_min_only_cuda(p, q)]
+            for v in ("v1", "v2", "v4", "v5", "v6"):
+                q_w, psq, kw = e1_args(p, q, v)
+                out += list(nn_form_cuda(p, q, q_w, psq, **kw))
+            runs.append([x.view(torch.int32) if x.is_floating_point()
+                         else x for x in out])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_forms_ablations_and_yardstick_counts(cuda):
+    """The sweep's ablations launch without a count; each yardstick counts
+    on its own wrapper, never on the new one's."""
+    from fpcr_tpu_torch.bench.kernel_checks import e1_args
+    from fpcr_tpu_torch.ops.matching_cuda import (FORMS_MODES,
+                                                  _nn_form_yardstick,
+                                                  _nn_forms_only,
+                                                  _nn_min_only_yardstick,
+                                                  nn_form_cuda,
+                                                  nn_min_only_cuda)
+
+    p, q = _nan_case(cuda, "row", n=300, m=4096)
+    new = (dict(nn_form_cuda.launches), nn_min_only_cuda.launches)
+    old = (dict(_nn_form_yardstick.launches),
+           _nn_min_only_yardstick.launches)
+    for mode in FORMS_MODES:
+        _nn_forms_only(p, q, None, None, form="diff", reduce="min",
+                       mode=mode)
+        for v in ("v1", "v2", "v4", "v5", "v6"):
+            q_w, psq, kw = e1_args(p, q, v)
+            _nn_forms_only(p, q, q_w, psq, mode=mode, **kw)
+    _nn_min_only_yardstick(p, q)
+    q_w, psq, kw = e1_args(p, q, "v2")
+    _nn_form_yardstick(p, q, q_w, psq, **kw)
+    torch.cuda.synchronize()
+    assert (dict(nn_form_cuda.launches), nn_min_only_cuda.launches) == new
+    assert _nn_min_only_yardstick.launches == old[1] + 2
+    assert _nn_form_yardstick.launches["v2"] == old[0]["v2"] + 2
 
 
 # --- K3 and K3p with their bases in the kernel and culled sub-tiles ---------
