@@ -9,7 +9,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    torch and CUDA versions, and the float32 precision settings;
 2. build — kernels K1 and K2 (the tensor-core sweep and the certified
    finish, ``fpcr_tpu_torch/csrc/nn_tc.cu``), the min-only sweep and the
-   E1 forms (the register-tiled sweep ``csrc/nn_forms.cu``, 19 instances:
+   E1 forms (the register-tiled sweep ``csrc/nn_forms.cu``, 18 instances:
    SASS opcode counts of each, FFMA, FADD, FMNMX, LOP3, IMNMX, VIMNMX3,
    ..., and ptxas' spills, logged), their first design and K1/K2's
    CUDA-core sweep (``csrc/matching.cu``, the yardsticks), K3 and K3p
@@ -150,7 +150,8 @@ float32 peak, from this run's inputs: the band kernels' over the pairs they
 evaluated after culling; Kernel S's the largest of its bytes, its bf16
 tensor-core products over the bf16 peak and its reduction's CUDA-core
 instructions over their rate; the E1 forms' and the min-only sweep's their
-form's FP32 instructions and one comparison a pair over the CUDA cores'
+form's FP32 instructions and the comparison a pair needs (one float min,
+or half a three-input integer min for a packed key) over the CUDA cores'
 rate, FORM_PAIR_INSTR; the entries of Kernel S, the E1 forms and the
 min-only sweep also carry the legs' call and kernel times of both sides).
 The last line is ``{"ok": true, "device":
@@ -196,9 +197,12 @@ ARGMIN_PAIR_FLOPS, PACKED_PAIR_FLOPS, DESIGN_PAIR_FLOPS = 6, 7, 9
 # The E1 forms and the min-only sweep on the CUDA cores, where the form's
 # arithmetic and the reduction issue on the same lanes: the form's own FP32
 # instructions a pair (3 FMA, plus v4's, v5's and v6's add; the difference
-# form's 3 subtractions and 3 FMA) and the one comparison the function
-# needs, over CORE_IPS (as SPLIT_REDUCE_INSTR counts Kernel S's reduction)
-FORM_PAIR_INSTR = {"e1 v1": 4, "e1 v2": 4, "e1 v4": 5, "e1 v5": 5,
+# form's 3 subtractions and 3 FMA) and the comparison the function needs,
+# over CORE_IPS (as SPLIT_REDUCE_INSTR counts Kernel S's reduction): one
+# float min a pair for an argmin or a least value (the card has no
+# three-input float min), half a three-input integer min (VIMNMX3) for a
+# packed key, whose bits order as int32
+FORM_PAIR_INSTR = {"e1 v1": 4, "e1 v2": 3.5, "e1 v4": 4.5, "e1 v5": 4.5,
                    "e1 v6": 5, "nn_min_only": 7}
 # K4's float32 operations per hit neighbour (r, S r, q, w, S mu', the 12
 # sums; csrc/ndt.cu) and per query (x')
@@ -514,8 +518,8 @@ def phase_build():
                    f"{k} {v / FORMS_BODY_PAIRS:.2f}" for k, v in per.items()
                    if k != "LDS"))
         log("build", f"SASS {name}: {per}{est}")
-    if len([k for k in forms if "nn_forms_kernel" in k]) != 19:
-        raise AssertionError("csrc/nn_forms.cu does not hold its 19 "
+    if len([k for k in forms if "nn_forms_kernel" in k]) != 18:
+        raise AssertionError("csrc/nn_forms.cu does not hold its 18 "
                              "instances")
     log("build", f"ptxas spills of the E1 / min-only sweep: "
                  f"{tc_spills(res.log, 'nn_forms_kernel')}")

@@ -153,18 +153,23 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copy targets [lo, hi) of the slice into tile[] as (x, y, z, w): the
-// coordinates and, for the forms, q_w by cp.async; kDiff's w = 0 and the
-// padding past `count` by plain stores.
+// coordinates and, for the forms, q_w by cp.async; kDiff's w = 0, and a
+// masked target and the padding past `count` as (0, 0, 0, +inf), by plain
+// stores. Returns whether this thread staged a valid target.
 template <bool kDiffForm>
-__device__ __forceinline__ void stage_copies(float4* tile,
-                                             const float* __restrict__ q,
-                                             const float* __restrict__ q_w,
-                                             int j_begin, int count, int lo,
-                                             int hi) {
+__device__ __forceinline__ int stage_copies(float4* tile,
+                                            const float* __restrict__ q,
+                                            const float* __restrict__ q_w,
+                                            const uint8_t* __restrict__ q_mask,
+                                            int j_begin, int count, int lo,
+                                            int hi) {
+    int staged = 0;
     for (int s = lo + static_cast<int>(threadIdx.x); s < hi; s += kThreads) {
         float4* t = tile + s;
-        if (s < count) {
-            const int j = j_begin + s;
+        const int j = j_begin + s;
+        if (s < count &&
+            (!kDiffForm || q_mask == nullptr || q_mask[j] != 0)) {
+            staged = 1;
             cp_async4(&t->x, q + 3 * j);
             cp_async4(&t->y, q + 3 * j + 1);
             cp_async4(&t->z, q + 3 * j + 2);
@@ -177,14 +182,15 @@ __device__ __forceinline__ void stage_copies(float4* tile,
             *t = make_float4(0.0f, 0.0f, 0.0f, CUDART_INF_F);
         }
     }
+    return staged;
 }
 
 // One slice of targets against kRowsPerBlock source rows. kArgmin writes
 // part_d (the slice's least value, +inf where none) and part_i (the first
 // sub-tile holding it, -1 where none), kPacked part_i (the least bucket |
 // its first sub-tile, kIntMax where none), kMin part_d (the least value,
-// NaN where a value is NaN). kMasked (kDiff only) reads q_mask.
-template <Form F, Reduce R, bool kMasked, int kMode>
+// NaN where a value is NaN). q_mask (kDiff only) may be null.
+template <Form F, Reduce R, int kMode>
 __global__ void __launch_bounds__(kThreads, 4)
 nn_forms_kernel(const float* __restrict__ p, const float* __restrict__ q,
                 const float* __restrict__ q_w, const float* __restrict__ p_sq,
@@ -195,7 +201,6 @@ nn_forms_kernel(const float* __restrict__ p, const float* __restrict__ q,
     constexpr bool kDiffForm = F == Form::kDiff;
     constexpr bool kClamp = F == Form::kExpand || F == Form::kExpand5;
     constexpr bool kReduce = kMode == kFull;
-    static_assert(!kMasked || kDiffForm, "only the difference form masks");
 
     const int slice = blockIdx.y;
     const int j_begin = slice * slice_len;
@@ -206,31 +211,16 @@ nn_forms_kernel(const float* __restrict__ p, const float* __restrict__ q,
     const int row0 = blockIdx.x * kRowsPerBlock + threadIdx.x;
     const int keep = ~((1 << idx_bits) - 1);  // the key's distance bits
 
-    // the slice's targets: two copy groups, or, masked, plain loads
-    int any_valid = 1;
+    // the slice's targets in two copy groups; whether any is valid (the
+    // min-only sweep's mask) is read at the first group's barrier
+    int mine = 0, any_valid = 1;
     if constexpr (kMode != kSumsOnly) {
-        if constexpr (kMasked) {
-            int mine = 0;
-            for (int s = threadIdx.x; s < padded; s += kThreads) {
-                float4 t = make_float4(0.0f, 0.0f, 0.0f, CUDART_INF_F);
-                if (s < count) {
-                    const int j = j_begin + s;
-                    if (q_mask[j] != 0) {
-                        t = make_float4(q[3 * j], q[3 * j + 1], q[3 * j + 2],
-                                        0.0f);
-                        mine = 1;
-                    }
-                }
-                tile[s] = t;
-            }
-            any_valid = __syncthreads_or(mine);
-        } else {
-            stage_copies<kDiffForm>(tile, q, q_w, j_begin, count, 0, first);
-            cp_async_commit();
-            stage_copies<kDiffForm>(tile, q, q_w, j_begin, count, first,
-                                    padded);
-            cp_async_commit();
-        }
+        mine = stage_copies<kDiffForm>(tile, q, q_w, q_mask, j_begin, count,
+                                       0, first);
+        cp_async_commit();
+        mine |= stage_copies<kDiffForm>(tile, q, q_w, q_mask, j_begin, count,
+                                        first, padded);
+        cp_async_commit();
     }
 
     // kDiff holds p, the other forms a = -2p (exact) and |p|^2
@@ -260,10 +250,14 @@ nn_forms_kernel(const float* __restrict__ p, const float* __restrict__ q,
     }
 
     for (int s = 0; s < subs; ++s) {
-        if constexpr (kMode != kSumsOnly && !kMasked) {
+        if constexpr (kMode != kSumsOnly) {
             if (s == 0) {
                 cp_async_wait<1>();
-                __syncthreads();
+                if constexpr (R == Reduce::kMin) {
+                    any_valid = __syncthreads_or(mine);
+                } else {
+                    __syncthreads();
+                }
             } else if (s * kSub == first) {
                 cp_async_wait<0>();
                 __syncthreads();
@@ -466,14 +460,14 @@ cudaError_t finish(const float* p, const float* q, const float* q_w,
     return cudaGetLastError();
 }
 
-template <Form F, Reduce R, bool kMasked, int kMode>
+template <Form F, Reduce R, int kMode>
 cudaError_t launch(const float* p, const float* q, const float* q_w,
                    const float* p_sq, const uint8_t* q_mask, int n, int m,
                    int slice_len, int idx_bits, float* part_d, int* part_i,
                    cudaStream_t stream) {
     const int slices = (m + slice_len - 1) / slice_len;
     const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, slices);
-    nn_forms_kernel<F, R, kMasked, kMode><<<grid, kThreads, 0, stream>>>(
+    nn_forms_kernel<F, R, kMode><<<grid, kThreads, 0, stream>>>(
         p, q, q_w, p_sq, q_mask, n, m, slice_len, idx_bits, part_d, part_i);
     return cudaGetLastError();
 }
@@ -483,23 +477,19 @@ cudaError_t launch_mode(const float* p, const float* q, const float* q_w,
                         const float* p_sq, const uint8_t* q_mask, int form,
                         int reduce, int n, int m, int slice_len, int idx_bits,
                         float* part_d, int* part_i, cudaStream_t s) {
-#define FPCR_FORMS(F, R, M)                                                  \
-    launch<F, R, M, kMode>(p, q, q_w, p_sq, q_mask, n, m, slice_len,         \
-                           idx_bits, part_d, part_i, s)
+#define FPCR_FORMS(F, R)                                                     \
+    launch<F, R, kMode>(p, q, q_w, p_sq, q_mask, n, m, slice_len, idx_bits,  \
+                        part_d, part_i, s)
+    if (q_mask != nullptr && (form != 0 || reduce != 2)) {
+        return cudaErrorInvalidValue;  // only the min-only sweep masks
+    }
     switch (form * 4 + reduce) {
-        case 2:  // the min-only sweep, with or without a mask
-            if (q_mask != nullptr) {
-                if constexpr (kMode == kFull) {
-                    return FPCR_FORMS(Form::kDiff, Reduce::kMin, true);
-                }
-                return cudaErrorInvalidValue;
-            }
-            return FPCR_FORMS(Form::kDiff, Reduce::kMin, false);
-        case 4: return FPCR_FORMS(Form::kBiased, Reduce::kArgmin, false);
-        case 5: return FPCR_FORMS(Form::kBiased, Reduce::kPacked, false);
-        case 9: return FPCR_FORMS(Form::kExpand, Reduce::kPacked, false);
-        case 12: return FPCR_FORMS(Form::kExpand5, Reduce::kArgmin, false);
-        case 13: return FPCR_FORMS(Form::kExpand5, Reduce::kPacked, false);
+        case 2: return FPCR_FORMS(Form::kDiff, Reduce::kMin);
+        case 4: return FPCR_FORMS(Form::kBiased, Reduce::kArgmin);
+        case 5: return FPCR_FORMS(Form::kBiased, Reduce::kPacked);
+        case 9: return FPCR_FORMS(Form::kExpand, Reduce::kPacked);
+        case 12: return FPCR_FORMS(Form::kExpand5, Reduce::kArgmin);
+        case 13: return FPCR_FORMS(Form::kExpand5, Reduce::kPacked);
         default: return cudaErrorInvalidValue;
     }
 #undef FPCR_FORMS
@@ -520,7 +510,8 @@ int fpcr_nn_forms_max_slice(void) { return kMaxSlice; }
 // value to part_d and its sub-tile (-1 for none) to part_i; (1, 1) v2,
 // (2, 1) v4 and (3, 1) v5 the least bucket | its sub-tile, with idx_bits,
 // to part_i. fpcr_nn_forms_finish finishes the last five. q_w [m] is the staged lane, p_sq [n] |p|^2 (null for form 1).
-// mode 0 the sweep, 1 without the reduction, 2 the sums alone (no mask);
+// mode 0 the sweep, 1 without the reduction, 2 the sums alone (the mask
+// not read);
 // modes 1 and 2 write a word a row to part_i and nothing else.
 int fpcr_nn_forms_partial(const float* p, const float* q, const float* q_w,
                           const float* p_sq, const uint8_t* q_mask, int form,

@@ -436,37 +436,6 @@ def _forms_sweep(lib, p, q, q_w, p_sq, mask_ptr, form: int, reduce: int,
     _raise_on(lib, rc, f"nn_forms_partial ({form}, {reduce}, {mode})")
 
 
-def _min_only(fn, p, q, q_mask, yardstick: bool) -> torch.Tensor:
-    """The min-only sweep (``csrc/nn_forms.cu``, or with ``yardstick``
-    ``csrc/matching.cu``'s) and, over several slices, the combine, each
-    launch counted on ``fn``."""
-    mask_ptr = _check_inputs(fn.__name__, p, q, q_mask)
-    n, m = p.shape[0], q.shape[0]
-    dist = torch.empty(n, dtype=torch.float32, device=p.device)
-    if n == 0:
-        return dist
-    lib, slices, slice_len = _plan(p, m) if yardstick else _plan_forms(p, m)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        part = dist if slices == 1 else torch.empty(
-            (slices, n), dtype=torch.float32, device=p.device)
-        if yardstick:
-            rc = lib.fpcr_nn_min_partial(p.data_ptr(), q.data_ptr(),
-                                         mask_ptr, n, m, slice_len,
-                                         part.data_ptr(), stream)
-            _raise_on(lib, rc, "nn_min_partial")
-        else:
-            _forms_sweep(lib, p, q, None, None, mask_ptr, 0, 2, "sweep",
-                         slice_len, 0, part.data_ptr(), None, stream)
-        fn.launches += 1
-        if slices > 1:
-            rc = lib.fpcr_nn_min_combine(part.data_ptr(), n, slices,
-                                         dist.data_ptr(), stream)
-            _raise_on(lib, rc, "nn_min_combine")
-            fn.launches += 1
-    return dist
-
-
 def nn_min_only_cuda(
     p: torch.Tensor,
     q: torch.Tensor,
@@ -478,7 +447,25 @@ def nn_min_only_cuda(
     among a row's values (a NaN coordinate in the row or a valid target)
     makes its minimum NaN; a masked target counts as ``inf``, whatever its
     coordinates."""
-    return _min_only(nn_min_only_cuda, p, q, q_mask, yardstick=False)
+    mask_ptr = _check_inputs("nn_min_only_cuda", p, q, q_mask)
+    n, m = p.shape[0], q.shape[0]
+    dist = torch.empty(n, dtype=torch.float32, device=p.device)
+    if n == 0:
+        return dist
+    lib, slices, slice_len = _plan_forms(p, m)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        part = dist if slices == 1 else torch.empty(
+            (slices, n), dtype=torch.float32, device=p.device)
+        _forms_sweep(lib, p, q, None, None, mask_ptr, 0, 2, "sweep",
+                     slice_len, 0, part.data_ptr(), None, stream)
+        nn_min_only_cuda.launches += 1
+        if slices > 1:
+            rc = lib.fpcr_nn_min_combine(part.data_ptr(), n, slices,
+                                         dist.data_ptr(), stream)
+            _raise_on(lib, rc, "nn_min_combine")
+            nn_min_only_cuda.launches += 1
+    return dist
 
 
 nn_min_only_cuda.launches = 0  # kernel launches made by this wrapper
@@ -493,7 +480,26 @@ def _nn_min_only_yardstick(
     ``csrc/matching.cu``'s ``nn_partial_kernel<kDiff, kMin>``: the
     yardstick the new sweep is held to bit for bit and timed against. No
     path of the package calls it."""
-    return _min_only(_nn_min_only_yardstick, p, q, q_mask, yardstick=True)
+    mask_ptr = _check_inputs("_nn_min_only_yardstick", p, q, q_mask)
+    n, m = p.shape[0], q.shape[0]
+    dist = torch.empty(n, dtype=torch.float32, device=p.device)
+    if n == 0:
+        return dist
+    lib, slices, slice_len = _plan(p, m)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        part = dist if slices == 1 else torch.empty(
+            (slices, n), dtype=torch.float32, device=p.device)
+        rc = lib.fpcr_nn_min_partial(p.data_ptr(), q.data_ptr(), mask_ptr, n,
+                                     m, slice_len, part.data_ptr(), stream)
+        _raise_on(lib, rc, "nn_min_partial")
+        _nn_min_only_yardstick.launches += 1
+        if slices > 1:
+            rc = lib.fpcr_nn_min_combine(part.data_ptr(), n, slices,
+                                         dist.data_ptr(), stream)
+            _raise_on(lib, rc, "nn_min_combine")
+            _nn_min_only_yardstick.launches += 1
+    return dist
 
 
 _nn_min_only_yardstick.launches = 0  # kernel launches made by this wrapper
@@ -517,78 +523,19 @@ def _check_lane(name: str, x, rows: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _form(fn, p, q, q_w, p_sq, form: str, reduce: str,
-          idx_bits: Optional[int], yardstick: bool):
-    """One E1 launch type by ``csrc/nn_forms.cu``'s sweep and finish (two
-    launches), or, with ``yardstick``, by ``csrc/matching.cu``'s sweep and
-    its combine (argmin over several slices) or K2's epilogue (packed),
-    each launch counted on ``fn`` under the launch type."""
-    _check_inputs(fn.__name__, p, q, None)
+def _check_form(what: str, p, q, q_w, p_sq, form: str, reduce: str,
+                idx_bits: Optional[int]) -> str:
+    """Check an E1 launch's inputs; returns its launch type (``"v1"``...)."""
+    _check_inputs(what, p, q, None)
     if (form, reduce) not in FORM_LAUNCHES:
         raise ValueError(f"(form, reduce) must be one of "
                          f"{sorted(FORM_LAUNCHES)}, got {(form, reduce)}")
-    n, m = p.shape[0], q.shape[0]
-    _check_lane("q_w", q_w, m, p.device)
+    _check_lane("q_w", q_w, q.shape[0], p.device)
     if form != "biased":
-        _check_lane("p_sq", p_sq, n, p.device)
+        _check_lane("p_sq", p_sq, p.shape[0], p.device)
     if reduce == "packed":
-        check_idx_bits(m, idx_bits)
-    name = FORM_LAUNCHES[(form, reduce)]
-    idx = torch.empty(n, dtype=torch.int32, device=p.device)
-    dist = torch.empty(n, dtype=torch.float32, device=p.device)
-    if n == 0:
-        return idx, dist
-    lib, slices, slice_len = _plan(p, m) if yardstick else _plan_forms(p, m)
-    psq = None if form == "biased" else p_sq
-    f, r = FORMS.index(form) + 1, REDUCES.index(reduce)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        if not yardstick:
-            part_i = torch.empty((slices, n), dtype=torch.int32,
-                                 device=p.device)
-            part_d = torch.empty((slices, n) if reduce == "argmin" else 0,
-                                 dtype=torch.float32, device=p.device)
-            _forms_sweep(lib, p, q, q_w, psq, None, f, r, "sweep", slice_len,
-                         idx_bits or 0, part_d.data_ptr(), part_i.data_ptr(),
-                         stream)
-            fn.launches[name] += 1
-            rc = lib.fpcr_nn_forms_finish(
-                p.data_ptr(), q.data_ptr(), q_w.data_ptr(),
-                None if psq is None else psq.data_ptr(), f, r, n, m, slices,
-                idx_bits or 0, part_d.data_ptr(), part_i.data_ptr(),
-                dist.data_ptr(), idx.data_ptr(), stream)
-            _raise_on(lib, rc, f"nn_forms_finish {name}")
-            fn.launches[name] += 1
-            return idx, dist
-
-        def sweep(part_d, part_i):
-            rc = lib.fpcr_nn_form_partial(
-                p.data_ptr(), q.data_ptr(), q_w.data_ptr(),
-                None if psq is None else psq.data_ptr(), f, r, n, m,
-                slice_len, idx_bits or 0, part_d, part_i, stream)
-            _raise_on(lib, rc, f"nn_form_partial {name}")
-            fn.launches[name] += 1
-
-        if reduce == "argmin" and slices == 1:
-            sweep(dist.data_ptr(), idx.data_ptr())
-            return idx, dist
-        part_i = torch.empty((slices, n), dtype=torch.int32, device=p.device)
-        if reduce == "packed":
-            sweep(None, part_i.data_ptr())
-            rc = lib.fpcr_nn_packed_epilogue(
-                p.data_ptr(), q.data_ptr(), part_i.data_ptr(), n, m, slices,
-                idx_bits, dist.data_ptr(), idx.data_ptr(), stream)
-            _raise_on(lib, rc, f"nn_packed_epilogue {name}")
-        else:
-            part_d = torch.empty((slices, n), dtype=torch.float32,
-                                 device=p.device)
-            sweep(part_d.data_ptr(), part_i.data_ptr())
-            rc = lib.fpcr_nn_combine(part_d.data_ptr(), part_i.data_ptr(), n,
-                                     slices, dist.data_ptr(), idx.data_ptr(),
-                                     stream)
-            _raise_on(lib, rc, f"nn_combine {name}")
-        fn.launches[name] += 1
-    return idx, dist
+        check_idx_bits(q.shape[0], idx_bits)
+    return FORM_LAUNCHES[(form, reduce)]
 
 
 def nn_form_cuda(
@@ -617,8 +564,33 @@ def nn_form_cuda(
     and ``inf`` where no key lies below the initial one). Two launches: the
     sweep and the finish.
     """
-    return _form(nn_form_cuda, p, q, q_w, p_sq, form, reduce, idx_bits,
-                 yardstick=False)
+    name = _check_form("nn_form_cuda", p, q, q_w, p_sq, form, reduce,
+                       idx_bits)
+    n, m = p.shape[0], q.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=p.device)
+    dist = torch.empty(n, dtype=torch.float32, device=p.device)
+    if n == 0:
+        return idx, dist
+    lib, slices, slice_len = _plan_forms(p, m)
+    psq = None if form == "biased" else p_sq
+    f, r = FORMS.index(form) + 1, REDUCES.index(reduce)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        part_i = torch.empty((slices, n), dtype=torch.int32, device=p.device)
+        part_d = torch.empty((slices, n) if reduce == "argmin" else 0,
+                             dtype=torch.float32, device=p.device)
+        _forms_sweep(lib, p, q, q_w, psq, None, f, r, "sweep", slice_len,
+                     idx_bits or 0, part_d.data_ptr(), part_i.data_ptr(),
+                     stream)
+        nn_form_cuda.launches[name] += 1
+        rc = lib.fpcr_nn_forms_finish(
+            p.data_ptr(), q.data_ptr(), q_w.data_ptr(),
+            None if psq is None else psq.data_ptr(), f, r, n, m, slices,
+            idx_bits or 0, part_d.data_ptr(), part_i.data_ptr(),
+            dist.data_ptr(), idx.data_ptr(), stream)
+        _raise_on(lib, rc, f"nn_forms_finish {name}")
+        nn_form_cuda.launches[name] += 1
+    return idx, dist
 
 
 # kernel launches made by this wrapper, per E1 launch type
@@ -636,11 +608,50 @@ def _nn_form_yardstick(
     idx_bits: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`nn_form_cuda`'s function by its first design,
-    ``csrc/matching.cu``'s ``nn_partial_kernel<Form, Reduce>``: the
+    ``csrc/matching.cu``'s ``nn_partial_kernel<Form, Reduce>`` and its
+    combine (argmin over several slices) or K2's epilogue (packed): the
     yardstick the new sweep is held to bit for bit and timed against. No
     path of the package calls it."""
-    return _form(_nn_form_yardstick, p, q, q_w, p_sq, form, reduce,
-                 idx_bits, yardstick=True)
+    name = _check_form("_nn_form_yardstick", p, q, q_w, p_sq, form, reduce,
+                       idx_bits)
+    n, m = p.shape[0], q.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=p.device)
+    dist = torch.empty(n, dtype=torch.float32, device=p.device)
+    if n == 0:
+        return idx, dist
+    lib, slices, slice_len = _plan(p, m)
+    psq_ptr = None if form == "biased" else p_sq.data_ptr()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+
+        def sweep(part_d, part_i):
+            rc = lib.fpcr_nn_form_partial(
+                p.data_ptr(), q.data_ptr(), q_w.data_ptr(), psq_ptr,
+                FORMS.index(form) + 1, REDUCES.index(reduce), n, m,
+                slice_len, idx_bits or 0, part_d, part_i, stream)
+            _raise_on(lib, rc, f"nn_form_partial {name}")
+            _nn_form_yardstick.launches[name] += 1
+
+        if reduce == "argmin" and slices == 1:
+            sweep(dist.data_ptr(), idx.data_ptr())
+            return idx, dist
+        part_i = torch.empty((slices, n), dtype=torch.int32, device=p.device)
+        if reduce == "packed":
+            sweep(None, part_i.data_ptr())
+            rc = lib.fpcr_nn_packed_epilogue(
+                p.data_ptr(), q.data_ptr(), part_i.data_ptr(), n, m, slices,
+                idx_bits, dist.data_ptr(), idx.data_ptr(), stream)
+            _raise_on(lib, rc, f"nn_packed_epilogue {name}")
+        else:
+            part_d = torch.empty((slices, n), dtype=torch.float32,
+                                 device=p.device)
+            sweep(part_d.data_ptr(), part_i.data_ptr())
+            rc = lib.fpcr_nn_combine(part_d.data_ptr(), part_i.data_ptr(), n,
+                                     slices, dist.data_ptr(), idx.data_ptr(),
+                                     stream)
+            _raise_on(lib, rc, f"nn_combine {name}")
+        _nn_form_yardstick.launches[name] += 1
+    return idx, dist
 
 
 _nn_form_yardstick.launches = dict.fromkeys(FORM_LAUNCHES.values(), 0)
