@@ -138,10 +138,28 @@ Phases, in order; any failure raises and the script exits nonzero:
    threshold, every rank's transform bit-equal and each rank's kernels
    launched on its half of the rows; and the CLI as a user starts it, as
    subprocesses: ``python -m fpcr_tpu_torch info``, ``run --dataset
-   bunny`` to 1e-5 and ``match-bench`` at 16,384.
+   bunny`` to 1e-5 and ``match-bench`` at 16,384;
+7. examples, guards, fuzz and scripts — the six examples
+   (``fpcr_tpu_torch/examples/``) as processes of their own on the card at
+   their full sizes, the pipeline at 1,048,576 points (K1 coarse, K3
+   fine), each to exit 0, its JAX example's success line, its GT
+   threshold, the JAX package's CPU iterations within 1 (SLAM's pairs by
+   the noise-plateau rule) and its kernels' launches; beside them, checks
+   7, 9 and 10 of ``scripts/tpu_smoke.py`` (``bench/guards.py``: the
+   far-cloud ``tune_morton``, eigh3 on λI and NDT over duplicate clusters,
+   the 259,200-point wide-plane cloud through K4 at its escalated window
+   with K4's counts equal to the gather oracle's) and the fuzz
+   (``bench/fuzz_configs.py``) at seeds 0–3, 0 failures; then the scripts:
+   the headline (``bench/headline.py``, point ICP at 16,384 through K1,
+   with K2 and plane in its details), ``bench_large``'s Morton rows at
+   262,144 and 1,048,576 (c512/w64) and its grid row at 262,144,
+   ``bench_ndt`` at 262,144 (gather, the plain band, K4) and
+   ``sharded_large`` at 1,048,576 on one NCCL rank, each record beside the
+   card's name and power limit, and each phase's seconds.
 
 The line before the last is a JSON object describing each kernel: its
-launches on the main path (the world-1 sharded paths included), its largest
+launches on the main path (the world-1 sharded paths and phase 7's runs
+included, the examples' counted in their own processes), its largest
 difference from its plain version, its time and its plain version's (K1's
 and K2's entries also hold their batched call at 32 x 4,096², ``batched``),
 and its bound, the least time the card could take for the same work (the
@@ -430,15 +448,14 @@ def build_scene(ft, kind, device):
 
 
 def phase_device(torch):
+    from fpcr_tpu_torch.bench.card import smi_line
     from fpcr_tpu_torch.utils.precision import (pin_f32_precision,
                                                 precision_settings)
 
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_line(0)
+    if smi is None:
+        raise RuntimeError("nvidia-smi gave no name and power limit")
     print(smi, flush=True)
     log("device", f"torch.cuda.get_device_name(0) = {name}; "
                   f"device_count = {torch.cuda.device_count()}")
@@ -3483,6 +3500,381 @@ def phase_parallel(torch, ft, dev, smi):
     return totals
 
 
+# ---- phase 7: the examples, the guards, the fuzz and the scripts --------
+
+# (module, arguments, success line of the JAX example) — full sizes, on the
+# card (no --cpu); the pipeline at 1,048,576 points (K1 coarse, K3 fine)
+EXAMPLES = [
+    ("basic_registration", [], "transform RMSE vs GT"),
+    ("lidar_plane_icp", [], "transform RMSE vs GT"),
+    ("global_registration", [], "global + ICP refine"),
+    ("large_scale_pipeline", ["--width", "1024"], "transform RMSE vs GT"),
+    ("ndt_map_tracking", [], "all scans tracked"),
+    ("odometry_slam", [], "fused map"),
+]
+# the kernels each example must launch on the card (the NDT map's 4,096
+# points stay under lookup_threshold: the gather, no kernel)
+EXAMPLE_KERNELS = {"basic_registration": ("nn_argmin",),
+                   "lidar_plane_icp": ("nn_argmin",),
+                   "global_registration": ("nn_argmin",),
+                   "large_scale_pipeline": ("nn_argmin", "morton_nn"),
+                   "ndt_map_tracking": (),
+                   "odometry_slam": ("nn_argmin",)}
+# the examples' GT thresholds (tests/test_torch_examples.py) and the JAX
+# package's CPU runs of the full-size examples, which
+# tests/test_torch_examples_jax.py recomputes through fpcr_tpu (the card
+# has no JAX): basic 28 iterations
+# (1.257e-6), LiDAR 4 (1.760e-7), NDT tracking 9, 11, 8, 10, 9 (pose RMSE
+# 8.97e-5 to 9.01e-5), SLAM's eleven pairs below (the port's CPU run stops
+# pair 5 at 7 where JAX stops at 12, final error 7.401e-3 against 7.431e-3:
+# the noise plateau of SLAM_FINAL_RTOL)
+EXAMPLE_GT = {"basic_registration": 1e-5, "lidar_plane_icp": 1e-4,
+              "global_registration": 1e-3, "large_scale_pipeline": 1e-5,
+              "ndt_map_tracking": 5e-3}
+EXAMPLE_JAX = {"basic_registration": 28, "lidar_plane_icp": 4,
+               "ndt_map_tracking": (9, 11, 8, 10, 9)}
+SLAM_EXAMPLE_JAX = dict(
+    iterations=(25, 25, 25, 25, 10, 12, 12, 21, 15, 25, 25),
+    final=(2.805766e-2, 3.223349e-2, 2.895771e-2, 2.614549e-2, 2.589706e-2,
+           7.431255e-3, 2.495046e-2, 2.486851e-2, 2.831730e-2, 2.915010e-2,
+           2.688668e-2))
+# a child process: run one example's main on the card and print what it
+# returned and every launch count of the run
+EXAMPLE_CHILD = """
+import importlib, json, sys
+import chip_smoke
+mod = importlib.import_module("fpcr_tpu_torch.examples." + sys.argv[1])
+out = mod.main(sys.argv[2:])
+print("EXAMPLE_RESULT " + json.dumps({"out": out,
+                                      "launches": chip_smoke.counters()}))
+"""
+FUZZ_SEEDS = (0, 1, 2, 3)
+
+
+def _add(totals, counts):
+    for key, n in counts.items():
+        totals[key] = totals.get(key, 0) + n
+
+
+def start_examples():
+    """Start the six examples at once, each a process on the card:
+    ``(start time, {name: Popen})``."""
+    return time.perf_counter(), _start_side_runs(
+        {name: [sys.executable, "-c", EXAMPLE_CHILD, name, *args]
+         for name, args, _ in EXAMPLES})
+
+
+def finish_examples(started, smi):
+    """Hold each example to rc 0, its success line, its GT threshold, the
+    JAX package's iterations and its kernels; return the launches, summed
+    over the six."""
+    t0, procs = started
+    runs = _finish_side_runs(procs, timeout=600)
+    totals = {}
+    for name, _, needle in EXAMPLES:
+        rc, so, se = runs[name]
+        if rc != 0 or needle not in so or "device: cuda" not in so:
+            raise AssertionError(f"example {name}: exit {rc}, stdout "
+                                 f"{so[-2000:]}\nstderr {se[-4000:]}")
+        rec = json.loads(so.split("EXAMPLE_RESULT ", 1)[1].splitlines()[0])
+        out, counts = rec["out"], rec["launches"]
+        _add(totals, counts)
+        missing = [k for k in EXAMPLE_KERNELS[name] if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"example {name} launched no {missing}")
+        if name == "ndt_map_tracking":
+            err, its = max(out["pose_errors"]), tuple(out["iterations"])
+            if any(abs(a - b) > 1
+                   for a, b in zip(its, EXAMPLE_JAX[name])):
+                raise AssertionError(f"{name}: iterations {its}, JAX "
+                                     f"{EXAMPLE_JAX[name]}")
+        elif name == "odometry_slam":
+            err = out["closed_loop_error"]
+            for k, (it, fin) in enumerate(zip(out["iterations"],
+                                              out["final_errors"])):
+                ref_it = SLAM_EXAMPLE_JAX["iterations"][k]
+                ref_fin = SLAM_EXAMPLE_JAX["final"][k]
+                if (abs(it - ref_it) > 1 and abs(fin - ref_fin) / ref_fin
+                        >= SLAM_FINAL_RTOL):
+                    raise AssertionError(f"{name} pair {k}: {it} iterations,"
+                                         f" final {fin} (JAX {ref_it}, "
+                                         f"{ref_fin})")
+            if not (out["closures"] and err <= out["open_loop_drift"]
+                    and out["map_voxels"] > 0):
+                raise AssertionError(f"{name}: the loop did not close: {out}")
+        else:
+            err = out["gt_error"]
+            if name in EXAMPLE_JAX and abs(out["iterations"]
+                                           - EXAMPLE_JAX[name]) > 1:
+                raise AssertionError(f"{name}: {out['iterations']} "
+                                     f"iterations, JAX {EXAMPLE_JAX[name]}")
+        thr = EXAMPLE_GT.get(name)
+        if thr is not None and not err < thr:
+            raise AssertionError(f"{name}: error {err} >= {thr}")
+        log("examples", f"fpcr_tpu_torch.examples.{name}: exit 0, "
+                        f"'{needle}', {json.dumps(out)}, launches "
+                        f"{ {k: v for k, v in counts.items() if v} } "
+                        f"[card: {smi}]")
+    log("examples", f"phase done in {time.perf_counter() - t0:.1f} s (the "
+                    "six at once, beside the guards and the fuzz)")
+    return totals
+
+
+def phase_guards(torch, dev, smi):
+    """Checks 7, 9 and 10 of ``scripts/tpu_smoke.py`` on the card
+    (``fpcr_tpu_torch/bench/guards.py``), each driven between counter
+    reads; check 10 must resolve to K4 at a window above 256, hold K4's
+    counts to the gather oracle's there and register the wide-plane cloud
+    to GT < 1e-2 with a matched fraction above 0.85."""
+    from fpcr_tpu_torch.bench import guards
+
+    t0 = time.perf_counter()
+    totals = {}
+    for name, check in guards.CHECKS.items():
+        got = {}
+        counts = drive(torch, name, lambda: got.update(check(dev)))
+        _add(totals, counts)
+        log("guards", f"{name}: {json.dumps(got)} [card: {smi}]")
+        if name.startswith("check 10") and not (
+                got["lookup_impl"] == "pallas" and got["count_parity"]
+                and counts["ndt_fused_moments"] > 0):
+            raise AssertionError(f"{name} did not run through K4: {got}")
+        if name.startswith("check 7") and not (counts["morton_nn"]
+                                               and counts["nn_argmin"]):
+            raise AssertionError(f"{name} launched neither K3 nor K1")
+    log("guards", f"phase done in {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
+def phase_fuzz(torch, dev, smi):
+    """The fuzz (``fpcr_tpu_torch/bench/fuzz_configs.py``) at seeds 0–3 on
+    the card: 80 trials a seed, 0 failures."""
+    from fpcr_tpu_torch.bench.fuzz_configs import fuzz
+
+    t0 = time.perf_counter()
+    totals = {}
+    for seed in FUZZ_SEEDS:
+        failures = []
+        _add(totals, drive(torch, f"fuzz seed {seed}",
+                           lambda: failures.extend(fuzz(seed, dev))))
+        if failures:
+            raise AssertionError(f"fuzz seed {seed}: {failures}")
+    for key in ("nn_argmin", "morton_nn", "ndt_fused_moments"):
+        if not totals.get(key):
+            raise AssertionError(f"the fuzz never launched {key}")
+    log("fuzz", f"seeds {list(FUZZ_SEEDS)}: 0 failures in "
+                f"{80 * len(FUZZ_SEEDS)} trials, launches "
+                f"{ {k: v for k, v in totals.items() if v} } [card: {smi}]")
+    log("fuzz", f"phase done in {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
+# the synthetic scene's contract (BASELINE.md), for the headline's three
+# slopes' last runs (60 iterations from the scene's start, K1 and K2 point,
+# K1 plane)
+HEADLINE_GT = 1e-5
+HEADLINE_TRACE_ITERS = 60
+
+
+def _profiled_trace(torch, run, k):
+    """One run of ``run`` (``k`` iterations) under ``torch.profiler``:
+    device events and host launch calls an iteration, the host time in
+    those calls, the device span, busy time (the union of the events) and
+    idle share, and the gaps between device events; None if the profiler
+    saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev_iv = sorted((e.time_range.start, e.time_range.end)
+                    for e in events if e.device_type == DeviceType.CUDA)
+    if not dev_iv:
+        return None
+    calls = [e.time_range.elapsed_us() for e in events
+             if e.device_type == DeviceType.CPU
+             and e.name.startswith(("cudaLaunch", "cuLaunch"))]
+    busy, gaps, end = 0.0, [], dev_iv[0][0]
+    for a, b in dev_iv:
+        if a > end:
+            gaps.append(a - end)
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = end - dev_iv[0][0]
+    gaps = sorted(gaps) or [0.0]
+    return {"device_events_per_iter": len(dev_iv) / k,
+            "launch_calls_per_iter": len(calls) / k,
+            "launch_call_ms_per_iter": sum(calls) / 1e3 / k,
+            "span_ms_per_iter": span / 1e3 / k,
+            "busy_ms_per_iter": busy / 1e3 / k,
+            "idle": 1 - busy / span, "gaps": len(gaps),
+            "gap_median_us": gaps[len(gaps) // 2],
+            "gap_p90_us": gaps[int(0.9 * len(gaps))],
+            "gap_max_us": gaps[-1],
+            "gaps_over_100us_ms_per_iter": sum(
+                g for g in gaps if g > 100) / 1e3 / k}
+
+
+def headline_trace(torch, dev, card):
+    """Why the headline's ms/iter moves between calls. The host's time for
+    one launch of a one-element kernel (2,000 launches, synchronised at the
+    end, min of 3) and its load average; the headline CLI twice, each in a
+    fresh process that has run no profiler; then in this process, for
+    point and plane ICP through K1 at 16,384, the slope three times over,
+    one traced run of ``HEADLINE_TRACE_ITERS`` iterations under
+    ``torch.profiler`` (``_profiled_trace``), and the slope three times
+    over after it."""
+    import os
+
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.bench import headline
+
+    x = torch.zeros(1, device=dev)
+    launch_us = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(2000):
+            x.add_(1)
+        torch.cuda.synchronize()
+        launch_us.append((time.perf_counter() - t) / 2000 * 1e6)
+    log("scripts", f"headline trace: {os.cpu_count()} host cores, load "
+                   f"average {os.getloadavg()}; one launch of a one-element "
+                   f"kernel {min(launch_us):.2f} us of host time (min of 3 "
+                   f"x 2,000; all {launch_us}) {card}")
+    for rep in range(2):
+        runs = _finish_side_runs(_start_side_runs({"headline": [
+            sys.executable, "-m", "fpcr_tpu_torch.bench.headline"]}))
+        rc, so, se = runs["headline"]
+        if rc != 0:
+            raise AssertionError(f"headline CLI: exit {rc}\n{se[-4000:]}")
+        record = json.loads(so.strip().splitlines()[-1])
+        more = json.loads(se.strip().splitlines()[-1])
+        log("scripts", f"headline trace: CLI in a fresh process ({rep + 1} "
+                       f"of 2): point K1 {record['value']}, point K2 "
+                       f"{more['point_k2']['ms_per_iter']}, plane K1 "
+                       f"{more['plane_k1']['ms_per_iter']} ms/iter; legs "
+                       f"(lo, hi ms) K1 {more['point_k1']['lo_ms']}, "
+                       f"{more['point_k1']['hi_ms']}, plane "
+                       f"{more['plane_k1']['lo_ms']}, "
+                       f"{more['plane_k1']['hi_ms']}; load average "
+                       f"{os.getloadavg()} {card}")
+    scene = ft.synthetic_scene(width=128, device=dev)
+    k = HEADLINE_TRACE_ITERS
+    for label, fields in (("point via K1", {"matcher": "xla"}),
+                          ("plane via K1", {"metric": "plane",
+                                            "matcher": "xla"})):
+        cfg = ft.ICPConfig(max_iterations=k, tolerance=0.0, **fields)
+
+        def run():
+            return ft.run_icp(scene.source, scene.target, cfg)
+
+        def slopes():
+            return [headline.slope(scene, 10, 60, 5, dev, **fields)
+                    for _ in range(3)]
+
+        before = slopes()
+        run()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        traced = _profiled_trace(torch, run, k)
+        after = slopes()
+
+        def legs(ds):
+            return [(d["ms_per_iter"], d["lo_ms"], d["hi_ms"]) for d in ds]
+
+        log("scripts", f"headline trace {label}, 16,384, in this process: "
+                       "slopes (10/60, min of 5; ms/iter, lo ms, hi ms) "
+                       f"before the trace {legs(before)}, after it "
+                       f"{legs(after)}; untraced wall of one {k}-iteration "
+                       f"run {wall_ms / k:.4f} ms/iter; traced {k} "
+                       f"iterations: "
+                       f"{json.dumps(traced)}; load average "
+                       f"{os.getloadavg()} {card}")
+
+
+def phase_scripts(torch, dev, smi):
+    """The port's scripts on the card, each result on a line beside the
+    card's name and power limit: the headline at 16,384 (full size),
+    ``bench_large``'s Morton rows at 262,144 and 1,048,576 (c512/w64) and
+    its grid row at 262,144, ``bench_ndt`` at 262,144 (gather, the plain
+    band, K4) and ``sharded_large`` at 1,048,576 on one NCCL rank."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from fpcr_tpu_torch.bench import (bench_large, bench_ndt, headline,
+                                      sharded_large)
+
+    t0 = time.perf_counter()
+    totals = {}
+    card = f"[card: {smi}]"
+    head, details = {}, {}
+
+    def run_headline():
+        record, more = headline.measure(128, 10, 60, 5, dev)
+        head.update(record)
+        details.update(more)
+
+    _add(totals, drive(torch, "headline", run_headline))
+    log("scripts", f"headline: {json.dumps(head)} {card}")
+    log("scripts", f"headline details: {json.dumps(details)} {card}")
+    if not (head["metric"] == "icp_point_to_point_ms_per_iter_n16384"
+            and head["value"] > 0):
+        raise AssertionError(f"headline: {head}")
+    for key in ("point_k1", "point_k2", "plane_k1"):
+        if not (details[key]["ms_per_iter"] > 0
+                and details[key]["gt_rmse"] < HEADLINE_GT):
+            raise AssertionError(f"headline {key}: {details[key]}")
+    headline_trace(torch, dev, card)
+    rows = [r for r in bench_large.select("all", [262144, 1048576])
+            if r.window == 64 or r.matcher == "grid"]
+    for row in rows:
+        got = {}
+        _add(totals, drive(torch, f"bench_large {row.matcher} {row.n}",
+                           lambda: got.update(bench_large.bench_row(row,
+                                                                    dev))))
+        log("scripts", f"bench_large: {json.dumps(got)} {card}")
+        if not (got["gt_rmse"] < 1e-4 and got["ms_per_iter"] > 0):
+            raise AssertionError(f"bench_large {row}: {got}")
+    ndt = []  # the three strategies start from the same first error
+    for lookup, impl in bench_ndt.STRATEGIES:
+        got = {}
+        _add(totals, drive(torch, f"bench_ndt {lookup} {impl}",
+                           lambda: got.update(bench_ndt.bench(
+                               262144, lookup, impl, dev))))
+        log("scripts", f"bench_ndt: {json.dumps(got)} {card}")
+        ndt.append(got)
+        if not (got["ms_per_iter"] > 0 and got["gt_rmse"] < 1e-4
+                and abs(got["err0"] - ndt[0]["err0"])
+                <= 1e-5 * ndt[0]["err0"]):
+            raise AssertionError(f"bench_ndt {lookup} {impl}: {got} (the "
+                                 f"gather's first error {ndt[0]['err0']})")
+    tmp = tempfile.mkdtemp(prefix="fpcr_sharded_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            world_size=1, rank=0)
+    try:
+        got = {}
+        _add(totals, drive(torch, "sharded_large 1,048,576 (NCCL, world 1)",
+                           lambda: got.update(sharded_large.run(
+                               dev, 1_048_576, 3))))
+    finally:
+        dist.destroy_process_group()
+    log("scripts", f"sharded_large: {json.dumps(got)} {card}")
+    for key in ("nn_argmin", "nn_argmin_packed", "morton_nn",
+                "ndt_fused_moments"):
+        if not totals.get(key):
+            raise AssertionError(f"the scripts never launched {key}")
+    log("scripts", f"phase done in {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def bound(nbytes, flops, ops_ms=0.0):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``nbytes`` of device-memory traffic (each input read once, each output
@@ -3865,6 +4257,22 @@ def main():
     times["batched"] = phase_times_slice4(torch, ft, dev, smi)
     for key, n in phase_parallel(torch, ft, dev, smi).items():
         launches[key] += n
+    # the six examples run as processes of their own beside the guards and
+    # the fuzz; the scripts' timings then have the card to themselves
+    examples = start_examples()
+    try:
+        extra = [phase_guards(torch, dev, smi), phase_fuzz(torch, dev, smi)]
+    except BaseException:
+        for p in examples[1].values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        raise
+    extra.append(finish_examples(examples, smi))
+    extra.append(phase_scripts(torch, dev, smi))
+    for counts in extra:
+        for key in launches:
+            launches[key] += counts.get(key, 0)
     log("times", f"kernel_ms: {len(PROFILER_LOSSES)} profiler sessions lost "
                  f"events (seen, launched): {PROFILER_LOSSES}; "
                  f"{len(PROFILER_EMPTY)} sessions saw no device event "

@@ -15,7 +15,10 @@ checkpoint and resume, odometry (``register_sequence``, ``build_map``), the
 SE(3) pose graph and loop closure, registration uncertainty, FPFH + RANSAC
 global registration, the one front door ``register``, the sharded ICP and
 NDT loops over ``torch.distributed`` ranks (``parallel/``), PLY/PCD file
-I/O, and the command line (``python -m fpcr_tpu_torch``). Its kernels are
+I/O, the command line (``python -m fpcr_tpu_torch``), the JAX package's
+six examples (``fpcr_tpu_torch.examples``) and its scripts: the headline
+bench, the large-N and NDT benchmarks, the fuzz, the on-device guards and
+the multi-process runs (``fpcr_tpu_torch.bench``). Its kernels are
 all CUDA C++ for ``sm_90a`` built with ``nvcc`` at first launch: the
 brute-force nearest-neighbour matcher K1 and its packed twin K2
 (``csrc/nn_tc.cu``; ``csrc/matching.cu`` holds their CUDA-core sweep, the

@@ -60,6 +60,32 @@ def transformed_scene(points: torch.Tensor, translation: Sequence[float],
     return RegistrationScene(points, gt.apply(points), gt)
 
 
+def wide_plane_cloud(sheets: int = 18, grid: int = 120, extent: float = 5.0,
+                     sheet_spacing: float = 0.25, noise: float = 0.01,
+                     seed: int = 7, dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """Plane-dominant adversarial cloud: ``sheets`` dense (y, z) sheets of
+    ``grid x grid`` points at x stations ``sheet_spacing`` apart (defaults:
+    18 x 120 x 120 = 259,200 points), drawn by numpy as the JAX package
+    draws it, so the cloud is bit for bit ``fpcr_tpu``'s.
+
+    Each x-plane of its NDT voxel table holds ~(extent/voxel)² rows, more
+    than K4's floor window of 256 covers: the scene that makes
+    ``models/ndt.py::_resolve_fused`` escalate the window."""
+    rng = np.random.default_rng(seed)
+    ys, zs = np.meshgrid(np.linspace(0, extent, grid, dtype=np.float32),
+                         np.linspace(0, extent, grid, dtype=np.float32),
+                         indexing="ij")
+    out = []
+    for xi in range(sheets):
+        sheet = np.stack([np.full(ys.size, sheet_spacing * xi, np.float32),
+                          ys.ravel(), zs.ravel()], axis=1)
+        out.append(sheet + rng.normal(0, noise, sheet.shape
+                                      ).astype(np.float32))
+    return torch.as_tensor(np.concatenate(out), dtype=dtype,
+                           device=resolve_device(device))
+
+
 def random_cloud(n: int, seed: int = 0, scale: float = 1.0,
                  dtype=torch.float32, device=None) -> torch.Tensor:
     """Uniform random cloud in ``[-scale, scale]³``, drawn by

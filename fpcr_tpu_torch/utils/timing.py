@@ -6,7 +6,8 @@
 * :func:`slope_ms_per_iter` — per-iteration milliseconds of a loop by the
   slope method that ``bench.py`` uses: ``(T(k_hi) - T(k_lo)) / (k_hi -
   k_lo)``, each leg the minimum over ``repeats``, so fixed per-call costs
-  (allocation, set-up, the final copy) cancel;
+  (allocation, set-up, the final copy) cancel; by the host clock only where
+  the caller names the CPU;
 * :class:`PhaseTimer` and :func:`profile_icp` — the reference's per-stage
   breakdown (matching / minimisation / transformation / error, %-of-total),
   each phase timed by a pair of CUDA events on the card and synchronised at
@@ -15,7 +16,8 @@
 
 Events measure the device timeline between two points of the stream, which
 includes any time the device waits on the host. There is no CPU fallback: a
-timing that finds no CUDA device raises.
+timing that finds no CUDA device raises, unless the caller asked for the
+CPU.
 """
 
 from __future__ import annotations
@@ -58,18 +60,31 @@ def cuda_time_ms(fn: Callable[[], object], repeats: int = 10,
             "max": max(times), "repeats": repeats}
 
 
+def _host_ms(fn: Callable[[], object]) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def slope_ms_per_iter(run: Callable[[int], object], k_lo: int = 10,
-                      k_hi: int = 60, repeats: int = 5) -> Dict[str, float]:
+                      k_hi: int = 60, repeats: int = 5,
+                      device=None) -> Dict[str, float]:
     """Per-iteration ms of ``run(k)``, a loop of exactly ``k`` iterations,
-    by the slope of the minimum times of the two legs."""
+    by the slope of the minimum times of the two legs: CUDA events on the
+    card (``device`` None or CUDA), the host clock where the caller asks
+    for the CPU (``device="cpu"``)."""
     if k_hi <= k_lo:
         raise ValueError("need k_hi > k_lo")
-    _require_cuda()
+    cuda = torch.device(resolve_device(device)).type == "cuda"
+    if cuda:
+        _require_cuda()
+    timer = _event_ms if cuda else _host_ms
     run(k_lo)  # warm both legs: first-call costs stay out of the timing
     run(k_hi)
-    torch.cuda.synchronize()
-    lo = min(_event_ms(lambda: run(k_lo)) for _ in range(repeats))
-    hi = min(_event_ms(lambda: run(k_hi)) for _ in range(repeats))
+    if cuda:
+        torch.cuda.synchronize()
+    lo = min(timer(lambda: run(k_lo)) for _ in range(repeats))
+    hi = min(timer(lambda: run(k_hi)) for _ in range(repeats))
     return {"ms_per_iter": (hi - lo) / (k_hi - k_lo), "lo_ms": lo,
             "hi_ms": hi, "k_lo": k_lo, "k_hi": k_hi, "repeats": repeats}
 

@@ -5,7 +5,9 @@ sweep (``csrc/nn_forms.cu``) bit for bit against their first design
 (``csrc/matching.cu``); GICP, the loop variants and the voxel
 grid on the card against the port on the CPU, and no host sync in their
 iterations; the sharded loops on a one-rank NCCL group against the
-unsharded ones, bit for bit; the CLI on the card.
+unsharded ones, bit for bit; the CLI on the card; check 10 of
+``scripts/tpu_smoke.py`` (the wide-plane cloud through K4 at its escalated
+window) and the basic example on the card.
 
 Every test here needs a CUDA device and skips without one: a CUDA kernel
 has no CPU mode. On the card (which has no JAX, so the root conftest is
@@ -1705,3 +1707,28 @@ def test_cli_run_on_the_card(cuda, capsys):
     payload = json.loads(capsys.readouterr().out)
     assert payload["platform"] == "gpu"
     assert payload["transform_rmse_vs_gt"] < 1e-5
+
+
+def test_wide_plane_k4_covers_at_the_escalated_window(cuda):
+    """Check 10 of ``scripts/tpu_smoke.py``: on the card the wide-plane
+    cloud resolves to K4 at a window above its floor, and K4's hit counts
+    there equal the gather oracle's."""
+    from fpcr_tpu_torch.bench import guards
+    from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
+
+    _, grid, _, _, src_sorted, cfg = guards.wide_plane_setup(cuda)
+    assert cfg.lookup_impl == "pallas"
+    assert cfg.lookup_window > guards.WIDE_WINDOW_FLOOR
+    before = ndt_fused_moments_cuda.launches
+    assert guards.fused_count_parity(src_sorted, grid, cfg)
+    assert ndt_fused_moments_cuda.launches == before + 1
+
+
+def test_basic_registration_example_on_card(cuda):
+    from fpcr_tpu_torch.examples import basic_registration
+    from fpcr_tpu_torch.ops.matching_cuda import nn_argmin_cuda
+
+    before = nn_argmin_cuda.launches
+    got = basic_registration.main([])
+    assert got["gt_error"] < 1e-5
+    assert nn_argmin_cuda.launches > before
