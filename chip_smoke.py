@@ -99,7 +99,26 @@ Phases, in order; any failure raises and the script exits nonzero:
    then every ICP path
    through K1 or K2 again on the CUDA-core sweep, to the same iterations,
    final error and GT error;
-5. times — ms/iter by the slope method (point ICP at 16,384 through K1 and
+5. graphs — the loops as captured CUDA graphs (``utils/graphs.py``) and
+   kernel svd3 (``csrc/svd3.cu``): svd3 against its plain version
+   (``torch.linalg.svd``) in float64 and float32 at the main path's
+   batches (1, 32, 1,024) and on W = 0, a line, a plane, a reflection, NaN
+   and inf, with its kernel, call, plain and ``torch.linalg.svd`` times;
+   every captured path (point ICP through K1 and K2 on the four scenes,
+   plane through K1, Morton through K3 and K3p at 262,144 and 1,048,576,
+   NDT through K4 at both sizes, ``register_batch`` of 32 x 4,096 through
+   K1 and K2) bit for bit its eager run (``graphs.eager()``) on the key's
+   first call (eager), the call that captures and the one that replays,
+   with the eager run's launches and to its ground truth, with each call's
+   wall time and each capture's seconds and pool; the host's syncs in 24
+   iterations of each path, captured and eager
+   (``torch.cuda.set_sync_debug_mode('warn')``: only the done reads at 8
+   and 16, and ``run_ndt``'s read of the grid's voxel size); captured
+   against eager ms/iter (``register_batch`` ms a batch) six times each in
+   turns; one traced run of point and plane ICP through K1 each way, and
+   one more that finds the port's kernels in the trace, in the counted
+   numbers, under ``cudaGraphLaunch`` when captured;
+6. times — ms/iter by the slope method (point ICP at 16,384 through K1 and
    K2, plane ICP at 16,384, Morton ICP through K3 and K3p and NDT at
    262,144 and 1,048,576), K1 and K2 against their CUDA-core sweep in legs
    (call and kernel time) with the sweep's ablations, K1, K2, the min-only
@@ -125,7 +144,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    against 32 unbatched calls and the plain version, the SLAM pipeline's
    stages and ``global_registration``'s (normals + FPFH, feature search,
    RANSAC), each printed beside the card's name and power limit;
-6. parallel — the sharded paths (``fpcr_tpu_torch/parallel/dist_icp.py``)
+7. parallel — the sharded paths (``fpcr_tpu_torch/parallel/dist_icp.py``)
    on a one-rank NCCL group in this process: ``distributed_icp`` point
    through K1 and K2 on the synthetic scene and the hall scan, plane
    through K1, Morton through K3 at 1,048,576 points and
@@ -139,7 +158,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    launched on its half of the rows; and the CLI as a user starts it, as
    subprocesses: ``python -m fpcr_tpu_torch info``, ``run --dataset
    bunny`` to 1e-5 and ``match-bench`` at 16,384;
-7. examples, guards, fuzz and scripts — the six examples
+8. examples, guards, fuzz and scripts — the six examples
    (``fpcr_tpu_torch/examples/``) as processes of their own on the card at
    their full sizes, the pipeline at 1,048,576 points (K1 coarse, K3
    fine), each to exit 0, its JAX example's success line, its GT
@@ -158,7 +177,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    card's name and power limit, and each phase's seconds.
 
 The line before the last is a JSON object describing each kernel: its
-launches on the main path (the world-1 sharded paths and phase 7's runs
+launches on the main path (the world-1 sharded paths and phase 8's runs
 included, the examples' counted in their own processes), its largest
 difference from its plain version, its time and its plain version's (K1's
 and K2's entries also hold their batched call at 32 x 4,096², ``batched``),
@@ -170,9 +189,13 @@ tensor-core products over the bf16 peak and its reduction's CUDA-core
 instructions over their rate; the E1 forms' and the min-only sweep's their
 form's FP32 instructions and the comparison a pair needs (one float min,
 or half a three-input integer min for a packed key) over the CUDA cores'
-rate, FORM_PAIR_INSTR; the entries of Kernel S, the E1 forms and the
-min-only sweep also carry the legs' call and kernel times of both sides).
-The last line is ``{"ok": true, "device":
+rate, FORM_PAIR_INSTR; svd3's its 72 bytes a matrix and the float32
+operations a 3x3 Kabsch rotation needs over the float32 peak, at run_icp's
+batch of one, the other batches under ``batches``, with
+``torch.linalg.svd`` as its library call and, in ``latency_ms``, the
+device time of an empty kernel, which bounds it in practice;
+the entries of Kernel S, the E1 forms and the min-only sweep also carry
+the legs' call and kernel times of both sides). The last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits 1 and prints no result.
 """
 
@@ -1463,6 +1486,7 @@ def _wrappers():
     from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
                                                 morton_nn_packed_cuda)
     from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
+    from fpcr_tpu_torch.ops.svd3_cuda import svd3_rotation_cuda
 
     return {"nn_argmin": nn_argmin_cuda,
             "nn_argmin_packed": nn_argmin_packed_cuda,
@@ -1470,6 +1494,7 @@ def _wrappers():
             "morton_nn": morton_nn_cuda,
             "morton_nn_packed": morton_nn_packed_cuda,
             "ndt_fused_moments": ndt_fused_moments_cuda,
+            "svd3_rotation": svd3_rotation_cuda,
             "nn_argmin_cudacore": _nn_argmin_cudacore,
             "nn_argmin_packed_cudacore": _nn_argmin_packed_cudacore,
             "nn_min_only_yardstick": _nn_min_only_yardstick}
@@ -2387,11 +2412,12 @@ def phase_main_path(torch, ft, dev):
 
     # (path, run, the kernel it must launch, the kernels it must not)
     packed_not = ("nn_argmin", "morton_nn", "nn_min_only") + CUDACORE
-    k1_paths = [("point ICP, K1", brute("point", SCENES), "nn_argmin",
-                 CUDACORE),
+    k1_paths = [("point ICP, K1", brute("point", SCENES),
+                 ("nn_argmin", "svd3_rotation"), CUDACORE),
                 ("point ICP packed6_idx, K2",
                  brute("point", PACKED_SCENES, "nn_argmin_packed", **PACKED),
-                 "nn_argmin_packed", packed_not + ("morton_nn_packed",)),
+                 ("nn_argmin_packed", "svd3_rotation"),
+                 packed_not + ("morton_nn_packed",)),
                 ("plane ICP, K1", brute("plane", PLANE_SCENES), "nn_argmin",
                  CUDACORE),
                 ("coarse-to-fine, K1 + K3", coarse_to_fine, "morton_nn",
@@ -2399,7 +2425,8 @@ def phase_main_path(torch, ft, dev):
                 ("register_ndt, gather NDT + K1", register_ndt_hall,
                  "nn_argmin", CUDACORE)]
     paths = k1_paths[:3] + [
-             ("morton ICP, K3", morton(), "morton_nn", CUDACORE),
+             ("morton ICP, K3", morton(), ("morton_nn", "svd3_rotation"),
+              CUDACORE),
              ("morton ICP packed6_idx, K3p",
               morton(PACKED_MORTON_SCENES, "morton_nn_packed", **PACKED),
               "morton_nn_packed", packed_not + ("nn_argmin_packed",)),
@@ -2444,6 +2471,7 @@ def same_on_cudacore(torch, k1_paths):
     GT error to the printed digits."""
     from fpcr_tpu_torch.ops import matching as om
     from fpcr_tpu_torch.ops import matching_cuda as mc
+    from fpcr_tpu_torch.utils import graphs
 
     first = dict(RECORDS)
     RECORDS.clear()
@@ -2452,6 +2480,8 @@ def same_on_cudacore(torch, k1_paths):
     om.nn_argmin_packed_cuda = mc._nn_argmin_packed_cudacore
     KERNEL_ALIAS.update(nn_argmin="nn_argmin_cudacore",
                         nn_argmin_packed="nn_argmin_packed_cudacore")
+    # a captured loop replays the wrapper it captured: capture anew
+    graphs.clear()
     try:
         for path, fn, _, _ in k1_paths:
             counts = drive(torch, f"{path}, on the CUDA-core sweep", fn)
@@ -2460,6 +2490,7 @@ def same_on_cudacore(torch, k1_paths):
     finally:
         om.nn_argmin_cuda, om.nn_argmin_packed_cuda = saved
         KERNEL_ALIAS.clear()
+        graphs.clear()
     for name, digits in RECORDS.items():
         log("main", f"{name}: tensor-core {first[name]}, CUDA-core {digits}"
                     f" -> {'equal' if first[name] == digits else 'DIFFER'}")
@@ -2620,7 +2651,8 @@ OUR_KERNELS = ("nn_tc_sweep_kernel", "nn_tc_finish_kernel",
                "nn_packed_epilogue_kernel", "nn_min_combine_kernel",
                "morton_band_kernel", "ndt_moments_kernel",
                "split_partial_kernel", "split_combine_kernel",
-               "split_wgmma_kernel", "split_wgmma_combine_kernel")
+               "split_wgmma_kernel", "split_wgmma_combine_kernel",
+               "svd3_rotation_kernel")
 
 
 def kernel_ms(fn, repeats=10, fallback=True):
@@ -3500,7 +3532,7 @@ def phase_parallel(torch, ft, dev, smi):
     return totals
 
 
-# ---- phase 7: the examples, the guards, the fuzz and the scripts --------
+# ---- phase 8: the examples, the guards, the fuzz and the scripts --------
 
 # (module, arguments, success line of the JAX example) — full sizes, on the
 # card (no --cpu); the pipeline at 1,048,576 points (K1 coarse, K3 fine)
@@ -3678,7 +3710,8 @@ HEADLINE_TRACE_ITERS = 60
 
 def _profiled_trace(torch, run, k):
     """One run of ``run`` (``k`` iterations) under ``torch.profiler``:
-    device events and host launch calls an iteration, the host time in
+    device events and host launch calls (of a kernel or of a captured
+    graph) an iteration, the host time in
     those calls, the device span, busy time (the union of the events) and
     idle share, and the gaps between device events; None if the profiler
     saw no device event."""
@@ -3696,7 +3729,8 @@ def _profiled_trace(torch, run, k):
         return None
     calls = [e.time_range.elapsed_us() for e in events
              if e.device_type == DeviceType.CPU
-             and e.name.startswith(("cudaLaunch", "cuLaunch"))]
+             and e.name.startswith(("cudaLaunch", "cuLaunch",
+                                    "cudaGraphLaunch"))]
     busy, gaps, end = 0.0, [], dev_iv[0][0]
     for a, b in dev_iv:
         if a > end:
@@ -3875,6 +3909,577 @@ def phase_scripts(torch, dev, smi):
     return totals
 
 
+# ---- phase_graphs: the loops as captured CUDA graphs, and kernel svd3 ----
+
+# svd3's batches on the main path: run_icp, register_batch, RANSAC
+SVD3_BATCHES = (1, 32, 1024)
+# svd3 against its plain version on the same W, where R is unique (σ2 − σ3
+# > SVD3_GAP·σ1): within SVD3_ATOL of the plain version in float64 (the
+# kernel's float64 R rounded to float32 is half an ulp, 6e-8, from it), and
+# of the plain version in float32, whose own R is off by about float32's
+# epsilon times σ1 over the gap, within SVD3_F32_REL·σ1/gap (8 epsilons;
+# tests/test_torch_svd3.py holds JAX's float32 R alike)
+SVD3_GAP, SVD3_ATOL, SVD3_F32_REL = 1e-3, 1e-6, 1e-6
+# float32 operations that one 3x3 Kabsch rotation needs: Golub and Van
+# Loan's count of an SVD with U and V (the R-SVD's 4m²n + 8mn² + 9n³ at
+# m = n = 3, 567), R = U·Vᵀ (27 products, 18 sums) and the det fix (a 3x3
+# determinant, 17, and a column's sign, 3). The kernel's own work (8 sweeps
+# in float64) is its design's, not the function's
+SVD3_FLOPS = 632
+GRAPH_REPEATS = 6  # slopes of each path, captured and eager in turns
+GRAPH_TRACE_ITERS = 24
+
+
+def svd3_inputs(np, batch, seed=0):
+    """``[batch, 3, 3]`` float32: half N(0, 1) matrices, a quarter the
+    cross-covariances of noisy rigid pairs of anisotropic clouds (the
+    solve's own W), a quarter N(0, 1) scaled by 10^U(-6, 6)."""
+    rng = np.random.default_rng(seed + batch)
+    w = rng.normal(size=(batch, 3, 3))
+    k = batch // 4
+    for i in range(k):
+        p = rng.normal(size=(64, 3)) * [1.0, 0.6, 0.3]
+        q_, r_ = np.linalg.qr(rng.normal(size=(3, 3)))
+        q = p @ (q_ * np.sign(np.diag(r_))).T + rng.normal(0, 1e-3, (64, 3))
+        dp, dq = p - p.mean(0), q - q.mean(0)
+        w[i] = dq.T @ dp
+    w[k:2 * k] *= 10.0 ** rng.uniform(-6, 6, (k, 1, 1))
+    return w.astype(np.float32)
+
+
+def svd3_edges(np):
+    """W = 0, rank 1 (a line), rank 2 (a plane), a reflection, NaN, inf."""
+    rng = np.random.default_rng(7)
+    u = rng.normal(size=3)
+    line = np.outer(u, rng.normal(size=3))
+    p = rng.normal(size=(50, 3)) * [1.0, 0.5, 0.0]
+    plane = p.T @ p
+    refl = np.diag([3.0, 2.0, -0.5])
+    nan = rng.normal(size=(3, 3))
+    nan[1, 2] = np.nan
+    inf = rng.normal(size=(3, 3))
+    inf[0, 0] = np.inf
+    return np.stack([np.zeros((3, 3)), line, plane, refl, nan,
+                     inf]).astype(np.float32)
+
+
+def phase_svd3(torch, np, dev, card):
+    """svd3 against its plain version (``rotation_from_svd_plain`` in float32
+    and float64) on the main path's batches and the edge cases, and its
+    kernel time, the plain version's, ``torch.linalg.svd``'s and its bound
+    at each batch; returns the kernels line's fields, the batches' in
+    ``batches``."""
+    from fpcr_tpu_torch.ops.solve import rotation_from_svd_plain
+    from fpcr_tpu_torch.ops.svd3_cuda import svd3_rotation_cuda
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms
+
+    worst, batches = 0.0, {}
+    for det in (True, False):
+        for b in SVD3_BATCHES:
+            W = torch.as_tensor(svd3_inputs(np, b), device=dev)
+            got = svd3_rotation_cuda(W, det)
+            p32 = rotation_from_svd_plain(W, det)
+            p64 = rotation_from_svd_plain(W.double(), det)
+            s = torch.linalg.svdvals(W.double())
+            gap = s[:, 1] - s[:, 2]
+            if not det:  # u3's sign follows W·v3: σ3 must be apart from 0
+                gap = torch.minimum(gap, s[:, 2])
+            sep = gap > SVD3_GAP * s[:, 0]
+            e64 = float((got.double() - p64)[sep].abs().max())
+            d32 = (got - p32).abs().amax(dim=(1, 2))[sep]
+            e32 = float(d32.max())
+            r32 = float((d32 * gap[sep] / s[sep, 0]).max())
+            eye = torch.eye(3, device=dev, dtype=torch.float64)
+            g64 = got.double()
+            ortho = float((g64.transpose(1, 2) @ g64 - eye).abs().max())
+            dets = torch.linalg.det(g64)
+            log("graphs", f"svd3 B={b} det_correction={det}: {int(sep.sum())}"
+                          f" of {b} with R unique; max |R - plain f64| "
+                          f"{e64:.3e} (< {SVD3_ATOL:g}), max |R - plain f32| "
+                          f"{e32:.3e}, times gap/σ1 {r32:.3e} (< "
+                          f"{SVD3_F32_REL:g}), |RᵀR - I| "
+                          f"{ortho:.3e}, det in [{float(dets.min()):.7f}, "
+                          f"{float(dets.max()):.7f}]")
+            if not (e64 < SVD3_ATOL and r32 < SVD3_F32_REL
+                    and ortho < SVD3_ATOL):
+                raise AssertionError(f"svd3 B={b}: off its plain version")
+            if det and float((dets - 1).abs().max()) > SVD3_ATOL:
+                raise AssertionError(f"svd3 B={b}: det R is not +1")
+            worst = max(worst, e32)
+    edges = svd3_rotation_cuda(torch.as_tensor(svd3_edges(np), device=dev))
+    e = edges.double()
+    log("graphs", f"svd3 edges: W = 0 -> {edges[0].tolist()}; det of the "
+                  f"line's, the plane's, the reflection's R "
+                  f"{torch.linalg.det(e[1:4]).tolist()}; NaN W -> all NaN "
+                  f"{bool(edges[4].isnan().all())}, inf W -> all NaN "
+                  f"{bool(edges[5].isnan().all())}")
+    if not (torch.equal(edges[0], torch.eye(3, device=dev))
+            and float((torch.linalg.det(e[1:4]) - 1).abs().max()) < SVD3_ATOL
+            and bool(edges[4:].isnan().all())):
+        raise AssertionError("svd3: an edge case breaks the conventions")
+    # an empty kernel (one element's add): its device time, the floor of
+    # any one launch, and its call time, measured as svd3's are
+    x = torch.zeros(1, device=dev)
+    empty = device_events(lambda: [x.add_(1) for _ in range(20)])
+    latency = sum(e.time_range.elapsed_us() for e in empty) / len(empty) / 1e3
+    empty_call = cuda_time_ms(lambda: x.add_(1), repeats=20)["min"]
+    for b in SVD3_BATCHES:
+        W = torch.as_tensor(svd3_inputs(np, b), device=dev)
+        kernel = kernel_ms(lambda: svd3_rotation_cuda(W), repeats=20)
+        call = cuda_time_ms(lambda: svd3_rotation_cuda(W), repeats=20)["min"]
+        plain = cuda_time_ms(lambda: rotation_from_svd_plain(W),
+                             repeats=10)["min"]
+        library = cuda_time_ms(lambda: torch.linalg.svd(W), repeats=10)["min"]
+        bound_ms, bound_by = bound(72 * b, SVD3_FLOPS * b)
+        batches[b] = {"ms": kernel, "call_ms": call, "plain_ms": plain,
+                      "library_ms": library, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "latency_ms": latency,
+                      "empty_call_ms": empty_call}
+        log("graphs", f"svd3 B={b}: kernel {kernel:.4f} ms, call {call:.4f} "
+                      f"ms, plain version {plain:.4f} ms, torch.linalg.svd "
+                      f"{library:.4f} ms (min of 10-20, events), bound "
+                      f"{bound_ms:.7f} ms ({bound_by}: {72 * b} bytes, "
+                      f"{SVD3_FLOPS * b} float32 operations); an empty "
+                      f"kernel {latency:.4f} ms on the device (mean of "
+                      f"{len(empty)} events), its call {empty_call:.4f} ms "
+                      f"{card}")
+    return dict(batches[1], max_abs_err=worst, batches=batches)
+
+
+def _result_bits(res):
+    """Every tensor of an ICPResult or NDTResult, floats as integers."""
+    out = []
+    for x in res:
+        for t in (tuple(x) if not isinstance(x, torch.Tensor) else (x,)):
+            t = t.contiguous()
+            out.append(t.view(torch.int32) if t.dtype == torch.float32
+                       else t)
+    return out
+
+
+def _bits_equal(a, b):
+    return all(torch.equal(x, y)
+               for x, y in zip(_result_bits(a), _result_bits(b)))
+
+
+def graph_paths(torch, np, ft, dev):
+    """``[(label, run, scene, threshold)]``: the paths of the captured
+    loops, each ``run()`` one registration (captured, or eager under
+    ``graphs.eager()``); ``scene`` None for the batch, whose ``run``
+    checks its own ground truths."""
+    import functools
+
+    out = []
+    for name, kind, iters, thr in SCENES:
+        s = build_scene(ft, kind, dev)
+        for label, mode in (("point K1", {}), ("point K2", PACKED)):
+            cfg = ft.ICPConfig(max_iterations=iters, matcher="pallas", **mode)
+            out.append((f"{label} {name}", functools.partial(
+                ft.run_icp, s.source, s.target, cfg), s, thr))
+    for name, kind, iters, thr in PLANE_SCENES:
+        s = build_scene(ft, kind, dev)
+        cfg = ft.ICPConfig(metric="plane", max_iterations=iters,
+                           matcher="pallas")
+        out.append((f"plane K1 {name[6:]}", functools.partial(
+            ft.run_icp, s.source, s.target, cfg), s, thr))
+    for scenes, mode, label in ((MORTON_SCENES[:2], {}, "K3"),
+                                (PACKED_MORTON_SCENES, PACKED, "K3p")):
+        for name, kind, metric, iters, thr in scenes:
+            s = build_scene(ft, kind, dev)
+            cfg = ft.ICPConfig(metric=metric, matcher="morton",
+                               max_iterations=iters, **BAND, **mode)
+            out.append((f"morton {label} {name.split()[-1]}",
+                        functools.partial(ft.run_icp, s.source, s.target,
+                                          cfg), s, thr))
+    for name, width, thr, _ in NDT_SCENES:
+        s = ndt_scene(torch, np, ft, width, dev)
+        grid = ft.build_ndt_grid(s.target, NDT_VOXEL)
+        cfg = ft.resolve_ndt_config(
+            ft.NDTConfig(voxel_size=NDT_VOXEL, max_iterations=50), grid,
+            s.source)
+        out.append((f"NDT K4 {name.split()[-1]}", functools.partial(
+            ft.run_ndt, s.source, s.target, cfg, grid=grid), s, thr))
+    srcs, tgts, gts = serving_batch(ft, dev)
+    for label, mode in (("K1", {}), ("K2", PACKED)):
+        cfg = ft.ICPConfig(max_iterations=SERVING["iterations"],
+                           matcher="pallas", **mode)
+        out.append((f"register_batch {label} 32x4096", functools.partial(
+            ft.register_batch, srcs, tgts, cfg), (srcs, gts),
+            SERVING["threshold"]))
+    return out
+
+
+def _gt_error(ft, res, scene):
+    if not hasattr(scene, "ground_truth"):  # the batch: the worst element
+        srcs, gts = scene
+        return max(float(ft.transform_rmse(ft.RigidTransform(
+            res.transform.rotation[k], res.transform.translation[k]), g,
+            srcs[k])) for k, g in enumerate(gts))
+    return float(ft.transform_rmse(res.transform, scene.ground_truth,
+                                   scene.source))
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _counted_run(torch, run):
+    torch.cuda.synchronize()
+    before = counters()
+    res = run()
+    torch.cuda.synchronize()
+    after = counters()
+    return res, _nonzero({k: after[k] - before[k] for k in after})
+
+
+def check_captured(torch, ft, paths, card):
+    """Each path eager, then three calls of the loops' own choosing: the
+    key's first call (eager, nothing captured, so that a one-shot call
+    costs what the eager loop does), the call that captures and the call
+    that replays: bit for bit the eager run, the captured result unchanged
+    by the replay, the launches of each call the eager run's, and the
+    ground truth's threshold. The wall time of each call is logged beside
+    the eager run's; returns the captures' records."""
+    from fpcr_tpu_torch.utils import graphs
+
+    graphs.clear()  # the main path's calls have seen some of these keys
+    records = []
+    for label, run, scene, thr in paths:
+        with graphs.eager():
+            t = time.perf_counter()
+            ref, n_ref = _counted_run(torch, run)
+            eager_s = time.perf_counter() - t
+        calls = []
+        for _ in range(3):
+            since = len(graphs.CACHE.captures)
+            t = time.perf_counter()
+            res, n = _counted_run(torch, run)
+            calls.append((res, n, time.perf_counter() - t,
+                          graphs.CACHE.captures[since:]))
+        (first, n_first, first_s, caps0), (second, n_second, second_s,
+                                           caps), (third, n_third,
+                                                   third_s, caps2) = calls
+        same = all(_bits_equal(ref, c[0]) for c in calls)
+        gt = _gt_error(ft, second, scene)
+        log("graphs", f"{label}: captured == eager bit for bit {same}, "
+                      f"iterations {int(second.num_iterations.max())}, "
+                      f"GT {gt:.3e} (< {thr:g}), launches eager {n_ref}, "
+                      f"first / capturing / replaying call {n_first} / "
+                      f"{n_second} / {n_third}; wall s eager {eager_s:.4f}, "
+                      f"first call {first_s:.4f} ({len(caps0)} captures), "
+                      f"capturing call {second_s:.4f}, replaying call "
+                      f"{third_s:.4f}; {len(caps)} captures "
+                      + ", ".join(f"{c['fn']} {c['capture_s']:.3f} s "
+                                  f"{c['pool_bytes'] / 2**20:.1f} MiB"
+                                  for c in caps) + f" {card}")
+        if not same:
+            raise AssertionError(f"{label}: the captured loop differs from "
+                                 "the eager one")
+        if caps0 or caps2:
+            raise AssertionError(f"{label}: a first or replaying call "
+                                 "captured")
+        if not n_ref == n_first == n_second == n_third:
+            raise AssertionError(f"{label}: launches differ, eager {n_ref}, "
+                                 f"captured {n_first} / {n_second} / "
+                                 f"{n_third}")
+        if not gt < thr:
+            raise AssertionError(f"{label}: GT transform RMSE {gt} >= {thr}")
+        records += [dict(c, path=label) for c in caps]
+    return records
+
+
+def sync_sites(torch, run):
+    """``{source line: syncs}`` of one ``run()`` under
+    ``torch.cuda.set_sync_debug_mode('warn')``."""
+    import linecache
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        line = linecache.getline(w.filename, w.lineno).strip()
+        if "synchroniz" not in str(w.message) or "sync_debug_mode" in line:
+            # the mode's own notices, and a sync that the first switch of
+            # the mode in a process reports as its own (outside the run)
+            continue
+        key = f"{w.filename.split('fpcr_tpu_torch/')[-1]}:{w.lineno} {line}"
+        sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
+def check_syncs(torch, np, ft, dev, card):
+    """24 iterations of each path (stop test off), eager and captured
+    (after a call that captured), normals and tables prebuilt: the host
+    waits for the card only where it reads the done flag, after 8 and 16
+    iterations (and ``run_ndt`` once before its loop, reading the grid's
+    voxel size)."""
+    import functools
+
+    from fpcr_tpu_torch.models.icp import build_matcher_state
+    from fpcr_tpu_torch.utils import graphs
+
+    s = build_scene(ft, "synthetic", dev)
+    nrm = ft.estimate_normals(s.target)
+    big = build_scene(ft, "grid-0", dev)
+    ns = ndt_scene(torch, np, ft, LARGE_WIDTHS[0], dev)
+    grid = ft.build_ndt_grid(ns.target, NDT_VOXEL)
+    ncfg = ft.resolve_ndt_config(ft.NDTConfig(
+        voxel_size=NDT_VOXEL, max_iterations=24, tolerance=0.0), grid,
+        ns.source)
+    srcs, tgts, _ = serving_batch(ft, dev)
+    k = dict(max_iterations=24, tolerance=0.0)
+    mcfg = ft.ICPConfig(matcher="morton", **BAND, **k)
+    icp = ft.run_icp
+    runs = {
+        "point K1": functools.partial(icp, s.source, s.target, ft.ICPConfig(
+            matcher="pallas", **k)),
+        "point K2": functools.partial(icp, s.source, s.target, ft.ICPConfig(
+            matcher="pallas", **PACKED, **k)),
+        "plane K1": functools.partial(icp, s.source, s.target, ft.ICPConfig(
+            metric="plane", matcher="pallas", **k), target_normals=nrm),
+        "morton K3 262144": functools.partial(
+            icp, big.source, big.target, mcfg,
+            matcher_state=build_matcher_state(big.target, None, mcfg)),
+        "NDT K4 262144": functools.partial(ft.run_ndt, ns.source, ns.target,
+                                           ncfg, grid=grid),
+        "register_batch K1": functools.partial(
+            ft.register_batch, srcs, tgts, ft.ICPConfig(matcher="pallas",
+                                                        **k)),
+        "register_batch K2": functools.partial(
+            ft.register_batch, srcs, tgts, ft.ICPConfig(
+                matcher="pallas", **PACKED, **k))}
+    for label, run in runs.items():
+        run()  # the key's first call, eager
+        run()  # captures
+        for mode in ("captured", "eager"):
+            with graphs.eager(mode == "eager"):
+                sites = sync_sites(torch, run)
+            reads = sum(v for key, v in sites.items() if "bool(st." in key)
+            other = {key: v for key, v in sites.items()
+                     if "bool(st." not in key
+                     and "float(grid.voxel_size)" not in key}
+            log("graphs", f"syncs of 24 {mode} iterations, {label}: "
+                          f"{sites or 'none'} {card}")
+            if reads != 2 or other:
+                raise AssertionError(f"{label} ({mode}): the host waited "
+                                     f"for the card at {sites}")
+
+
+def graph_slopes(torch, np, ft, dev, card):
+    """ms/iter by the slope, captured against eager, ``GRAPH_REPEATS``
+    times each in turns (captured first in even repeats), and
+    ``register_batch``'s ms a batch; returns ``{path: {mode: [ms]}}``."""
+    import dataclasses as dc
+
+    from fpcr_tpu_torch.utils import graphs
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms, slope_ms_per_iter
+
+    def icp_run(s, normals=None, **fields):
+        base = ft.ICPConfig(tolerance=0.0, **fields)
+        return lambda n: ft.run_icp(s.source, s.target, dc.replace(
+            base, max_iterations=n), target_normals=normals)
+
+    s = build_scene(ft, "synthetic", dev)
+    # the plane loop alone: its normals prepass, eager, would add its host
+    # time's noise to both legs
+    nrm = ft.estimate_normals(s.target)
+    cases = [("point K1 16384", icp_run(s, matcher="pallas"), 10, 60),
+             ("point K2 16384", icp_run(s, matcher="pallas", **PACKED), 10,
+              60),
+             ("plane K1 16384", icp_run(s, nrm, metric="plane",
+                                        matcher="pallas"), 10, 60)]
+    for w in LARGE_WIDTHS:
+        g = build_scene(ft, f"grid-{LARGE_WIDTHS.index(w)}", dev)
+        cases.append((f"morton K3 {w * w}", icp_run(g, matcher="morton",
+                                                    **BAND), 5, 25))
+    for w in LARGE_WIDTHS:
+        ns = ndt_scene(torch, np, ft, w, dev)
+        grid = ft.build_ndt_grid(ns.target, NDT_VOXEL)
+        cfg = ft.resolve_ndt_config(ft.NDTConfig(voxel_size=NDT_VOXEL),
+                                    grid, ns.source)
+        cases.append((f"NDT K4 {w * w}", lambda n, ns=ns, grid=grid, cfg=cfg:
+                      ft.run_ndt(ns.source, ns.target, dc.replace(
+                          cfg, max_iterations=n, tolerance=0.0), grid=grid),
+                      5, 25))
+    srcs, tgts, _ = serving_batch(ft, dev)
+    bcfg = ft.ICPConfig(max_iterations=SERVING["iterations"], tolerance=0.0,
+                        matcher="pallas")
+    out = {}
+    for label, run, lo, hi in cases + [("register_batch K1 32x4096", None,
+                                        0, 0)]:
+        legs = {"captured": [], "eager": []}
+        for rep in range(GRAPH_REPEATS):
+            order = ("captured", "eager") if rep % 2 == 0 else ("eager",
+                                                                "captured")
+            for mode in order:
+                with graphs.eager(mode == "eager"):
+                    if run is None:
+                        ms = cuda_time_ms(lambda: ft.register_batch(
+                            srcs, tgts, bcfg), repeats=3, warmup=1)["min"]
+                    else:
+                        ms = slope_ms_per_iter(run, lo, hi,
+                                               repeats=3)["ms_per_iter"]
+                legs[mode].append(ms)
+        out[label] = legs
+        summary = []
+        for mode, v in legs.items():
+            med = sorted(v)[len(v) // 2]
+            summary.append(f"{mode} median {med:.4f} spread "
+                           f"{(max(v) - min(v)) / med:.3f} all "
+                           f"{[round(x, 4) for x in v]}")
+        unit = "ms a batch (20 iterations, min of 3)" if run is None else (
+            f"ms/iter (slope of {lo}/{hi}, min of 3)")
+        log("graphs", f"{label} {unit}: " + "; ".join(summary) + f" {card}")
+    return out
+
+
+def kernel_sites(torch, run):
+    """``(sites, counted, seen, added)`` of one ``run()`` under
+    ``torch.profiler``, padded by spin kernels (a session loses events at
+    its edges, see ``device_events``): ``sites`` maps each runtime call
+    that launched the port's kernels (by the trace's correlation ids) to
+    their device events under it, ``counted`` is what the wrappers' launch
+    counters added meanwhile, ``seen`` the device events by kernel name and
+    ``added`` the counters' additions by counter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    before = counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(PAD_CYCLES)
+        run()
+        torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
+    after = counters()
+    from torch.autograd import DeviceType
+
+    # the runtime and driver calls (``cudaLaunchKernel``,
+    # ``cudaGraphLaunch``, ...) share their correlation ids with the device
+    # work they started; the host's operators carry ids of their own
+    events = prof.profiler.kineto_results.events()
+    calls = {e.correlation_id(): e.name() for e in events
+             if e.device_type() == DeviceType.CPU
+             and e.name().startswith("cu")}
+    sites, seen = {}, {}
+    for e in events:
+        name = next((k for k in OUR_KERNELS if k in e.name()), None)
+        if e.device_type() == DeviceType.CUDA and name:
+            call = calls.get(e.correlation_id(), "no runtime call")
+            sites[call] = sites.get(call, 0) + 1
+            seen[name] = seen.get(name, 0) + 1
+    added = {k: after[k] - before[k] for k in after
+             if after[k] != before[k]}
+    return sites, sum(added.values()), seen, added
+
+
+def graph_traces(torch, ft, dev, card):
+    """One traced run of ``GRAPH_TRACE_ITERS`` iterations of point and
+    plane ICP through K1 at 16,384 (the plane's normals given), captured
+    (after the key's first call and the call that captures) and eager:
+    device events, host launch calls (kernel and graph launches) and busy
+    time an iteration, and the device's idle share. A second traced run
+    each way holds the launch counters to the trace: the port's kernels
+    appear as device events in the counted numbers, all under
+    ``cudaGraphLaunch`` calls when captured and under none when eager."""
+    from fpcr_tpu_torch.utils import graphs
+
+    s = build_scene(ft, "synthetic", dev)
+    nrm = ft.estimate_normals(s.target)  # the loop alone, as in the slopes
+    k = GRAPH_TRACE_ITERS
+    out = {}
+    for label, fields in (("point K1", {"matcher": "pallas"}),
+                          ("plane K1", {"metric": "plane",
+                                        "matcher": "pallas"})):
+        cfg = ft.ICPConfig(max_iterations=k, tolerance=0.0, **fields)
+        normals = nrm if cfg.metric == "plane" else None
+        for mode in ("captured", "eager"):
+            with graphs.eager(mode == "eager"):
+                def run():
+                    return ft.run_icp(s.source, s.target, cfg,
+                                      target_normals=normals)
+                run()
+                run()
+                torch.cuda.synchronize()
+                traced = _profiled_trace(torch, run, k)
+                takes = []
+                for _ in range(SITE_TAKES):
+                    sites, counted, seen, added = kernel_sites(torch, run)
+                    takes.append((sites, counted, seen, added))
+                    if sites_agree(sites, counted, mode):
+                        break
+            out[(label, mode)] = traced
+            log("graphs", f"traced {k} iterations, {label} 16,384, {mode}: "
+                          f"{json.dumps(traced)}; the port's kernels by "
+                          f"launching call {sites}, launches counted "
+                          f"{counted} {card}")
+            for n, (t_sites, t_counted, t_seen, t_added) in enumerate(
+                    takes[:-1]):
+                log("graphs", f"{label} ({mode}): session {n + 1} of the "
+                              f"counters' check lost records: kernels by "
+                              f"launching call {t_sites}, by name {t_seen}; "
+                              f"counted {t_counted}, by counter {t_added}; "
+                              f"retaken")
+            if not sites_agree(sites, counted, mode):
+                raise AssertionError(f"{label} ({mode}): in {len(takes)} "
+                                     f"sessions the trace never showed the "
+                                     f"port's kernels as counted; the last "
+                                     f"shows them under {sites} (by name "
+                                     f"{seen}), the counters {counted} "
+                                     f"({added})")
+    return out
+
+
+# traced sessions of the counters' check in ``graph_traces``: a session can
+# lose records (``device_events``), never add any, so a count that agrees
+# once is the count; one that never agrees fails the run
+SITE_TAKES = 5
+
+
+def sites_agree(sites, counted, mode):
+    """Whether one traced session (``kernel_sites``) shows the port's
+    kernels as counted: as many device events as counted launches, each
+    matched to the call that launched it, all under ``cudaGraphLaunch``
+    when ``mode`` is "captured" and none under it when eager."""
+    graph_launched = set(sites) == {"cudaGraphLaunch"}
+    return (counted > 0 and sum(sites.values()) == counted
+            and graph_launched == (mode == "captured")
+            and "no runtime call" not in sites)
+
+
+def phase_graphs(torch, np, ft, dev, smi):
+    """The loops as captured CUDA graphs (``utils/graphs.py``) and kernel
+    svd3: svd3 against its plain version; every path of the captured loops
+    bit for bit its eager run, to its ground truth, with the eager run's
+    launches; the host's syncs in 24 iterations of each; captured against
+    eager ms/iter in turns, six times; one traced run of point and plane
+    ICP each way. Returns svd3's kernels-line fields."""
+    t0 = time.perf_counter()
+    card = f"[card: {smi}]"
+    svd3 = phase_svd3(torch, np, dev, card)
+    records = check_captured(torch, ft, graph_paths(torch, np, ft, dev), card)
+    pools = sorted(r["pool_bytes"] for r in records)
+    secs = sorted(r["capture_s"] for r in records)
+    log("graphs", f"{len(records)} captures: seconds {secs[0]:.3f}-"
+                  f"{secs[-1]:.3f} (median {secs[len(secs) // 2]:.3f}), "
+                  f"pools {pools[0] / 2**20:.1f}-{pools[-1] / 2**20:.1f} MiB,"
+                  f" peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                  f"{card}")
+    check_syncs(torch, np, ft, dev, card)
+    graph_slopes(torch, np, ft, dev, card)
+    graph_traces(torch, ft, dev, card)
+    log("graphs", f"phase done in {time.perf_counter() - t0:.1f} s")
+    return svd3
+
+
 def bound(nbytes, flops, ops_ms=0.0):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``nbytes`` of device-memory traffic (each input read once, each output
@@ -3908,7 +4513,7 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, nbytes,
             "bound_by": bound_by, "library_ms": None}
 
 
-def kernels_line(launches, errs, times, times2, times3, times5):
+def kernels_line(launches, errs, times, times2, times3, times5, svd3):
     """The ``kernels`` JSON object, the bounds from this run's inputs: the
     brute-force kernels at the synthetic scene's N = M = 16,384, the band
     kernels at 1,048,576 points (chunk 512, window 64, no extra; bytes with
@@ -3967,7 +4572,23 @@ def kernels_line(launches, errs, times, times2, times3, times5):
                      "fpcr_tpu/ops/ndt_pallas.py:512",
                      launches["ndt_fused_moments"], errs["ndt_fused_moments"],
                      k4["k4_ms"], k4["plain_ms"], k4_bytes, k4_flops),
-    ] + study_entries(launches, errs, times5)}
+    ] + study_entries(launches, errs, times5) + [svd3_entry(launches, svd3)]}
+
+
+def svd3_entry(launches, svd3):
+    """svd3's ``kernels`` entry at run_icp's batch of one (the other
+    batches under ``batches``): its bound the larger of 72 bytes a matrix
+    over the HBM rate and the float32 operations the rotation needs over
+    the float32 peak, ``torch.linalg.svd``'s call as the library's time,
+    and an empty kernel's device time and call time beside them."""
+    entry = kernel_entry("svd3_rotation", "fpcr_tpu_torch/csrc/svd3.cu",
+                         "fpcr_tpu/ops/solve.py:84", launches["svd3_rotation"],
+                         svd3["max_abs_err"], svd3["ms"], svd3["plain_ms"],
+                         72, SVD3_FLOPS)
+    for key in ("library_ms", "call_ms", "latency_ms", "empty_call_ms"):
+        entry[key] = svd3[key]
+    entry["batches"] = {str(b): v for b, v in svd3["batches"].items()}
+    return entry
 
 
 def study_entries(launches, errs, times5):
@@ -4249,6 +4870,7 @@ def main():
         errs[key] = max(errs[key], err)
     launches, study, studies = phase_main_path(torch, ft, dev)
     phase_reference(torch, ft, dev)
+    svd3 = phase_graphs(torch, np, ft, dev, smi)
     times = phase_times(torch, ft, dev, smi, study)
     times2 = phase_times_slice2(torch, ft, dev, smi)
     times3 = phase_times_ndt(torch, np, ft, dev, smi)
@@ -4287,7 +4909,7 @@ def main():
               f"{guard:.4f} [card: {smi}]")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(launches, errs, times, times2, times3,
-                                  times5)), flush=True)
+                                  times5, svd3)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

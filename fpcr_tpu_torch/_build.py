@@ -46,6 +46,20 @@ class BuildResult(NamedTuple):
 
 _lib: Optional[ctypes.CDLL] = None
 
+# every launch counter of the package, registered where its wrapper is
+# defined (:func:`counted`): ``utils/graphs.py`` reads them over a capture
+# and adds a captured graph's launches to them at each replay
+COUNTED: list = []
+
+
+def counted(fn, launches=0):
+    """Give the wrapper ``fn`` its launch counter ``fn.launches`` (an int,
+    or a dict of ints keyed by launch type) and register it in
+    :data:`COUNTED`; ``fn`` adds to the counter where it launches."""
+    fn.launches = launches
+    COUNTED.append(fn)
+    return fn
+
 
 def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
@@ -191,6 +205,8 @@ def load_library() -> ctypes.CDLL:
                                      i32, i32, i32, i32, i32, f32, f32, ptr,
                                      ptr, ptr]
     lib.fpcr_ndt_moments.restype = i32
+    lib.fpcr_svd3_rotation.argtypes = [ptr, i32, i32, ptr, ptr]
+    lib.fpcr_svd3_rotation.restype = i32
     lib.fpcr_cuda_error_string.argtypes = [i32]
     lib.fpcr_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -18,6 +18,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .. import _build
+
 
 def _all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` in place over ``group``'s ranks; every all-reduce adds one
@@ -35,7 +37,7 @@ def _psum(x: torch.Tensor, group=None) -> torch.Tensor:
     return x if group is None else _all_reduce_(x.clone(), group)
 
 
-_psum.launches = 0
+_build.counted(_psum)  # all-reduces made through it
 
 
 def _psum_all(xs: Sequence[torch.Tensor], group=None

@@ -17,8 +17,12 @@ The trimmed means, the IRLS weights, the Kabsch SVD with its det correction
 and the plane's 6x6 ``cholesky_ex`` run per element along the batch axis.
 An element that has converged is a masked no-op, as under ``vmap``; the host
 reads the ``done`` flags once per ``DONE_CHECK_EVERY`` iterations, as
-``run_icp`` does, and stops when every element is done. The plane metric's
-normals prepass runs element by element: it is paid once.
+``run_icp`` does, and stops when every element is done. On the card those
+iterations are one replay of a CUDA graph from the second call of the
+batch's shapes and config on, as ``run_icp``'s are
+(``models/icp.py::drive_chunks``; the JAX package's loop is one ``jit``).
+The plane metric's normals prepass runs element by element: it is paid
+once.
 
 Every other config (the morton and grid matchers, the symmetric and gicp
 metrics) registers element by element through ``run_icp`` and stacks the
@@ -27,7 +31,8 @@ results, which are equal; the route is chosen by the config alone.
 
 from __future__ import annotations
 
-from typing import List, Optional
+import dataclasses
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -37,9 +42,9 @@ from ..ops.matching import gather_correspondences
 from ..ops.solve import kabsch_transform, point_to_plane_transform
 from ..utils.device import resolve_device
 from ..utils.precision import pin_f32_precision
-from .icp import (DONE_CHECK_EVERY, ICPConfig, ICPResult, _match,
-                  _matched_fraction, _normals_prepass,
-                  correspondence_weights, rotation_angle, run_icp)
+from .icp import (ICPConfig, ICPResult, _match, _matched_fraction,
+                  _normals_prepass, correspondence_weights, drive_chunks,
+                  rotation_angle, run_icp)
 
 
 def batched_route(config: ICPConfig) -> bool:
@@ -88,28 +93,35 @@ def _iteration(points, targets, normals, config: ICPConfig):
     return new_points, inc, rmse(new_points, q_m, mask), frac
 
 
-def _batched_loop(sources, targets, normals, config: ICPConfig) -> ICPResult:
-    b, device = sources.shape[0], sources.device
-    nan = torch.full((), float("nan"), device=device)
-    points = sources
-    rot = torch.eye(3, device=device).expand(b, 3, 3).contiguous()
-    trans = torch.zeros((b, 3), device=device)
-    prev_error = torch.full((b,), float("inf"), device=device)
-    done = torch.zeros(b, dtype=torch.bool, device=device)
-    num_iterations = torch.zeros(b, dtype=torch.int32, device=device)
-    errors, fractions, delta_t, delta_rot = [], [], [], []
-    for it in range(config.max_iterations):
-        if it and it % DONE_CHECK_EVERY == 0 and bool(done.all()):
-            break
+class _BatchState(NamedTuple):
+    """The state of every element, ``[B, ...]`` on the device."""
+
+    points: torch.Tensor
+    rotation: torch.Tensor
+    translation: torch.Tensor
+    prev_error: torch.Tensor
+    done: torch.Tensor
+    num_iterations: torch.Tensor
+
+
+def _batch_chunk(state: _BatchState, consts, k: int):
+    """``k`` masked iterations of every element: ``(state, rows [k, 4,
+    B])`` (error, matched fraction, ‖Δt‖, ∠ΔR, NaN where an element had
+    stopped). ``consts`` is ``(targets, normals, config)``. A pure function
+    of its tensors: on the card one CUDA graph a ``k``
+    (``models/icp.py::drive_chunks``)."""
+    targets, normals, config = consts
+    points, rot, trans, prev_error, done, num_iterations = state
+    nan = torch.full((), float("nan"), device=points.device)
+    rows = []
+    for _ in range(k):
         new_points, inc, error, frac = _iteration(points, targets, normals,
                                                   config)
         active = ~done
-        errors.append(torch.where(active, error, nan))
-        fractions.append(torch.where(active, frac, nan))
-        delta_t.append(torch.where(active, torch.linalg.vector_norm(
-            inc.translation, dim=-1), nan))
-        delta_rot.append(torch.where(active, rotation_angle(inc.rotation),
-                                     nan))
+        rows.append(torch.where(active, torch.stack([
+            error, torch.broadcast_to(frac, error.shape),
+            torch.linalg.vector_norm(inc.translation, dim=-1),
+            rotation_angle(inc.rotation)]), nan))
         converged = (error < config.tolerance) | (
             torch.abs(error - prev_error) < config.tolerance)
         a3 = active[:, None, None]
@@ -121,19 +133,31 @@ def _batched_loop(sources, targets, normals, config: ICPConfig) -> ICPResult:
         prev_error = torch.where(active, error, prev_error)
         num_iterations = num_iterations + active.to(torch.int32)
         done = done | (active & converged)
+    return (_BatchState(points, rot, trans, prev_error, done, num_iterations),
+            torch.stack(rows))
 
-    def rows(values):  # [B, max_iterations], NaN after the stop
-        out = torch.full((b, config.max_iterations), float("nan"),
-                         device=device)
-        if values:
-            out[:, :len(values)] = torch.stack(values, dim=1)
-        return out
 
-    return ICPResult(transform=RigidTransform(rot, trans),
-                     errors=rows(errors), num_iterations=num_iterations,
-                     converged=done, points=points,
-                     matched_fraction=rows(fractions),
-                     delta_t=rows(delta_t), delta_rot=rows(delta_rot))
+def _batched_loop(sources, targets, normals, config: ICPConfig) -> ICPResult:
+    b, device = sources.shape[0], sources.device
+    state = _BatchState(
+        sources, torch.eye(3, device=device).expand(b, 3, 3).contiguous(),
+        torch.zeros((b, 3), device=device),
+        torch.full((b,), float("inf"), device=device),
+        torch.zeros(b, dtype=torch.bool, device=device),
+        torch.zeros(b, dtype=torch.int32, device=device))
+    # the chunk never reads max_iterations: one graph serves every length
+    consts = (targets, normals, dataclasses.replace(config, max_iterations=0))
+    state, rows = drive_chunks(_batch_chunk, state, consts,
+                               config.max_iterations,
+                               lambda st: bool(st.done.all()), (4, b))
+    # [B, max_iterations] each, NaN after the stop
+    errors, fractions, delta_t, delta_rot = rows.permute(1, 2, 0).contiguous()
+    return ICPResult(transform=RigidTransform(state.rotation,
+                                              state.translation),
+                     errors=errors, num_iterations=state.num_iterations,
+                     converged=state.done, points=state.points,
+                     matched_fraction=fractions, delta_t=delta_t,
+                     delta_rot=delta_rot)
 
 
 def _stack_results(results: List[ICPResult]) -> ICPResult:

@@ -74,7 +74,7 @@ from ..ops.morton import (build_morton_table, miss_floors, morton_nn,
                           morton_nn_band, source_morton_order)
 from ..ops.normals import estimate_normals
 from ..ops.solve import kabsch_transform, point_to_plane_transform
-from ..utils import diagnostics
+from ..utils import diagnostics, graphs
 from ..utils.precision import pin_f32_precision
 
 # The host reads the device `done` flag once per this many iterations: a
@@ -556,6 +556,95 @@ def run_icp(source, target, config: ICPConfig = ICPConfig(),
                     target_normals, source_normals, matcher_state)
 
 
+class _ICPState(NamedTuple):
+    """The loop state, every field on the device."""
+
+    points: torch.Tensor
+    normals: Optional[torch.Tensor]  # carried source normals, or None
+    rotation: torch.Tensor
+    translation: torch.Tensor
+    prev_error: torch.Tensor
+    done: torch.Tensor
+    num_iterations: torch.Tensor
+
+
+def _icp_chunk(state: _ICPState, consts, k: int):
+    """``k`` masked iterations of :func:`run_icp` from ``state``: ``(state,
+    rows [k, 4])``, a row an iteration holding its error, matched
+    fraction, ‖Δt‖ and ∠ΔR, NaN where the loop had stopped. ``consts`` is
+    ``(target, source_mask, target_mask, target_normals, matcher_state,
+    config, group)``. A pure function of its tensors: on the card one CUDA
+    graph a ``k`` (:func:`drive_chunks`)."""
+    (target, source_mask, target_mask, target_normals, matcher_state,
+     config, group) = consts
+    points, normals, rotation, translation, prev_error, done, n_it = state
+    nan = torch.full((), float("nan"), device=points.device)
+    rows = []
+    for _ in range(k):
+        new_points, inc, error, aux = icp_iteration(
+            points, target, config, source_mask, target_mask,
+            target_normals, matcher_state, normals, group)
+        active = ~done
+        rows.append(torch.where(active, torch.stack([
+            error, aux.matched_fraction,
+            torch.linalg.vector_norm(inc.translation),
+            rotation_angle(inc.rotation)]), nan))
+        converged = (error < config.tolerance) | (
+            torch.abs(error - prev_error) < config.tolerance)
+        composed = inc.compose(RigidTransform(rotation, translation))
+        points = torch.where(active, new_points, points)
+        if normals is not None:  # full f32 rotation of the carried normals
+            normals = torch.where(active,
+                                  torch.matmul(normals, inc.rotation.T),
+                                  normals)
+        rotation = torch.where(active, composed.rotation, rotation)
+        translation = torch.where(active, composed.translation, translation)
+        prev_error = torch.where(active, error, prev_error)
+        n_it = n_it + active.to(torch.int32)
+        done = done | (active & converged)
+    return (_ICPState(points, normals, rotation, translation, prev_error,
+                      done, n_it), torch.stack(rows))
+
+
+def drive_chunks(body, state, consts, iterations: int, stopped,
+                 row_shape: tuple, *, sharded: bool = False, check=None):
+    """Run ``body(state, consts, k) -> (state, rows [k, *row_shape])`` for
+    ``iterations`` iterations in chunks of ``k = DONE_CHECK_EVERY`` (the
+    last one shorter), reading ``stopped(state)`` on the host before every
+    chunk but the first, where the loops read their done flag; a chunk
+    after the stop would change nothing. Returns the last state and the
+    rows of the chunks run, NaN-padded to ``[iterations, *row_shape]``.
+
+    On the card the chunks run by ``utils/graphs.py::bind``: the first
+    loop of a key (``body``, the shapes of ``consts``, the config) runs
+    eagerly, and every later one replays a CUDA graph a chunk length, so
+    nothing in an iteration waits for the host. The chunks run eagerly on
+    the CPU, under ``graphs.eager()``, for a sharded loop (``sharded``: a
+    ``torch.distributed`` collective is not captured) and under
+    :func:`utils.diagnostics.debug_nans`, whose ``check(state, rows,
+    start)`` reads each iteration's error: there a chunk is one
+    iteration."""
+    every = 1 if check is not None else DONE_CHECK_EVERY
+    device = state[0].device
+    if graphs.captured(device) and not sharded and check is None:
+        step = graphs.bind(body, consts)
+    else:
+        def step(st, k):
+            return body(st, consts, k)
+    out = torch.full((iterations,) + tuple(row_shape), float("nan"),
+                     device=device)
+    for start in range(0, iterations, every):
+        if start and start % DONE_CHECK_EVERY == 0 and stopped(state):
+            break
+        k = min(every, iterations - start)
+        new_state, rows = step(state, k)
+        if check is not None:
+            check(state, rows, start)
+        state = new_state
+        out[start:start + k] = rows
+    return state, out
+
+
 def _run_icp(source, target, config: ICPConfig,
              source_mask: Optional[torch.Tensor] = None,
              target_mask: Optional[torch.Tensor] = None,
@@ -565,62 +654,47 @@ def _run_icp(source, target, config: ICPConfig,
     """:func:`run_icp` on one rank's shard of the source when ``group`` is
     set: the shard is Morton-sorted on its own (morton matcher), every sum
     is all-reduced over ``group``, and ``points`` is the shard's, in its
-    input row order."""
+    input row order.
+
+    On the card the loop runs as CUDA graphs of ``DONE_CHECK_EVERY``
+    iterations (:func:`drive_chunks`), the counterpart of the JAX loop's
+    one ``jit``, from the second call of its shapes and config on. It runs
+    eagerly, one launch at a time, on the first such call, on the CPU, for
+    a sharded loop (``group`` set) and under ``debug_nans``."""
     pin_f32_precision()
     (source, target, source_mask, target_mask, target_normals,
      source_normals, matcher_state, unsort, config) = _prepare(
         source, target, config, source_mask, target_mask, target_normals,
         source_normals, matcher_state)
-    device = source.device
-    carries_normals = source_normals is not None
-
-    nan = torch.full((), float("nan"), device=device)
-    points = source
-    normals = source_normals
-    transform = RigidTransform.identity(device=device)
-    prev_error = torch.full((), float("inf"), device=device)
-    done = torch.zeros((), dtype=torch.bool, device=device)
-    num_iterations = torch.zeros((), dtype=torch.int32, device=device)
-    errors, fractions, delta_t, delta_rot = [], [], [], []
-    for it in range(config.max_iterations):
-        if it and it % DONE_CHECK_EVERY == 0 and bool(done):
-            break
-        new_points, inc, error, aux = icp_iteration(
-            points, target, config, source_mask, target_mask,
-            target_normals, matcher_state, normals, group)
-        active = ~done
-        diagnostics.check_iteration(error, active, it, "run_icp")
-        errors.append(torch.where(active, error, nan))
-        fractions.append(torch.where(active, aux.matched_fraction, nan))
-        delta_t.append(torch.where(active, torch.linalg.vector_norm(
-            inc.translation), nan))
-        delta_rot.append(torch.where(active, rotation_angle(inc.rotation),
-                                     nan))
-        converged = (error < config.tolerance) | (
-            torch.abs(error - prev_error) < config.tolerance)
-        composed = inc.compose(transform)
-        points = torch.where(active, new_points, points)
-        if carries_normals:  # full f32 rotation of the carried normals
-            normals = torch.where(active,
-                                  torch.matmul(normals, inc.rotation.T),
-                                  normals)
-        transform = RigidTransform(
-            torch.where(active, composed.rotation, transform.rotation),
-            torch.where(active, composed.translation, transform.translation))
-        prev_error = torch.where(active, error, prev_error)
-        num_iterations = num_iterations + active.to(torch.int32)
-        done = done | (active & converged)
-
-    n = config.max_iterations
+    check = None
+    if diagnostics.nans_checked():
+        def check(before, rows, start):
+            diagnostics.check_iteration(rows[0, 0], ~before.done, start,
+                                        "run_icp")
+    # the chunk never reads max_iterations: one graph serves every length
+    consts = (target, source_mask, target_mask, target_normals,
+              matcher_state, dataclasses.replace(config, max_iterations=0),
+              group)
+    identity = RigidTransform.identity(device=source.device)
+    state = _ICPState(source, source_normals, identity.rotation,
+                      identity.translation,
+                      torch.full((), float("inf"), device=source.device),
+                      torch.zeros((), dtype=torch.bool, device=source.device),
+                      torch.zeros((), dtype=torch.int32, device=source.device))
+    state, rows = drive_chunks(_icp_chunk, state, consts,
+                               config.max_iterations,
+                               lambda st: bool(st.done), (4,),
+                               sharded=group is not None, check=check)
+    errors, fractions, delta_t, delta_rot = rows.T.contiguous()
     return ICPResult(
-        transform=transform,
-        errors=_nan_padded(errors, n, device),
-        num_iterations=num_iterations,
-        converged=done,
-        points=points if unsort is None else points[unsort],
-        matched_fraction=_nan_padded(fractions, n, device),
-        delta_t=_nan_padded(delta_t, n, device),
-        delta_rot=_nan_padded(delta_rot, n, device),
+        transform=RigidTransform(state.rotation, state.translation),
+        errors=errors,
+        num_iterations=state.num_iterations,
+        converged=state.done,
+        points=state.points if unsort is None else state.points[unsort],
+        matched_fraction=fractions,
+        delta_t=delta_t,
+        delta_rot=delta_rot,
     )
 
 

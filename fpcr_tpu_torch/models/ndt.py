@@ -18,11 +18,12 @@ on a CPU tensor). ``lookup_impl='auto'`` is K4 on a CUDA tensor and the XLA
 band on a CPU tensor, as the JAX package takes Pallas on the TPU and XLA
 elsewhere.
 
-The JAX loop is one ``lax.while_loop``. Here the state (pose, step norm,
-matched fraction, iteration count) stays on the device and every update is
-masked by the device condition ``step norm > tolerance``; the host reads it
-every ``DONE_CHECK_EVERY`` iterations. The per-point Gauss-Newton pieces of
-every iteration go through one stacked reduction.
+The JAX loop is one ``lax.while_loop`` under ``jit``. Here the state
+(pose, step norm, matched fraction, iteration count) stays on the device and
+every update is masked by the device condition ``step norm > tolerance``;
+on the card every ``DONE_CHECK_EVERY`` iterations are one replay of a CUDA
+graph, and the host reads the condition once a replay. The per-point
+Gauss-Newton pieces of every iteration go through one stacked reduction.
 
 The sharded loop (``parallel/dist_icp.py::distributed_ndt``) runs
 :func:`_ndt_loop` on a rank's shard with its ``source_mask`` and ``group``,
@@ -50,7 +51,7 @@ from ..ops.ndt import (DIRECT7_OFFSETS, _AXIS_BITS, _KEY_PAD, NDTGrid,
                        prepare_fused_tables, sym_upper)
 from ..utils import diagnostics
 from ..utils.precision import pin_f32_precision
-from .icp import DONE_CHECK_EVERY
+from .icp import drive_chunks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,21 +304,28 @@ class NDTResult(NamedTuple):
     matched_fraction: torch.Tensor  # source points with a neighbour voxel
 
 
-def _moments_fn(source: torch.Tensor, grid: NDTGrid, config: NDTConfig,
-                source_mask: Optional[torch.Tensor] = None):
-    """``x -> (s [N,6], sr [N,3], qsum [N], count [N])``: the per-point
-    weighted neighbourhood moments of the configured lookup, summed over the
-    offsets (the assembly is linear in them); rows off ``source_mask`` hit
-    nothing."""
-    d1f, d2f = gauss_d1_d2(config.outlier_ratio, config.voxel_size)
-    d1f = abs(d1f)  # d1 < 0 in the score convention; the weight uses |d1|
+def _moments_impl(config: NDTConfig, source: torch.Tensor) -> str:
+    """The band's implementation: ``'pallas'`` (K4) or ``'xla'``."""
     impl = config.lookup_impl
     if impl == "auto":
         impl = "pallas" if source.device.type == "cuda" else "xla"
+    return impl
+
+
+def _moments_fn(source: torch.Tensor, grid: NDTGrid, config: NDTConfig,
+                source_mask: Optional[torch.Tensor] = None, tables=None):
+    """``x -> (s [N,6], sr [N,3], qsum [N], count [N])``: the per-point
+    weighted neighbourhood moments of the configured lookup, summed over the
+    offsets (the assembly is linear in them); rows off ``source_mask`` hit
+    nothing. K4's ``tables`` are built from ``grid`` unless given."""
+    d1f, d2f = gauss_d1_d2(config.outlier_ratio, config.voxel_size)
+    d1f = abs(d1f)  # d1 < 0 in the score convention; the weight uses |d1|
+    impl = _moments_impl(config, source)
     win = 512 if config.lookup_window is None else config.lookup_window
 
     if config.lookup == "banded" and impl == "pallas":
-        tables = prepare_fused_tables(grid)
+        if tables is None:
+            tables = prepare_fused_tables(grid)
 
         def fused(x):
             rows, xp = ndt_fused_moments(
@@ -366,41 +374,32 @@ def _moments_fn(source: torch.Tensor, grid: NDTGrid, config: NDTConfig,
     return per_offset
 
 
-def _ndt_loop(source: torch.Tensor, grid: NDTGrid, config: NDTConfig,
-              source_mask: Optional[torch.Tensor] = None, group=None):
-    """The Gauss-Newton loop on ``source`` (voxel-key-sorted for the banded
-    lookups): ``(R, t, iterations, errors, converged, matched_fraction)``.
-    ``source`` may be one rank's shard of ``group`` and ``source_mask`` its
-    valid rows: the centroid, H, g and the counts are all-reduced."""
-    dev = source.device
-    n = source.shape[0]
-    moments = _moments_fn(source, grid, config, source_mask)
-    if source_mask is None:
-        w_c = None
-        # equal shards: the valid rows are known on the host
-        world = 1
-        if group is not None:
-            import torch.distributed as dist
+class _NDTState(NamedTuple):
+    """The loop state, every field on the device."""
 
-            world = dist.get_world_size(group)
-        n_valid = float(max(n * world, 1))
-    else:
-        w_c = source_mask.to(torch.float32)
-        n_valid = torch.clamp(_psum(w_c.sum(), group), min=1.0)
+    R: torch.Tensor
+    t: torch.Tensor
+    delta_norm: torch.Tensor  # the last step's norm; inf before the first
+    frac: torch.Tensor  # matched fraction of the last iteration
+    iterations: torch.Tensor
+
+
+def _ndt_chunk(state: _NDTState, consts, k: int):
+    """``k`` masked Gauss-Newton iterations from ``state``: ``(state,
+    errors [k])``, NaN where the loop had stopped. ``consts`` is ``(source,
+    grid, tables, source_mask, w_c, n_valid, gn_map, config, group)``
+    (``tables`` K4's, or None). A pure function of its tensors: on the card
+    one CUDA graph a ``k`` (``models/icp.py::drive_chunks``)."""
+    (source, grid, tables, source_mask, w_c, n_valid, gn_map, config,
+     group) = consts
+    dev = source.device
+    moments = _moments_fn(source, grid, config, source_mask, tables)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    gn_map = torch.tensor(_gn_map().reshape(42, 90), dtype=torch.float32,
-                          device=dev)
-    nan = torch.tensor(float("nan"), device=dev)
-    R = torch.eye(3, dtype=torch.float32, device=dev)
-    t = torch.zeros(3, dtype=torch.float32, device=dev)
-    delta_norm = torch.tensor(float("inf"), device=dev)
-    frac = torch.zeros((), dtype=torch.float32, device=dev)
-    iterations = torch.zeros((), dtype=torch.int32, device=dev)
+    nan = torch.full((), float("nan"), device=dev)
+    R, t, delta_norm, frac, iterations = state
     errors = []
-    for it in range(config.max_iterations):
+    for _ in range(k):
         active = delta_norm > config.tolerance  # the while loop's cond
-        if it and it % DONE_CHECK_EVERY == 0 and not bool(active):
-            break
         x = torch.matmul(source, R.T) + t
         # linearize about the centroid: the rotation block of H then scales
         # with the cloud's extent, not with |x|²
@@ -432,20 +431,75 @@ def _ndt_loop(source: torch.Tensor, grid: NDTGrid, config: NDTConfig,
                         + torch.sum(delta[3:6] ** 2))
         dn = torch.where(finite, dn, torch.full_like(dn, float("inf")))
 
-        diagnostics.check_iteration(err, active, it, "run_ndt")
         R = torch.where(active, R_new, R)
         t = torch.where(active, t_new, t)
         errors.append(torch.where(active, err, nan))
         frac = torch.where(active, n_hit / n_valid, frac)
         iterations = iterations + active.to(torch.int32)
         delta_norm = torch.where(active, dn, delta_norm)
-    errs = torch.full((config.max_iterations,), float("nan"),
-                      dtype=torch.float32, device=dev)
-    if errors:
-        errs[:len(errors)] = torch.stack(errors)
+    return _NDTState(R, t, delta_norm, frac, iterations), torch.stack(errors)
+
+
+def _to_device(a: np.ndarray, dev) -> torch.Tensor:
+    """A host array on ``dev``; to the card through pinned memory, a copy
+    that does not wait for the card."""
+    t = torch.from_numpy(a)
+    if torch.device(dev).type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _ndt_loop(source: torch.Tensor, grid: NDTGrid, config: NDTConfig,
+              source_mask: Optional[torch.Tensor] = None, group=None):
+    """The Gauss-Newton loop on ``source`` (voxel-key-sorted for the banded
+    lookups): ``(R, t, iterations, errors, converged, matched_fraction)``.
+    ``source`` may be one rank's shard of ``group`` and ``source_mask`` its
+    valid rows: the centroid, H, g and the counts are all-reduced.
+
+    On the card the loop runs as CUDA graphs of ``DONE_CHECK_EVERY``
+    iterations (``models/icp.py::drive_chunks``), the counterpart of the
+    JAX loop's one ``jit``, from the second call of its shapes and config
+    on. It runs eagerly on the first such call, on the CPU, for a sharded
+    loop (``group`` set) and under ``debug_nans``."""
+    dev = source.device
+    n = source.shape[0]
+    if source_mask is None:
+        w_c = None
+        # equal shards: the valid rows are known on the host
+        world = 1
+        if group is not None:
+            import torch.distributed as dist
+
+            world = dist.get_world_size(group)
+        n_valid = float(max(n * world, 1))
+    else:
+        w_c = source_mask.to(torch.float32)
+        n_valid = torch.clamp(_psum(w_c.sum(), group), min=1.0)
+    gn_map = _to_device(_gn_map().reshape(42, 90).astype(np.float32), dev)
+    state = _NDTState(
+        torch.eye(3, dtype=torch.float32, device=dev),
+        torch.zeros(3, dtype=torch.float32, device=dev),
+        torch.full((), float("inf"), device=dev),
+        torch.zeros((), dtype=torch.float32, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev))
+    fused = (config.lookup == "banded"
+             and _moments_impl(config, source) == "pallas")
+    consts = (source, grid, prepare_fused_tables(grid) if fused else None,
+              source_mask, w_c, n_valid, gn_map,
+              dataclasses.replace(config, max_iterations=0), group)
+    check = None
+    if diagnostics.nans_checked():
+        def check(before, rows, start):
+            diagnostics.check_iteration(
+                rows[0], before.delta_norm > config.tolerance, start,
+                "run_ndt")
+    state, errs = drive_chunks(
+        _ndt_chunk, state, consts, config.max_iterations,
+        lambda st: not bool(st.delta_norm > config.tolerance), (),
+        sharded=group is not None, check=check)
     # zero hits also give δ = 0: a failure (disjoint clouds), not convergence
-    converged = (delta_norm <= config.tolerance) & (frac > 0.0)
-    return R, t, iterations, errs, converged, frac
+    converged = (state.delta_norm <= config.tolerance) & (state.frac > 0.0)
+    return (state.R, state.t, state.iterations, errs, converged, state.frac)
 
 
 def run_ndt(source, target, config: Optional[NDTConfig] = None, *,

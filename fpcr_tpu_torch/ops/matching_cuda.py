@@ -254,7 +254,7 @@ def nn_argmin_cuda(
     return _nn_tc(nn_argmin_cuda, p, q, q_mask, None)
 
 
-nn_argmin_cuda.launches = 0  # kernel launches made by this wrapper
+_build.counted(nn_argmin_cuda)  # kernel launches made by this wrapper
 
 
 def nn_argmin_packed_cuda(
@@ -279,7 +279,7 @@ def nn_argmin_packed_cuda(
     return _nn_tc(nn_argmin_packed_cuda, p, q, q_mask, idx_bits)
 
 
-nn_argmin_packed_cuda.launches = 0  # kernel launches made by this wrapper
+_build.counted(nn_argmin_packed_cuda)  # kernel launches made by this wrapper
 
 
 def _nn_tc_tile_values(p: torch.Tensor, q: torch.Tensor,
@@ -355,7 +355,7 @@ def _nn_argmin_cudacore(
     return idx, dist
 
 
-_nn_argmin_cudacore.launches = 0  # kernel launches made by this wrapper
+_build.counted(_nn_argmin_cudacore)  # kernel launches made by this wrapper
 
 
 def _nn_argmin_packed_cudacore(
@@ -393,7 +393,7 @@ def _nn_argmin_packed_cudacore(
     return idx, dist
 
 
-_nn_argmin_packed_cudacore.launches = 0  # kernel launches made by this wrapper
+_build.counted(_nn_argmin_packed_cudacore)
 
 
 def check_idx_bits(m: int, idx_bits: int) -> None:
@@ -468,7 +468,7 @@ def nn_min_only_cuda(
     return dist
 
 
-nn_min_only_cuda.launches = 0  # kernel launches made by this wrapper
+_build.counted(nn_min_only_cuda)  # kernel launches made by this wrapper
 
 
 def _nn_min_only_yardstick(
@@ -502,7 +502,7 @@ def _nn_min_only_yardstick(
     return dist
 
 
-_nn_min_only_yardstick.launches = 0  # kernel launches made by this wrapper
+_build.counted(_nn_min_only_yardstick)  # kernel launches made by this wrapper
 
 
 FORMS = ("biased", "expand", "expand5")  # the kernels' Form 1, 2, 3
@@ -594,7 +594,7 @@ def nn_form_cuda(
 
 
 # kernel launches made by this wrapper, per E1 launch type
-nn_form_cuda.launches = dict.fromkeys(FORM_LAUNCHES.values(), 0)
+_build.counted(nn_form_cuda, dict.fromkeys(FORM_LAUNCHES.values(), 0))
 
 
 def _nn_form_yardstick(
@@ -654,7 +654,7 @@ def _nn_form_yardstick(
     return idx, dist
 
 
-_nn_form_yardstick.launches = dict.fromkeys(FORM_LAUNCHES.values(), 0)
+_build.counted(_nn_form_yardstick, dict.fromkeys(FORM_LAUNCHES.values(), 0))
 
 
 def _nn_forms_only(p: torch.Tensor, q: torch.Tensor,

@@ -161,8 +161,10 @@ def _query_keys(points: torch.Tensor, grid: NDTGrid, cell_offset
     point's voxel shifted by ``cell_offset``."""
     c = _cells_raw(points.to(torch.float32), grid.lo, grid.voxel_size)
     if cell_offset is not None:
-        c = c + torch.as_tensor(cell_offset, dtype=torch.int32,
-                                device=c.device)
+        # a column at a time: a tensor of the offset would be a copy from
+        # the host, which a captured loop cannot take
+        c = torch.stack([c[:, a] + int(o) for a, o in enumerate(cell_offset)],
+                        dim=1)
     inb = _in_range(c)
     k = torch.where(inb, _clipped_keys(c), torch.full_like(c[:, 0], -1))
     return k, inb

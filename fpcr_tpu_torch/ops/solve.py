@@ -3,9 +3,9 @@ point-to-plane (6x6).
 
 Counterpart of ``fpcr_tpu/ops/solve.py``. Point-to-point: masked centroids,
 the 3x3 cross-covariance as one float32 matmul, and the rotation from a 3x3
-SVD on the device of the inputs (``torch.linalg.svd``), with the det(R) = +1
-reflection fix the reference lacks, or from the matmul-only Newton–Schulz
-polar iteration; Umeyama adds the scale from the same SVD. Point-to-plane:
+SVD (kernel svd3 on the card, ``torch.linalg.svd`` on the CPU), with the
+det(R) = +1 reflection fix the reference lacks, or from the matmul-only
+Newton–Schulz polar iteration; Umeyama adds the scale from the same SVD. Point-to-plane:
 J = [p × n, n], C = JᵀWJ and b = -JᵀWr as
 float32 reductions, and the 6x6 Cholesky solve on the device, with no host
 round trip. A mask may be boolean or float (IRLS weights).
@@ -80,9 +80,28 @@ def _det3(a: torch.Tensor) -> torch.Tensor:
 
 def rotation_from_svd(W: torch.Tensor,
                       det_correction: bool = True) -> torch.Tensor:
-    """Kabsch rotation ``R = U·Vᵀ`` from the 3x3 cross-covariance, with the
-    optional det(R) = +1 fix: the column of U of the smallest singular value
-    (the last) is multiplied by sign(det R)."""
+    """Kabsch rotation ``R = U·Vᵀ`` from the 3x3 cross-covariance (or each of
+    a batch ``[..., 3, 3]``), with the optional det(R) = +1 fix: the column
+    of U of the smallest singular value (the last) is multiplied by
+    sign(det R).
+
+    On a CUDA tensor this is kernel svd3 (``ops/svd3_cuda.py``, float32
+    only, else it raises), which reports nothing to the host: the call does
+    not wait for the card, so a registration loop can run as a captured CUDA
+    graph. A non-finite W gives a NaN R there, as in the JAX package. On a
+    CPU tensor it is the plain version, :func:`rotation_from_svd_plain`."""
+    if W.device.type == "cuda":
+        from .svd3_cuda import svd3_rotation_cuda
+
+        return svd3_rotation_cuda(W.contiguous(), det_correction)
+    return rotation_from_svd_plain(W, det_correction)
+
+
+def rotation_from_svd_plain(W: torch.Tensor,
+                            det_correction: bool = True) -> torch.Tensor:
+    """The plain PyTorch version of kernel svd3, on any device: one
+    ``torch.linalg.svd``, which raises on a non-finite W and on the card
+    checks its status on the host."""
     U, _, Vt = torch.linalg.svd(W, full_matrices=False)
     R = torch.matmul(U, Vt)
     if det_correction:
@@ -199,14 +218,18 @@ def plane_solve_update(C: torch.Tensor, b: torch.Tensor,
     finite when the inlier set collapses. ``cholesky_ex`` reports a failed
     factorization on the device (``torch.linalg.cholesky`` would check it
     on the host, a sync per iteration, and raise); a failed or non-finite
-    solve gives x = 0, the identity update."""
+    solve gives x = 0, the identity update. The solve is two triangular
+    solves with L (cuBLAS on the card): a batched ``cholesky_solve`` would
+    go through MAGMA there, which no CUDA graph can capture."""
     eye = torch.eye(6, dtype=C.dtype, device=C.device)
     if damping:
         C = C + damping * eye
     trace = C.diagonal(dim1=-2, dim2=-1).sum(dim=-1)[..., None, None]
     C = C + (1e-7 * (trace / 6.0) + 1e-30) * eye
     L, info = torch.linalg.cholesky_ex(C)
-    x = torch.cholesky_solve(b[..., None], L)[..., 0]
+    x = torch.linalg.solve_triangular(
+        L.transpose(-1, -2), torch.linalg.solve_triangular(
+            L, b[..., None], upper=False), upper=True)[..., 0]
     good = (info == 0) & torch.isfinite(x).all(dim=-1)
     x = torch.where(good[..., None], x, torch.zeros_like(x))
     return RigidTransform(rotation_zyx(x[..., 0], x[..., 1], x[..., 2]),

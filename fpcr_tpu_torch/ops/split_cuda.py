@@ -286,5 +286,6 @@ def _split_nn_mma_sync(
 
 
 # kernel launches made by each wrapper, per launch type
-split_nn_cuda.launches = {f"x{t} {e}": 0 for t in TERMS for e in EPILOGUES}
-_split_nn_mma_sync.launches = dict(split_nn_cuda.launches)
+_build.counted(split_nn_cuda,
+               {f"x{t} {e}": 0 for t in TERMS for e in EPILOGUES})
+_build.counted(_split_nn_mma_sync, dict(split_nn_cuda.launches))

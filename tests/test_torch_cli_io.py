@@ -337,9 +337,11 @@ def test_debug_nans_raises_at_the_first_nonfinite_iteration():
 
 
 def test_run_ndt_checks_every_iteration(monkeypatch):
-    """``run_ndt`` hands every iteration's error to the check; the check
-    raises for an iteration that ran with a non-finite error, and not for
-    one masked after the stop."""
+    """Under ``debug_nans`` ``run_ndt`` hands every iteration's error to
+    the check (the loop runs eagerly then, one iteration a chunk; without
+    it the check would read nothing and the loop does not call it); the
+    check raises for an iteration that ran with a non-finite error, and
+    not for one masked after the stop."""
     from fpcr_tpu_torch.utils import diagnostics
 
     check = diagnostics.check_iteration
@@ -347,8 +349,9 @@ def test_run_ndt_checks_every_iteration(monkeypatch):
     monkeypatch.setattr(diagnostics, "check_iteration",
                         lambda err, active, it, ctx: seen.append((it, ctx)))
     s = ft.synthetic_scene(width=16, device="cpu")
-    ft.run_ndt(s.source, s.target, ft.NDTConfig(voxel_size=0.5,
-                                                max_iterations=3))
+    with diagnostics.debug_nans():
+        ft.run_ndt(s.source, s.target, ft.NDTConfig(voxel_size=0.5,
+                                                    max_iterations=3))
     assert seen == [(i, "run_ndt") for i in range(3)]
     nan = torch.tensor(float("nan"))
     check(nan, torch.tensor(True), 4, "run_ndt")  # off: no check

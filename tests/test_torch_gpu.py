@@ -1444,37 +1444,308 @@ def test_evaluate_registration_and_profile_on_card(cuda):
     assert all(v > 0 for v in timer.as_dict().values())
 
 
-@pytest.mark.parametrize("name", ["gicp", "aa-plane", "grid-gicp"])
-def test_no_host_sync_in_slice_iterations(cuda, name):
-    """Eight iterations of GICP (K1), AA-ICP (K1 three times an iteration)
-    and grid GICP, normals and tables prebuilt, under
-    ``torch.cuda.set_sync_debug_mode("error")``: nothing in an iteration
-    waits for the card; the host reads ``done`` once per 8 iterations,
-    which 8 iterations never reach."""
+def _sync_case(cuda, name):
+    """``(run, wrapper, expected launches of wrapper)`` of eight iterations
+    of ``name``, normals and tables prebuilt."""
+    import functools
+
+    import fpcr_tpu_torch as ft
     from fpcr_tpu_torch.models.icp import build_matcher_state
     from fpcr_tpu_torch.ops import matching_cuda as mc
+    from fpcr_tpu_torch.ops.morton_cuda import morton_nn_cuda
+    from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
+    from fpcr_tpu_torch.ops.svd3_cuda import svd3_rotation_cuda
 
-    src, tgt, normals, kw = _slice_inputs(name)
-    kw["max_iterations"] = 8
-    src, tgt = src.to(cuda), tgt.to(cuda)
-    normals = {k: v.to(cuda) for k, v in normals.items()}
-    import fpcr_tpu_torch as ft
+    if name in ("gicp", "aa-plane", "grid-gicp"):
+        src, tgt, normals, kw = _slice_inputs(name)
+        kw["max_iterations"] = 8
+        src, tgt = src.to(cuda), tgt.to(cuda)
+        normals = {k: v.to(cuda) for k, v in normals.items()}
+        cfg = ft.ICPConfig(**kw)
+        if name.startswith("aa"):
+            run = functools.partial(ft.run_aa_icp, src, tgt, cfg, **normals)
+        else:
+            run = functools.partial(
+                ft.run_icp, src, tgt, cfg, **normals,
+                matcher_state=build_matcher_state(tgt, None, cfg))
+        return run, mc.nn_argmin_cuda, {"gicp": 16, "aa-plane": 48,
+                                        "grid-gicp": 0}[name]
+    s = ft.synthetic_scene(width=64, device=cuda)
+    eight = dict(max_iterations=8, tolerance=0.0)
+    if name in ("point-k1", "point-k2"):
+        packed = name == "point-k2"
+        cfg = ft.ICPConfig(matcher="pallas", **eight, **(
+            dict(pallas_mode="packed6_idx") if packed else {}))
+        run = functools.partial(ft.run_icp, s.source, s.target, cfg)
+        wrapper = mc.nn_argmin_packed_cuda if packed else mc.nn_argmin_cuda
+        return run, wrapper, 16
+    if name == "point-svd3":
+        cfg = ft.ICPConfig(matcher="pallas", **eight)
+        return (functools.partial(ft.run_icp, s.source, s.target, cfg),
+                svd3_rotation_cuda, 8)
+    if name == "morton":
+        g = ft.surface_grid(128, device=cuda)
+        tgt = ft.gt_transform((0.004, -0.003, 0.002), (0.003, -0.002, 0.004),
+                              device=cuda).apply(g)
+        cfg = ft.ICPConfig(matcher="morton", morton_chunk=512,
+                           morton_window=64, **eight)
+        return (functools.partial(
+            ft.run_icp, g, tgt, cfg,
+            matcher_state=build_matcher_state(tgt, None, cfg)),
+            morton_nn_cuda, 8)
+    if name == "ndt":
+        from fpcr_tpu_torch.models import ndt as mn
 
-    cfg = ft.ICPConfig(**kw)
-    state = build_matcher_state(tgt, None, cfg)
+        scan, grid, _ = _ndt_case(cuda, 65536, 3)  # voxel-key-sorted
+        cfg = ft.resolve_ndt_config(ft.NDTConfig(voxel_size=0.25, **eight),
+                                    grid, scan)
+        assert cfg.lookup == "banded" and cfg.lookup_impl == "pallas"
+        return (functools.partial(mn._ndt_loop, scan, grid, cfg),
+                ndt_fused_moments_cuda, 8)
+    assert name in ("batch-k1", "batch-k2")
+    packed = name == "batch-k2"
+    srcs = torch.stack([s.source] * 4)
+    tgts = torch.stack([s.target + 0.01 * k for k in range(4)])
+    cfg = ft.ICPConfig(matcher="pallas", **eight, **(
+        dict(pallas_mode="packed6_idx") if packed else {}))
+    wrapper = mc.nn_argmin_packed_cuda if packed else mc.nn_argmin_cuda
+    return (functools.partial(ft.register_batch, srcs, tgts, cfg), wrapper,
+            16)
+
+
+@pytest.mark.parametrize("name", ["gicp", "aa-plane", "grid-gicp",
+                                  "point-k1", "point-k2", "point-svd3",
+                                  "morton", "ndt", "batch-k1", "batch-k2"])
+def test_no_host_sync_in_slice_iterations(cuda, name):
+    """Eight iterations of GICP (K1), AA-ICP (K1 three times an iteration),
+    grid GICP, point ICP through K1 and K2 (and svd3), Morton ICP (K3), NDT
+    (K4) and ``register_batch`` through K1 and K2, normals and tables
+    prebuilt, under ``torch.cuda.set_sync_debug_mode("error")``: nothing
+    in an iteration waits for the card; the host reads ``done`` once per 8
+    iterations, which 8 iterations never reach. The loops that run as
+    captured graphs are captured outside the window, by a second call (the
+    first of a key runs eagerly; a capture synchronises once, as a compile
+    does); the counts are the third call's, one replay's."""
+    run, wrapper, expected = _sync_case(cuda, name)
+    run()
+    run()
     torch.cuda.synchronize()
-    before = mc.nn_argmin_cuda.launches
+    before = wrapper.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
-        if name.startswith("aa"):
-            res = ft.run_aa_icp(src, tgt, cfg, **normals)
-        else:
-            res = ft.run_icp(src, tgt, cfg, matcher_state=state, **normals)
+        res = run()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    launches = (mc.nn_argmin_cuda.launches - before) // 2  # 2 a call
-    assert launches == {"gicp": 8, "aa-plane": 24, "grid-gicp": 0}[name]
-    assert int(res.num_iterations) >= 1
+    assert wrapper.launches - before == expected
+    # an ICPResult's third field, or _ndt_loop's third value
+    assert int(res[2].min()) >= 1
+
+
+GRAPH_PATHS = ["point-k1", "point-k2", "plane-k1", "morton-k3",
+               "morton-k3p", "gicp", "grid", "ndt", "batch-k1", "batch-k2"]
+
+
+def _graph_case(cuda, name, shift=0.0):
+    """``run()`` of one registration of ``name`` on the card, its target
+    moved by ``shift`` (another input of the same shapes)."""
+    import functools
+
+    import fpcr_tpu_torch as ft
+
+    s = ft.synthetic_scene(width=64, device=cuda)
+    src, tgt = s.source, s.target + shift
+    if name in ("point-k1", "point-k2", "plane-k1", "gicp", "grid"):
+        kw = {"point-k1": dict(matcher="pallas"),
+              "point-k2": dict(matcher="pallas", pallas_mode="packed6_idx"),
+              "plane-k1": dict(metric="plane", matcher="pallas"),
+              "gicp": dict(metric="gicp", matcher="pallas"),
+              "grid": dict(matcher="grid", grid_cap=16)}[name]
+        return functools.partial(ft.run_icp, src, tgt,
+                                 ft.ICPConfig(max_iterations=21, **kw))
+    if name.startswith("morton"):
+        g = ft.surface_grid(128, device=cuda)
+        tgt = ft.gt_transform((0.004, -0.003, 0.002), (0.003, -0.002, 0.004),
+                              device=cuda).apply(g) + shift
+        kw = dict(pallas_mode="packed6_idx") if name.endswith("p") else {}
+        return functools.partial(ft.run_icp, g, tgt, ft.ICPConfig(
+            matcher="morton", morton_chunk=512, morton_window=64,
+            max_iterations=21, **kw))
+    if name == "ndt":
+        scan, grid, _ = _ndt_case(cuda, 65536, 3)
+        cfg = ft.resolve_ndt_config(ft.NDTConfig(voxel_size=0.25,
+                                                 max_iterations=21),
+                                    grid, scan)
+        return functools.partial(ft.run_ndt, scan + 0.01 + shift, None, cfg,
+                                 grid=grid)
+    packed = name == "batch-k2"
+    srcs = torch.stack([src] * 5)
+    tgts = torch.stack([tgt + 0.02 * k for k in range(5)])
+    return functools.partial(ft.register_batch, srcs, tgts, ft.ICPConfig(
+        matcher="pallas", max_iterations=21,
+        **(dict(pallas_mode="packed6_idx") if packed else {})))
+
+
+def _result_bits(res):
+    out = []
+    for x in res:
+        for t in (x if isinstance(x, tuple) else (x,)):
+            t = t.contiguous()
+            out.append(t.view(torch.int32) if t.dtype == torch.float32
+                       else t)
+    return out
+
+
+def _launch_counts():
+    from fpcr_tpu_torch import _build
+
+    return [dict(f.launches) if isinstance(f.launches, dict) else f.launches
+            for f in _build.COUNTED]
+
+
+@pytest.mark.parametrize("name", GRAPH_PATHS)
+def test_captured_loop_is_its_eager_run(cuda, name):
+    """Each path of the captured loops (``utils/graphs.py``) against its
+    eager run on the card: bit for bit in every field (21 iterations, so a
+    chunk of 8 and a shorter last one) on the key's first call (eager,
+    nothing captured), the call that captures and the call that replays,
+    every kernel's launches those of the eager run on each, and a result
+    held by the caller unchanged by the next calls, one on other inputs of
+    the same shapes, which replays with its own inputs: its eager run's
+    bits."""
+    from fpcr_tpu_torch.utils import graphs
+
+    graphs.clear()
+    run = _graph_case(cuda, name)
+    c0 = _launch_counts()
+    with graphs.eager():
+        ref = run()
+    c1 = _launch_counts()
+    first = run()
+    c2 = _launch_counts()
+    assert len(graphs.CACHE) == 0
+    second = run()
+    c3 = _launch_counts()
+    assert len(graphs.CACHE) >= 1
+    kept = [t.clone() for t in _result_bits(second)]
+    again = run()
+    c4 = _launch_counts()
+    moved = _graph_case(cuda, name, shift=0.05)()
+    with graphs.eager():
+        moved_ref = _graph_case(cuda, name, shift=0.05)()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(
+        _result_bits(moved), _result_bits(moved_ref)))
+    for a, b, c, d, k in zip(_result_bits(ref), _result_bits(first),
+                             _result_bits(second), _result_bits(again), kept):
+        assert (torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+                and torch.equal(c, k))
+    assert not all(torch.equal(a, b) for a, b in zip(
+        _result_bits(moved), _result_bits(second)))
+
+    def diff(x, y):
+        return [({k: v - y[i].get(k, 0) for k, v in a.items()}
+                 if isinstance(a, dict) else a - y[i])
+                for i, a in enumerate(x)]
+    assert (diff(c1, c0) == diff(c2, c1) == diff(c3, c2)
+            == diff(c4, c3))
+    assert any(d if isinstance(d, int) else any(d.values())
+               for d in diff(c1, c0))
+
+
+def test_captured_loop_under_debug_nans_runs_eagerly(cuda):
+    """Under ``debug_nans`` the loop runs eagerly (its check reads every
+    iteration's error): nothing is captured, and the result is the
+    captured loop's."""
+    from fpcr_tpu_torch.utils import diagnostics, graphs
+
+    graphs.clear()
+    run = _graph_case(cuda, "point-k1")
+    with diagnostics.debug_nans():
+        checked = run()
+    assert len(graphs.CACHE) == 0
+    run()  # the key's first loop, eager
+    for a, b in zip(_result_bits(checked), _result_bits(run())):
+        assert torch.equal(a, b)
+    assert len(graphs.CACHE) >= 1
+
+
+def test_failed_capture_raises(cuda):
+    """A function that waits for the card cannot be captured: the key's
+    first loop runs it eagerly, the second raises at its capture and
+    caches nothing, and the card keeps working."""
+    from fpcr_tpu_torch.utils import graphs
+
+    def body(state, consts, k):
+        return state * float(consts[0].sum())
+
+    cache = graphs.GraphCache()
+    x = torch.ones(4, device=cuda)
+    assert float(cache.bind(body, (x,))(x, 1).sum()) == 16.0
+    with pytest.raises(RuntimeError):
+        cache.bind(body, (x,))(x, 1)
+    assert len(cache) == 0 and cache.nbytes() == 0
+    assert float((x * 2).sum()) == 8.0
+
+
+SVD3_GAP, SVD3_ATOL, SVD3_F32_REL = 1e-3, 1e-6, 1e-6  # chip_smoke.py's
+
+
+@pytest.mark.parametrize("det_correction", [True, False])
+@pytest.mark.parametrize("b", [1, 32, 1024])
+def test_svd3_kernel_against_plain(cuda, b, det_correction):
+    """Kernel svd3 against its plain version (``torch.linalg.svd``) in
+    float64 and float32 on the card, where R is unique (chip_smoke.py's
+    tolerances and reasons): one launch, an orthogonal R, det +1 with the
+    det fix; ``rotation_from_svd`` on a CUDA tensor launches it."""
+    from fpcr_tpu_torch.ops.solve import (rotation_from_svd,
+                                          rotation_from_svd_plain)
+    from fpcr_tpu_torch.ops.svd3_cuda import svd3_rotation_cuda
+
+    rng = np.random.default_rng(b)
+    W = torch.as_tensor(rng.normal(size=(b, 3, 3)).astype(np.float32),
+                        device=cuda)
+    before = svd3_rotation_cuda.launches
+    got = rotation_from_svd(W, det_correction)
+    assert svd3_rotation_cuda.launches == before + 1
+    s = torch.linalg.svdvals(W.double())
+    gap = s[:, 1] - s[:, 2]
+    if not det_correction:
+        gap = torch.minimum(gap, s[:, 2])
+    sep = gap > SVD3_GAP * s[:, 0]
+    assert bool(sep.any())
+    p64 = rotation_from_svd_plain(W.double(), det_correction)
+    p32 = rotation_from_svd_plain(W, det_correction)
+    assert float((got.double() - p64)[sep].abs().max()) < SVD3_ATOL
+    d32 = (got - p32).abs().amax(dim=(1, 2))
+    assert float((d32 * gap / s[:, 0])[sep].max()) < SVD3_F32_REL
+    g = got.double()
+    eye = torch.eye(3, device=cuda, dtype=torch.float64)
+    assert float((g.transpose(1, 2) @ g - eye).abs().max()) < SVD3_ATOL
+    if det_correction:
+        assert float((torch.linalg.det(g) - 1).abs().max()) < SVD3_ATOL
+
+
+def test_svd3_kernel_edges_and_checks(cuda):
+    """W = 0 gives the identity, a line's and a plane's W a rotation, a
+    non-finite W a NaN R; the wrapper refuses float64, a non-contiguous W
+    and a wrong shape without launching."""
+    from fpcr_tpu_torch.ops.svd3_cuda import svd3_rotation_cuda
+
+    line = np.outer([1.0, 2.0, -0.5], [0.3, -1.0, 0.8])
+    p = np.random.default_rng(1).normal(size=(40, 3)) * [1.0, 0.5, 0.0]
+    nan = np.eye(3)
+    nan[2, 1] = np.nan
+    W = torch.as_tensor(np.stack([np.zeros((3, 3)), line, p.T @ p, nan])
+                        .astype(np.float32), device=cuda)
+    R = svd3_rotation_cuda(W)
+    assert torch.equal(R[0], torch.eye(3, device=cuda))
+    assert float((torch.linalg.det(R[1:3].double()) - 1).abs().max()) < 1e-6
+    assert bool(R[3].isnan().all())
+    before = svd3_rotation_cuda.launches
+    for bad in (W.double(), W.transpose(1, 2), W[:, :2]):
+        with pytest.raises(ValueError):
+            svd3_rotation_cuda(bad)
+    assert svd3_rotation_cuda.launches == before
 
 
 def _batch_case(cuda, b, n, m, seed, masks):
@@ -1564,6 +1835,8 @@ def test_no_host_sync_in_batched_iterations(cuda, mode):
     wrapper = (mc.nn_argmin_packed_cuda if mode == "packed6_idx"
                else mc.nn_argmin_cuda)
     args = [x.to(cuda) for x in (srcs, tgts, nrm)]
+    ft.register_batch(args[0], args[1], cfg, args[2])  # eager, the first
+    ft.register_batch(args[0], args[1], cfg, args[2])  # captures the loop
     torch.cuda.synchronize()
     before = wrapper.launches
     torch.cuda.set_sync_debug_mode("error")
