@@ -117,7 +117,16 @@ Phases, in order; any failure raises and the script exits nonzero:
    against eager ms/iter (``register_batch`` ms a batch) six times each in
    turns; one traced run of point and plane ICP through K1 each way, and
    one more that finds the port's kernels in the trace, in the counted
-   numbers, under ``cudaGraphLaunch`` when captured;
+   numbers, under ``cudaGraphLaunch`` when captured. The loop variants
+   likewise: svd3's Umeyama form against its plain version on the same
+   batches and edge cases, with its times; AA-ICP point and plane,
+   scaled ICP through K1 and K2, SGD-ICP on Bunny (B = 1,024, 200 steps),
+   history through K1 and K2 on the four scenes and K3 at 1,048,576, the
+   SLAM example's pose graph (unit weights and the closures'
+   informations) and ``global_registration`` on Bunny, each bit for bit
+   its eager run on the three calls, with its launches and to its ground
+   truth; their syncs in 24 iterations (the pose graph and RANSAC: none
+   in the loop); captured against eager six times in turns;
 6. times — ms/iter by the slope method (point ICP at 16,384 through K1 and
    K2, plane ICP at 16,384, Morton ICP through K3 and K3p and NDT at
    262,144 and 1,048,576), K1 and K2 against their CUDA-core sweep in legs
@@ -157,7 +166,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    threshold, every rank's transform bit-equal and each rank's kernels
    launched on its half of the rows; and the CLI as a user starts it, as
    subprocesses: ``python -m fpcr_tpu_torch info``, ``run --dataset
-   bunny`` to 1e-5 and ``match-bench`` at 16,384;
+   bunny`` to 1e-5 and ``match-bench`` at 16,384; and the world-1 NCCL
+   loops captured with their all-reduces (``distributed_icp`` point at
+   16,384 and Morton at 1,048,576, ``distributed_ndt`` at 1,048,576), bit
+   for bit their eager runs, syncs and slopes as in phase 5;
 8. examples, guards, fuzz and scripts — the six examples
    (``fpcr_tpu_torch/examples/``) as processes of their own on the card at
    their full sizes, the pipeline at 1,048,576 points (K1 coarse, K3
@@ -193,7 +205,10 @@ rate, FORM_PAIR_INSTR; svd3's its 72 bytes a matrix and the float32
 operations a 3x3 Kabsch rotation needs over the float32 peak, at run_icp's
 batch of one, the other batches under ``batches``, with
 ``torch.linalg.svd`` as its library call and, in ``latency_ms``, the
-device time of an empty kernel, which bounds it in practice;
+device time of an empty kernel, which bounds it in practice; svd3's
+Umeyama form's its 76 bytes a matrix and the operations of Umeyama's
+rotation and trace, at scaled ICP's batch of one, its ``max_abs_err`` R's
+and ``trace_rel_err`` the trace's over σ1;
 the entries of Kernel S, the E1 forms and the min-only sweep also carry
 the legs' call and kernel times of both sides). The last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits 1 and prints no result.
@@ -1486,7 +1501,8 @@ def _wrappers():
     from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
                                                 morton_nn_packed_cuda)
     from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
-    from fpcr_tpu_torch.ops.svd3_cuda import svd3_rotation_cuda
+    from fpcr_tpu_torch.ops.svd3_cuda import (svd3_rotation_cuda,
+                                              svd3_umeyama_cuda)
 
     return {"nn_argmin": nn_argmin_cuda,
             "nn_argmin_packed": nn_argmin_packed_cuda,
@@ -1495,6 +1511,7 @@ def _wrappers():
             "morton_nn_packed": morton_nn_packed_cuda,
             "ndt_fused_moments": ndt_fused_moments_cuda,
             "svd3_rotation": svd3_rotation_cuda,
+            "svd3_umeyama": svd3_umeyama_cuda,
             "nn_argmin_cudacore": _nn_argmin_cudacore,
             "nn_argmin_packed_cudacore": _nn_argmin_packed_cudacore,
             "nn_min_only_yardstick": _nn_min_only_yardstick}
@@ -1803,7 +1820,8 @@ def slice3_paths(torch, np, ft, dev):
             ("GICP Morton, K3", gicp(GICP_SCENES[3:]), "morton_nn",
              CUDACORE + ("nn_argmin",)),
             ("AA-ICP, K1", aa, "nn_argmin", k1_not),
-            ("scaled ICP, K1", scaled, "nn_argmin", k1_not),
+            ("scaled ICP, K1 + svd3 Umeyama", scaled,
+             ("nn_argmin", "svd3_umeyama"), k1_not),
             ("SGD-ICP, K1", sgd, "nn_argmin", k1_not),
             ("grid ICP, no kernel", grid_runs, (),
              CUDACORE + ("nn_argmin", "morton_nn")),
@@ -1936,8 +1954,6 @@ def run_slam(torch, ft, dev):
     16-pair batch), ``registration_covariance`` → ``information_from_
     covariance`` per closure, ``close_loops`` (6 GN iterations) and
     ``build_map``, each stage's wall time (synchronised) recorded."""
-    frames, gt = slam_inputs(ft, dev)
-    T = frames.shape[0]
     stages = {}
 
     def timed(name, fn):
@@ -1948,27 +1964,12 @@ def run_slam(torch, ft, dev):
         stages[name] = round(time.perf_counter() - t0, 4)
         return out
 
-    cfg = ft.ICPConfig(max_iterations=SLAM["iterations"], auto_trim=9.0)
-    odo = timed("register_sequence", lambda: ft.register_sequence(frames,
-                                                                  cfg))
-    ei, ej, Z, _ = timed("detect_loop_closures",
-                         lambda: ft.detect_loop_closures(frames, odo,
-                                                         **SLAM["detect"]))
+    frames, gt, odo, (ei, ej, Z), infos, odo_w = slam_graph(torch, ft, dev,
+                                                            timed)
+    T = frames.shape[0]
     pairs = [list(p) for p in zip(ei.tolist(), ej.tolist())]
-
-    def infos_fn():
-        out = []
-        for k, (i, j) in enumerate(pairs):
-            tf_k = ft.RigidTransform(Z[k, :3, :3], Z[k, :3, 3])
-            cov = ft.registration_covariance(frames[j], frames[i], tf_k,
-                                             ft.ICPConfig(auto_trim=9.0))
-            out.append(ft.information_from_covariance(cov, tf_k))
-        return torch.stack(out)
-
-    infos = timed("covariance + information", infos_fn)
-    lam = float(torch.diagonal(infos[0]).sum() / 6.0)
     res = timed("close_loops", lambda: ft.close_loops(
-        odo, ei, ej, Z, infos, odometry_weight=lam / 20.0,
+        odo, ei, ej, Z, infos, odometry_weight=odo_w,
         iterations=SLAM["gn"]))
     _, valid = timed("build_map", lambda: ft.build_map(frames, res.poses,
                                                        SLAM["voxel"]))
@@ -2652,7 +2653,7 @@ OUR_KERNELS = ("nn_tc_sweep_kernel", "nn_tc_finish_kernel",
                "morton_band_kernel", "ndt_moments_kernel",
                "split_partial_kernel", "split_combine_kernel",
                "split_wgmma_kernel", "split_wgmma_combine_kernel",
-               "svd3_rotation_kernel")
+               "svd3_rotation_kernel", "svd3_umeyama_kernel")
 
 
 def kernel_ms(fn, repeats=10, fallback=True):
@@ -3324,6 +3325,43 @@ def _finish_side_runs(procs, timeout=240):
     return out
 
 
+def sharded_graphs(torch, np, ft, dev, card):
+    """The world-1 NCCL loops as CUDA graphs, their all-reduces captured:
+    each of ``sharded_graph_paths`` bit for bit its eager run with equal
+    launches (all-reduces included, ``_psum``'s count), to its ground
+    truth; 24 iterations of ``distributed_icp`` waiting for the card only
+    at the done reads after 8 and 16 (and its mesh's set-up); its ms/iter
+    captured against eager, six times in turns."""
+    import dataclasses as dc
+    import functools
+
+    from fpcr_tpu_torch.parallel.dist_icp import distributed_icp
+    from fpcr_tpu_torch.utils import graphs
+    from fpcr_tpu_torch.utils.timing import slope_ms_per_iter
+
+    t0 = time.perf_counter()
+    records = check_captured(torch, ft, sharded_graph_paths(
+        torch, np, ft, dev), card)
+    pools = sorted(r["pool_bytes"] for r in records)
+    log("graphs", f"sharded: {len(records)} captures, pools "
+                  f"{pools[0] / 2**20:.1f}-{pools[-1] / 2**20:.1f} MiB {card}")
+    s = build_scene(ft, "synthetic", dev)
+    cfg = ft.ICPConfig(max_iterations=24, tolerance=0.0, matcher="pallas")
+    run = functools.partial(distributed_icp, s.source, s.target, cfg)
+    run()
+    run()
+    for mode in ("captured", "eager"):
+        with graphs.eager(mode == "eager"):
+            _check_sync_sites("distributed_icp point K1 (NCCL world 1)",
+                              mode, sync_sites(torch, run), 2, card)
+    _turns(torch, "distributed_icp point K1 16384 (NCCL world 1)",
+           "ms/iter (slope of 10/60, min of 3)",
+           lambda: slope_ms_per_iter(lambda n: distributed_icp(
+               s.source, s.target, dc.replace(cfg, max_iterations=n)),
+               10, 60, repeats=3)["ms_per_iter"], card)
+    log("graphs", f"sharded graphs done in {time.perf_counter() - t0:.1f} s")
+
+
 def phase_parallel(torch, ft, dev, smi):
     """The sharded paths on the card. A world of one rank on NCCL, in this
     process (a ``file://`` store in a temporary directory): each path
@@ -3402,6 +3440,7 @@ def phase_parallel(torch, ft, dev, smi):
             single[name] = got[False]
         # the timings below have the card to themselves
         nccl = _finish_side_runs(nccl_procs)
+        sharded_graphs(torch, np, ft, dev, card)
         # one all-reduce of 8 floats alone: host time a call, and the time
         # to the device's completion
         x = torch.ones(8, device=dev)
@@ -3926,6 +3965,10 @@ SVD3_GAP, SVD3_ATOL, SVD3_F32_REL = 1e-3, 1e-6, 1e-6
 # determinant, 17, and a column's sign, 3). The kernel's own work (8 sweeps
 # in float64) is its design's, not the function's
 SVD3_FLOPS = 632
+# the same for Umeyama's form: the SVD (567), R = U·diag(1, 1, d)·Vᵀ (45),
+# d from det U and det Vᵀ (two 3x3 determinants, 34, their product and the
+# column's sign, 4) and the trace σ1 + σ2 + d·σ3 (3)
+SVD3_UMEYAMA_FLOPS = 653
 GRAPH_REPEATS = 6  # slopes of each path, captured and eager in turns
 GRAPH_TRACE_ITERS = 24
 
@@ -4046,8 +4089,94 @@ def phase_svd3(torch, np, dev, card):
     return dict(batches[1], max_abs_err=worst, batches=batches)
 
 
+def phase_svd3_umeyama(torch, np, dev, card):
+    """svd3's Umeyama form against its plain version
+    (``umeyama_from_svd_plain``, ``torch.linalg.svd`` and the sign and scale
+    glue, in float64 and float32) on the rotation form's batches and edge
+    cases: R where it is unique as the rotation form's R is held, R bit for
+    bit the rotation form's with the det fix, and the trace σ1 + σ2 + d·σ3
+    within SVD3_ATOL·σ1 of the float64 plain version everywhere (where σ3
+    is 0 d·σ3 is rounding noise whatever d); then the kernel's, the
+    call's, the plain version's and ``torch.linalg.svd``'s times at each
+    batch. Returns the kernels line's fields."""
+    from fpcr_tpu_torch.ops.solve import umeyama_from_svd_plain
+    from fpcr_tpu_torch.ops.svd3_cuda import (svd3_rotation_cuda,
+                                              svd3_umeyama_cuda)
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms
+
+    worst, trace_rel, batches = 0.0, 0.0, {}
+    for b in SVD3_BATCHES:
+        W = torch.as_tensor(svd3_inputs(np, b), device=dev)
+        R, trace = svd3_umeyama_cuda(W)
+        R64, t64 = umeyama_from_svd_plain(W.double())
+        R32, t32 = umeyama_from_svd_plain(W)
+        s = torch.linalg.svdvals(W.double())
+        gap = s[:, 1] - s[:, 2]
+        sep = gap > SVD3_GAP * s[:, 0]
+        e64 = float((R.double() - R64)[sep].abs().max())
+        d32 = (R - R32).abs().amax(dim=(1, 2))[sep]
+        r32 = float((d32 * gap[sep] / s[sep, 0]).max())
+        et = float(((trace.double() - t64).abs() / s[:, 0]).max())
+        et32 = float(((trace - t32).double().abs() / s[:, 0]).max())
+        same = torch.equal(R, svd3_rotation_cuda(W, True))
+        flips = int((t64 < s[:, 0] + s[:, 1] - 0.5 * s[:, 2]).sum())
+        log("graphs", f"svd3 Umeyama B={b}: {int(sep.sum())} of {b} with R "
+                      f"unique; max |R - plain f64| {e64:.3e} (< "
+                      f"{SVD3_ATOL:g}), |R - plain f32| times gap/σ1 "
+                      f"{r32:.3e} (< {SVD3_F32_REL:g}); R the rotation "
+                      f"form's with the det fix bit for bit {same}; max "
+                      f"|trace - plain f64| / σ1 {et:.3e} (< "
+                      f"{SVD3_ATOL:g}), against plain f32 {et32:.3e}; "
+                      f"{flips} with d = -1")
+        if not (e64 < SVD3_ATOL and r32 < SVD3_F32_REL and et < SVD3_ATOL
+                and same):
+            raise AssertionError(f"svd3 Umeyama B={b}: off its plain version")
+        worst = max(worst, float((R - R32)[sep].abs().max()))
+        trace_rel = max(trace_rel, et32)
+    W = torch.as_tensor(svd3_edges(np), device=dev)
+    R, trace = svd3_umeyama_cuda(W)
+    _, t64 = umeyama_from_svd_plain(W[:4].double())
+    s1 = torch.linalg.svdvals(W[:4].double())[:, 0]
+    et = ((trace[:4].double() - t64).abs() / torch.clamp(s1, min=1e-30))
+    log("graphs", f"svd3 Umeyama edges: W = 0 -> R {R[0].tolist()}, trace "
+                  f"{float(trace[0])}; det of the line's, the plane's, the "
+                  f"reflection's R {torch.linalg.det(R[1:4].double()).tolist()}"
+                  f"; their |trace - plain f64| / σ1 {et[1:].tolist()}; NaN "
+                  f"and inf W -> all NaN {bool(R[4:].isnan().all())}, "
+                  f"{bool(trace[4:].isnan().all())}")
+    if not (torch.equal(R[0], torch.eye(3, device=dev))
+            and float(trace[0]) == 0.0
+            and float((torch.linalg.det(R[1:4].double()) - 1).abs().max())
+            < SVD3_ATOL and float(et[1:].max()) < SVD3_ATOL
+            and bool(R[4:].isnan().all()) and bool(trace[4:].isnan().all())):
+        raise AssertionError("svd3 Umeyama: an edge case breaks the "
+                             "conventions")
+    for b in SVD3_BATCHES:
+        W = torch.as_tensor(svd3_inputs(np, b), device=dev)
+        kernel = kernel_ms(lambda: svd3_umeyama_cuda(W), repeats=20)
+        call = cuda_time_ms(lambda: svd3_umeyama_cuda(W), repeats=20)["min"]
+        plain = cuda_time_ms(lambda: umeyama_from_svd_plain(W),
+                             repeats=10)["min"]
+        library = cuda_time_ms(lambda: torch.linalg.svd(W), repeats=10)["min"]
+        bound_ms, bound_by = bound(76 * b, SVD3_UMEYAMA_FLOPS * b)
+        batches[b] = {"ms": kernel, "call_ms": call, "plain_ms": plain,
+                      "library_ms": library, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        log("graphs", f"svd3 Umeyama B={b}: kernel {kernel:.4f} ms, call "
+                      f"{call:.4f} ms, plain version (torch.linalg.svd and "
+                      f"the sign and scale glue) {plain:.4f} ms, "
+                      f"torch.linalg.svd {library:.4f} ms (min of 10-20, "
+                      f"events), bound {bound_ms:.7f} ms ({bound_by}: "
+                      f"{76 * b} bytes, {SVD3_UMEYAMA_FLOPS * b} float32 "
+                      f"operations) {card}")
+    return dict(batches[1], max_abs_err=worst, trace_rel_err=trace_rel,
+                batches=batches)
+
+
 def _result_bits(res):
-    """Every tensor of an ICPResult or NDTResult, floats as integers."""
+    """Every tensor of a result (an ICPResult, NDTResult, ICPHistory,
+    ScaledICPResult, PoseGraphResult, GlobalRegResult or a tuple of
+    tensors), floats as integers."""
     out = []
     for x in res:
         for t in (tuple(x) if not isinstance(x, torch.Tensor) else (x,)):
@@ -4110,6 +4239,8 @@ def graph_paths(torch, np, ft, dev):
 
 
 def _gt_error(ft, res, scene):
+    if callable(scene):  # a path's own check: ``scene(result) -> error``
+        return scene(res)
     if not hasattr(scene, "ground_truth"):  # the batch: the worst element
         srcs, gts = scene
         return max(float(ft.transform_rmse(ft.RigidTransform(
@@ -4161,8 +4292,9 @@ def check_captured(torch, ft, paths, card):
                                                    third_s, caps2) = calls
         same = all(_bits_equal(ref, c[0]) for c in calls)
         gt = _gt_error(ft, second, scene)
+        its = getattr(second, "num_iterations", None)
         log("graphs", f"{label}: captured == eager bit for bit {same}, "
-                      f"iterations {int(second.num_iterations.max())}, "
+                      f"iterations {'-' if its is None else int(its.max())}, "
                       f"GT {gt:.3e} (< {thr:g}), launches eager {n_ref}, "
                       f"first / capturing / replaying call {n_first} / "
                       f"{n_second} / {n_third}; wall s eager {eager_s:.4f}, "
@@ -4214,6 +4346,49 @@ def sync_sites(torch, run):
     return sites
 
 
+# the set-up lines that read the host before a loop starts, which a
+# sync check accepts: the pose graph's segment plans (their sizes), and
+# ``run_ndt``'s read of its grid's voxel size
+SETUP_SYNCS = ("unique_consecutive", "lengths.max()",
+               "float(grid.voxel_size)")
+
+
+def _check_sync_sites(label, mode, sites, reads, card):
+    """The host waited only at ``reads`` done reads (``bool(st.``) and at
+    set-up lines (``SETUP_SYNCS``)."""
+    got = sum(v for key, v in sites.items() if "bool(st." in key)
+    other = {key: v for key, v in sites.items() if "bool(st." not in key
+             and not any(k in key for k in SETUP_SYNCS)}
+    log("graphs", f"syncs of 24 {mode} iterations, {label}: "
+                  f"{sites or 'none'} {card}")
+    if got != reads or other:
+        raise AssertionError(f"{label} ({mode}): the host waited for the "
+                             f"card at {sites}")
+
+
+def _turns(torch, label, unit, measure, card):
+    """``measure()`` (ms) ``GRAPH_REPEATS`` times each way, captured and
+    eager in turns (captured first in even repeats), logged with each
+    way's median and spread; returns ``{mode: [ms]}``."""
+    from fpcr_tpu_torch.utils import graphs
+
+    legs = {"captured": [], "eager": []}
+    for rep in range(GRAPH_REPEATS):
+        order = ("captured", "eager") if rep % 2 == 0 else ("eager",
+                                                            "captured")
+        for mode in order:
+            with graphs.eager(mode == "eager"):
+                legs[mode].append(measure())
+    summary = []
+    for mode, v in legs.items():
+        med = sorted(v)[len(v) // 2]
+        summary.append(f"{mode} median {med:.4f} spread "
+                       f"{(max(v) - min(v)) / med:.3f} all "
+                       f"{[round(x, 4) for x in v]}")
+    log("graphs", f"{label} {unit}: " + "; ".join(summary) + f" {card}")
+    return legs
+
+
 def check_syncs(torch, np, ft, dev, card):
     """24 iterations of each path (stop test off), eager and captured
     (after a call that captured), normals and tables prebuilt: the host
@@ -4260,16 +4435,8 @@ def check_syncs(torch, np, ft, dev, card):
         run()  # captures
         for mode in ("captured", "eager"):
             with graphs.eager(mode == "eager"):
-                sites = sync_sites(torch, run)
-            reads = sum(v for key, v in sites.items() if "bool(st." in key)
-            other = {key: v for key, v in sites.items()
-                     if "bool(st." not in key
-                     and "float(grid.voxel_size)" not in key}
-            log("graphs", f"syncs of 24 {mode} iterations, {label}: "
-                          f"{sites or 'none'} {card}")
-            if reads != 2 or other:
-                raise AssertionError(f"{label} ({mode}): the host waited "
-                                     f"for the card at {sites}")
+                _check_sync_sites(label, mode, sync_sites(torch, run), 2,
+                                  card)
 
 
 def graph_slopes(torch, np, ft, dev, card):
@@ -4278,7 +4445,6 @@ def graph_slopes(torch, np, ft, dev, card):
     ``register_batch``'s ms a batch; returns ``{path: {mode: [ms]}}``."""
     import dataclasses as dc
 
-    from fpcr_tpu_torch.utils import graphs
     from fpcr_tpu_torch.utils.timing import cuda_time_ms, slope_ms_per_iter
 
     def icp_run(s, normals=None, **fields):
@@ -4312,31 +4478,264 @@ def graph_slopes(torch, np, ft, dev, card):
     bcfg = ft.ICPConfig(max_iterations=SERVING["iterations"], tolerance=0.0,
                         matcher="pallas")
     out = {}
-    for label, run, lo, hi in cases + [("register_batch K1 32x4096", None,
-                                        0, 0)]:
-        legs = {"captured": [], "eager": []}
-        for rep in range(GRAPH_REPEATS):
-            order = ("captured", "eager") if rep % 2 == 0 else ("eager",
-                                                                "captured")
-            for mode in order:
-                with graphs.eager(mode == "eager"):
-                    if run is None:
-                        ms = cuda_time_ms(lambda: ft.register_batch(
-                            srcs, tgts, bcfg), repeats=3, warmup=1)["min"]
-                    else:
-                        ms = slope_ms_per_iter(run, lo, hi,
-                                               repeats=3)["ms_per_iter"]
-                legs[mode].append(ms)
-        out[label] = legs
-        summary = []
-        for mode, v in legs.items():
-            med = sorted(v)[len(v) // 2]
-            summary.append(f"{mode} median {med:.4f} spread "
-                           f"{(max(v) - min(v)) / med:.3f} all "
-                           f"{[round(x, 4) for x in v]}")
-        unit = "ms a batch (20 iterations, min of 3)" if run is None else (
-            f"ms/iter (slope of {lo}/{hi}, min of 3)")
-        log("graphs", f"{label} {unit}: " + "; ".join(summary) + f" {card}")
+    for label, run, lo, hi in cases:
+        out[label] = _turns(torch, label, f"ms/iter (slope of {lo}/{hi}, "
+                            "min of 3)", lambda: slope_ms_per_iter(
+                                run, lo, hi, repeats=3)["ms_per_iter"], card)
+    label = "register_batch K1 32x4096"
+    out[label] = _turns(torch, label, "ms a batch (20 iterations, min of 3)",
+                        lambda: cuda_time_ms(lambda: ft.register_batch(
+                            srcs, tgts, bcfg), repeats=3, warmup=1)["min"],
+                        card)
+    return out
+
+
+def scaled_volume(ft, dev):
+    """Scaled ICP's volume: 16,384 uniform points and their image under a
+    similarity of scale ``SCALED["scale"]``."""
+    src = ft.data.synthetic.random_cloud(16384, seed=11, scale=2.0,
+                                         device=dev)
+    gt = ft.gt_transform((0.01, -0.02, 0.015), (0.01, -0.008, 0.012),
+                         device=dev)
+    return src, SCALED["scale"] * gt.apply(src)
+
+
+def slam_graph(torch, ft, dev, timed=lambda name, fn: fn()):
+    """The SLAM example's stages before its pose graph, each through
+    ``timed(name, fn)``: ``(frames, ground-truth poses, odometry, closures
+    (ei, ej, Z), the closures' informations, the odometry's weight)``."""
+    frames, gt = slam_inputs(ft, dev)
+    cfg = ft.ICPConfig(max_iterations=SLAM["iterations"], auto_trim=9.0)
+    odo = timed("register_sequence", lambda: ft.register_sequence(frames,
+                                                                  cfg))
+    ei, ej, Z, _ = timed("detect_loop_closures",
+                         lambda: ft.detect_loop_closures(frames, odo,
+                                                         **SLAM["detect"]))
+
+    def infos_fn():
+        out = []
+        for k, (i, j) in enumerate(zip(ei.tolist(), ej.tolist())):
+            tf_k = ft.RigidTransform(Z[k, :3, :3], Z[k, :3, 3])
+            cov = ft.registration_covariance(frames[j], frames[i], tf_k,
+                                             ft.ICPConfig(auto_trim=9.0))
+            out.append(ft.information_from_covariance(cov, tf_k))
+        return torch.stack(out)
+
+    infos = timed("covariance + information", infos_fn)
+    lam = float(torch.diagonal(infos[0]).sum() / 6.0)
+    return frames, gt, odo, (ei, ej, Z), infos, lam / 20.0
+
+
+def ransac_inputs(torch, ft, dev):
+    """``global_registration``'s RANSAC inputs on Bunny under the 1.2-rad
+    pose (4,086 x 8,171 after the strides, 1,024 hypotheses of 3, seed 0):
+    ``(src_sel, q_corr, good, samples, tau)``."""
+    from fpcr_tpu_torch.models import global_reg as gr
+
+    src = ft.load_bunny(device=dev)
+    tgt = ft.gt_transform(*GLOBAL["bunny_pose"], device=dev).apply(src)
+    return gr._ransac_inputs(src, tgt, 0, 8, 16, 1024, 3, 4096, None, True)
+
+
+# global registration on Bunny: the RANSAC estimate before ICP, the 1.2-rad
+# pose recovered to within a spacing (3 refine rounds over its inliers)
+GLOBAL_RANSAC = 1e-2
+
+
+def variant_paths(torch, np, ft, dev):
+    """``[(label, run, scene, threshold)]``: the loops captured beside
+    ``run_icp``, NDT and the batch, at this script's sizes: AA-ICP point
+    and plane through K1 (synthetic 16,384, 60 iterations), scaled ICP
+    through K1 and K2 (the 16,384-point volume), SGD-ICP (Bunny, B =
+    1,024, 200 steps), history through K1 and K2 on the four scenes and
+    through K3 at 1,048,576, the SLAM example's pose graph (unit weights,
+    and ``close_loops`` with the closures' informations), and
+    ``global_registration`` on Bunny. ``scene`` is a scene with a ground
+    truth or ``check(result) -> error``."""
+    import functools
+
+    out = []
+    s = build_scene(ft, "synthetic", dev)
+    for metric, thr, _, _ in AA_RUNS:
+        cfg = ft.ICPConfig(metric=metric, max_iterations=60,
+                           matcher="pallas")
+        out.append((f"AA-ICP {metric} K1 synthetic-16384", functools.partial(
+            ft.run_aa_icp, s.source, s.target, cfg), s, thr))
+    vs, vt = scaled_volume(ft, dev)
+    for label, mode in (("K1", {}), ("K2", PACKED)):
+        cfg = ft.ICPConfig(max_iterations=60, matcher="pallas", **mode)
+        out.append((f"scaled ICP {label} volume-16384", functools.partial(
+            ft.run_scaled_icp, vs, vt, cfg),
+            lambda res: float(ft.rmse(res.apply(vs), vt)), SCALED["rmse"]))
+    b = build_scene(ft, "bunny", dev)
+    out.append(("SGD-ICP K1 bunny-8171 B=1024", functools.partial(
+        ft.run_sgd_icp, b.source, b.target,
+        ft.ICPConfig(max_iterations=SGD["steps"], tolerance=1e-6),
+        batch_size=SGD["batch"], seed=0), b, SGD["coarse"]))
+    for name, kind, iters, thr in SCENES:
+        sc = build_scene(ft, kind, dev)
+        for label, mode in (("K1", {}), ("K2", PACKED)):
+            cfg = ft.ICPConfig(max_iterations=iters, matcher="pallas", **mode)
+            out.append((f"history {label} {name}", functools.partial(
+                ft.run_icp_with_history, sc.source, sc.target, cfg), sc,
+                thr))
+    name, kind, metric, iters, thr = MORTON_SCENES[1]
+    g = build_scene(ft, kind, dev)
+    cfg = ft.ICPConfig(metric=metric, matcher="morton", max_iterations=iters,
+                       **BAND)
+    out.append((f"history K3 {name.split()[-1]}", functools.partial(
+        ft.run_icp_with_history, g.source, g.target, cfg), g, thr))
+    _, gt, odo, closures, infos, odo_w = slam_graph(torch, ft, dev)
+    T = SLAM["frames"]
+    out.append((f"pose graph SLAM {T} frames, unit weights", functools.partial(
+        ft.close_loops, odo, *closures, iterations=SLAM["gn"]),
+        lambda res: float(res.residual_rms[-1] / res.residual_rms[0]), 1.0))
+    end = torch.as_tensor(gt[T - 1], device=dev)
+    out.append((f"close_loops SLAM {T} frames", functools.partial(
+        ft.close_loops, odo, *closures, infos, odometry_weight=odo_w,
+        iterations=SLAM["gn"]),
+        lambda res: float((res.poses[T - 1] - end).abs().max()),
+        SLAM["closed"]))
+    src = ft.load_bunny(device=dev)
+    pose = ft.gt_transform(*GLOBAL["bunny_pose"], device=dev)
+    out.append(("global_registration bunny 4086x8171, 1,024 hypotheses",
+                functools.partial(ft.global_registration, src,
+                                  pose.apply(src)),
+                ft.RegistrationScene(src, pose.apply(src), pose),
+                GLOBAL_RANSAC))
+    return out
+
+
+def variant_syncs(torch, np, ft, dev, card):
+    """24 iterations of each loop variant (stop test off), eager and
+    captured (after a call that captured): the host waits only at the done
+    reads after 8 and 16 iterations; the pose graph (24 Gauss-Newton
+    iterations) and RANSAC (1,024 hypotheses, 3 refine rounds, inputs
+    prepared) not until the result, past the segment plans' sizes. Then
+    ``global_registration``'s syncs, its feature stage's, listed."""
+    import functools
+
+    from fpcr_tpu_torch.models import global_reg as gr
+    from fpcr_tpu_torch.models.sgd_icp import _sgd_loop
+    from fpcr_tpu_torch.utils import graphs
+
+    s = build_scene(ft, "synthetic", dev)
+    vs, vt = scaled_volume(ft, dev)
+    b = build_scene(ft, "bunny", dev)
+    k = dict(max_iterations=24, tolerance=0.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    draws = torch.randint(0, b.source.shape[0], (24, SGD["batch"]),
+                          generator=gen, device=dev)
+    _, _, odo, closures, infos, odo_w = slam_graph(torch, ft, dev)
+    ransac = ransac_inputs(torch, ft, dev)
+    runs = {
+        "AA-ICP point K1": (functools.partial(
+            ft.run_aa_icp, s.source, s.target, ft.ICPConfig(
+                matcher="pallas", **k)), 2),
+        "scaled ICP K1": (functools.partial(
+            ft.run_scaled_icp, vs, vt, ft.ICPConfig(matcher="pallas", **k)),
+            2),
+        "SGD-ICP K1 B=1024": (functools.partial(
+            _sgd_loop, b.source, b.target, ft.ICPConfig(**k),
+            lambda it: draws[it], batch_size=SGD["batch"],
+            learning_rate=0.2, momentum=0.7, ema=0.9, lr_decay=0.02), 2),
+        "history K1": (functools.partial(
+            ft.run_icp_with_history, s.source, s.target, ft.ICPConfig(
+                matcher="pallas", **k)), 2),
+        "close_loops SLAM": (functools.partial(
+            ft.close_loops, odo, *closures, infos, odometry_weight=odo_w,
+            iterations=24), 0),
+        "RANSAC bunny": (functools.partial(gr._ransac, *ransac, 3), 0)}
+    for label, (run, reads) in runs.items():
+        run()  # the key's first call, eager
+        run()  # captures
+        for mode in ("captured", "eager"):
+            with graphs.eager(mode == "eager"):
+                _check_sync_sites(label, mode, sync_sites(torch, run), reads,
+                                  card)
+    src = ft.load_bunny(device=dev)
+    tgt = ft.gt_transform(*GLOBAL["bunny_pose"], device=dev).apply(src)
+    run = functools.partial(ft.global_registration, src, tgt)
+    run()
+    run()
+    sites = sync_sites(torch, run)
+    log("graphs", f"global_registration bunny, RANSAC captured: "
+                  f"{sum(sites.values())} syncs, all in the feature stage "
+                  f"and the draws' set-up: {sites} {card}")
+    if any("_ransac" in key or "drive_chunks" in key for key in sites):
+        raise AssertionError("global_registration: RANSAC read the host")
+
+
+def variant_slopes(torch, np, ft, dev, card):
+    """Captured against eager, six times each in turns: ms/iter by the
+    slope of AA-ICP point, scaled ICP, history (K1, 16,384) and SGD-ICP
+    (Bunny, B = 1,024); ms a call of the SLAM pose graph (``close_loops``,
+    6 Gauss-Newton iterations) and of RANSAC on Bunny (its inputs
+    prepared). Returns ``{path: {mode: [ms]}}``."""
+    import dataclasses as dc
+
+    from fpcr_tpu_torch.models import global_reg as gr
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms, slope_ms_per_iter
+
+    s = build_scene(ft, "synthetic", dev)
+    vs, vt = scaled_volume(ft, dev)
+    b = build_scene(ft, "bunny", dev)
+    base = ft.ICPConfig(tolerance=0.0, matcher="pallas")
+
+    def loop(fn, *args, **kw):
+        return lambda n: fn(*args, dc.replace(base, max_iterations=n), **kw)
+
+    cases = [("AA-ICP point K1 16384", loop(ft.run_aa_icp, s.source,
+                                             s.target), 4, 12),
+             ("scaled ICP K1 volume-16384", loop(ft.run_scaled_icp, vs, vt),
+              4, 20),
+             ("history K1 16384", loop(ft.run_icp_with_history, s.source,
+                                       s.target), 4, 20),
+             ("SGD-ICP bunny-8171 B=1024", loop(
+                 ft.run_sgd_icp, b.source, b.target,
+                 batch_size=SGD["batch"]), 8, 40)]
+    out = {}
+    for label, run, lo, hi in cases:
+        out[label] = _turns(torch, label, f"ms/iter (slope of {lo}/{hi}, "
+                            "min of 3)", lambda: slope_ms_per_iter(
+                                run, lo, hi, repeats=3)["ms_per_iter"], card)
+    _, _, odo, closures, infos, odo_w = slam_graph(torch, ft, dev)
+    ransac = ransac_inputs(torch, ft, dev)
+    for label, call in (
+            ("close_loops SLAM 12 frames, 6 GN iterations", lambda:
+             ft.close_loops(odo, *closures, infos, odometry_weight=odo_w,
+                            iterations=SLAM["gn"])),
+            ("RANSAC bunny 1,024 hypotheses, 3 refine rounds",
+             lambda: gr._ransac(*ransac, 3))):
+        out[label] = _turns(torch, label, "ms a call (min of 5)",
+                            lambda: cuda_time_ms(call, repeats=5,
+                                                 warmup=2)["min"], card)
+    return out
+
+
+def sharded_graph_paths(torch, np, ft, dev):
+    """The world-1 NCCL paths that run captured (the process group made by
+    ``phase_parallel``): ``distributed_icp`` point through K1 at 16,384 and
+    Morton through K3 at 1,048,576, ``distributed_ndt`` through K4 at
+    1,048,576; ``[(label, run, scene, threshold)]``."""
+    import functools
+
+    from fpcr_tpu_torch.parallel.dist_icp import (distributed_icp,
+                                                  distributed_ndt)
+
+    out = []
+    for name, kind, loop, fields, _, thr in PARALLEL_PATHS:
+        if name.split(",")[0] not in ("dist point synthetic-16384",
+                                      "dist morton point synthetic-1048576",
+                                      "dist ndt synthetic-1048576 banded"):
+            continue
+        s = parallel_scene(torch, np, ft, kind, dev)
+        run = (functools.partial(distributed_icp, s.source, s.target,
+                                 ft.ICPConfig(**fields)) if loop == "icp"
+               else functools.partial(distributed_ndt, s.source, s.target,
+                                      ft.NDTConfig(**fields)))
+        out.append((f"{name} (NCCL world 1)", run, s, thr))
     return out
 
 
@@ -4464,7 +4863,11 @@ def phase_graphs(torch, np, ft, dev, smi):
     t0 = time.perf_counter()
     card = f"[card: {smi}]"
     svd3 = phase_svd3(torch, np, dev, card)
+    umeyama = phase_svd3_umeyama(torch, np, dev, card)
     records = check_captured(torch, ft, graph_paths(torch, np, ft, dev), card)
+    t1 = time.perf_counter()
+    records += check_captured(torch, ft, variant_paths(torch, np, ft, dev),
+                              card)
     pools = sorted(r["pool_bytes"] for r in records)
     secs = sorted(r["capture_s"] for r in records)
     log("graphs", f"{len(records)} captures: seconds {secs[0]:.3f}-"
@@ -4473,11 +4876,20 @@ def phase_graphs(torch, np, ft, dev, smi):
                   f" peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
                   f"{card}")
+    t2 = time.perf_counter()
     check_syncs(torch, np, ft, dev, card)
+    t3 = time.perf_counter()
+    variant_syncs(torch, np, ft, dev, card)
+    t4 = time.perf_counter()
     graph_slopes(torch, np, ft, dev, card)
+    t5 = time.perf_counter()
+    variant_slopes(torch, np, ft, dev, card)
+    t6 = time.perf_counter()
     graph_traces(torch, ft, dev, card)
-    log("graphs", f"phase done in {time.perf_counter() - t0:.1f} s")
-    return svd3
+    log("graphs", f"phase done in {time.perf_counter() - t0:.1f} s; the "
+                  f"loop variants' part (captured paths, syncs, slopes) "
+                  f"{(t2 - t1) + (t4 - t3) + (t6 - t5):.1f} s")
+    return svd3, umeyama
 
 
 def bound(nbytes, flops, ops_ms=0.0):
@@ -4513,7 +4925,8 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, nbytes,
             "bound_by": bound_by, "library_ms": None}
 
 
-def kernels_line(launches, errs, times, times2, times3, times5, svd3):
+def kernels_line(launches, errs, times, times2, times3, times5, svd3,
+                 umeyama):
     """The ``kernels`` JSON object, the bounds from this run's inputs: the
     brute-force kernels at the synthetic scene's N = M = 16,384, the band
     kernels at 1,048,576 points (chunk 512, window 64, no extra; bytes with
@@ -4572,7 +4985,8 @@ def kernels_line(launches, errs, times, times2, times3, times5, svd3):
                      "fpcr_tpu/ops/ndt_pallas.py:512",
                      launches["ndt_fused_moments"], errs["ndt_fused_moments"],
                      k4["k4_ms"], k4["plain_ms"], k4_bytes, k4_flops),
-    ] + study_entries(launches, errs, times5) + [svd3_entry(launches, svd3)]}
+    ] + study_entries(launches, errs, times5) + [
+        svd3_entry(launches, svd3), umeyama_entry(launches, umeyama)]}
 
 
 def svd3_entry(launches, svd3):
@@ -4588,6 +5002,25 @@ def svd3_entry(launches, svd3):
     for key in ("library_ms", "call_ms", "latency_ms", "empty_call_ms"):
         entry[key] = svd3[key]
     entry["batches"] = {str(b): v for b, v in svd3["batches"].items()}
+    return entry
+
+
+def umeyama_entry(launches, umeyama):
+    """svd3's Umeyama form's ``kernels`` entry at scaled ICP's batch of one
+    (the other batches under ``batches``): ``max_abs_err`` R's against the
+    float32 plain version where R is unique, ``trace_rel_err`` the trace's
+    over σ1 (its scale is W's, up to 1e6 here); its bound the larger of 76 bytes
+    a matrix (W read, R and the trace written) over the HBM rate and the
+    float32 operations Umeyama's rotation and trace need over the float32
+    peak, ``torch.linalg.svd``'s call as the library's time (the plain
+    version adds the sign and scale glue)."""
+    entry = kernel_entry("svd3_umeyama", "fpcr_tpu_torch/csrc/svd3.cu",
+                         "fpcr_tpu/ops/solve.py:183", launches["svd3_umeyama"],
+                         umeyama["max_abs_err"], umeyama["ms"],
+                         umeyama["plain_ms"], 76, SVD3_UMEYAMA_FLOPS)
+    for key in ("library_ms", "call_ms", "trace_rel_err"):
+        entry[key] = umeyama[key]
+    entry["batches"] = {str(b): v for b, v in umeyama["batches"].items()}
     return entry
 
 
@@ -4870,7 +5303,7 @@ def main():
         errs[key] = max(errs[key], err)
     launches, study, studies = phase_main_path(torch, ft, dev)
     phase_reference(torch, ft, dev)
-    svd3 = phase_graphs(torch, np, ft, dev, smi)
+    svd3, umeyama = phase_graphs(torch, np, ft, dev, smi)
     times = phase_times(torch, ft, dev, smi, study)
     times2 = phase_times_slice2(torch, ft, dev, smi)
     times3 = phase_times_ndt(torch, np, ft, dev, smi)
@@ -4909,7 +5342,7 @@ def main():
               f"{guard:.4f} [card: {smi}]")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(launches, errs, times, times2, times3,
-                                  times5, svd3)), flush=True)
+                                  times5, svd3, umeyama)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

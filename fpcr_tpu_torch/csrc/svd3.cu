@@ -1,5 +1,5 @@
 // Kabsch rotation R = U·Vᵀ of a batch of 3x3 matrices for Hopper (sm_90a):
-// kernel svd3.
+// kernel svd3, in two forms: the rotation (Kabsch) and Umeyama's.
 //
 // The port's own kernel, not a TPU kernel's counterpart: the JAX package
 // computes this SVD in XLA (fpcr_tpu/ops/solve.py:84, jnp.linalg.svd). It
@@ -16,6 +16,16 @@
 // W = 0 gives the identity (U = V); a rank-1 or rank-2 W gives a rotation
 // (det +1 with det_correction), its free columns completed deterministically;
 // a non-finite entry gives a NaN R (JAX's convention; LAPACK raises).
+//
+// Umeyama's form (ops/solve.py::umeyama_from_svd, the similarity solve of
+// scaled ICP; JAX: fpcr_tpu/ops/solve.py:183) returns, beside the
+// det-corrected R above, the scale's numerator σ1 + σ2 + d·σ3 with
+// d = sign(det U · det Vᵀ) of the SVD's own U, whose u3 = W v3 / σ3: d is
+// the sign of u3_fixed · (W v3), 1 where σ3 is at the rank tolerance (there
+// u3 is not defined and d·σ3 is rounding noise either way). Its R is the
+// rotation form's with the det fix, U·diag(1, 1, d)·Vᵀ: both are the one
+// rotation whose third column of U is signed for det +1. W = 0 gives the
+// identity and 0; a non-finite W gives NaN for both.
 //
 // Design: one thread a matrix, a one-sided (Hestenes) Jacobi SVD in float64
 // registers with a fixed number of sweeps. Each rotation makes two columns
@@ -101,11 +111,13 @@ __device__ __forceinline__ double reject(double* x, const double* u) {
     return sqrt(dot3(x, x));
 }
 
-__global__ void __launch_bounds__(kThreads)
-svd3_rotation_kernel(const float* __restrict__ w, int batch,
-                     int det_correction, float* __restrict__ out) {
-    const int b = blockIdx.x * kThreads + threadIdx.x;
-    if (b >= batch) return;
+// one matrix b of the batch; kUmeyama: the Umeyama form, which also writes
+// trace[b] (det_correction is then 1)
+template <bool kUmeyama>
+__device__ __forceinline__ void svd3_one(const float* __restrict__ w, int b,
+                                         int det_correction,
+                                         float* __restrict__ out,
+                                         float* __restrict__ trace) {
     const float* wb = w + 9 * static_cast<long long>(b);
     float* rb = out + 9 * static_cast<long long>(b);
 
@@ -124,6 +136,7 @@ svd3_rotation_kernel(const float* __restrict__ w, int batch,
     if (!finite) {
 #pragma unroll
         for (int k = 0; k < 9; ++k) rb[k] = __int_as_float(0x7fc00000);
+        if (kUmeyama) trace[b] = __int_as_float(0x7fc00000);
         return;
     }
 
@@ -197,12 +210,35 @@ svd3_rotation_kernel(const float* __restrict__ w, int batch,
             }
         }
     }
+    if (kUmeyama) {
+        // d = det U · det Vᵀ of the SVD's own u3 = W v3 / σ3 = a3 / σ3: the
+        // sign of u3_fixed · a3, since det [u1, u2, u3_fixed] = det V
+        double d = 1.0;
+        if (sig[0] > 0.0 && sig[2] > tol &&
+            u[2][0] * a[0][2] + u[2][1] * a[1][2] + u[2][2] * a[2][2] < 0.0)
+            d = -1.0;
+        trace[b] = __double2float_rn(sig[0] + sig[1] + d * sig[2]);
+    }
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
         for (int j = 0; j < 3; ++j)
             rb[3 * i + j] = __double2float_rn(
                 u[0][i] * vc[0][j] + u[1][i] * vc[1][j] + u[2][i] * vc[2][j]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+svd3_rotation_kernel(const float* __restrict__ w, int batch,
+                     int det_correction, float* __restrict__ out) {
+    const int b = blockIdx.x * kThreads + threadIdx.x;
+    if (b < batch) svd3_one<false>(w, b, det_correction, out, nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads)
+svd3_umeyama_kernel(const float* __restrict__ w, int batch,
+                    float* __restrict__ out, float* __restrict__ trace) {
+    const int b = blockIdx.x * kThreads + threadIdx.x;
+    if (b < batch) svd3_one<true>(w, b, 1, out, trace);
 }
 
 }  // namespace
@@ -218,6 +254,18 @@ int fpcr_svd3_rotation(const float* w, int batch, int det_correction,
     svd3_rotation_kernel<<<blocks, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         w, batch, det_correction, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Umeyama's form: w[batch, 3, 3] → out[batch, 3, 3] = U·diag(1, 1, d)·Vᵀ
+// and trace[batch] = σ1 + σ2 + d·σ3, d = sign(det U · det Vᵀ)
+int fpcr_svd3_umeyama(const float* w, int batch, float* out, float* trace,
+                      void* stream) {
+    if (batch <= 0) return 0;
+    const int blocks = (batch + kThreads - 1) / kThreads;
+    svd3_umeyama_kernel<<<blocks, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        w, batch, out, trace);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,21 +14,28 @@ device ``torch.where``; on a rejection the history restarts from the plain
 step's pair. An iteration therefore matches three times: the plain step and
 the two scores (kernel K1 three times on a CUDA tensor with the brute
 matcher). The loop is ``models/icp.py``'s: masked device state, ``done``
-read once per ``DONE_CHECK_EVERY`` iterations.
+read once per ``DONE_CHECK_EVERY`` iterations, chunks of those iterations
+captured as CUDA graphs on the card (the chunk body :func:`_aa_chunk` and
+its two steps are module functions of the loop's constants, so the graph
+cache's key repeats from call to call).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..core.metrics import rmse
 from ..core.transforms import transform_to_vector, vector_to_transform
 from ..utils.precision import pin_f32_precision
-from .icp import (DONE_CHECK_EVERY, ICPConfig, ICPResult, _correspondences,
-                  _nan_padded, _prepare, correspondence_weights,
-                  icp_iteration, rotation_angle)
+from .icp import (ICPConfig, ICPResult, _correspondences, _prepare,
+                  correspondence_weights, drive_chunks, icp_iteration,
+                  rotation_angle)
+
+# the ridge of the mixing system
+REG = 1e-10
 
 
 def _aa_mix(hist_x: torch.Tensor, hist_f: torch.Tensor,
@@ -48,79 +55,84 @@ def _aa_mix(hist_x: torch.Tensor, hist_f: torch.Tensor,
     return (x_new + f_new) - torch.matmul(gamma, dX + dF)
 
 
-def run_aa_icp(source, target, config: ICPConfig = ICPConfig(),
-               history: int = 5,
-               target_normals: Optional[torch.Tensor] = None,
-               target_mask: Optional[torch.Tensor] = None,
-               return_accepted: bool = False):
-    """Anderson-accelerated registration on the clouds' device, with the
-    contract of ``run_icp``: every metric and matcher (the inner step is
-    ``icp_iteration``), set up by ``run_icp``'s own ``_prepare``, so a grid
-    config above the candidate limit degrades to morton here too. The
-    returned points are the source under the
-    accumulated estimate. ``return_accepted=True`` returns ``(result,
-    accepted)``, ``accepted[i]`` whether iteration i kept the Anderson
-    candidate."""
-    pin_f32_precision()
-    (source, target, _, target_mask, target_normals, normals0, matcher_state,
-     unsort, config) = _prepare(source, target, config,
-                                target_mask=target_mask,
-                                target_normals=target_normals)
-    device = source.device
+class _AAConsts(NamedTuple):
+    """What no iteration changes: the prepared clouds, normals and matcher
+    state, and the frozen config."""
 
-    def eval_error(xvec):
-        """RMSE of fresh matches at the pose ``xvec``, trimmed and weighted
-        as ``icp_iteration``'s error: a like-for-like safeguard."""
-        points = vector_to_transform(xvec).apply(source)
-        q_m, _, dmin, found = _correspondences(
-            points, target, target_mask, target_normals, config,
-            matcher_state)
-        return rmse(points, q_m, correspondence_weights(dmin, found, config))
+    source: torch.Tensor
+    target: torch.Tensor
+    target_mask: Optional[torch.Tensor]
+    target_normals: Optional[torch.Tensor]
+    source_normals: Optional[torch.Tensor]  # symmetric and gicp only
+    matcher_state: object
+    config: ICPConfig
 
-    def plain_step(xvec):
-        """One ICP iteration from the accumulated ``xvec``: g(x)."""
-        pose = vector_to_transform(xvec)
-        normals = (None if normals0 is None
-                   else torch.matmul(normals0, pose.rotation.T))
-        _, inc, _, aux = icp_iteration(
-            pose.apply(source), target, config, target_mask=target_mask,
-            target_normals=target_normals, matcher_state=matcher_state,
-            source_normals=normals)
-        return transform_to_vector(inc.compose(pose)), aux
 
-    f32 = dict(dtype=torch.float32, device=device)
-    nan = torch.full((), float("nan"), **f32)
-    x = torch.zeros(6, **f32)
-    hist_x = torch.zeros((history, 6), **f32)
-    hist_f = torch.zeros((history, 6), **f32)
-    hist_len = torch.zeros((), dtype=torch.int32, device=device)
-    prev_error = torch.full((), float("inf"), **f32)
-    done = torch.zeros((), dtype=torch.bool, device=device)
-    num_iterations = torch.zeros((), dtype=torch.int32, device=device)
-    errors, fractions, delta_t, delta_rot, accepted = [], [], [], [], []
-    for it in range(config.max_iterations):
-        if it and it % DONE_CHECK_EVERY == 0 and bool(done):
-            break
-        gx, aux = plain_step(x)
+class _AAState(NamedTuple):
+    """The loop state, every field on the device."""
+
+    x: torch.Tensor  # [6] the accumulated estimate [log R, t]
+    hist_x: torch.Tensor  # [m, 6] iterates, newest first
+    hist_f: torch.Tensor  # [m, 6] residuals g(x) - x
+    hist_len: torch.Tensor
+    prev_error: torch.Tensor
+    done: torch.Tensor
+    num_iterations: torch.Tensor
+
+
+def _eval_error(xvec: torch.Tensor, c: _AAConsts) -> torch.Tensor:
+    """RMSE of fresh matches at the pose ``xvec``, trimmed and weighted as
+    ``icp_iteration``'s error: a like-for-like safeguard."""
+    points = vector_to_transform(xvec).apply(c.source)
+    q_m, _, dmin, found = _correspondences(
+        points, c.target, c.target_mask, c.target_normals, c.config,
+        c.matcher_state)
+    return rmse(points, q_m, correspondence_weights(dmin, found, c.config))
+
+
+def _plain_step(xvec: torch.Tensor, c: _AAConsts):
+    """One ICP iteration from the accumulated ``xvec``: ``(g(x), aux)``."""
+    pose = vector_to_transform(xvec)
+    normals = (None if c.source_normals is None
+               else torch.matmul(c.source_normals, pose.rotation.T))
+    _, inc, _, aux = icp_iteration(
+        pose.apply(c.source), c.target, c.config, target_mask=c.target_mask,
+        target_normals=c.target_normals, matcher_state=c.matcher_state,
+        source_normals=normals)
+    return transform_to_vector(inc.compose(pose)), aux
+
+
+def _aa_chunk(state: _AAState, c: _AAConsts, k: int):
+    """``k`` masked AA-ICP iterations from ``state``: ``(state, rows [k,
+    5])``, a row an iteration holding its error, matched fraction, ‖Δt‖,
+    ∠ΔR (NaN where the loop had stopped) and whether it kept the Anderson
+    candidate (1 or 0). A pure function of its tensors: on the card one
+    CUDA graph a ``k`` (``models/icp.py::drive_chunks``)."""
+    x, hist_x, hist_f, hist_len, prev_error, done, n_it = state
+    history = hist_x.shape[0]
+    nan = torch.full((), float("nan"), dtype=torch.float32, device=x.device)
+    rows = []
+    for _ in range(k):
+        gx, aux = _plain_step(x, c)
         f = gx - x
-        x_acc = _aa_mix(hist_x, hist_f, hist_len, x, f, reg=1e-10)
-        err_acc = eval_error(x_acc)
-        err_plain = eval_error(gx)
+        x_acc = _aa_mix(hist_x, hist_f, hist_len, x, f, reg=REG)
+        err_acc = _eval_error(x_acc, c)
+        err_plain = _eval_error(gx, c)
         use_acc = (hist_len > 0) & (err_acc < err_plain)
         x_next = torch.where(use_acc, x_acc, gx)
         err = torch.where(use_acc, err_acc, err_plain)
         rel = vector_to_transform(x_next).compose(
             vector_to_transform(x).inverse())
-        converged = (err < config.tolerance) | (
-            torch.abs(err - prev_error) < config.tolerance)
+        converged = (err < c.config.tolerance) | (
+            torch.abs(err - prev_error) < c.config.tolerance)
         active = ~done
-        errors.append(torch.where(active, err, nan))
-        fractions.append(torch.where(active, aux.matched_fraction, nan))
-        delta_t.append(torch.where(active, torch.linalg.vector_norm(
-            rel.translation), nan))
-        delta_rot.append(torch.where(active, rotation_angle(rel.rotation),
-                                     nan))
-        accepted.append(active & use_acc)
+        rows.append(torch.stack([
+            torch.where(active, err, nan),
+            torch.where(active, aux.matched_fraction, nan),
+            torch.where(active, torch.linalg.vector_norm(rel.translation),
+                        nan),
+            torch.where(active, rotation_angle(rel.rotation), nan),
+            (active & use_acc).to(torch.float32)]))
         # push (x, f) into the history ring; a rejected candidate restarts
         # the history (Pavlov et al. §III.B): only the pair just pushed
         # stays valid
@@ -134,22 +146,59 @@ def run_aa_icp(source, target, config: ICPConfig = ICPConfig(),
                                 torch.ones_like(hist_len)), hist_len)
         x = torch.where(active, x_next, x)
         prev_error = torch.where(active, err, prev_error)
-        num_iterations = num_iterations + active.to(torch.int32)
+        n_it = n_it + active.to(torch.int32)
         done = done | (active & converged)
+    return (_AAState(x, hist_x, hist_f, hist_len, prev_error, done, n_it),
+            torch.stack(rows))
 
-    n = config.max_iterations
-    transform = vector_to_transform(x)
+
+def run_aa_icp(source, target, config: ICPConfig = ICPConfig(),
+               history: int = 5,
+               target_normals: Optional[torch.Tensor] = None,
+               target_mask: Optional[torch.Tensor] = None,
+               return_accepted: bool = False):
+    """Anderson-accelerated registration on the clouds' device, with the
+    contract of ``run_icp``: every metric and matcher (the inner step is
+    ``icp_iteration``), set up by ``run_icp``'s own ``_prepare``, so a grid
+    config above the candidate limit degrades to morton here too. The
+    returned points are the source under the
+    accumulated estimate. ``return_accepted=True`` returns ``(result,
+    accepted)``, ``accepted[i]`` whether iteration i kept the Anderson
+    candidate.
+
+    On the card the loop runs as CUDA graphs of ``DONE_CHECK_EVERY``
+    iterations (``models/icp.py::drive_chunks``) from the second call of
+    its shapes and config on; eagerly on the first, on the CPU and under
+    ``graphs.eager()``."""
+    pin_f32_precision()
+    (source, target, _, target_mask, target_normals, normals0, matcher_state,
+     unsort, config) = _prepare(source, target, config,
+                                target_mask=target_mask,
+                                target_normals=target_normals)
+    device = source.device
+    f32 = dict(dtype=torch.float32, device=device)
+    state = _AAState(
+        torch.zeros(6, **f32), torch.zeros((history, 6), **f32),
+        torch.zeros((history, 6), **f32),
+        torch.zeros((), dtype=torch.int32, device=device),
+        torch.full((), float("inf"), **f32),
+        torch.zeros((), dtype=torch.bool, device=device),
+        torch.zeros((), dtype=torch.int32, device=device))
+    # the chunk never reads max_iterations: one graph serves every length
+    consts = _AAConsts(source, target, target_mask, target_normals, normals0,
+                       matcher_state,
+                       dataclasses.replace(config, max_iterations=0))
+    state, rows = drive_chunks(_aa_chunk, state, consts,
+                               config.max_iterations,
+                               lambda st: bool(st.done), (5,))
+    errors, fractions, delta_t, delta_rot, accepted = rows.T.contiguous()
+    transform = vector_to_transform(state.x)
     points = transform.apply(source)
     result = ICPResult(
-        transform=transform, errors=_nan_padded(errors, n, device),
-        num_iterations=num_iterations, converged=done,
+        transform=transform, errors=errors,
+        num_iterations=state.num_iterations, converged=state.done,
         points=points if unsort is None else points[unsort],
-        matched_fraction=_nan_padded(fractions, n, device),
-        delta_t=_nan_padded(delta_t, n, device),
-        delta_rot=_nan_padded(delta_rot, n, device))
+        matched_fraction=fractions, delta_t=delta_t, delta_rot=delta_rot)
     if not return_accepted:
         return result
-    flags = torch.zeros(n, dtype=torch.bool, device=device)
-    if accepted:
-        flags[:len(accepted)] = torch.stack(accepted)
-    return result, flags
+    return result, accepted == 1.0

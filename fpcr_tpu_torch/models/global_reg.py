@@ -7,8 +7,9 @@ mutually filtered (``ops/matching.py::nn_argmin_features``, the streaming
 expansion JAX computes in XLA) → ``n_hypotheses`` minimal samples solved by
 one batched Kabsch (a batched 3x3 SVD) and scored against every good
 correspondence in one ``[hypotheses, C]`` residual matrix → masked-Kabsch
-refinement over the best hypothesis' inliers. :func:`register_global` then
-refines with ``run_icp`` (kernel K1 on the card).
+refinement over the best hypothesis' inliers, all of RANSAC one CUDA graph
+on the card from the second call of its shapes on. :func:`register_global`
+then refines with ``run_icp`` (kernel K1 on the card).
 
 The RANSAC draws: the JAX package samples with ``jax.random.categorical``
 over the good correspondences, which torch cannot reproduce. Here they come
@@ -36,6 +37,7 @@ from ..ops.matching import gather_correspondences, nn_argmin_features
 from ..ops.normals import estimate_normals, orient_normals
 from ..ops.solve import kabsch_transform
 from ..utils.precision import pin_f32_precision
+from .icp import drive_chunks
 
 
 class GlobalRegResult(NamedTuple):
@@ -79,20 +81,25 @@ def _inliers(R, t, src_sel, q_corr, good, tau):
     return r2, (r2 < tau * tau) & good
 
 
-def _ransac(src_sel: torch.Tensor, q_corr: torch.Tensor, good: torch.Tensor,
-            samples: torch.Tensor, tau: torch.Tensor, refine_rounds: int):
-    """Score the minimal-sample hypotheses ``samples`` [H, s] (indices into
-    the correspondences), keep the best (the first of the most inliers),
-    refine it ``refine_rounds`` times by Kabsch over its inliers:
-    ``(R, t, num_inliers, inlier_rmse)``."""
+def _ransac_chunk(state, consts, k: int):
+    """:func:`_ransac` as one chunk of ``models/icp.py::drive_chunks``:
+    ``consts`` is ``(src_sel, q_corr, good, samples, tau,
+    refine_rounds)``; the result ``(R, t, num_inliers, inlier_rmse)`` is
+    the chunk's state (the one passed in is not read), its rows ``[k,
+    0]``. A pure function of its tensors, with no host read: on the card
+    one CUDA graph."""
+    src_sel, q_corr, good, samples, tau, refine_rounds = consts
     samples = samples.long()
     hyp = kabsch_transform(src_sel[samples], q_corr[samples])  # batched
     proj = (torch.matmul(src_sel, hyp.rotation.transpose(1, 2))
             + hyp.translation[:, None, :])  # [H, C, 3]
     resid2 = torch.sum((proj - q_corr[None]) ** 2, dim=-1)
     scores = ((resid2 < tau * tau) & good[None]).sum(dim=1)
-    best = torch.argmax(scores)  # the first maximum
-    R, t = hyp.rotation[best], hyp.translation[best]
+    # the first maximum, gathered on the device: ``[best]`` with a 0-d
+    # tensor would read it on the host
+    best = torch.argmax(scores).reshape(1)
+    R = torch.index_select(hyp.rotation, 0, best)[0]
+    t = torch.index_select(hyp.translation, 0, best)[0]
     for _ in range(refine_rounds):
         _, inl = _inliers(R, t, src_sel, q_corr, good, tau)
         R, t = kabsch_transform(src_sel, q_corr, inl)
@@ -100,7 +107,26 @@ def _ransac(src_sel: torch.Tensor, q_corr: torch.Tensor, good: torch.Tensor,
     n_inl = inl.sum()
     rmse = torch.sqrt(torch.where(inl, r2, torch.zeros_like(r2)).sum()
                       / torch.clamp(n_inl, min=1))
-    return R, t, n_inl.to(torch.int32), rmse
+    return ((R, t, n_inl.to(torch.int32), rmse),
+            torch.zeros((k, 0), device=src_sel.device))
+
+
+def _ransac(src_sel: torch.Tensor, q_corr: torch.Tensor, good: torch.Tensor,
+            samples: torch.Tensor, tau: torch.Tensor, refine_rounds: int):
+    """Score the minimal-sample hypotheses ``samples`` [H, s] (indices into
+    the correspondences), keep the best (the first of the most inliers),
+    refine it ``refine_rounds`` times by Kabsch over its inliers:
+    ``(R, t, num_inliers, inlier_rmse)``. On the card, from the second
+    call of its shapes on, it runs as one CUDA graph
+    (``models/icp.py::drive_chunks``, one chunk), with no host read."""
+    device = src_sel.device
+    result = (torch.eye(3, device=device), torch.zeros(3, device=device),
+              torch.zeros((), dtype=torch.int32, device=device),
+              torch.zeros((), device=device))
+    consts = (src_sel, q_corr, good, samples, tau, int(refine_rounds))
+    result, _ = drive_chunks(_ransac_chunk, result, consts, 1,
+                             lambda st: False, (0,))
+    return result
 
 
 def global_registration(source, target, *, seed: int = 0,
@@ -119,6 +145,23 @@ def global_registration(source, target, *, seed: int = 0,
     pin_f32_precision()
     source = as_points(source).contiguous()
     target = as_points(target, device=source.device).contiguous()
+    src_sel, q_corr, good, samples, tau_val = _ransac_inputs(
+        source, target, seed, k_normals, k_feature, n_hypotheses,
+        sample_size, max_correspondences, tau, mutual)
+    R, t, n_inl, rmse = _ransac(src_sel, q_corr, good, samples, tau_val,
+                                refine_rounds)
+    return GlobalRegResult(transform=RigidTransform(R, t), num_inliers=n_inl,
+                           num_correspondences=good.sum().to(torch.int32),
+                           inlier_rmse=rmse, tau=tau_val)
+
+
+def _ransac_inputs(source, target, seed: int, k_normals: int,
+                   k_feature: int, n_hypotheses: int, sample_size: int,
+                   max_correspondences: int, tau: Optional[float],
+                   mutual: bool):
+    """:func:`global_registration`'s feature stage, eager: both clouds
+    strided, described and matched, and the hypotheses drawn: ``(src_sel,
+    q_corr, good, samples, tau)``."""
     stride = max(1, -(-source.shape[0] // max_correspondences))
     src_sel = source[::stride].contiguous()
     t_stride = max(1, -(-target.shape[0] // (2 * max_correspondences)))
@@ -136,11 +179,7 @@ def global_registration(source, target, *, seed: int = 0,
     samples = torch.multinomial(weights, n_hypotheses * sample_size,
                                 replacement=True, generator=gen).reshape(
                                     n_hypotheses, sample_size)
-    R, t, n_inl, rmse = _ransac(src_sel, q_corr, good, samples, tau_val,
-                                refine_rounds)
-    return GlobalRegResult(transform=RigidTransform(R, t), num_inliers=n_inl,
-                           num_correspondences=good.sum().to(torch.int32),
-                           inlier_rmse=rmse, tau=tau_val)
+    return src_sel, q_corr, good, samples, tau_val
 
 
 def register_global(source, target, config=None, **kwargs):

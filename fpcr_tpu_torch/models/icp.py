@@ -607,7 +607,7 @@ def _icp_chunk(state: _ICPState, consts, k: int):
 
 
 def drive_chunks(body, state, consts, iterations: int, stopped,
-                 row_shape: tuple, *, sharded: bool = False, check=None):
+                 row_shape: tuple, *, group=None, check=None):
     """Run ``body(state, consts, k) -> (state, rows [k, *row_shape])`` for
     ``iterations`` iterations in chunks of ``k = DONE_CHECK_EVERY`` (the
     last one shorter), reading ``stopped(state)`` on the host before every
@@ -618,19 +618,25 @@ def drive_chunks(body, state, consts, iterations: int, stopped,
     On the card the chunks run by ``utils/graphs.py::bind``: the first
     loop of a key (``body``, the shapes of ``consts``, the config) runs
     eagerly, and every later one replays a CUDA graph a chunk length, so
-    nothing in an iteration waits for the host. The chunks run eagerly on
-    the CPU, under ``graphs.eager()``, for a sharded loop (``sharded``: a
-    ``torch.distributed`` collective is not captured) and under
+    nothing in an iteration waits for the host. A sharded loop (its sums
+    all-reduced over ``group``) is captured with its collectives when the
+    group's backend is NCCL. The chunks run eagerly on the CPU, under
+    ``graphs.eager()``, for a gloo ``group`` (its collectives run on the
+    host: ``graphs.capturable``) and under
     :func:`utils.diagnostics.debug_nans`, whose ``check(state, rows,
     start)`` reads each iteration's error: there a chunk is one
-    iteration."""
+    iteration. Each route is chosen here, before the loop; a capture that
+    fails raises."""
     every = 1 if check is not None else DONE_CHECK_EVERY
     device = state[0].device
-    if graphs.captured(device) and not sharded and check is None:
+    # every route computes on the layouts the graphs hold: contiguous
+    consts = graphs.contiguous(consts)
+    if (graphs.captured(device) and graphs.capturable(group)
+            and check is None):
         step = graphs.bind(body, consts)
     else:
         def step(st, k):
-            return body(st, consts, k)
+            return body(graphs.contiguous(st), consts, k)
     out = torch.full((iterations,) + tuple(row_shape), float("nan"),
                      device=device)
     for start in range(0, iterations, every):
@@ -658,9 +664,10 @@ def _run_icp(source, target, config: ICPConfig,
 
     On the card the loop runs as CUDA graphs of ``DONE_CHECK_EVERY``
     iterations (:func:`drive_chunks`), the counterpart of the JAX loop's
-    one ``jit``, from the second call of its shapes and config on. It runs
-    eagerly, one launch at a time, on the first such call, on the CPU, for
-    a sharded loop (``group`` set) and under ``debug_nans``."""
+    one ``jit``, from the second call of its shapes and config on, a
+    sharded loop over NCCL included. It runs eagerly, one launch at a time,
+    on the first such call, on the CPU, with a gloo ``group`` and under
+    ``debug_nans``."""
     pin_f32_precision()
     (source, target, source_mask, target_mask, target_normals,
      source_normals, matcher_state, unsort, config) = _prepare(
@@ -684,7 +691,7 @@ def _run_icp(source, target, config: ICPConfig,
     state, rows = drive_chunks(_icp_chunk, state, consts,
                                config.max_iterations,
                                lambda st: bool(st.done), (4,),
-                               sharded=group is not None, check=check)
+                               group=group, check=check)
     errors, fractions, delta_t, delta_rot = rows.T.contiguous()
     return ICPResult(
         transform=RigidTransform(state.rotation, state.translation),

@@ -459,8 +459,9 @@ def _ndt_loop(source: torch.Tensor, grid: NDTGrid, config: NDTConfig,
     On the card the loop runs as CUDA graphs of ``DONE_CHECK_EVERY``
     iterations (``models/icp.py::drive_chunks``), the counterpart of the
     JAX loop's one ``jit``, from the second call of its shapes and config
-    on. It runs eagerly on the first such call, on the CPU, for a sharded
-    loop (``group`` set) and under ``debug_nans``."""
+    on, a sharded loop over NCCL included. It runs eagerly on the first
+    such call, on the CPU, with a gloo ``group`` and under
+    ``debug_nans``."""
     dev = source.device
     n = source.shape[0]
     if source_mask is None:
@@ -496,7 +497,7 @@ def _ndt_loop(source: torch.Tensor, grid: NDTGrid, config: NDTConfig,
     state, errs = drive_chunks(
         _ndt_chunk, state, consts, config.max_iterations,
         lambda st: not bool(st.delta_norm > config.tolerance), (),
-        sharded=group is not None, check=check)
+        group=group, check=check)
     # zero hits also give δ = 0: a failure (disjoint clouds), not convergence
     converged = (state.delta_norm <= config.tolerance) & (state.frac > 0.0)
     return (state.R, state.t, state.iterations, errs, converged, state.frac)

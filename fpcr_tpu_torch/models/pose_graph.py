@@ -26,7 +26,7 @@ gap on the same graph.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,6 +34,7 @@ import torch
 from ..core.transforms import rotation_exp, skew
 from ..utils.device import resolve_device
 from ..utils.precision import pin_f32_precision
+from .icp import drive_chunks
 
 
 # --------------------------------------------------------------- SE(3) core
@@ -111,7 +112,9 @@ def se3_log(M: torch.Tensor) -> torch.Tensor:
     ``se3_exp(se3_log(M)) = M``."""
     w = _so3_log(M[..., :3, :3])
     _, V = _so3_exp_V(w)
-    rho = torch.linalg.solve(V, M[..., :3, 3:4])[..., 0]
+    # solve_ex: the status stays on the device (``solve`` checks it on the
+    # host); V is invertible for every θ the log returns
+    rho = torch.linalg.solve_ex(V, M[..., :3, 3:4])[0][..., 0]
     return torch.cat([rho, w], dim=-1)
 
 
@@ -140,59 +143,111 @@ def _ad_small(r: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------- deterministic scatter
 class _SegmentSum(NamedTuple):
-    """A fixed sum of rows into ``size`` cells by ``keys``: the rows in
-    stable key order, the distinct keys and each one's row count."""
+    """A fixed sum of rows into ``size`` cells by ``keys``, as tensors: row
+    ``k`` of ``gather`` holds, for each cell that any row reaches
+    (``cells``), the index of its ``k``-th row in stable key order, or
+    ``len(keys)``, a zero row, past its last one. Summing term by term from
+    0 adds each cell's rows one after the other in row order, as
+    ``torch.segment_reduce`` does on the CPU, with no host read and no
+    atomics: a CUDA graph captures it (``segment_reduce`` checks its
+    lengths on the host)."""
 
-    order: torch.Tensor
-    cells: torch.Tensor
-    lengths: torch.Tensor
+    gather: torch.Tensor  # int64 [max rows a cell, cells]
+    cells: torch.Tensor  # int64 [cells]
     size: int
 
     @staticmethod
     def plan(keys: torch.Tensor, size: int) -> "_SegmentSum":
+        """The plan of ``keys`` (read on the host once, before the loop)."""
         order = torch.argsort(keys, stable=True)
         cells, lengths = torch.unique_consecutive(keys[order],
                                                   return_counts=True)
-        return _SegmentSum(order, cells, lengths, size)
+        n = keys.shape[0]
+        terms = int(lengths.max()) if n else 0
+        starts = torch.cumsum(lengths, 0) - lengths
+        k = torch.arange(terms, device=keys.device)[:, None]
+        pos = torch.clamp(starts[None, :] + k, max=max(n - 1, 0))
+        gather = torch.where(k < lengths[None, :], order[pos],
+                             torch.full_like(pos, n))
+        return _SegmentSum(gather, cells, size)
 
     def __call__(self, values: torch.Tensor) -> torch.Tensor:
         """``[size, ...]``: each cell the sum of its rows of ``values``,
         added in row order."""
-        flat = values.reshape(values.shape[0], -1)[self.order]
-        sums = torch.segment_reduce(flat, "sum", lengths=self.lengths, axis=0)
+        flat = values.flatten(1)
+        flat = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])
+        sums = torch.zeros((self.cells.shape[0], flat.shape[1]),
+                           dtype=values.dtype, device=values.device)
+        for row in self.gather:
+            sums = sums + torch.index_select(flat, 0, row)
         out = torch.zeros((self.size, flat.shape[1]), dtype=values.dtype,
                           device=values.device)
-        out[self.cells] = sums
+        out = out.index_copy(0, self.cells, sums)
         return out.reshape((self.size,) + values.shape[1:])
 
 
 # --------------------------------------------------------------- the solver
-class PoseGraphResult(NamedTuple):
-    poses: torch.Tensor           # [T, 4, 4] optimized frame→frame-0 poses
-    residual_rms: torch.Tensor    # [iters] edge-residual RMS per GN iteration
-    num_iterations: torch.Tensor  # int32
+class _GNConsts(NamedTuple):
+    """What no Gauss-Newton iteration changes."""
+
+    ei: torch.Tensor  # int64 [E]
+    ej: torch.Tensor
+    meas_inv: torch.Tensor  # [E, 4, 4] Z⁻¹
+    whiten: torch.Tensor  # [E] √w, or [E, 6, 6] L of Λ = L·Lᵀ
+    H_sum: _SegmentSum
+    g_sum: _SegmentSum
+    prior: torch.Tensor  # [6T, 6T] the gauge prior and Levenberg floor
 
 
-def optimize_pose_graph(poses, edges_i, edges_j, measurements,
-                        weights=None, *, iterations: int = 10,
-                        damping: float = 1e-6,
-                        anchor_weight: float = 1e6) -> PoseGraphResult:
-    """Gauss-Newton pose-graph optimization on the poses' device.
+def _gn_chunk(state, c: _GNConsts, k: int):
+    """``k`` Gauss-Newton iterations of :func:`optimize_pose_graph` from
+    the poses ``state = (X [T, 4, 4],)``: ``((X,), rows [k, 1])``, a row an
+    iteration holding the edge-residual RMS at its start. A pure function
+    of its tensors: on the card one CUDA graph a ``k``
+    (``models/icp.py::drive_chunks``)."""
+    (X,) = state
+    T = X.shape[0]
+    eye6 = torch.eye(6, device=X.device)
+    full_info = c.whiten.ndim == 3
+    rows = []
+    for _ in range(k):
+        A = torch.matmul(se3_inv(X[c.ei]), X[c.ej])
+        r = se3_log(torch.matmul(c.meas_inv, A))
+        Jj = eye6 + 0.5 * _ad_small(r)  # Jr⁻¹(r) to first order
+        Ji = -torch.matmul(Jj, se3_adjoint(se3_inv(A)))
+        if full_info:  # whiten: JᵀΛJ = (LᵀJ)ᵀ(LᵀJ)
+            Lt = c.whiten.transpose(-1, -2)
+            Ji, Jj = torch.matmul(Lt, Ji), torch.matmul(Lt, Jj)
+            rw = torch.matmul(Lt, r[..., None])[..., 0]
+        else:
+            Ji = Ji * c.whiten[:, None, None]
+            Jj = Jj * c.whiten[:, None, None]
+            rw = r * c.whiten[:, None]
+        JiT = Ji.transpose(-1, -2)
+        JiTJj = torch.matmul(JiT, Jj)
+        H = c.H_sum(torch.cat([torch.matmul(JiT, Ji), JiTJj,
+                               JiTJj.transpose(-1, -2),
+                               torch.matmul(Jj.transpose(-1, -2), Jj)]))
+        g = c.g_sum(torch.cat([torch.matmul(JiT, rw[..., None])[..., 0],
+                               torch.matmul(Jj.transpose(-1, -2),
+                                            rw[..., None])[..., 0]]))
+        Hf = H.reshape(T, T, 6, 6).permute(0, 2, 1, 3).reshape(6 * T, 6 * T)
+        L, info = torch.linalg.cholesky_ex(Hf + c.prior)
+        delta = -torch.cholesky_solve(g.reshape(6 * T, 1), L)[:, 0]
+        # never NaN: a pose no edge reaches, or a NaN measurement, can make
+        # the f32 factor fail or the solve non-finite; hold the trajectory
+        good = (info == 0) & torch.isfinite(delta).all()
+        delta = torch.where(good, delta, torch.zeros_like(delta))
+        X = torch.matmul(X, se3_exp(delta.reshape(T, 6)))
+        rows.append(torch.sqrt(torch.mean(torch.sum(r * r, dim=1)))[None])
+    return (X,), torch.stack(rows)
 
-    Args:
-      poses: ``[T, 4, 4]`` initial poses (e.g. ``OdometryResult.poses``).
-      edges_i / edges_j: ``[E]`` integer endpoint indices.
-      measurements: ``[E, 4, 4]`` measured ``Z_ij`` = (frame j → frame i)
-        relative transforms (``X_i · Z_ij ≈ X_j``).
-      weights: per-edge information, ``[E]`` scalars (Λ = w·I, default 1)
-        or full ``[E, 6, 6]`` matrices in the ``[ρ, w]`` ordering (e.g.
-        ``models/uncertainty.information_from_covariance``).
-      iterations: fixed GN iteration count.
-      anchor_weight: prior stiffness pinning pose 0 (the gauge).
-    """
-    pin_f32_precision()
-    X = torch.as_tensor(poses, dtype=torch.float32, device=(
-        None if isinstance(poses, torch.Tensor) else resolve_device()))
+
+def _gn_consts(X, edges_i, edges_j, measurements, weights, damping,
+               anchor_weight) -> _GNConsts:
+    """The Gauss-Newton loop's constants on the poses' device: the edges,
+    Z⁻¹, the whitening of the information, the segment plans (which read
+    their sizes on the host, once, before the loop) and the prior."""
     device = X.device
     T = X.shape[0]
     ei = torch.as_tensor(edges_i, device=device).long()
@@ -222,38 +277,41 @@ def optimize_pose_graph(poses, edges_i, edges_j, measurements,
     diag = torch.cat([torch.full((6,), anchor_weight, device=device),
                       torch.full((6 * (T - 1),), damping, device=device)])
     prior = torch.diag(diag) + 1e-8 * torch.eye(6 * T, device=device)
-    rms_hist = torch.full((iterations,), float("nan"), device=device)
-    for it in range(iterations):
-        A = torch.matmul(se3_inv(X[ei]), X[ej])
-        r = se3_log(torch.matmul(meas_inv, A))
-        Jj = eye6 + 0.5 * _ad_small(r)  # Jr⁻¹(r) to first order
-        Ji = -torch.matmul(Jj, se3_adjoint(se3_inv(A)))
-        if full_info:  # whiten: JᵀΛJ = (LᵀJ)ᵀ(LᵀJ)
-            Lt = whiten.transpose(-1, -2)
-            Ji, Jj = torch.matmul(Lt, Ji), torch.matmul(Lt, Jj)
-            rw = torch.matmul(Lt, r[..., None])[..., 0]
-        else:
-            Ji = Ji * whiten[:, None, None]
-            Jj = Jj * whiten[:, None, None]
-            rw = r * whiten[:, None]
-        JiT = Ji.transpose(-1, -2)
-        JiTJj = torch.matmul(JiT, Jj)
-        H = H_sum(torch.cat([torch.matmul(JiT, Ji), JiTJj,
-                             JiTJj.transpose(-1, -2),
-                             torch.matmul(Jj.transpose(-1, -2), Jj)]))
-        g = g_sum(torch.cat([torch.matmul(JiT, rw[..., None])[..., 0],
-                             torch.matmul(Jj.transpose(-1, -2),
-                                          rw[..., None])[..., 0]]))
-        Hf = H.reshape(T, T, 6, 6).permute(0, 2, 1, 3).reshape(6 * T, 6 * T)
-        L, info = torch.linalg.cholesky_ex(Hf + prior)
-        delta = -torch.cholesky_solve(g.reshape(6 * T, 1), L)[:, 0]
-        # never NaN: a pose no edge reaches, or a NaN measurement, can make
-        # the f32 factor fail or the solve non-finite; hold the trajectory
-        good = (info == 0) & torch.isfinite(delta).all()
-        delta = torch.where(good, delta, torch.zeros_like(delta))
-        X = torch.matmul(X, se3_exp(delta.reshape(T, 6)))
-        rms_hist[it] = torch.sqrt(torch.mean(torch.sum(r * r, dim=1)))
-    return PoseGraphResult(poses=X, residual_rms=rms_hist,
+    return _GNConsts(ei, ej, meas_inv, whiten, H_sum, g_sum, prior)
+
+
+class PoseGraphResult(NamedTuple):
+    poses: torch.Tensor           # [T, 4, 4] optimized frame→frame-0 poses
+    residual_rms: torch.Tensor    # [iters] edge-residual RMS per GN iteration
+    num_iterations: torch.Tensor  # int32
+
+
+def optimize_pose_graph(poses, edges_i, edges_j, measurements,
+                        weights=None, *, iterations: int = 10,
+                        damping: float = 1e-6,
+                        anchor_weight: float = 1e6) -> PoseGraphResult:
+    """Gauss-Newton pose-graph optimization on the poses' device.
+
+    Args:
+      poses: ``[T, 4, 4]`` initial poses (e.g. ``OdometryResult.poses``).
+      edges_i / edges_j: ``[E]`` integer endpoint indices.
+      measurements: ``[E, 4, 4]`` measured ``Z_ij`` = (frame j → frame i)
+        relative transforms (``X_i · Z_ij ≈ X_j``).
+      weights: per-edge information, ``[E]`` scalars (Λ = w·I, default 1)
+        or full ``[E, 6, 6]`` matrices in the ``[ρ, w]`` ordering (e.g.
+        ``models/uncertainty.information_from_covariance``).
+      iterations: fixed GN iteration count.
+      anchor_weight: prior stiffness pinning pose 0 (the gauge).
+    """
+    pin_f32_precision()
+    X = torch.as_tensor(poses, dtype=torch.float32, device=(
+        None if isinstance(poses, torch.Tensor) else resolve_device()))
+    device = X.device
+    consts = _gn_consts(X, edges_i, edges_j, measurements, weights, damping,
+                        anchor_weight)
+    X, rows = drive_chunks(_gn_chunk, (X,), consts, iterations,
+                           lambda st: False, (1,))
+    return PoseGraphResult(poses=X[0], residual_rms=rows[:, 0].contiguous(),
                            num_iterations=torch.full(
                                (), iterations, dtype=torch.int32,
                                device=device))

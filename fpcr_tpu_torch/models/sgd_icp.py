@@ -15,23 +15,110 @@ moving average of the batch RMSE after a warm-up of 10 steps.
 The batches come from a ``torch.Generator`` on the cloud's device, seeded
 from ``seed`` and advanced once a step; the JAX package's ``fold_in``
 stream cannot be reproduced in torch, so the loop :func:`_sgd_loop` takes
-the draw as a callable. The loop is ``models/icp.py``'s: masked device
-state, ``done`` read once per ``DONE_CHECK_EVERY`` steps.
+the draw as a callable. The batches of all ``max_iterations`` steps are
+drawn before the loop into one ``[max_iterations, batch]`` table, which the
+loop reads by a device step counter, as it computes the step size and the
+warm-up from it: a step is then a pure function of device tensors. The loop
+is ``models/icp.py``'s: masked device state, ``done`` read once per
+``DONE_CHECK_EVERY`` steps, chunks of those steps captured as CUDA graphs
+on the card.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Callable, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from ..core.cloud import as_points
 from ..core.transforms import RigidTransform, rotation_exp
 from ..ops.matching import gather_correspondences, nn_argmin
 from ..utils.precision import pin_f32_precision
-from .icp import (DONE_CHECK_EVERY, ICPConfig, ICPResult, _nan_padded,
-                  rotation_angle)
+from .icp import ICPConfig, ICPResult, drive_chunks, rotation_angle
+
+
+class _SGDState(NamedTuple):
+    """The loop state, every field on the device."""
+
+    rotation: torch.Tensor
+    translation: torch.Tensor
+    velocity: torch.Tensor  # [6] momentum, [δω, δt]
+    ema_error: torch.Tensor
+    done: torch.Tensor
+    num_iterations: torch.Tensor
+    step: torch.Tensor  # int32: the loop index, counted after the stop too
+
+
+class _SGDConsts(NamedTuple):
+    source: torch.Tensor
+    target: torch.Tensor
+    target_mask: Optional[torch.Tensor]
+    rows: torch.Tensor  # int64 [max_iterations, batch]: each step's batch
+    centroid: torch.Tensor
+    config: ICPConfig  # max_iterations zeroed
+    # (learning_rate, momentum, ema, lr_decay)
+    rates: tuple
+
+
+def _sgd_chunk(state: _SGDState, c: _SGDConsts, k: int):
+    """``k`` masked SGD steps from ``state``: ``(state, rows [k, 3])``, a
+    row a step holding the moving average of the batch RMSE, ‖δt‖ and
+    ∠δR, NaN where the loop had stopped. The step's batch is row ``step``
+    of ``c.rows``, read on the device. A pure function of its tensors: on
+    the card one CUDA graph a ``k`` (``models/icp.py::drive_chunks``)."""
+    learning_rate, momentum, ema, lr_decay = c.rates
+    rotation, translation, velocity, ema_error, done, n_it, step = state
+    device = rotation.device
+    nan = torch.full((), float("nan"), dtype=torch.float32, device=device)
+    lr = torch.full((), learning_rate, dtype=torch.float32, device=device)
+    decay = torch.full((), lr_decay, dtype=torch.float32, device=device)
+    batch_size = c.rows.shape[1]
+    rows = []
+    for _ in range(k):
+        batch = torch.index_select(c.rows, 0, step.long().reshape(1))[0]
+        x = (torch.matmul(torch.index_select(c.source, 0, batch),
+                          rotation.T) + translation)
+        q_idx, _ = nn_argmin(x, c.target, c.target_mask,
+                             source_chunk=min(batch_size, 2048),
+                             target_tile=c.config.target_tile)
+        r = x - gather_correspondences(c.target, q_idx)
+        xc = x - c.centroid
+        g_t = 2.0 * r.mean(dim=0)
+        g_w = 2.0 * torch.linalg.cross(xc, r).mean(dim=0)
+        # diagonal Gauss-Newton preconditioner: H_t ≈ 2I, H_ω ≈ 2·mean|x−c|²
+        s_w = 2.0 * torch.sum(xc * xc, dim=1).mean() + 1e-12
+        grad = torch.cat([g_w / s_w, g_t / 2.0])
+        # float32, as the JAX package computes it
+        lr_t = lr / (1.0 + decay * step.to(torch.float32))
+        vel = momentum * velocity - lr_t * grad
+        # the centroid-anchored perturbation g(x) = dR·(x − c) + c + δt:
+        # R ← dR·R, t ← dR·(t − c) + c + δt
+        d_rot = rotation_exp(vel[:3])
+        new_r = torch.matmul(d_rot, rotation)
+        new_t = (torch.matmul(d_rot, translation - c.centroid) + c.centroid
+                 + vel[3:])
+        batch_rmse = torch.sqrt(torch.sum(r * r, dim=1).mean())
+        ema_new = torch.where(step == 0, batch_rmse,
+                              ema * ema_error + (1.0 - ema) * batch_rmse)
+        # the moving average warms up for 10 steps
+        converged = (step > 10) & (
+            (ema_new < c.config.tolerance)
+            | (torch.abs(ema_new - ema_error) < c.config.tolerance))
+        active = ~done
+        rows.append(torch.stack([
+            torch.where(active, ema_new, nan),
+            torch.where(active, torch.linalg.vector_norm(vel[3:]), nan),
+            torch.where(active, rotation_angle(d_rot), nan)]))
+        rotation = torch.where(active, new_r, rotation)
+        translation = torch.where(active, new_t, translation)
+        velocity = torch.where(active, vel, velocity)
+        ema_error = torch.where(active, ema_new, ema_error)
+        n_it = n_it + active.to(torch.int32)
+        done = done | (active & converged)
+        step = step + 1
+    return (_SGDState(rotation, translation, velocity, ema_error, done, n_it,
+                      step), torch.stack(rows))
 
 
 def _sgd_loop(source: torch.Tensor, target: torch.Tensor, config: ICPConfig,
@@ -40,70 +127,41 @@ def _sgd_loop(source: torch.Tensor, target: torch.Tensor, config: ICPConfig,
               lr_decay: float,
               target_mask: Optional[torch.Tensor] = None) -> ICPResult:
     """The SGD-ICP loop on contiguous float32 clouds of one device;
-    ``draw(step)`` gives the step's batch rows, int64 ``[batch_size]``."""
+    ``draw(step)`` gives the step's batch rows, int64 ``[batch_size]``,
+    drawn for every step before the loop, in step order.
+
+    On the card the loop runs as CUDA graphs of ``DONE_CHECK_EVERY``
+    steps (``models/icp.py::drive_chunks``) from the second call of its
+    shapes and config on; eagerly on the first, on the CPU and under
+    ``graphs.eager()``."""
     device = source.device
     f32 = dict(dtype=torch.float32, device=device)
-    nan = torch.full((), float("nan"), **f32)
-    centroid = source.mean(dim=0)
-    rotation = torch.eye(3, **f32)
-    translation = torch.zeros(3, **f32)
-    velocity = torch.zeros(6, **f32)
-    ema_error = torch.full((), float("inf"), **f32)
-    done = torch.zeros((), dtype=torch.bool, device=device)
-    num_iterations = torch.zeros((), dtype=torch.int32, device=device)
-    errors, delta_t, delta_rot = [], [], []
-    for it in range(config.max_iterations):
-        if it and it % DONE_CHECK_EVERY == 0 and bool(done):
-            break
-        x = torch.matmul(source[draw(it)], rotation.T) + translation
-        q_idx, _ = nn_argmin(x, target, target_mask,
-                             source_chunk=min(batch_size, 2048),
-                             target_tile=config.target_tile)
-        r = x - gather_correspondences(target, q_idx)
-        xc = x - centroid
-        g_t = 2.0 * r.mean(dim=0)
-        g_w = 2.0 * torch.linalg.cross(xc, r).mean(dim=0)
-        # diagonal Gauss-Newton preconditioner: H_t ≈ 2I, H_ω ≈ 2·mean|x−c|²
-        s_w = 2.0 * torch.sum(xc * xc, dim=1).mean() + 1e-12
-        grad = torch.cat([g_w / s_w, g_t / 2.0])
-        # float32, as the JAX package computes it
-        lr_t = float(np.float32(learning_rate) / (
-            np.float32(1.0) + np.float32(lr_decay) * np.float32(it)))
-        vel = momentum * velocity - lr_t * grad
-        # the centroid-anchored perturbation g(x) = dR·(x − c) + c + δt:
-        # R ← dR·R, t ← dR·(t − c) + c + δt
-        d_rot = rotation_exp(vel[:3])
-        new_r = torch.matmul(d_rot, rotation)
-        new_t = (torch.matmul(d_rot, translation - centroid) + centroid
-                 + vel[3:])
-        batch_rmse = torch.sqrt(torch.sum(r * r, dim=1).mean())
-        ema_new = (batch_rmse if it == 0
-                   else ema * ema_error + (1.0 - ema) * batch_rmse)
-        converged = (torch.zeros((), dtype=torch.bool, device=device)
-                     if it <= 10 else  # let the moving average warm up
-                     (ema_new < config.tolerance)
-                     | (torch.abs(ema_new - ema_error) < config.tolerance))
-        active = ~done
-        errors.append(torch.where(active, ema_new, nan))
-        delta_t.append(torch.where(active, torch.linalg.vector_norm(vel[3:]),
-                                   nan))
-        delta_rot.append(torch.where(active, rotation_angle(d_rot), nan))
-        rotation = torch.where(active, new_r, rotation)
-        translation = torch.where(active, new_t, translation)
-        velocity = torch.where(active, vel, velocity)
-        ema_error = torch.where(active, ema_new, ema_error)
-        num_iterations = num_iterations + active.to(torch.int32)
-        done = done | (active & converged)
     n = config.max_iterations
-    transform = RigidTransform(rotation, translation)
-    errs = _nan_padded(errors, n, device)
+    rows = (torch.stack([draw(it).to(device=device, dtype=torch.int64)
+                         for it in range(n)]) if n else
+            torch.zeros((0, batch_size), dtype=torch.int64, device=device))
+    state = _SGDState(
+        torch.eye(3, **f32), torch.zeros(3, **f32), torch.zeros(6, **f32),
+        torch.full((), float("inf"), **f32),
+        torch.zeros((), dtype=torch.bool, device=device),
+        torch.zeros((), dtype=torch.int32, device=device),
+        torch.zeros((), dtype=torch.int32, device=device))
+    consts = _SGDConsts(source, target, target_mask, rows.contiguous(),
+                        source.mean(dim=0),
+                        dataclasses.replace(config, max_iterations=0),
+                        (float(learning_rate), float(momentum), float(ema),
+                         float(lr_decay)))
+    state, out = drive_chunks(_sgd_chunk, state, consts, n,
+                              lambda st: bool(st.done), (3,))
+    errs, delta_t, delta_rot = out.T.contiguous()
+    transform = RigidTransform(state.rotation, state.translation)
     return ICPResult(
-        transform=transform, errors=errs, num_iterations=num_iterations,
-        converged=done, points=transform.apply(source),
+        transform=transform, errors=errs,
+        num_iterations=state.num_iterations, converged=state.done,
+        points=transform.apply(source),
         matched_fraction=torch.where(torch.isnan(errs), errs,
                                      torch.ones_like(errs)),
-        delta_t=_nan_padded(delta_t, n, device),
-        delta_rot=_nan_padded(delta_rot, n, device))
+        delta_t=delta_t, delta_rot=delta_rot)
 
 
 def run_sgd_icp(source, target,

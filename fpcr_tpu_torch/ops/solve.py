@@ -5,7 +5,8 @@ Counterpart of ``fpcr_tpu/ops/solve.py``. Point-to-point: masked centroids,
 the 3x3 cross-covariance as one float32 matmul, and the rotation from a 3x3
 SVD (kernel svd3 on the card, ``torch.linalg.svd`` on the CPU), with the
 det(R) = +1 reflection fix the reference lacks, or from the matmul-only
-Newton–Schulz polar iteration; Umeyama adds the scale from the same SVD. Point-to-plane:
+Newton–Schulz polar iteration; Umeyama adds the scale from the same SVD
+(svd3's Umeyama form on the card). Point-to-plane:
 J = [p × n, n], C = JᵀWJ and b = -JᵀWr as
 float32 reductions, and the 6x6 Cholesky solve on the device, with no host
 round trip. A mask may be boolean or float (IRLS weights).
@@ -180,16 +181,40 @@ def umeyama_transform(p: torch.Tensor, q: torch.Tensor,
                          group)
     W = W / wsum
     var_p = var_p / wsum
-    U, D, Vt = torch.linalg.svd(W, full_matrices=False)
-    d = torch.sign(_det3(U) * _det3(Vt))
-    d = torch.where(d == 0, torch.ones_like(d), d)
-    U[:, 2] *= d
-    R = torch.matmul(U, Vt)
+    R, trace = umeyama_from_svd(W)
     if with_scale:
-        s = (D[0] + D[1] + d * D[2]) / torch.clamp(var_p, min=1e-30)
+        s = trace / torch.clamp(var_p, min=1e-30)
     else:
         s = torch.ones((), dtype=torch.float32, device=p.device)
     return s, RigidTransform(R, q_bar - s * torch.matmul(R, p_bar))
+
+
+def umeyama_from_svd(W: torch.Tensor):
+    """Umeyama's rotation and scale numerator from the normalised 3x3
+    cross-covariance (or each of a batch ``[..., 3, 3]``): ``(R, trace)``
+    with ``R = U·diag(1, 1, d)·Vᵀ``, ``trace = σ1 + σ2 + d·σ3`` and ``d =
+    sign(det U · det Vᵀ)``, 1 where it is 0.
+
+    On a CUDA tensor this is kernel svd3's Umeyama form
+    (``ops/svd3_cuda.py::svd3_umeyama_cuda``), which reports nothing to the
+    host, so a scaled ICP loop can run as a captured CUDA graph; on a CPU
+    tensor the plain version, :func:`umeyama_from_svd_plain`."""
+    if W.device.type == "cuda":
+        from .svd3_cuda import svd3_umeyama_cuda
+
+        return svd3_umeyama_cuda(W.contiguous())
+    return umeyama_from_svd_plain(W)
+
+
+def umeyama_from_svd_plain(W: torch.Tensor):
+    """The plain PyTorch version of svd3's Umeyama form, on any device: one
+    ``torch.linalg.svd``, which raises on a non-finite W and on the card
+    checks its status on the host."""
+    U, D, Vt = torch.linalg.svd(W, full_matrices=False)
+    d = torch.sign(_det3(U) * _det3(Vt))
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    U[..., :, 2] *= d[..., None]
+    return torch.matmul(U, Vt), D[..., 0] + D[..., 1] + d * D[..., 2]
 
 
 def plane_normal_equations(p: torch.Tensor, q: torch.Tensor,

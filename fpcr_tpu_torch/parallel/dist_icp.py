@@ -14,7 +14,10 @@ tensors, gloo for CPU tensors.
 * The loop is the single-process one (``models/icp.py::_run_icp``,
   ``models/ndt.py::_ndt_loop``) with ``group`` set: every sum over points
   is all-reduced, so every rank solves the same 3x3 or 6x6 system, and the
-  loop state stays replicated by construction.
+  loop state stays replicated by construction. Over NCCL the loop runs as
+  the single-process one does on the card, as CUDA graphs from a key's
+  second call, its all-reduces captured in them; over gloo, whose
+  collectives run on the host, eagerly (``utils/graphs.py::capturable``).
 * Target normals, source normals (symmetric and GICP, on the whole source
   before sharding, since a shard's kNN would miss its neighbours across
   the cut), the matcher's Morton or voxel tables and the NDT grid are built

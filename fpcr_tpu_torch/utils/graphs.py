@@ -125,6 +125,16 @@ def cache_key(fn: Callable, args: tuple):
     return (fn, _flatten(args, tensors)), tensors
 
 
+def contiguous(tree):
+    """``tree`` with every tensor made contiguous, as :func:`bind` holds
+    it in its static buffers: an eager loop that computes on the same
+    layouts as its captured twin launches the same kernels (a library
+    picks its kernel, and so its rounding, by the operands' strides; a
+    batched factor such as ``cholesky_ex``'s comes out column-major)."""
+    key, tensors = cache_key(None, (tree,))
+    return _unflatten(key[1], iter(tensors))[0]
+
+
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -204,7 +214,7 @@ class GraphCache:
                 while len(self._seen) > MAX_SEEN:
                     self._seen.popitem(last=False)
                 self.loops["eager"] += 1
-                return lambda state, k: fn(state, consts, k)
+                return lambda state, k: fn(contiguous(state), consts, k)
             if not tensors or tensors[0].device.type != "cuda":
                 raise ValueError("a captured loop takes CUDA tensors")
             self.loops["graphs"] += 1
@@ -309,6 +319,20 @@ def bind(fn: Callable, consts):
 def clear() -> None:
     """Drop every cached graph and its pool, and forget the keys seen."""
     CACHE.clear()
+
+
+def capturable(group) -> bool:
+    """Whether a loop whose sums are all-reduced over ``group`` can run by
+    :func:`bind`: without a group, or over NCCL, whose collectives are
+    kernels on the card that a graph captures (its communicator made by
+    the warm-up chunk, outside the capture). gloo's run on the host and
+    cannot be captured: a gloo loop runs eagerly. Decided by the group's
+    backend, before the loop."""
+    if group is None:
+        return True
+    import torch.distributed as dist
+
+    return "nccl" in str(dist.get_backend(group)).lower()
 
 
 def captured(device) -> bool:

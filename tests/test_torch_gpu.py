@@ -1444,6 +1444,25 @@ def test_evaluate_registration_and_profile_on_card(cuda):
     assert all(v > 0 for v in timer.as_dict().values())
 
 
+def _gn_loop(run):
+    """The pose graph's Gauss-Newton loop of ``run`` (a partial of
+    ``optimize_pose_graph``) alone, its constants prebuilt (the segment
+    plans read their sizes on the host before the loop): ``run()`` ->
+    ``(X, rows, iterations)``."""
+    from fpcr_tpu_torch.models import pose_graph as pg
+    from fpcr_tpu_torch.models.icp import drive_chunks
+
+    X, ei, ej, Z, w = run.args
+    consts = pg._gn_consts(X, ei, ej, Z, w, 1e-6, 1e6)
+    n = run.keywords["iterations"]
+
+    def loop():
+        (poses,), rows = drive_chunks(pg._gn_chunk, (X,), consts, n,
+                                      lambda st: False, (1,))
+        return poses, rows, torch.full((), n)
+    return loop
+
+
 def _sync_case(cuda, name):
     """``(run, wrapper, expected launches of wrapper)`` of eight iterations
     of ``name``, normals and tables prebuilt."""
@@ -1479,6 +1498,30 @@ def _sync_case(cuda, name):
         run = functools.partial(ft.run_icp, s.source, s.target, cfg)
         wrapper = mc.nn_argmin_packed_cuda if packed else mc.nn_argmin_cuda
         return run, wrapper, 16
+    if name in ("scaled", "sgd", "history", "pose-graph", "ransac"):
+        from fpcr_tpu_torch.ops.svd3_cuda import (svd3_rotation_cuda,
+                                                  svd3_umeyama_cuda)
+
+        run = _variant_case(cuda, {"scaled": "scaled-k1",
+                                   "history": "history-k1",
+                                   "pose-graph": "pose-graph-full"}.get(
+                                       name, name), 0.0)
+        if name == "scaled":
+            return (functools.partial(
+                ft.run_scaled_icp, *run.args[:2], ft.ICPConfig(
+                    matcher="pallas", **eight)), svd3_umeyama_cuda, 8)
+        if name == "sgd":
+            return (functools.partial(
+                ft.run_sgd_icp, s.source, s.target, ft.ICPConfig(**eight),
+                batch_size=512, seed=0), mc.nn_argmin_cuda, 16)
+        if name == "history":
+            return (functools.partial(
+                ft.run_icp_with_history, s.source, s.target,
+                ft.ICPConfig(matcher="pallas", **eight)), mc.nn_argmin_cuda,
+                16)
+        if name == "pose-graph":
+            return _gn_loop(run), svd3_rotation_cuda, 0
+        return run, svd3_rotation_cuda, 4
     if name == "point-svd3":
         cfg = ft.ICPConfig(matcher="pallas", **eight)
         return (functools.partial(ft.run_icp, s.source, s.target, cfg),
@@ -1515,12 +1558,17 @@ def _sync_case(cuda, name):
 
 @pytest.mark.parametrize("name", ["gicp", "aa-plane", "grid-gicp",
                                   "point-k1", "point-k2", "point-svd3",
-                                  "morton", "ndt", "batch-k1", "batch-k2"])
+                                  "morton", "ndt", "batch-k1", "batch-k2",
+                                  "scaled", "sgd", "history", "pose-graph",
+                                  "ransac"])
 def test_no_host_sync_in_slice_iterations(cuda, name):
     """Eight iterations of GICP (K1), AA-ICP (K1 three times an iteration),
     grid GICP, point ICP through K1 and K2 (and svd3), Morton ICP (K3), NDT
-    (K4) and ``register_batch`` through K1 and K2, normals and tables
-    prebuilt, under ``torch.cuda.set_sync_debug_mode("error")``: nothing
+    (K4), ``register_batch`` through K1 and K2, scaled ICP (svd3's Umeyama
+    form), SGD-ICP and history (K1), normals and tables prebuilt, and the
+    pose graph's 13 Gauss-Newton iterations and RANSAC (svd3 once for the
+    hypotheses and once a refine round) whole, under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing
     in an iteration waits for the card; the host reads ``done`` once per 8
     iterations, which 8 iterations never reach. The loops that run as
     captured graphs are captured outside the window, by a second call (the
@@ -1537,12 +1585,84 @@ def test_no_host_sync_in_slice_iterations(cuda, name):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert wrapper.launches - before == expected
-    # an ICPResult's third field, or _ndt_loop's third value
-    assert int(res[2].min()) >= 1
+    # the iterations (``_ndt_loop``'s third value), or RANSAC's inliers
+    count = getattr(res, "num_iterations", None)
+    assert int((res[2] if count is None else count).min()) >= 1
 
 
 GRAPH_PATHS = ["point-k1", "point-k2", "plane-k1", "morton-k3",
-               "morton-k3p", "gicp", "grid", "ndt", "batch-k1", "batch-k2"]
+               "morton-k3p", "gicp", "grid", "ndt", "batch-k1", "batch-k2",
+               "aa-point", "aa-plane", "scaled-k1", "scaled-k2", "sgd",
+               "history-k1", "history-k2", "history-morton", "pose-graph",
+               "pose-graph-full", "ransac"]
+
+
+def _variant_case(cuda, name, shift):
+    """``run()`` of one loop variant on the card (21 iterations where the
+    loop has a count), its inputs moved by ``shift``."""
+    import functools
+
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.models import global_reg as gr
+
+    s = ft.synthetic_scene(width=64, device=cuda)
+    src, tgt = s.source, s.target + shift
+    cfg = ft.ICPConfig(max_iterations=21, matcher="pallas")
+    packed = ft.ICPConfig(max_iterations=21, matcher="pallas",
+                          pallas_mode="packed6_idx")
+    if name.startswith("aa"):
+        metric = name.split("-")[1]
+        return functools.partial(ft.run_aa_icp, src, tgt, ft.ICPConfig(
+            metric=metric, max_iterations=21, matcher="pallas"))
+    if name.startswith("scaled"):
+        rng = np.random.default_rng(11)
+        vs = torch.as_tensor(rng.uniform(-2, 2, (4096, 3)).astype(
+            np.float32), device=cuda)
+        vt = 1.04 * ft.gt_transform((0.01, -0.02, 0.015),
+                                    (0.01, -0.008, 0.012),
+                                    device=cuda).apply(vs) + shift
+        return functools.partial(ft.run_scaled_icp, vs, vt,
+                                 packed if name.endswith("k2") else cfg)
+    if name == "sgd":
+        return functools.partial(ft.run_sgd_icp, src, tgt, ft.ICPConfig(
+            max_iterations=21, tolerance=1e-6), batch_size=512, seed=0)
+    if name == "history-morton":
+        g = ft.surface_grid(128, device=cuda)
+        gt = ft.gt_transform((0.004, -0.003, 0.002), (0.003, -0.002, 0.004),
+                             device=cuda)
+        return functools.partial(ft.run_icp_with_history, g,
+                                 gt.apply(g) + shift, ft.ICPConfig(
+                                     matcher="morton", morton_chunk=512,
+                                     morton_window=64, max_iterations=21))
+    if name.startswith("history"):
+        return functools.partial(ft.run_icp_with_history, src, tgt,
+                                 packed if name.endswith("k2") else cfg)
+    if name.startswith("pose-graph"):
+        from fpcr_tpu_torch.models import pose_graph as pg
+
+        rng = np.random.default_rng(0)
+        T = 10
+        xi = torch.as_tensor(rng.normal(0, 0.1, (T, 6)).astype(np.float32),
+                             device=cuda)
+        X = pg.se3_exp(xi)
+        ei = torch.as_tensor(list(range(T - 1)) + [0, 2], device=cuda)
+        ej = torch.as_tensor(list(range(1, T)) + [T - 1, T - 3], device=cuda)
+        Z = torch.matmul(pg.se3_inv(X[ei]), X[ej]) + shift
+        w = (torch.eye(6, device=cuda) * 2.0).expand(len(ei), 6, 6) if (
+            name.endswith("full")) else None
+        return functools.partial(ft.optimize_pose_graph, X, ei, ej, Z, w,
+                                 iterations=13)
+    assert name == "ransac"
+    rng = np.random.default_rng(1)
+    p = torch.as_tensor(rng.uniform(-1, 1, (2000, 3)).astype(np.float32),
+                        device=cuda)
+    q = ft.gt_transform((0.3, -0.2, 0.5), (0.1, 0.2, -0.3),
+                        device=cuda).apply(p) + shift
+    good = torch.as_tensor(rng.uniform(size=2000) < 0.6, device=cuda)
+    q = torch.where(good[:, None], q, -q)
+    samples = torch.as_tensor(rng.integers(0, 2000, (1024, 3)), device=cuda)
+    return functools.partial(gr._ransac, p, q, good, samples,
+                             torch.tensor(0.02, device=cuda), 3)
 
 
 def _graph_case(cuda, name, shift=0.0):
@@ -1552,6 +1672,8 @@ def _graph_case(cuda, name, shift=0.0):
 
     import fpcr_tpu_torch as ft
 
+    if name in GRAPH_PATHS[10:]:
+        return _variant_case(cuda, name, shift)
     s = ft.synthetic_scene(width=64, device=cuda)
     src, tgt = s.source, s.target + shift
     if name in ("point-k1", "point-k2", "plane-k1", "gicp", "grid"):
@@ -1648,8 +1770,9 @@ def test_captured_loop_is_its_eager_run(cuda, name):
                 for i, a in enumerate(x)]
     assert (diff(c1, c0) == diff(c2, c1) == diff(c3, c2)
             == diff(c4, c3))
-    assert any(d if isinstance(d, int) else any(d.values())
-               for d in diff(c1, c0))
+    # the pose graph launches no kernel of the port's
+    assert name.startswith("pose-graph") or any(
+        d if isinstance(d, int) else any(d.values()) for d in diff(c1, c0))
 
 
 def test_captured_loop_under_debug_nans_runs_eagerly(cuda):
@@ -1746,6 +1869,104 @@ def test_svd3_kernel_edges_and_checks(cuda):
         with pytest.raises(ValueError):
             svd3_rotation_cuda(bad)
     assert svd3_rotation_cuda.launches == before
+
+
+@pytest.mark.parametrize("b", [1, 32, 1024])
+def test_svd3_umeyama_against_plain(cuda, b):
+    """svd3's Umeyama form against its plain version (``torch.linalg.svd``
+    and the sign and scale glue) in float64 and float32 on the card, with
+    ``chip_smoke.py``'s tolerances: R as the rotation form's is held and
+    bit for bit the rotation form's with the det fix, the trace within
+    1e-6 of σ1 of the float64 plain version; one launch, and
+    ``umeyama_from_svd`` on a CUDA tensor launches it."""
+    from fpcr_tpu_torch.ops.solve import (umeyama_from_svd,
+                                          umeyama_from_svd_plain)
+    from fpcr_tpu_torch.ops.svd3_cuda import (svd3_rotation_cuda,
+                                              svd3_umeyama_cuda)
+
+    rng = np.random.default_rng(b)
+    w = rng.normal(size=(b, 3, 3))
+    w[::3, 2] *= -1.0  # reflections among them
+    W = torch.as_tensor(w.astype(np.float32), device=cuda)
+    before = svd3_umeyama_cuda.launches
+    R, trace = umeyama_from_svd(W)
+    assert svd3_umeyama_cuda.launches == before + 1
+    assert torch.equal(R, svd3_rotation_cuda(W, True))
+    s = torch.linalg.svdvals(W.double())
+    gap = s[:, 1] - s[:, 2]
+    sep = gap > SVD3_GAP * s[:, 0]
+    R64, t64 = umeyama_from_svd_plain(W.double())
+    R32, _ = umeyama_from_svd_plain(W)
+    assert float((R.double() - R64)[sep].abs().max()) < SVD3_ATOL
+    d32 = (R - R32).abs().amax(dim=(1, 2))
+    assert float((d32 * gap / s[:, 0])[sep].max()) < SVD3_F32_REL
+    assert float(((trace.double() - t64).abs() / s[:, 0]).max()) < SVD3_ATOL
+    assert bool((t64 < s[:, 0] + s[:, 1]).any())  # some d = -1
+
+
+def test_svd3_umeyama_edges_and_checks(cuda):
+    """W = 0 gives the identity and 0, a line's and a plane's W a rotation
+    and σ1 + σ2, a non-finite W NaN for both; the wrapper refuses float64,
+    a non-contiguous W and a wrong shape without launching."""
+    from fpcr_tpu_torch.ops.svd3_cuda import svd3_umeyama_cuda
+
+    line = np.outer([1.0, 2.0, -0.5], [0.3, -1.0, 0.8])
+    p = np.random.default_rng(1).normal(size=(40, 3)) * [1.0, 0.5, 0.0]
+    nan = np.eye(3)
+    nan[2, 1] = np.nan
+    w = np.stack([np.zeros((3, 3)), line, p.T @ p, nan])
+    W = torch.as_tensor(w.astype(np.float32), device=cuda)
+    R, trace = svd3_umeyama_cuda(W)
+    assert torch.equal(R[0], torch.eye(3, device=cuda)) and float(trace[0]) == 0
+    assert float((torch.linalg.det(R[1:3].double()) - 1).abs().max()) < 1e-6
+    s = np.linalg.svd(w[1:3], compute_uv=False)
+    np.testing.assert_allclose(trace[1:3].cpu().numpy(), s[:, 0] + s[:, 1],
+                               rtol=1e-6)
+    assert bool(R[3].isnan().all()) and bool(trace[3].isnan())
+    before = svd3_umeyama_cuda.launches
+    for bad in (W.double(), W.transpose(1, 2), W[:, :2]):
+        with pytest.raises(ValueError):
+            svd3_umeyama_cuda(bad)
+    assert svd3_umeyama_cuda.launches == before
+
+
+def test_sharded_loop_over_nccl_is_captured(cuda, tmp_path):
+    """A world of one NCCL rank in this process: ``distributed_icp``'s
+    loop, its all-reduces included, is captured from its key's second
+    call, bit for bit its eager run and ``run_icp``'s, with the eager run's
+    launches and all-reduces (``_psum``'s count) on each call."""
+    import torch.distributed as dist
+
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.core import metrics
+    from fpcr_tpu_torch.parallel.dist_icp import distributed_icp
+    from fpcr_tpu_torch.utils import graphs
+
+    s = ft.synthetic_scene(width=64, device=cuda)
+    cfg = ft.ICPConfig(max_iterations=21, matcher="pallas")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/s",
+                            world_size=1, rank=0)
+    try:
+        graphs.clear()
+        counts = []
+        with graphs.eager():
+            ref = distributed_icp(s.source, s.target, cfg)
+        outs = []
+        for _ in range(3):
+            before = metrics._psum.launches
+            captures = len(graphs.CACHE.captures)
+            outs.append(distributed_icp(s.source, s.target, cfg))
+            torch.cuda.synchronize()
+            counts.append((metrics._psum.launches - before,
+                           len(graphs.CACHE.captures) - captures))
+        single = ft.run_icp(s.source, s.target, cfg)
+    finally:
+        dist.destroy_process_group()
+    assert counts[0][1] == counts[2][1] == 0 and counts[1][1] >= 1
+    assert counts[0][0] == counts[1][0] == counts[2][0] > 0
+    for res in outs + [single]:
+        for a, b in zip(_result_bits(ref), _result_bits(res)):
+            assert torch.equal(a, b)
 
 
 def _batch_case(cuda, b, n, m, seed, masks):

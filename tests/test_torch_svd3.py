@@ -56,9 +56,12 @@ def _reject(x, u):
     return np.sqrt(np.dot(x, x))
 
 
-def _mirror_one(w, det_correction):
+def _mirror_one(w, det_correction, umeyama=False):
+    """The kernel's R of one matrix; with ``umeyama`` (Umeyama's form, the
+    det fix on) ``(R, trace)``."""
     if not np.isfinite(w).all():
-        return np.full((3, 3), np.nan, np.float32)
+        nan = np.full((3, 3), np.nan, np.float32)
+        return (nan, np.float32(np.nan)) if umeyama else nan
     a = w.astype(np.float64)
     v = np.eye(3)
     for _ in range(SWEEPS):
@@ -90,7 +93,12 @@ def _mirror_one(w, det_correction):
         u[2] = det_v * np.cross(u[0], u[1])
         if not det_correction and sig[2] > tol and np.dot(u[2], a[:, 2]) < 0:
             u[2] = -u[2]
-    return (u.T @ vc).astype(np.float32)
+    R = (u.T @ vc).astype(np.float32)
+    if not umeyama:
+        return R
+    d = -1.0 if (sig[0] > 0.0 and sig[2] > tol
+                 and np.dot(u[2], a[:, 2]) < 0.0) else 1.0
+    return R, np.float32(sig[0] + sig[1] + d * sig[2])
 
 
 def svd3_mirror(W, det_correction=True):
@@ -100,6 +108,17 @@ def svd3_mirror(W, det_correction=True):
     for idx in np.ndindex(W.shape[:-2]):
         out[idx] = _mirror_one(W[idx], det_correction)
     return out
+
+
+def umeyama_mirror(W):
+    """The kernel's Umeyama form for each 3x3 of ``W`` [..., 3, 3]:
+    ``(R, trace)``."""
+    W = np.asarray(W, np.float32)
+    R = np.empty(W.shape, np.float32)
+    trace = np.empty(W.shape[:-2], np.float32)
+    for idx in np.ndindex(W.shape[:-2]):
+        R[idx], trace[idx] = _mirror_one(W[idx], True, umeyama=True)
+    return R, trace
 
 
 def _rot(rng):
@@ -265,3 +284,57 @@ def test_wrapper_takes_cuda_tensors_only():
     assert svd3_rotation_cuda.launches == before
     np.testing.assert_allclose(R.numpy(), svd3_mirror(W.numpy()), rtol=0,
                                atol=ATOL)
+
+
+def _jax_umeyama(W):
+    """JAX's Umeyama rotation and trace (``fpcr_tpu/ops/solve.py:183``'s
+    SVD glue) of each W."""
+    def one(w):
+        U, D, Vt = jnp.linalg.svd(w, full_matrices=False)
+        d = jnp.sign(jnp.linalg.det(U) * jnp.linalg.det(Vt))
+        d = jnp.where(d == 0, 1.0, d)
+        R = jnp.matmul(U.at[:, 2].multiply(d), Vt,
+                       precision=jax.lax.Precision.HIGHEST)
+        return R, D[0] + D[1] + d * D[2]
+    R, trace = jax.vmap(one)(jnp.asarray(W))
+    return np.asarray(R), np.asarray(trace)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_umeyama_mirror_against_jax_and_plain(name):
+    """svd3's Umeyama form: its R is the rotation form's with the det fix,
+    bit for bit, and within 1e-6 of JAX's and the plain version's where R
+    is unique; its trace σ1 + σ2 + d·σ3 within 1e-6 of σ1 of both
+    everywhere (at rank 2 and below d·σ3 is rounding noise whatever d
+    is), reflections (d = -1) included."""
+    W = _case(name)
+    R, trace = umeyama_mirror(W)
+    np.testing.assert_array_equal(R, svd3_mirror(W, True))
+    sep = _separated(W, True)
+    Rp, tp_ = ts.umeyama_from_svd_plain(torch.as_tensor(W))
+    Rj, tj = _jax_umeyama(W)
+    s1 = np.linalg.svd(W.astype(np.float64), compute_uv=False)[..., 0]
+    for ref_R, ref_t in ((Rp.numpy(), tp_.numpy()), (Rj, tj)):
+        np.testing.assert_allclose(R[sep], ref_R[sep], rtol=0, atol=ATOL)
+        assert (np.abs(trace - ref_t) <= ATOL * np.maximum(s1, 1e-30)).all()
+    if name == "reflection":
+        s = np.linalg.svd(W.astype(np.float64), compute_uv=False)
+        np.testing.assert_allclose(trace, s[:, 0] + s[:, 1] - s[:, 2],
+                                   rtol=1e-6)
+
+
+def test_umeyama_mirror_conventions():
+    """W = 0 gives the identity and a zero trace, a non-finite W NaN for
+    both; the wrapper refuses a CPU tensor."""
+    from fpcr_tpu_torch.ops.svd3_cuda import svd3_umeyama_cuda
+
+    R, trace = umeyama_mirror(_case("zero"))
+    np.testing.assert_array_equal(R, np.broadcast_to(np.eye(3), R.shape))
+    assert (trace == 0).all()
+    W = _case("random")[:2].copy()
+    W[1, 2, 0] = np.inf
+    R, trace = umeyama_mirror(W)
+    assert np.isnan(R[1]).all() and np.isnan(trace[1])
+    assert np.isfinite(R[0]).all() and np.isfinite(trace[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        svd3_umeyama_cuda(torch.as_tensor(W))
