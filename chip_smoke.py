@@ -103,7 +103,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    kernel svd3 (``csrc/svd3.cu``): svd3 against its plain version
    (``torch.linalg.svd``) in float64 and float32 at the main path's
    batches (1, 32, 1,024) and on W = 0, a line, a plane, a reflection, NaN
-   and inf, with its kernel, call, plain and ``torch.linalg.svd`` times;
+   and inf, against its yardstick (the first design, 8 float64 sweeps) and
+   its CPU mirror (``ops/svd3_mirror.py``, within one float32 ulp), with
+   its kernel and call times in legs against the yardstick's (yardstick,
+   new, new, yardstick, yardstick, new), the parts of its design alone,
+   the plain version's and ``torch.linalg.svd``'s times, and captured
+   point ICP through K1 at 16,384 by the slope with either svd3 in legs;
    every captured path (point ICP through K1 and K2 on the four scenes,
    plane through K1, Morton through K3 and K3p at 262,144 and 1,048,576,
    NDT through K4 at both sizes, ``register_batch`` of 32 x 4,096 through
@@ -118,8 +123,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    turns; one traced run of point and plane ICP through K1 each way, and
    one more that finds the port's kernels in the trace, in the counted
    numbers, under ``cudaGraphLaunch`` when captured. The loop variants
-   likewise: svd3's Umeyama form against its plain version on the same
-   batches and edge cases, with its times; AA-ICP point and plane,
+   likewise: svd3's Umeyama form against its plain version and its
+   yardstick on the same batches and edge cases, with its times in legs; AA-ICP point and plane,
    scaled ICP through K1 and K2, SGD-ICP on Bunny (B = 1,024, 200 steps),
    history through K1 and K2 on the four scenes and K3 at 1,048,576, the
    SLAM example's pose graph (unit weights and the closures'
@@ -209,8 +214,10 @@ device time of an empty kernel, which bounds it in practice; svd3's
 Umeyama form's its 76 bytes a matrix and the operations of Umeyama's
 rotation and trace, at scaled ICP's batch of one, its ``max_abs_err`` R's
 and ``trace_rel_err`` the trace's over σ1;
-the entries of Kernel S, the E1 forms and the min-only sweep also carry
-the legs' call and kernel times of both sides). The last line is ``{"ok": true, "device":
+the entries of Kernel S, the E1 forms, the min-only sweep and svd3's two
+forms also carry the legs' call and kernel times of both sides, svd3's
+rotation form also its design's parts alone, ``ablation``, and the
+captured point ICP slopes with either svd3, ``point_k1_ms_per_iter``). The last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits 1 and prints no result.
 """
 
@@ -1501,7 +1508,9 @@ def _wrappers():
     from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
                                                 morton_nn_packed_cuda)
     from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
-    from fpcr_tpu_torch.ops.svd3_cuda import (svd3_rotation_cuda,
+    from fpcr_tpu_torch.ops.svd3_cuda import (_svd3_rotation_fixed,
+                                              _svd3_umeyama_fixed,
+                                              svd3_rotation_cuda,
                                               svd3_umeyama_cuda)
 
     return {"nn_argmin": nn_argmin_cuda,
@@ -1514,7 +1523,9 @@ def _wrappers():
             "svd3_umeyama": svd3_umeyama_cuda,
             "nn_argmin_cudacore": _nn_argmin_cudacore,
             "nn_argmin_packed_cudacore": _nn_argmin_packed_cudacore,
-            "nn_min_only_yardstick": _nn_min_only_yardstick}
+            "nn_min_only_yardstick": _nn_min_only_yardstick,
+            "svd3_fixed_rotation": _svd3_rotation_fixed,
+            "svd3_fixed_umeyama": _svd3_umeyama_fixed}
 
 
 # the CUDA-core sweep of K1 and K2: the yardstick, on no path of the package
@@ -1527,6 +1538,10 @@ SPLIT_MMA = tuple(f"split mma x{t} {e}" for t in (6, 3)
 FORM_YARDSTICKS = tuple(f"e1 yardstick {v}"
                         for v in ("v1", "v2", "v4", "v5", "v6")) + (
     "nn_min_only_yardstick",)
+# svd3's first design and the parts of the new one, on no path
+SVD3_NO_PATH = ("svd3_fixed_rotation", "svd3_fixed_umeyama") + tuple(
+    f"svd3 ablation {part}" for part in ("full", "float32 sweeps only",
+                                         "float64 sweeps only", "no sweeps"))
 # while the ICP paths rerun on the CUDA-core sweep: the wrapper that counts
 # a kernel's launches in its place
 KERNEL_ALIAS = {}
@@ -1538,13 +1553,16 @@ RECORDS = {}
 def _keyed_wrappers():
     """Wrappers that count per launch type, in a dict: Kernel S's
     ``"x<terms> <epilogue>"`` and the E1 forms' ``"v<k>"`` (the new sweep
-    and its yardstick)."""
+    and its yardstick), and svd3's ablations by the part of the design
+    they run."""
     from fpcr_tpu_torch.ops.matching_cuda import (_nn_form_yardstick,
                                                   nn_form_cuda)
     from fpcr_tpu_torch.ops.split_cuda import _split_nn_mma_sync, split_nn_cuda
+    from fpcr_tpu_torch.ops.svd3_cuda import _svd3_ablation
 
     return {"split": split_nn_cuda, "split mma": _split_nn_mma_sync,
-            "e1": nn_form_cuda, "e1 yardstick": _nn_form_yardstick}
+            "e1": nn_form_cuda, "e1 yardstick": _nn_form_yardstick,
+            "svd3 ablation": _svd3_ablation}
 
 
 def counters():
@@ -2461,6 +2479,9 @@ def phase_main_path(torch, ft, dev):
             raise AssertionError(f"path '{path}' launched {ran}")
         for k, v in counts.items():
             totals[k] += v
+    ran = [k for k in SVD3_NO_PATH if totals[k]]
+    if ran:
+        raise AssertionError(f"the main path launched svd3's {ran}")
     same_on_cudacore(torch, k1_paths)
     return totals, study_out, studies
 
@@ -2653,7 +2674,9 @@ OUR_KERNELS = ("nn_tc_sweep_kernel", "nn_tc_finish_kernel",
                "morton_band_kernel", "ndt_moments_kernel",
                "split_partial_kernel", "split_combine_kernel",
                "split_wgmma_kernel", "split_wgmma_combine_kernel",
-               "svd3_rotation_kernel", "svd3_umeyama_kernel")
+               "svd3_rotation_kernel", "svd3_umeyama_kernel",
+               "svd3_fixed_rotation_kernel", "svd3_fixed_umeyama_kernel",
+               "svd3_ablation_kernel")
 
 
 def kernel_ms(fn, repeats=10, fallback=True):
@@ -3959,6 +3982,11 @@ SVD3_BATCHES = (1, 32, 1024)
 # epsilon times σ1 over the gap, within SVD3_F32_REL·σ1/gap (8 epsilons;
 # tests/test_torch_svd3.py holds JAX's float32 R alike)
 SVD3_GAP, SVD3_ATOL, SVD3_F32_REL = 1e-3, 1e-6, 1e-6
+# svd3 against its CPU mirror (ops/svd3_mirror.py) on the same W where R is
+# unique: one float32 ulp at 1. Both converge to the same float64 R, which
+# each rounds to float32; the card's FMAs and its rsqrtf move only its last
+# bits
+SVD3_MIRROR_ATOL = 2.0 ** -23
 # float32 operations that one 3x3 Kabsch rotation needs: Golub and Van
 # Loan's count of an SVD with U and V (the R-SVD's 4m²n + 8mn² + 9n³ at
 # m = n = 3, 567), R = U·Vᵀ (27 products, 18 sums) and the det fix (a 3x3
@@ -4006,14 +4034,119 @@ def svd3_edges(np):
                      inf]).astype(np.float32)
 
 
+def svd3_check_batch(torch, np, b, det, got, p32, p64, W, label):
+    """The checks of an R from svd3 (either form) at one batch against its
+    plain version in float32 and float64, where R is unique; returns
+    ``(sep, max |R - plain f32| where unique)``."""
+    s = torch.linalg.svdvals(W.double())
+    gap = s[:, 1] - s[:, 2]
+    if not det:  # u3's sign follows W·v3: σ3 must be apart from 0
+        gap = torch.minimum(gap, s[:, 2])
+    sep = gap > SVD3_GAP * s[:, 0]
+    e64 = float((got.double() - p64)[sep].abs().max())
+    d32 = (got - p32).abs().amax(dim=(1, 2))[sep]
+    e32 = float(d32.max())
+    r32 = float((d32 * gap[sep] / s[sep, 0]).max())
+    eye = torch.eye(3, device=W.device, dtype=torch.float64)
+    g64 = got.double()
+    ortho = float((g64.transpose(1, 2) @ g64 - eye).abs().max())
+    dets = torch.linalg.det(g64)
+    log("graphs", f"{label} B={b} det_correction={det}: {int(sep.sum())}"
+                  f" of {b} with R unique; max |R - plain f64| "
+                  f"{e64:.3e} (< {SVD3_ATOL:g}), max |R - plain f32| "
+                  f"{e32:.3e}, times gap/σ1 {r32:.3e} (< "
+                  f"{SVD3_F32_REL:g}), |RᵀR - I| "
+                  f"{ortho:.3e}, det in [{float(dets.min()):.7f}, "
+                  f"{float(dets.max()):.7f}]")
+    if not (e64 < SVD3_ATOL and r32 < SVD3_F32_REL and ortho < SVD3_ATOL):
+        raise AssertionError(f"{label} B={b}: off its plain version")
+    if det and float((dets - 1).abs().max()) > SVD3_ATOL:
+        raise AssertionError(f"{label} B={b}: det R is not +1")
+    return sep, e32
+
+
+def svd3_against_mirror(np, W, got, sep, det):
+    """svd3 against its CPU mirror (``ops/svd3_mirror.py``) on the same W,
+    where R is unique: the largest difference, which must stay within
+    SVD3_MIRROR_ATOL (one float32 ulp at 1); and the mirror's sweeps as a
+    histogram ``{"f32/f64": matrices}``."""
+    from fpcr_tpu_torch.ops.svd3_mirror import (svd3_rotation_mirror,
+                                                svd3_sweeps)
+
+    w = W.cpu().numpy()
+    mine = svd3_rotation_mirror(w, det)
+    err = float(np.abs(got.cpu().numpy() - mine)[sep.cpu().numpy()].max())
+    hist = {}
+    for sw in svd3_sweeps(w):
+        key = f"{sw.f32}/{sw.f64}"
+        hist[key] = hist.get(key, 0) + 1
+    return err, dict(sorted(hist.items()))
+
+
+def time_legs(phase, label, new, old, card, repeats=10):
+    """(call, kernel) ms of each leg: yardstick, new, new, yardstick,
+    yardstick, new. The kernel time is the profiler's alone: a leg whose
+    sessions saw no device event is retaken twice, then kept as None."""
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms
+
+    rec = {"yardstick": [], "new": [], "retaken": 0}
+    for leg in ("yardstick", "new", "new", "yardstick", "yardstick", "new"):
+        fn = new if leg == "new" else old
+        call = cuda_time_ms(fn, repeats=20, warmup=3)["min"]
+        kern = kernel_ms(fn, repeats=repeats, fallback=False)
+        for _ in range(2):
+            if kern is not None:
+                break
+            rec["retaken"] += 1
+            kern = kernel_ms(fn, repeats=repeats, fallback=False)
+        rec[leg].append((call, kern))
+        log(phase, f"leg {label} {leg}: call {call:.4f} ms, kernel {kern} "
+                   f"ms {card}")
+    return rec
+
+
+def svd3_times(torch, label, W, new, old, plain, nbytes, flops, card):
+    """One form of svd3 on the batch ``W``: ``new()`` against the
+    yardstick ``old()`` in legs, the plain version's and
+    ``torch.linalg.svd``'s call times, and the bound; the batch's fields
+    of the kernels line."""
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms
+
+    b = W.shape[0]
+    rec = time_legs("graphs", f"{label} B={b}", new, old, card, repeats=20)
+    legs = leg_fields(rec)
+    plain_ms = cuda_time_ms(plain, repeats=10)["min"]
+    library = cuda_time_ms(lambda: torch.linalg.svd(W), repeats=10)["min"]
+    bound_ms, bound_by = bound(nbytes * b, flops * b)
+    # a side whose every leg saw no profiler event: its kernel time by
+    # CUDA events, the wrapper's glue included (logged by kernel_ms)
+    ms = (legs["kernel_ms"] if legs["kernel_ms"] is not None
+          else kernel_ms(new, repeats=20))
+    out = dict(plain_ms=plain_ms, library_ms=library, bound_ms=bound_ms,
+               bound_by=bound_by, **legs, ms=ms)
+    ratio = (None if legs["yardstick_kernel_ms"] is None
+             else round(ms / legs["yardstick_kernel_ms"], 3))
+    log("graphs", f"{label} B={b}: three legs a side (least call, median "
+                  f"kernel) ms {json.dumps(legs)} ({rec['retaken']} legs "
+                  f"retaken); the new kernel {ratio}x "
+                  f"the yardstick's; plain version {plain_ms:.4f} ms, "
+                  f"torch.linalg.svd {library:.4f} ms (min of 10, events),"
+                  f" bound {bound_ms:.7f} ms ({bound_by}: {nbytes * b} "
+                  f"bytes, {flops * b} float32 operations) {card}")
+    return out
+
+
 def phase_svd3(torch, np, dev, card):
     """svd3 against its plain version (``rotation_from_svd_plain`` in float32
-    and float64) on the main path's batches and the edge cases, and its
-    kernel time, the plain version's, ``torch.linalg.svd``'s and its bound
-    at each batch; returns the kernels line's fields, the batches' in
-    ``batches``."""
+    and float64) on the main path's batches and the edge cases, against
+    its yardstick (the first design) and its CPU mirror; its kernel time
+    in legs against the yardstick's, the parts of its design alone, the
+    plain version's, ``torch.linalg.svd``'s and its bound at each batch;
+    returns the kernels line's fields, the batches' in ``batches``."""
     from fpcr_tpu_torch.ops.solve import rotation_from_svd_plain
-    from fpcr_tpu_torch.ops.svd3_cuda import svd3_rotation_cuda
+    from fpcr_tpu_torch.ops.svd3_cuda import (ABLATIONS, _svd3_ablation,
+                                              _svd3_rotation_fixed,
+                                              svd3_rotation_cuda)
     from fpcr_tpu_torch.utils.timing import cuda_time_ms
 
     worst, batches = 0.0, {}
@@ -4023,31 +4156,22 @@ def phase_svd3(torch, np, dev, card):
             got = svd3_rotation_cuda(W, det)
             p32 = rotation_from_svd_plain(W, det)
             p64 = rotation_from_svd_plain(W.double(), det)
-            s = torch.linalg.svdvals(W.double())
-            gap = s[:, 1] - s[:, 2]
-            if not det:  # u3's sign follows W·v3: σ3 must be apart from 0
-                gap = torch.minimum(gap, s[:, 2])
-            sep = gap > SVD3_GAP * s[:, 0]
-            e64 = float((got.double() - p64)[sep].abs().max())
-            d32 = (got - p32).abs().amax(dim=(1, 2))[sep]
-            e32 = float(d32.max())
-            r32 = float((d32 * gap[sep] / s[sep, 0]).max())
-            eye = torch.eye(3, device=dev, dtype=torch.float64)
-            g64 = got.double()
-            ortho = float((g64.transpose(1, 2) @ g64 - eye).abs().max())
-            dets = torch.linalg.det(g64)
-            log("graphs", f"svd3 B={b} det_correction={det}: {int(sep.sum())}"
-                          f" of {b} with R unique; max |R - plain f64| "
-                          f"{e64:.3e} (< {SVD3_ATOL:g}), max |R - plain f32| "
-                          f"{e32:.3e}, times gap/σ1 {r32:.3e} (< "
-                          f"{SVD3_F32_REL:g}), |RᵀR - I| "
-                          f"{ortho:.3e}, det in [{float(dets.min()):.7f}, "
-                          f"{float(dets.max()):.7f}]")
-            if not (e64 < SVD3_ATOL and r32 < SVD3_F32_REL
-                    and ortho < SVD3_ATOL):
-                raise AssertionError(f"svd3 B={b}: off its plain version")
-            if det and float((dets - 1).abs().max()) > SVD3_ATOL:
-                raise AssertionError(f"svd3 B={b}: det R is not +1")
+            sep, e32 = svd3_check_batch(torch, np, b, det, got, p32, p64, W,
+                                        "svd3")
+            fixed = _svd3_rotation_fixed(W, det)
+            svd3_check_batch(torch, np, b, det, fixed, p32, p64, W,
+                             "svd3 yardstick")
+            e_fixed = float((got - fixed)[sep].abs().max())
+            e_mirror, hist = svd3_against_mirror(np, W, got, sep, det)
+            log("graphs", f"svd3 B={b} det_correction={det}: max |R - "
+                          f"yardstick's R| {e_fixed:.3e}, max |R - CPU "
+                          f"mirror's R| {e_mirror:.3e} (< "
+                          f"{SVD3_MIRROR_ATOL:.3e}) where R is unique; the "
+                          f"mirror's sweeps (float32/float64 that rotated: "
+                          f"matrices) {json.dumps(hist)}")
+            if not (e_fixed < SVD3_ATOL and e_mirror <= SVD3_MIRROR_ATOL):
+                raise AssertionError(f"svd3 B={b}: off its yardstick or its "
+                                     "mirror")
             worst = max(worst, e32)
     edges = svd3_rotation_cuda(torch.as_tensor(svd3_edges(np), device=dev))
     e = edges.double()
@@ -4068,24 +4192,21 @@ def phase_svd3(torch, np, dev, card):
     empty_call = cuda_time_ms(lambda: x.add_(1), repeats=20)["min"]
     for b in SVD3_BATCHES:
         W = torch.as_tensor(svd3_inputs(np, b), device=dev)
-        kernel = kernel_ms(lambda: svd3_rotation_cuda(W), repeats=20)
-        call = cuda_time_ms(lambda: svd3_rotation_cuda(W), repeats=20)["min"]
-        plain = cuda_time_ms(lambda: rotation_from_svd_plain(W),
-                             repeats=10)["min"]
-        library = cuda_time_ms(lambda: torch.linalg.svd(W), repeats=10)["min"]
-        bound_ms, bound_by = bound(72 * b, SVD3_FLOPS * b)
-        batches[b] = {"ms": kernel, "call_ms": call, "plain_ms": plain,
-                      "library_ms": library, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "latency_ms": latency,
-                      "empty_call_ms": empty_call}
-        log("graphs", f"svd3 B={b}: kernel {kernel:.4f} ms, call {call:.4f} "
-                      f"ms, plain version {plain:.4f} ms, torch.linalg.svd "
-                      f"{library:.4f} ms (min of 10-20, events), bound "
-                      f"{bound_ms:.7f} ms ({bound_by}: {72 * b} bytes, "
-                      f"{SVD3_FLOPS * b} float32 operations); an empty "
-                      f"kernel {latency:.4f} ms on the device (mean of "
-                      f"{len(empty)} events), its call {empty_call:.4f} ms "
-                      f"{card}")
+        batches[b] = svd3_times(
+            torch, "svd3", W, lambda: svd3_rotation_cuda(W),
+            lambda: _svd3_rotation_fixed(W),
+            lambda: rotation_from_svd_plain(W), 72, SVD3_FLOPS, card)
+        # the parts of the design alone, each the median of three
+        ablation = {part: sorted(kernel_ms(lambda: _svd3_ablation(W, part),
+                                           repeats=20)
+                                 for _ in range(3))[1] for part in ABLATIONS}
+        batches[b].update(latency_ms=latency, empty_call_ms=empty_call,
+                          ablation=ablation)
+        log("graphs", f"svd3 B={b}: the new design's parts alone, kernel "
+                      f"ms (profiler, median of 3): {json.dumps(ablation)};"
+                      f" an empty kernel {latency:.4f} ms on the device "
+                      f"(mean of {len(empty)} events), its call "
+                      f"{empty_call:.4f} ms {card}")
     return dict(batches[1], max_abs_err=worst, batches=batches)
 
 
@@ -4096,13 +4217,14 @@ def phase_svd3_umeyama(torch, np, dev, card):
     cases: R where it is unique as the rotation form's R is held, R bit for
     bit the rotation form's with the det fix, and the trace σ1 + σ2 + d·σ3
     within SVD3_ATOL·σ1 of the float64 plain version everywhere (where σ3
-    is 0 d·σ3 is rounding noise whatever d); then the kernel's, the
-    call's, the plain version's and ``torch.linalg.svd``'s times at each
-    batch. Returns the kernels line's fields."""
+    is 0 d·σ3 is rounding noise whatever d), and of the yardstick's; then
+    the kernel's time in legs against the yardstick's, the plain
+    version's and ``torch.linalg.svd``'s at each batch. Returns the
+    kernels line's fields."""
     from fpcr_tpu_torch.ops.solve import umeyama_from_svd_plain
-    from fpcr_tpu_torch.ops.svd3_cuda import (svd3_rotation_cuda,
+    from fpcr_tpu_torch.ops.svd3_cuda import (_svd3_umeyama_fixed,
+                                              svd3_rotation_cuda,
                                               svd3_umeyama_cuda)
-    from fpcr_tpu_torch.utils.timing import cuda_time_ms
 
     worst, trace_rel, batches = 0.0, 0.0, {}
     for b in SVD3_BATCHES:
@@ -4120,6 +4242,9 @@ def phase_svd3_umeyama(torch, np, dev, card):
         et32 = float(((trace - t32).double().abs() / s[:, 0]).max())
         same = torch.equal(R, svd3_rotation_cuda(W, True))
         flips = int((t64 < s[:, 0] + s[:, 1] - 0.5 * s[:, 2]).sum())
+        Rf, tf = _svd3_umeyama_fixed(W)
+        ef = float((R - Rf)[sep].abs().max())
+        etf = float(((trace - tf).double().abs() / s[:, 0]).max())
         log("graphs", f"svd3 Umeyama B={b}: {int(sep.sum())} of {b} with R "
                       f"unique; max |R - plain f64| {e64:.3e} (< "
                       f"{SVD3_ATOL:g}), |R - plain f32| times gap/σ1 "
@@ -4127,10 +4252,13 @@ def phase_svd3_umeyama(torch, np, dev, card):
                       f"form's with the det fix bit for bit {same}; max "
                       f"|trace - plain f64| / σ1 {et:.3e} (< "
                       f"{SVD3_ATOL:g}), against plain f32 {et32:.3e}; "
-                      f"{flips} with d = -1")
+                      f"{flips} with d = -1; against the yardstick: max "
+                      f"|R - R'| {ef:.3e} where unique, |trace - trace'| / "
+                      f"σ1 {etf:.3e}")
         if not (e64 < SVD3_ATOL and r32 < SVD3_F32_REL and et < SVD3_ATOL
-                and same):
-            raise AssertionError(f"svd3 Umeyama B={b}: off its plain version")
+                and same and ef < SVD3_ATOL and etf < SVD3_ATOL):
+            raise AssertionError(f"svd3 Umeyama B={b}: off its plain version"
+                                 " or its yardstick")
         worst = max(worst, float((R - R32)[sep].abs().max()))
         trace_rel = max(trace_rel, et32)
     W = torch.as_tensor(svd3_edges(np), device=dev)
@@ -4153,24 +4281,56 @@ def phase_svd3_umeyama(torch, np, dev, card):
                              "conventions")
     for b in SVD3_BATCHES:
         W = torch.as_tensor(svd3_inputs(np, b), device=dev)
-        kernel = kernel_ms(lambda: svd3_umeyama_cuda(W), repeats=20)
-        call = cuda_time_ms(lambda: svd3_umeyama_cuda(W), repeats=20)["min"]
-        plain = cuda_time_ms(lambda: umeyama_from_svd_plain(W),
-                             repeats=10)["min"]
-        library = cuda_time_ms(lambda: torch.linalg.svd(W), repeats=10)["min"]
-        bound_ms, bound_by = bound(76 * b, SVD3_UMEYAMA_FLOPS * b)
-        batches[b] = {"ms": kernel, "call_ms": call, "plain_ms": plain,
-                      "library_ms": library, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
-        log("graphs", f"svd3 Umeyama B={b}: kernel {kernel:.4f} ms, call "
-                      f"{call:.4f} ms, plain version (torch.linalg.svd and "
-                      f"the sign and scale glue) {plain:.4f} ms, "
-                      f"torch.linalg.svd {library:.4f} ms (min of 10-20, "
-                      f"events), bound {bound_ms:.7f} ms ({bound_by}: "
-                      f"{76 * b} bytes, {SVD3_UMEYAMA_FLOPS * b} float32 "
-                      f"operations) {card}")
+        batches[b] = svd3_times(
+            torch, "svd3 Umeyama", W, lambda: svd3_umeyama_cuda(W),
+            lambda: _svd3_umeyama_fixed(W),
+            lambda: umeyama_from_svd_plain(W), 76, SVD3_UMEYAMA_FLOPS, card)
     return dict(batches[1], max_abs_err=worst, trace_rel_err=trace_rel,
                 batches=batches)
+
+
+def svd3_slopes(torch, ft, dev, card):
+    """Captured point ICP through K1 at 16,384 points, ms/iter by the slope
+    (10/60 iterations, min of 3), with run_icp's svd3 the yardstick or the
+    new kernel, in legs (yardstick, new, new, yardstick, yardstick, new);
+    the captured graphs are dropped at each switch, since a graph replays
+    the kernel it captured. Returns ``{side: [ms]}``."""
+    import dataclasses as dc
+
+    from fpcr_tpu_torch.ops import svd3_cuda
+    from fpcr_tpu_torch.utils import graphs
+    from fpcr_tpu_torch.utils.timing import slope_ms_per_iter
+
+    s = build_scene(ft, "synthetic", dev)
+    base = ft.ICPConfig(tolerance=0.0, matcher="pallas")
+
+    def run(n):
+        return ft.run_icp(s.source, s.target,
+                          dc.replace(base, max_iterations=n))
+
+    new = svd3_cuda.svd3_rotation_cuda
+    out = {"yardstick": [], "new": []}
+    try:
+        for leg in ("yardstick", "new", "new", "yardstick", "yardstick",
+                    "new"):
+            svd3_cuda.svd3_rotation_cuda = (
+                new if leg == "new" else svd3_cuda._svd3_rotation_fixed)
+            graphs.clear()
+            out[leg].append(slope_ms_per_iter(run, 10, 60,
+                                              repeats=3)["ms_per_iter"])
+    finally:
+        svd3_cuda.svd3_rotation_cuda = new
+        graphs.clear()
+    summary = []
+    for side, v in out.items():
+        med = sorted(v)[len(v) // 2]
+        summary.append(f"{side} median {med:.4f} spread "
+                       f"{(max(v) - min(v)) / med:.3f} all "
+                       f"{[round(x, 4) for x in v]}")
+    log("graphs", "captured point K1 16384 ms/iter (slope of 10/60, min of "
+                  "3), svd3 by its yardstick or the new kernel: "
+                  + "; ".join(summary) + f" {card}")
+    return out
 
 
 def _result_bits(res):
@@ -4882,6 +5042,7 @@ def phase_graphs(torch, np, ft, dev, smi):
     variant_syncs(torch, np, ft, dev, card)
     t4 = time.perf_counter()
     graph_slopes(torch, np, ft, dev, card)
+    svd3["slopes"] = svd3_slopes(torch, ft, dev, card)
     t5 = time.perf_counter()
     variant_slopes(torch, np, ft, dev, card)
     t6 = time.perf_counter()
@@ -4999,9 +5160,12 @@ def svd3_entry(launches, svd3):
                          "fpcr_tpu/ops/solve.py:84", launches["svd3_rotation"],
                          svd3["max_abs_err"], svd3["ms"], svd3["plain_ms"],
                          72, SVD3_FLOPS)
-    for key in ("library_ms", "call_ms", "latency_ms", "empty_call_ms"):
+    for key in ("library_ms", "call_ms", "kernel_ms", "yardstick_call_ms",
+                "yardstick_kernel_ms", "latency_ms", "empty_call_ms",
+                "ablation"):
         entry[key] = svd3[key]
     entry["batches"] = {str(b): v for b, v in svd3["batches"].items()}
+    entry["point_k1_ms_per_iter"] = svd3["slopes"]
     return entry
 
 
@@ -5018,7 +5182,8 @@ def umeyama_entry(launches, umeyama):
                          "fpcr_tpu/ops/solve.py:183", launches["svd3_umeyama"],
                          umeyama["max_abs_err"], umeyama["ms"],
                          umeyama["plain_ms"], 76, SVD3_UMEYAMA_FLOPS)
-    for key in ("library_ms", "call_ms", "trace_rel_err"):
+    for key in ("library_ms", "call_ms", "kernel_ms", "yardstick_call_ms",
+                "yardstick_kernel_ms", "trace_rel_err"):
         entry[key] = umeyama[key]
     entry["batches"] = {str(b): v for b, v in umeyama["batches"].items()}
     return entry
@@ -5154,25 +5319,7 @@ def phase_times_studies(torch, dev, smi, studies):
                      f"(profiler); plain min {plain_ms:.4f} ms {card}")
 
     def legs(key, new, old):
-        """(call, kernel) ms of each leg: yardstick, new, new, yardstick,
-        yardstick, new. The kernel time is the profiler's alone: a leg
-        whose sessions saw no device event is retaken twice, then kept as
-        None."""
-        rec = {"yardstick": [], "new": [], "retaken": 0}
-        for leg in ("yardstick", "new", "new", "yardstick", "yardstick",
-                    "new"):
-            fn = new if leg == "new" else old
-            call = cuda_time_ms(fn, repeats=20, warmup=3)["min"]
-            kern = kernel_ms(fn, fallback=False)
-            for _ in range(2):
-                if kern is not None:
-                    break
-                rec["retaken"] += 1
-                kern = kernel_ms(fn, fallback=False)
-            rec[leg].append((call, kern))
-            log("times", f"leg {key} {leg} N=M={n}: call {call:.4f} ms, "
-                         f"kernel {kern} ms {card}")
-        return rec
+        return time_legs("times", f"{key} N=M={n}", new, old, card)
 
     src, tgt = reduction2.study_inputs(dev)
     n = m = src.shape[0]

@@ -209,6 +209,12 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_svd3_rotation.restype = i32
     lib.fpcr_svd3_umeyama.argtypes = [ptr, i32, ptr, ptr, ptr]
     lib.fpcr_svd3_umeyama.restype = i32
+    lib.fpcr_svd3_fixed_rotation.argtypes = [ptr, i32, i32, ptr, ptr]
+    lib.fpcr_svd3_fixed_rotation.restype = i32
+    lib.fpcr_svd3_fixed_umeyama.argtypes = [ptr, i32, ptr, ptr, ptr]
+    lib.fpcr_svd3_fixed_umeyama.restype = i32
+    lib.fpcr_svd3_ablation.argtypes = [ptr, i32, i32, ptr, ptr]
+    lib.fpcr_svd3_ablation.restype = i32
     lib.fpcr_cuda_error_string.argtypes = [i32]
     lib.fpcr_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

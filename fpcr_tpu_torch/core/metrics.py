@@ -55,8 +55,8 @@ def _psum_all(xs: Sequence[torch.Tensor], group=None
     return tuple(out)
 
 
-def masked_count(mask: Optional[torch.Tensor], n: int, dtype,
-                 device=None, group=None) -> torch.Tensor:
+def masked_count(mask: Optional[torch.Tensor], n: int, dtype, group=None,
+                 device=None) -> torch.Tensor:
     if mask is None:
         # a fill on the device: torch.tensor would copy from the host and
         # synchronise
@@ -77,7 +77,8 @@ def rmse(p: torch.Tensor, q: torch.Tensor,
     if mask is not None:
         sq = sq * mask.to(sq.dtype)
     total, count = _psum_all(
-        (sq.sum(dim=-1), masked_count(mask, p.shape[-2], p.dtype, p.device)),
+        (sq.sum(dim=-1),
+         masked_count(mask, p.shape[-2], p.dtype, device=p.device)),
         group)
     return torch.sqrt(total / torch.clamp(count, min=1.0))
 

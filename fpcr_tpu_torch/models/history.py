@@ -85,7 +85,7 @@ def _history_chunk(state: _HistoryState, consts, k: int):
     for _ in range(k):
         new_points, inc, error, aux = icp_iteration(
             points, target, config, source_mask, target_mask,
-            target_normals, matcher_state, normals, group)
+            target_normals, group, matcher_state, normals)
         # a converged run's iteration is a masked no-op
         inc = RigidTransform(torch.where(done, eye, inc.rotation),
                              torch.where(done, zero3, inc.translation))

@@ -406,16 +406,16 @@ def icp_iteration(points: torch.Tensor, target: torch.Tensor,
                   source_mask: Optional[torch.Tensor] = None,
                   target_mask: Optional[torch.Tensor] = None,
                   target_normals: Optional[torch.Tensor] = None,
+                  group=None,
                   matcher_state=None,
-                  source_normals: Optional[torch.Tensor] = None,
-                  group=None):
+                  source_normals: Optional[torch.Tensor] = None):
     """One ICP iteration: returns ``(new_points, incremental_transform,
     error, IterationAux)``. ``target_normals`` are needed by the plane,
     symmetric and gicp metrics, ``source_normals`` (rotated to the current
     pose) by the last two, and the grid and morton matchers their
     ``matcher_state`` (:func:`build_matcher_state`). ``points`` and
-    ``source_mask`` may be a rank's shard of ``group``; ``target`` is
-    whole."""
+    ``source_mask`` may be a rank's shard of ``group`` (the JAX package's
+    ``axis_name`` slot); ``target`` is whole."""
     q_matched, n_matched, dmin, found = _correspondences(
         points, target, target_mask, target_normals, config, matcher_state,
         source_mask=source_mask)
@@ -542,6 +542,7 @@ def run_icp(source, target, config: ICPConfig = ICPConfig(),
             source_mask: Optional[torch.Tensor] = None,
             target_mask: Optional[torch.Tensor] = None,
             target_normals: Optional[torch.Tensor] = None,
+            group=None,
             source_normals: Optional[torch.Tensor] = None,
             matcher_state=None) -> ICPResult:
     """Register ``source`` onto ``target`` on their device.
@@ -551,9 +552,14 @@ def run_icp(source, target, config: ICPConfig = ICPConfig(),
     prebuilt :func:`build_matcher_state` to reuse the target's voxel or
     Morton tables. A grid config above the candidate limit degrades to the
     morton matcher (:func:`resolve_matcher`), a prebuilt grid table
-    included, which is then rebuilt for the morton matcher."""
+    included, which is then rebuilt for the morton matcher. ``group`` (a
+    ``torch.distributed`` process group, in the JAX package's ``axis_name``
+    slot, so that a call in its positional order binds alike) makes
+    ``source`` one rank's shard, every sum all-reduced over the group, as
+    :func:`fpcr_tpu_torch.parallel.distributed_icp` drives it."""
     return _run_icp(source, target, config, source_mask, target_mask,
-                    target_normals, source_normals, matcher_state)
+                    target_normals, source_normals, matcher_state,
+                    group=group)
 
 
 class _ICPState(NamedTuple):
@@ -583,7 +589,7 @@ def _icp_chunk(state: _ICPState, consts, k: int):
     for _ in range(k):
         new_points, inc, error, aux = icp_iteration(
             points, target, config, source_mask, target_mask,
-            target_normals, matcher_state, normals, group)
+            target_normals, group, matcher_state, normals)
         active = ~done
         rows.append(torch.where(active, torch.stack([
             error, aux.matched_fraction,

@@ -64,9 +64,15 @@ CARD_NAN_BITS = 0x7FFFFFFF  # the NaN the card's arithmetic gives
 FORMS_SUB = 32  # targets a sub-tile of csrc/nn_forms.cu's reduction
 
 
-def pairwise_sqdist(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def pairwise_sqdist(p: torch.Tensor, q: torch.Tensor,
+                    precision=None) -> torch.Tensor:
     """Squared distances ``[n, m]`` by the expansion, clamped at 0 (f32
-    cancellation can leave tiny negatives on near-zero distances)."""
+    cancellation can leave tiny negatives on near-zero distances).
+
+    ``precision`` is the JAX package's matmul precision, taken so that a
+    call in its order binds; whatever its value, the product runs in full
+    float32 (``utils/precision.py`` pins it), as JAX's ``DEFAULT`` does on
+    the CPU."""
     p_sq = torch.sum(p * p, dim=-1, keepdim=True)
     q_sq = torch.sum(q * q, dim=-1)
     cross = torch.matmul(p, q.T)

@@ -12,7 +12,13 @@ counts launches in ``svd3_rotation_cuda.launches`` (Umeyama's form in
 versions are ``ops.solve.rotation_from_svd_plain`` and
 ``umeyama_from_svd_plain`` (``torch.linalg.svd``), and
 ``ops.solve.rotation_from_svd`` and ``umeyama_from_svd`` pick between the
-kernel and the plain version by the device of their input.
+kernel and the plain version by the device of their input. The kernel's
+CPU mirror is ``ops/svd3_mirror.py``.
+
+On no path: :func:`_svd3_rotation_fixed` and :func:`_svd3_umeyama_fixed`
+launch the first design (8 float64 sweeps whatever the input), the
+yardstick that the kernel is timed against, and :func:`_svd3_ablation`
+parts of the new design, for timing; each counts its own launches.
 """
 
 from __future__ import annotations
@@ -85,3 +91,73 @@ def svd3_umeyama_cuda(W: torch.Tensor):
 
 
 _build.counted(svd3_umeyama_cuda)  # kernel launches made by this wrapper
+
+
+def _svd3_rotation_fixed(W: torch.Tensor,
+                         det_correction: bool = True) -> torch.Tensor:
+    """:func:`svd3_rotation_cuda` by the yardstick, the first design (8
+    float64 sweeps whatever the input); on no path."""
+    batch = _check(W, "_svd3_rotation_fixed")
+    out = torch.empty_like(W)
+    if batch == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        rc = lib.fpcr_svd3_fixed_rotation(W.data_ptr(), batch,
+                                          int(det_correction),
+                                          out.data_ptr(), stream)
+        _raise_on(lib, rc, "svd3_fixed_rotation")
+        _svd3_rotation_fixed.launches += 1
+    return out
+
+
+_build.counted(_svd3_rotation_fixed)
+
+
+def _svd3_umeyama_fixed(W: torch.Tensor):
+    """:func:`svd3_umeyama_cuda` by the yardstick; on no path."""
+    batch = _check(W, "_svd3_umeyama_fixed")
+    out = torch.empty_like(W)
+    trace = torch.empty(W.shape[:-2], dtype=W.dtype, device=W.device)
+    if batch == 0:
+        return out, trace
+    lib = _build.load_library()
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        rc = lib.fpcr_svd3_fixed_umeyama(W.data_ptr(), batch, out.data_ptr(),
+                                         trace.data_ptr(), stream)
+        _raise_on(lib, rc, "svd3_fixed_umeyama")
+        _svd3_umeyama_fixed.launches += 1
+    return out, trace
+
+
+_build.counted(_svd3_umeyama_fixed)
+
+# the parts of the design that _svd3_ablation runs, by the kernel's mode
+ABLATIONS = {"full": 0, "float32 sweeps only": 1, "float64 sweeps only": 2,
+             "no sweeps": 3}
+
+
+def _svd3_ablation(W: torch.Tensor, part: str) -> torch.Tensor:
+    """The rotation form (det fix on) by a part of the new design
+    (:data:`ABLATIONS`), for timing: the whole, the float32 sweeps without
+    the float64 polish, float64 sweeps from V = I without the float32
+    stage, or no sweeps (the load, the scaling and the completion); on no
+    path. Counted in ``_svd3_ablation.launches[part]``."""
+    mode = ABLATIONS[part]
+    batch = _check(W, "_svd3_ablation")
+    out = torch.empty_like(W)
+    if batch == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        rc = lib.fpcr_svd3_ablation(W.data_ptr(), batch, mode, out.data_ptr(),
+                                    stream)
+        _raise_on(lib, rc, f"svd3_ablation ({part})")
+        _svd3_ablation.launches[part] += 1
+    return out
+
+
+_build.counted(_svd3_ablation, {part: 0 for part in ABLATIONS})

@@ -64,13 +64,18 @@ class Mesh(NamedTuple):
     rank: int
 
 
-def make_mesh(n_devices: Optional[int] = None) -> Mesh:
+def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS) -> Mesh:
     """A 1-D mesh over the first ``n_devices`` ranks of the world (all by
     default). Past the world size it raises, as the JAX package's does past
     its device count. A sub-mesh makes a new process group, which every
     rank of the world must call for, in the same order (make it once and
-    pass it); the ranks outside it get ``rank = -1``."""
+    pass it); the ranks outside it get ``rank = -1``. ``axis`` is the JAX
+    mesh's axis name; a process group carries no name, so it is only
+    checked to be a string."""
     import torch.distributed as dist
+
+    if not isinstance(axis, str):
+        raise TypeError(f"axis must be a str, got {type(axis).__name__}")
 
     if not (dist.is_available() and dist.is_initialized()):
         if n_devices not in (None, 1):

@@ -1930,6 +1930,127 @@ def test_svd3_umeyama_edges_and_checks(cuda):
     assert svd3_umeyama_cuda.launches == before
 
 
+def _svd3_inputs(b):
+    """``[b, 3, 3]`` float32: N(0, 1), every third row's column 2 negated
+    (reflections among them), and a third of them scaled by 10^U(-6, 6)."""
+    rng = np.random.default_rng(b)
+    w = rng.normal(size=(b, 3, 3))
+    w[::3, 2] *= -1.0
+    w[1::3] *= 10.0 ** rng.uniform(-6, 6, (len(w[1::3]), 1, 1))
+    return w.astype(np.float32)
+
+
+def _svd3_unique(W, det_correction):
+    """Where R is unique (chip_smoke.py's rule), as a numpy mask."""
+    s = torch.linalg.svdvals(W.double())
+    gap = s[:, 1] - s[:, 2]
+    if not det_correction:
+        gap = torch.minimum(gap, s[:, 2])
+    return (gap > SVD3_GAP * s[:, 0]).cpu().numpy()
+
+
+@pytest.mark.parametrize("det_correction", [True, False])
+@pytest.mark.parametrize("b", [1, 32, 1024])
+def test_svd3_kernel_against_its_mirror(cuda, b, det_correction):
+    """Kernel svd3 against its CPU mirror (``ops/svd3_mirror.py``, the
+    design statement for statement) on the same W: within one float32 ulp
+    at 1 where R is unique (the card's FMAs and rsqrtf move only the
+    float32 sweeps' last bits; both polish to the same float64 R); the
+    Umeyama form's trace within 2⁻²² of the mirror's, relative."""
+    from fpcr_tpu_torch.ops.svd3_cuda import (svd3_rotation_cuda,
+                                              svd3_umeyama_cuda)
+    from fpcr_tpu_torch.ops.svd3_mirror import (svd3_rotation_mirror,
+                                                svd3_umeyama_mirror)
+
+    w = _svd3_inputs(b)
+    W = torch.as_tensor(w, device=cuda)
+    sep = _svd3_unique(W, det_correction)
+    got = svd3_rotation_cuda(W, det_correction).cpu().numpy()
+    mine = svd3_rotation_mirror(w, det_correction)
+    np.testing.assert_allclose(got[sep], mine[sep], rtol=0, atol=2.0 ** -23)
+    if det_correction:
+        _, trace = svd3_umeyama_cuda(W)
+        np.testing.assert_allclose(trace.cpu().numpy(),
+                                   svd3_umeyama_mirror(w)[1], rtol=2.0 ** -22)
+
+
+@pytest.mark.parametrize("det_correction", [True, False])
+@pytest.mark.parametrize("b", [1, 32, 1024])
+def test_svd3_yardstick_against_plain_and_kernel(cuda, b, det_correction):
+    """svd3's yardstick (the first design, on no path) against the plain
+    version as the kernel is held, and the kernel within 1e-6 of it where R
+    is unique; each counts its own launch."""
+    from fpcr_tpu_torch.ops.solve import rotation_from_svd_plain
+    from fpcr_tpu_torch.ops.svd3_cuda import (_svd3_rotation_fixed,
+                                              _svd3_umeyama_fixed,
+                                              svd3_rotation_cuda,
+                                              svd3_umeyama_cuda)
+
+    W = torch.as_tensor(_svd3_inputs(b), device=cuda)
+    before = (_svd3_rotation_fixed.launches, svd3_rotation_cuda.launches)
+    fixed = _svd3_rotation_fixed(W, det_correction)
+    assert (_svd3_rotation_fixed.launches,
+            svd3_rotation_cuda.launches) == (before[0] + 1, before[1])
+    sep = torch.as_tensor(_svd3_unique(W, det_correction), device=cuda)
+    p64 = rotation_from_svd_plain(W.double(), det_correction)
+    assert float((fixed.double() - p64)[sep].abs().max()) < SVD3_ATOL
+    got = svd3_rotation_cuda(W, det_correction)
+    assert float((got - fixed)[sep].abs().max()) < SVD3_ATOL
+    if det_correction:
+        Rf, tf = _svd3_umeyama_fixed(W)
+        R, trace = svd3_umeyama_cuda(W)
+        assert torch.equal(Rf, fixed)
+        s1 = torch.linalg.svdvals(W.double())[:, 0]
+        assert float(((trace - tf).double().abs() / s1).max()) < SVD3_ATOL
+
+
+def test_svd3_yardstick_edges(cuda):
+    """The yardstick keeps the conventions: W = 0 gives the identity (and
+    trace 0), a line's and a plane's W a rotation, NaN gives NaN."""
+    from fpcr_tpu_torch.ops.svd3_cuda import (_svd3_rotation_fixed,
+                                              _svd3_umeyama_fixed)
+
+    line = np.outer([1.0, 2.0, -0.5], [0.3, -1.0, 0.8])
+    p = np.random.default_rng(1).normal(size=(40, 3)) * [1.0, 0.5, 0.0]
+    nan = np.eye(3)
+    nan[2, 1] = np.nan
+    W = torch.as_tensor(np.stack([np.zeros((3, 3)), line, p.T @ p, nan])
+                        .astype(np.float32), device=cuda)
+    for R in (_svd3_rotation_fixed(W), _svd3_umeyama_fixed(W)[0]):
+        assert torch.equal(R[0], torch.eye(3, device=cuda))
+        assert float((torch.linalg.det(R[1:3].double()) - 1).abs().max()) \
+            < 1e-6
+        assert bool(R[3].isnan().all())
+    assert float(_svd3_umeyama_fixed(W)[1][0]) == 0.0
+
+
+@pytest.mark.parametrize("part", ["full", "float32 sweeps only",
+                                  "float64 sweeps only", "no sweeps"])
+def test_svd3_ablation_parts(cuda, part):
+    """Each part of the design that the ablation times launches once and
+    gives a rotation; the whole is the kernel bit for bit, and float64
+    sweeps from V = I the kernel's R where R is unique; a mode the kernel
+    does not have raises."""
+    from fpcr_tpu_torch.ops.svd3_cuda import _svd3_ablation, svd3_rotation_cuda
+
+    W = torch.as_tensor(_svd3_inputs(32), device=cuda)
+    before = _svd3_ablation.launches[part]
+    R = _svd3_ablation(W, part)
+    assert _svd3_ablation.launches[part] == before + 1
+    g = R.double()
+    eye = torch.eye(3, device=cuda, dtype=torch.float64)
+    assert float((g.transpose(1, 2) @ g - eye).abs().max()) < SVD3_ATOL
+    assert float((torch.linalg.det(g) - 1).abs().max()) < SVD3_ATOL
+    if part == "full":
+        assert torch.equal(R, svd3_rotation_cuda(W))
+    if part == "float64 sweeps only":
+        sep = torch.as_tensor(_svd3_unique(W, True), device=cuda)
+        assert float((R - svd3_rotation_cuda(W))[sep].abs().max()) \
+            < SVD3_ATOL
+    with pytest.raises(KeyError):
+        _svd3_ablation(W, "no such part")
+
+
 def test_sharded_loop_over_nccl_is_captured(cuda, tmp_path):
     """A world of one NCCL rank in this process: ``distributed_icp``'s
     loop, its all-reduces included, is captured from its key's second

@@ -61,7 +61,7 @@ def _per_iteration_icp(source, target, config, target_normals=None,
             break
         new_points, inc, error, aux = mi.icp_iteration(
             points, target, config, source_mask, target_mask,
-            target_normals, matcher_state, normals, None)
+            target_normals, None, matcher_state, normals)
         active = ~done
         errors.append(torch.where(active, error, nan))
         fractions.append(torch.where(active, aux.matched_fraction, nan))
@@ -401,6 +401,24 @@ def test_captured_route_chunks_and_keys(rehearse, iterations, chunks):
     assert len(set(rehearse.keys)) == len(set(chunks))
     ref = _per_iteration_icp(src, tgt, cfg)
     _same(tuple(got), tuple(ref))
+
+
+@pytest.mark.parametrize("matcher", ["xla", "morton"])
+def test_jax_ordered_call_reaches_the_keyword_calls_graphs(rehearse,
+                                                            matcher):
+    """``run_icp`` called in the JAX package's positional order
+    ``(src, tgt, cfg, None, None, tn, None, sn)`` keys the same graphs, a
+    chunk for a chunk, as the keyword call, and gives its bits."""
+    src, tgt, _ = _scene()
+    tn, sn = ft.estimate_normals(tgt), ft.estimate_normals(src)
+    cfg = ft.ICPConfig(metric="symmetric", matcher=matcher,
+                       max_iterations=13, tolerance=0.0)
+    pos = ft.run_icp(src, tgt, cfg, None, None, tn, None, sn)
+    keys = list(rehearse.keys)
+    rehearse.keys.clear()
+    key = ft.run_icp(src, tgt, cfg, target_normals=tn, source_normals=sn)
+    assert keys == rehearse.keys and [k[2] for k in keys] == [8, 5]
+    _same(tuple(pos), tuple(key))
 
 
 def test_captured_route_reads_done_once_a_chunk(rehearse):

@@ -268,7 +268,7 @@ def _per_iteration_history(source, target, config, target_normals=None):
             break
         new_points, inc, error, aux = mi.icp_iteration(
             points, prep.target, config, prep.source_mask, prep.target_mask,
-            prep.target_normals, prep.matcher_state, normals, None)
+            prep.target_normals, None, prep.matcher_state, normals)
         inc = RigidTransform(torch.where(done, eye, inc.rotation),
                              torch.where(done, zero3, inc.translation))
         points = torch.where(done, points, new_points)

@@ -1,11 +1,15 @@
 """Kernel svd3's arithmetic (``fpcr_tpu_torch/csrc/svd3.cu``) on the CPU.
 
-The kernel runs only on the card. Here a float64 numpy mirror of its
-one-sided Jacobi SVD, statement for statement, is held against JAX's
+The kernel runs only on the card. Here its two designs are mirrored in
+numpy, statement for statement: the first design, the yardstick now
+(``svd3_fixed_one``: 8 float64 sweeps), by this file's ``svd3_mirror`` and
+``umeyama_mirror``; the kernel's design (``svd3_one``: float32 sweeps to a
+stop test, a float64 polish to its own) by ``ops/svd3_mirror.py``, which
+the card's tests also hold the kernel to. Both are held against JAX's
 ``fpcr_tpu.ops.solve.rotation_from_svd`` and the port's plain version
 (``torch.linalg.svd`` on a CPU tensor) on random matrices, rank 2 and rank 1
 (a plane and a line cloud), reflections, repeated singular values, ``W = 0``
-and NaN; ``tests/test_torch_gpu.py`` holds the kernel itself to both.
+and NaN; ``tests/test_torch_gpu.py`` holds the kernels themselves to both.
 
 Tolerance: 1e-6 absolute on R where σ2 − σ3 > 1e-3·σ1 (without the det fix
 also σ3 > 1e-3·σ1), and RᵀR = I within 1e-6 everywhere, det R = +1 with the
@@ -13,7 +17,7 @@ det fix. Why: R = U·Vᵀ is unique where the smallest
 singular value is separated from the next (the det fix flips the third
 column of U, whose direction is then defined); both references take a
 float32 SVD, whose R is off by about float32's epsilon times σ1 over the
-gaps, under 1e-6 at the gaps of these cases, while the mirror's float64 R
+gaps, under 1e-6 at the gaps of these cases, while the mirrors' float64 R
 is exact before its final rounding (half an ulp, 6e-8). Where the gap is
 smaller, or σ2 = σ3 = 0 (a line), R is not unique and the libraries pick
 different ones: only that R is a rotation is checked.
@@ -27,9 +31,10 @@ import torch
 
 from fpcr_tpu.ops import solve as js
 from fpcr_tpu_torch.ops import solve as ts
+from fpcr_tpu_torch.ops import svd3_mirror as sm
 from fpcr_tpu_torch.ops.svd3_cuda import svd3_rotation_cuda
 
-SWEEPS = 8  # csrc/svd3.cu: kSweeps
+SWEEPS = 8  # csrc/svd3.cu: kSweeps, the yardstick's fixed count
 RANK_TOL = 1e-13  # csrc/svd3.cu: kRankTol
 ATOL = 1e-6
 GAP = 1e-3
@@ -57,8 +62,8 @@ def _reject(x, u):
 
 
 def _mirror_one(w, det_correction, umeyama=False):
-    """The kernel's R of one matrix; with ``umeyama`` (Umeyama's form, the
-    det fix on) ``(R, trace)``."""
+    """The yardstick's R of one matrix; with ``umeyama`` (Umeyama's form,
+    the det fix on) ``(R, trace)``."""
     if not np.isfinite(w).all():
         nan = np.full((3, 3), np.nan, np.float32)
         return (nan, np.float32(np.nan)) if umeyama else nan
@@ -102,7 +107,7 @@ def _mirror_one(w, det_correction, umeyama=False):
 
 
 def svd3_mirror(W, det_correction=True):
-    """The kernel's R for each 3x3 of ``W`` [..., 3, 3] (float32)."""
+    """The yardstick's R for each 3x3 of ``W`` [..., 3, 3] (float32)."""
     W = np.asarray(W, np.float32)
     out = np.empty(W.shape, np.float32)
     for idx in np.ndindex(W.shape[:-2]):
@@ -111,7 +116,7 @@ def svd3_mirror(W, det_correction=True):
 
 
 def umeyama_mirror(W):
-    """The kernel's Umeyama form for each 3x3 of ``W`` [..., 3, 3]:
+    """The yardstick's Umeyama form for each 3x3 of ``W`` [..., 3, 3]:
     ``(R, trace)``."""
     W = np.asarray(W, np.float32)
     R = np.empty(W.shape, np.float32)
@@ -212,11 +217,9 @@ def _check_rotation(R, proper=True):
         assert np.abs(np.linalg.det(R) - 1.0).max() < ATOL
 
 
-@pytest.mark.parametrize("det_correction", [True, False])
-@pytest.mark.parametrize("name", CASES)
-def test_mirror_against_jax_and_plain(name, det_correction):
+def _against_jax_and_plain(mirror, name, det_correction):
     W = _case(name)
-    mine = svd3_mirror(W, det_correction)
+    mine = mirror(W, det_correction)
     _check_rotation(mine, proper=det_correction)
     sep = _separated(W, det_correction)
     if name in ("reflection", "kabsch", "random") or (
@@ -224,32 +227,43 @@ def test_mirror_against_jax_and_plain(name, det_correction):
         assert sep.any()  # the case reaches the full check
     for ref in (_jax(W, det_correction), _plain(W, det_correction)):
         np.testing.assert_allclose(mine[sep], ref[sep], rtol=0, atol=ATOL)
+    return mine, sep
+
+
+@pytest.mark.parametrize("det_correction", [True, False])
+@pytest.mark.parametrize("name", CASES)
+def test_mirror_against_jax_and_plain(name, det_correction):
+    _against_jax_and_plain(svd3_mirror, name, det_correction)
+
+
+def _zero_is_identity(mirror):
+    W = _case("zero")
+    for R in (mirror(W), _jax(W, True), _plain(W, True)):
+        np.testing.assert_array_equal(R, np.broadcast_to(np.eye(3), W.shape))
 
 
 def test_mirror_zero_is_identity():
     """W = 0 gives the identity in the mirror, JAX and the plain version."""
-    W = _case("zero")
-    for R in (svd3_mirror(W), _jax(W, True), _plain(W, True)):
-        np.testing.assert_array_equal(R, np.broadcast_to(np.eye(3), W.shape))
+    _zero_is_identity(svd3_mirror)
+
+
+def _rank_deficient_is_proper(mirror):
+    for name in ("rank 1", "rank 2"):
+        W = _case(name)
+        _check_rotation(mirror(W, True))
+        _check_rotation(mirror(W, False), proper=False)
 
 
 def test_mirror_rank_deficient_is_proper():
     """A line or plane cloud's W gives a rotation with det +1, and without
     the det fix an orthogonal R."""
-    for name in ("rank 1", "rank 2"):
-        W = _case(name)
-        _check_rotation(svd3_mirror(W, True))
-        _check_rotation(svd3_mirror(W, False), proper=False)
+    _rank_deficient_is_proper(svd3_mirror)
 
 
-@pytest.mark.parametrize("where", [(0, 0), (1, 2), (2, 1)])
-@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
-def test_mirror_non_finite_gives_nan(where, value):
-    """A non-finite entry gives a NaN R, as JAX gives for NaN; the plain
-    version (LAPACK) raises on NaN instead."""
+def _non_finite_gives_nan(mirror, where, value):
     W = _case("random")[:3].copy()
     W[1][where] = value
-    R = svd3_mirror(W)
+    R = mirror(W)
     assert np.isnan(R[1]).all()
     assert np.isfinite(R[[0, 2]]).all()
     if np.isnan(value):
@@ -258,10 +272,18 @@ def test_mirror_non_finite_gives_nan(where, value):
             _plain(W, True)
 
 
+@pytest.mark.parametrize("where", [(0, 0), (1, 2), (2, 1)])
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+def test_mirror_non_finite_gives_nan(where, value):
+    """A non-finite entry gives a NaN R, as JAX gives for NaN; the plain
+    version (LAPACK) raises on NaN instead."""
+    _non_finite_gives_nan(svd3_mirror, where, value)
+
+
 def test_mirror_converges_within_the_sweeps():
-    """The fixed sweep count is enough: one sweep more moves no entry of the
-    rounded R by more than one float32 ulp (the float64 R moves by ~1e-16,
-    which can cross a rounding boundary)."""
+    """The yardstick's fixed sweep count is enough: one sweep more moves no
+    entry of the rounded R by more than one float32 ulp (the float64 R
+    moves by ~1e-16, which can cross a rounding boundary)."""
     global SWEEPS
     W = np.concatenate([_case(name) for name in CASES])
     base = svd3_mirror(W)
@@ -300,16 +322,10 @@ def _jax_umeyama(W):
     return np.asarray(R), np.asarray(trace)
 
 
-@pytest.mark.parametrize("name", CASES)
-def test_umeyama_mirror_against_jax_and_plain(name):
-    """svd3's Umeyama form: its R is the rotation form's with the det fix,
-    bit for bit, and within 1e-6 of JAX's and the plain version's where R
-    is unique; its trace σ1 + σ2 + d·σ3 within 1e-6 of σ1 of both
-    everywhere (at rank 2 and below d·σ3 is rounding noise whatever d
-    is), reflections (d = -1) included."""
+def _umeyama_against_jax_and_plain(umeyama, rotation, name):
     W = _case(name)
-    R, trace = umeyama_mirror(W)
-    np.testing.assert_array_equal(R, svd3_mirror(W, True))
+    R, trace = umeyama(W)
+    np.testing.assert_array_equal(R, rotation(W, True))
     sep = _separated(W, True)
     Rp, tp_ = ts.umeyama_from_svd_plain(torch.as_tensor(W))
     Rj, tj = _jax_umeyama(W)
@@ -321,20 +337,157 @@ def test_umeyama_mirror_against_jax_and_plain(name):
         s = np.linalg.svd(W.astype(np.float64), compute_uv=False)
         np.testing.assert_allclose(trace, s[:, 0] + s[:, 1] - s[:, 2],
                                    rtol=1e-6)
+    return trace
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_umeyama_mirror_against_jax_and_plain(name):
+    """svd3's Umeyama form: its R is the rotation form's with the det fix,
+    bit for bit, and within 1e-6 of JAX's and the plain version's where R
+    is unique; its trace σ1 + σ2 + d·σ3 within 1e-6 of σ1 of both
+    everywhere (at rank 2 and below d·σ3 is rounding noise whatever d
+    is), reflections (d = -1) included."""
+    _umeyama_against_jax_and_plain(umeyama_mirror, svd3_mirror, name)
+
+
+def _umeyama_conventions(umeyama):
+    from fpcr_tpu_torch.ops.svd3_cuda import svd3_umeyama_cuda
+
+    R, trace = umeyama(_case("zero"))
+    np.testing.assert_array_equal(R, np.broadcast_to(np.eye(3), R.shape))
+    assert (trace == 0).all()
+    W = _case("random")[:2].copy()
+    W[1, 2, 0] = np.inf
+    R, trace = umeyama(W)
+    assert np.isnan(R[1]).all() and np.isnan(trace[1])
+    assert np.isfinite(R[0]).all() and np.isfinite(trace[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        svd3_umeyama_cuda(torch.as_tensor(W))
 
 
 def test_umeyama_mirror_conventions():
     """W = 0 gives the identity and a zero trace, a non-finite W NaN for
     both; the wrapper refuses a CPU tensor."""
-    from fpcr_tpu_torch.ops.svd3_cuda import svd3_umeyama_cuda
+    _umeyama_conventions(umeyama_mirror)
 
-    R, trace = umeyama_mirror(_case("zero"))
-    np.testing.assert_array_equal(R, np.broadcast_to(np.eye(3), R.shape))
-    assert (trace == 0).all()
-    W = _case("random")[:2].copy()
-    W[1, 2, 0] = np.inf
-    R, trace = umeyama_mirror(W)
-    assert np.isnan(R[1]).all() and np.isnan(trace[1])
-    assert np.isfinite(R[0]).all() and np.isfinite(trace[0])
-    with pytest.raises(ValueError, match="CUDA"):
-        svd3_umeyama_cuda(torch.as_tensor(W))
+
+# ---- the kernel's design (ops/svd3_mirror.py): float32 sweeps to a stop
+# test, then a float64 polish to its own ----
+
+ULP = 2.0 ** -23  # one float32 ulp at 1, R's largest entries
+
+
+@pytest.mark.parametrize("det_correction", [True, False])
+@pytest.mark.parametrize("name", CASES)
+def test_design_mirror_against_jax_and_plain(name, det_correction):
+    """The kernel's design: within 1e-6 of JAX's R and the plain version's
+    where R is unique, a rotation everywhere, and where R is unique within
+    one float32 ulp of the yardstick's R (both polish to the same float64
+    R before rounding)."""
+    mine, sep = _against_jax_and_plain(sm.svd3_rotation_mirror, name,
+                                       det_correction)
+    np.testing.assert_allclose(mine[sep],
+                               svd3_mirror(_case(name), det_correction)[sep],
+                               rtol=0, atol=ULP)
+
+
+def test_design_mirror_zero_is_identity():
+    """W = 0 gives the identity, as in JAX and the plain version."""
+    _zero_is_identity(sm.svd3_rotation_mirror)
+
+
+def test_design_mirror_rank_deficient_is_proper():
+    """A line or plane cloud's W gives a rotation with det +1, and without
+    the det fix an orthogonal R."""
+    _rank_deficient_is_proper(sm.svd3_rotation_mirror)
+
+
+@pytest.mark.parametrize("where", [(0, 0), (1, 2), (2, 1)])
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+def test_design_mirror_non_finite_gives_nan(where, value):
+    """A non-finite entry gives a NaN R, as JAX gives for NaN."""
+    _non_finite_gives_nan(sm.svd3_rotation_mirror, where, value)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_design_umeyama_mirror_against_jax_and_plain(name):
+    """The kernel's Umeyama form: R bit for bit its rotation form's with
+    the det fix, R and the trace held to JAX's and the plain version's as
+    the yardstick's are, and the trace within 1e-6 of σ1 of the
+    yardstick's."""
+    trace = _umeyama_against_jax_and_plain(sm.svd3_umeyama_mirror,
+                                           sm.svd3_rotation_mirror, name)
+    W = _case(name)
+    s1 = np.linalg.svd(W.astype(np.float64), compute_uv=False)[..., 0]
+    assert (np.abs(trace - umeyama_mirror(W)[1])
+            <= ATOL * np.maximum(s1, 1e-30)).all()
+
+
+def test_design_umeyama_mirror_conventions():
+    """W = 0 gives the identity and a zero trace, a non-finite W NaN for
+    both."""
+    _umeyama_conventions(sm.svd3_umeyama_mirror)
+
+
+def _zeta_overflow():
+    """W whose first two columns are orthogonal but for a γ with |ζ| =
+    |β − α| / 2|γ| = 2.5e19: ζ² overflows float32, and a rotation that
+    forms it finds t = 0 and never rotates the pair."""
+    return np.array([[[1.0, 2e-20, 0.0], [0.0, 1e-14, 0.0],
+                      [0.0, 0.0, 0.5]]], np.float32)
+
+
+def test_design_rotation_takes_a_large_zeta_without_overflow():
+    """The float32 rotation of a pair with |ζ| > 1e19 is finite, is not
+    skipped, and makes the pair orthogonal with sin θ = 1/(2ζ),
+    Rutishauser's large-ζ tangent; the whole matrix then gives JAX's and
+    the plain version's R."""
+    W = _zeta_overflow()
+    a = (W[0].astype(np.float64) * 0.5).astype(np.float32)  # scaled by 2^-1
+    col = a.astype(np.float64)
+    zeta = ((col[:, 1] @ col[:, 1] - col[:, 0] @ col[:, 0])
+            / (2.0 * (col[:, 0] @ col[:, 1])))
+    assert abs(zeta) > 1e19
+    with np.errstate(over="ignore"):
+        assert np.isinf(np.float32(zeta) * np.float32(zeta))
+    v = np.eye(3, dtype=np.float32)
+    assert sm.rotate(a, v, 0, 1, sm.TOL32)
+    assert np.isfinite(a).all() and np.isfinite(v).all()
+    np.testing.assert_allclose(v[0, 1], 1.0 / (2.0 * zeta), rtol=1e-6)
+    assert not sm.rotate(a, v, 0, 1, sm.TOL32)  # orthogonal now
+    sweeps = sm.svd3_sweeps(W)[0]
+    assert sweeps.f32_converged and sweeps.f64_converged
+    R = sm.svd3_rotation_mirror(W)
+    for ref in (_jax(W, True), _plain(W, True)):
+        np.testing.assert_allclose(R, ref, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("det_correction", [True, False])
+def test_design_stop_rule_leaves_nothing_to_rotate(det_correction):
+    """Where the polish stops, one more float64 sweep, every pair rotated
+    unless γ = 0, moves no entry of the rounded R by more than one float32
+    ulp (the float64 R moves by ~1e-16, which can cross a rounding
+    boundary)."""
+    W = np.concatenate([_case(name) for name in CASES] + [_zeta_overflow()])
+    base = sm.svd3_rotation_mirror(W, det_correction)
+    more = sm.svd3_rotation_mirror(W, det_correction, extra_sweeps=1)
+    np.testing.assert_allclose(base, more, rtol=0, atol=ULP)
+
+
+def test_design_sweeps_stop_before_the_cap():
+    """The sweeps the design takes on this file's cases, logged as a
+    histogram ``{"float32/float64 sweeps that rotated": matrices}``: every
+    float64 polish ends on a sweep that rotates nothing, before the
+    cap."""
+    every = []
+    for name in CASES + ["zeta overflow"]:
+        W = _zeta_overflow() if name == "zeta overflow" else _case(name)
+        got = sm.svd3_sweeps(W)
+        hist = {}
+        for sw in got:
+            key = f"{sw.f32}/{sw.f64}"
+            hist[key] = hist.get(key, 0) + 1
+        print(f"svd3 sweeps, {name}: {dict(sorted(hist.items()))}")
+        every += got
+    assert all(sw.f64_converged and sw.f64 < sm.SWEEPS for sw in every)
+    assert max(sw.f64 for sw in every) <= 3
