@@ -131,7 +131,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    informations) and ``global_registration`` on Bunny, each bit for bit
    its eager run on the three calls, with its launches and to its ground
    truth; their syncs in 24 iterations (the pose graph and RANSAC: none
-   in the loop); captured against eager six times in turns;
+   in the loop); captured against eager six times in turns; then
+   ``register_batch`` for every config the JAX package ``vmap``s:
+   batched K3 and K3p at 16 x 65,536 points (chunk 512, window 64, with
+   and without an extra): one launch a call, culled equal to unculled,
+   the bases equal to ``band_bases``, each element's outputs, bases and
+   visits bit for bit its unbatched launch's and held against the batched
+   plain version, timed in legs against 16 unbatched launches (16,
+   batched, batched, 16, 16, batched); each config driven between counter
+   reads, the morton batch through K3 and K3p at 16 x 65,536 (one launch
+   a shift a pass), symmetric, GICP, grid and plane with its normals
+   estimated at 32 x 4,096, every element to its threshold and within 1
+   iteration of its own ``run_icp`` (``STOP_NOISE``), and
+   ``register_sequence`` through K3 on 17 frames of 65,536 points to its
+   drift bound; each path captured bit for bit its eager run with equal
+   launches; the host's syncs in 24 iterations (the done reads only); ms
+   a batch in legs against the parent's element-by-element route
+   (``parent_register_batch``);
 6. times — ms/iter by the slope method (point ICP at 16,384 through K1 and
    K2, plane ICP at 16,384, Morton ICP through K3 and K3p and NDT at
    262,144 and 1,048,576), K1 and K2 against their CUDA-core sweep in legs
@@ -214,6 +230,11 @@ device time of an empty kernel, which bounds it in practice; svd3's
 Umeyama form's its 76 bytes a matrix and the operations of Umeyama's
 rotation and trace, at scaled ICP's batch of one, its ``max_abs_err`` R's
 and ``trace_rel_err`` the trace's over σ1;
+K3's and K3p's batch axis as entries of their own,
+``morton_nn batched`` and ``morton_nn_packed batched``: their launches on
+the batched paths, the batched call at 16 x 65,536 against the batched
+plain version, the bound over the pairs the culled batch evaluated, and
+the 16 unbatched launches' call and kernel times beside them;
 the entries of Kernel S, the E1 forms, the min-only sweep and svd3's two
 forms also carry the legs' call and kernel times of both sides, svd3's
 rotation form also its design's parts alone, ``ablation``, and the
@@ -439,6 +460,48 @@ REGISTER_RUNS = {"point": (1e-5, 2), "plane": (1e-5, 2),
                  "symmetric": (1e-5, 2), "gicp": (1e-5, 2), "ndt": (1e-5, 1),
                  "global": (1e-5, None), "coarse_to_fine": (1e-5, 1),
                  "aa": (1e-5, 2), "sgd": (2e-3, None)}
+
+
+# register_batch for every config. The Morton batch: 16 scans of
+# 65,536 points (an Ouster OS1-64 scan's size) under near-registered
+# ground truths, translation U(±0.01) and rotation U(±0.004) rad, at
+# docs/serving.md's one-shot config, through K3 and K3p; the other configs
+# at the serving batch (32 x 4,096). Each element must reach its
+# threshold, 10x the largest GT error of the JAX package's register_batch
+# on the CPU for the same batch rounded up to a decade (the morton batch
+# through its XLA geometry; tests/test_torch_batch.py run as a script
+# prints them), and its own run_icp's iterations on the card (within 1, or
+# later once converged: STOP_NOISE)
+MORTON_BATCH = dict(batch=16, width=256, seed=1, pose=(0.01, 0.004))
+MORTON_SERVING = dict(matcher="morton", max_iterations=20, auto_trim=9.0)
+BATCH_CONFIG_RUNS = [  # (label, config fields, batch, threshold)
+    ("morton K3 16x65536", MORTON_SERVING, "morton", 1e-4),  # 2.191e-6
+    ("morton K3p 16x65536", dict(MORTON_SERVING, **PACKED), "morton",
+     1e-4),  # 2.191e-6
+    ("symmetric K1 32x4096", dict(metric="symmetric", matcher="pallas",
+                                  max_iterations=20), "serving",
+     1e-5),  # 9.580e-7
+    ("gicp K1 32x4096", dict(metric="gicp", matcher="pallas",
+                             max_iterations=20), "serving", 1e-5),  # 8.737e-7
+    ("grid 32x4096", dict(matcher="grid", max_iterations=20), "near",
+     1e-2),  # 3.796e-4
+    ("plane K1 32x4096, normals estimated", dict(
+        metric="plane", matcher="pallas", max_iterations=20), "serving",
+     1e-5),  # 9.245e-7
+]
+# the grid matcher finds neighbours within a cell (twice the spacing): its
+# batch is the serving source under near-registered ground truths,
+# translation U(±0.02) and rotation U(±0.01) rad
+NEAR_SERVING = dict(seed=2, pose=(0.02, 0.01))
+# odometry through K3: 17 frames of 65,536 points, 16 pairs of one batch,
+# the sensor 0.005 along +x a frame over surface_grid(512) (0.64 of the
+# grid's spacing: near-registered pairs, as the config is for), N(0, 1e-3)
+# noise; every pose's x within ODOMETRY_MORTON["drift"] of the GT and its
+# other translation and rotation entries too: 10x the JAX package's
+# largest on the CPU for the same frames, rounded up to a decade
+# (tests/test_torch_batch.py run as a script)
+ODOMETRY_MORTON = dict(frames=17, points=65536, step=0.005, noise=1e-3,
+                       seed=3, drift=1e-3, config=MORTON_SERVING)
 
 
 def serving_poses(batch=32, seed=0):
@@ -5053,6 +5116,372 @@ def phase_graphs(torch, np, ft, dev, smi):
     return svd3, umeyama
 
 
+# ---- register_batch for every config (K3 and K3p with a batch axis) -------
+
+def batch_poses(batch, seed, t_max, r_max):
+    """B ground truths, translation U(±t_max) and rotation U(±r_max) rad
+    an axis, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [(tuple(rng.uniform(-t_max, t_max, 3).tolist()),
+             tuple(rng.uniform(-r_max, r_max, 3).tolist()))
+            for _ in range(batch)]
+
+
+def morton_batch(ft, dev):
+    """The Morton batch: ``surface_grid(256)`` (65,536 points, an Ouster
+    OS1-64 scan's size) under B near-registered ground truths
+    (``MORTON_BATCH``). Returns ``(sources [B,N,3], targets, ground
+    truths)``."""
+    src = ft.surface_grid(MORTON_BATCH["width"], device=dev)
+    gts = [ft.gt_transform(t, r, device=dev) for t, r in batch_poses(
+        MORTON_BATCH["batch"], MORTON_BATCH["seed"], *MORTON_BATCH["pose"])]
+    return (torch.stack([src] * len(gts)),
+            torch.stack([g.apply(src) for g in gts]).contiguous(), gts)
+
+
+def odometry_frames(ft, dev):
+    """``ODOMETRY_MORTON``'s scan sequence: the sensor moves ``step`` along
+    +x over ``surface_grid(512)`` each frame; frame t is the ``points``
+    points nearest its viewpoint's x, in its own coordinates, with N(0,
+    ``noise``) noise. The pair (t+1 -> t) is a translation of ``step``.
+    Returns ``(frames [T, N, 3], the frames' x positions)``."""
+    cfg = ODOMETRY_MORTON
+    world = ft.surface_grid(512, device="cpu").numpy()
+    rng = np.random.default_rng(cfg["seed"])
+    xs = cfg["step"] * np.arange(cfg["frames"])
+    out = []
+    for x in xs:
+        crop = world[np.argsort(np.abs(world[:, 0] - x),
+                                kind="stable")[:cfg["points"]]]
+        local = crop - np.array([x, 0.0, 0.0], np.float32)
+        out.append((local + rng.normal(scale=cfg["noise"], size=local.shape))
+                   .astype(np.float32))
+    return torch.as_tensor(np.stack(out), device=dev), xs
+
+
+def parent_register_batch(ft, sources, targets, config):
+    """The parent commit's route for the configs that it did not batch, kept
+    here as the yardstick of the batched loop: the morton and grid
+    matchers and the symmetric and gicp metrics one ``run_icp`` an element,
+    stacked; the plane metric's normals estimated one target at a time,
+    then the batched loop."""
+    from fpcr_tpu_torch.models import batch as mb
+    from fpcr_tpu_torch.models.icp import _normals_prepass
+
+    if config.metric == "plane" and config.matcher in ("xla", "pallas"):
+        normals = torch.stack([_normals_prepass(t, None, config)
+                               for t in targets]).contiguous()
+        return mb._batched_loop(sources, targets, normals, config)
+    res = [ft.run_icp(sources[k], targets[k], config)
+           for k in range(sources.shape[0])]
+    return ft.ICPResult(
+        transform=ft.RigidTransform(
+            torch.stack([r.transform.rotation for r in res]),
+            torch.stack([r.transform.translation for r in res])),
+        **{name: torch.stack([getattr(r, name) for r in res])
+           for name in ft.ICPResult._fields[1:]})
+
+
+def batch_config_paths(ft, dev):
+    """``[(label, config, sources, targets, ground truths, threshold)]``:
+    every config that ``register_batch`` now batches
+    (``BATCH_CONFIG_RUNS``)."""
+    out = []
+    serving = serving_batch(ft, dev)
+    src = serving[0][0]
+    gts = [ft.gt_transform(t, r, device=dev) for t, r in batch_poses(
+        SERVING["batch"], NEAR_SERVING["seed"], *NEAR_SERVING["pose"])]
+    batches = {"serving": serving, "morton": morton_batch(ft, dev),
+               "near": (serving[0], torch.stack([g.apply(src) for g in gts])
+                        .contiguous(), gts)}
+    for label, fields, kind, thr in BATCH_CONFIG_RUNS:
+        srcs, tgts, gts = batches[kind]
+        out.append((label, ft.ICPConfig(**fields), srcs, tgts, gts, thr))
+    return out
+
+
+def _check_batch_elements(ft, label, res, srcs, tgts, gts, cfg, thr):
+    """Each element to its ground truth and within one iteration of its
+    own ``run_icp`` on the card (later only where it had converged by the
+    earlier stop, ``STOP_NOISE``); returns the worst GT error of the batch
+    and of the elements' own runs."""
+    worst, own_worst = 0.0, 0.0
+    its, own_its = [], []
+    for k, g in enumerate(gts):
+        t_k = ft.RigidTransform(res.transform.rotation[k],
+                                res.transform.translation[k])
+        gt = float(ft.transform_rmse(t_k, g, srcs[k]))
+        one = ft.run_icp(srcs[k], tgts[k], cfg)
+        own = float(ft.transform_rmse(one.transform, g, srcs[k]))
+        it, ref = int(res.num_iterations[k]), int(one.num_iterations)
+        its.append(it)
+        own_its.append(ref)
+        worst, own_worst = max(worst, gt), max(own_worst, own)
+        if not stopped_on_noise(it, ref, res.errors[k].cpu().numpy()):
+            raise AssertionError(f"{label}: element {k} took {it} "
+                                 f"iterations, its own run_icp {ref}")
+        if not (gt < thr and torch.isfinite(res.points[k]).all()):
+            raise AssertionError(f"{label}: element {k} GT transform RMSE "
+                                 f"{gt} >= {thr}")
+    log("batch", f"{label}: iterations {its}, own run_icp {own_its}; worst "
+                 f"GT transform RMSE {worst:.3e} (< {thr:g}), own runs' "
+                 f"{own_worst:.3e}")
+    return worst, own_worst
+
+
+def _check_band_batch(label, p, table, extra, chunk, window, packed, card):
+    """Batched K3 (``packed`` False) or K3p: one launch; culled equal to
+    unculled and the bases to ``band_bases``; each element's outputs,
+    bases and visits bit for bit its unbatched call's; each element held
+    against the batched plain version as ``_check_band`` holds an
+    unbatched call. Returns ``(largest |sqdist err| over equal picks, the
+    stats of the culled call)``."""
+    from fpcr_tpu_torch.ops.morton import (band_bases, band_idx_bits,
+                                           band_rows, table_element)
+    from fpcr_tpu_torch.ops import morton as tm
+    from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
+                                                morton_nn_packed_cuda)
+
+    kernel = morton_nn_packed_cuda if packed else morton_nn_cuda
+    plain = (tm.morton_nn_band_packed_plain if packed
+             else tm.morton_nn_band_plain)
+    name = f"{'K3p' if packed else 'K3'} batched {label}"
+    torch.cuda.synchronize()
+    before = kernel.launches
+    stats, full = {}, {}
+    out = kernel(p, table, extra, chunk=chunk, window=window, _stats=stats)
+    if kernel.launches - before != 1:
+        raise AssertionError(f"{name}: {kernel.launches - before} launches")
+    ref = kernel(p, table, extra, chunk=chunk, window=window, _cull=False,
+                 _stats=full)
+    for x, y in zip(out, ref):
+        if (x is None) != (y is None) or (x is not None
+                                          and not torch.equal(x, y)):
+            raise AssertionError(f"{name}: culled and unculled differ")
+    _, bases = band_bases(p, table, chunk, window)
+    if not (torch.equal(stats["bases"], bases)
+            and torch.equal(full["bases"], bases)):
+        raise AssertionError(f"{name}: bases differ from band_bases")
+    o = plain(p, table, extra, chunk=chunk, window=window)
+    within = (packed_tie(band_idx_bits(band_rows(chunk, window))) if packed
+              else lambda dk, do: np.abs(dk - do)
+              <= TIE_REL * np.maximum(1.0, do))
+    err, swaps = 0.0, 0
+    for k in range(p.shape[0]):
+        t_k = table_element(table, k)
+        e_k = None if extra is None else extra[k]
+        own_stats = {}
+        own = kernel(p[k], t_k, e_k, chunk=chunk, window=window,
+                     _stats=own_stats)
+        for x, y in zip(out, own):
+            if x is not None and not torch.equal(x[k], y):
+                raise AssertionError(f"{name}: element {k} differs from its "
+                                     "unbatched call")
+        for key in ("bases", "visits"):
+            if not torch.equal(stats[key][k], own_stats[key]):
+                raise AssertionError(f"{name}: element {k}'s {key} differ")
+        q = t_k.points_sorted
+        ki, oi = out[2][k].cpu().numpy(), o[2][k].cpu().numpy()
+        kd, od = out[1][k].cpu().numpy(), o[1][k].cpu().numpy()
+        if not (np.isfinite(kd).all() and np.isfinite(od).all()):
+            raise AssertionError(f"{name}: element {k} found no target")
+        same = ki == oi
+        np.testing.assert_allclose(kd[same], od[same], **CASE_TOL,
+                                   err_msg=f"{name}: element {k} sqdist")
+        err = max(err, float(np.abs(kd[same] - od[same]).max()))
+        swaps += _tie_rows(f"{name} element {k}", p[k], q, ki, oi,
+                           within).size
+        if not torch.equal(out[0][k], q[out[2][k].long()]):
+            raise AssertionError(f"{name}: matched rows differ from the "
+                                 "table")
+    culled = 1.0 - int(stats["visits"].sum()) / int(full["visits"].sum())
+    log("batch", f"{name}: one launch, culled == unculled, bases == "
+                 f"band_bases, every element bit for bit its unbatched call "
+                 f"(outputs, bases, visits), {'in-bucket swaps' if packed else 'near-ties'}"
+                 f" against the plain version {swaps}, max |sqdist err| "
+                 f"{err:.3e}, visits culled {culled:.4f} -> ok {card}")
+    return err, stats
+
+
+def batched_band_kernels(torch, np, ft, dev, card):
+    """Batched K3 and K3p at 16 x 65,536 points, chunk 512 / window 64,
+    with and without an extra (the targets' normals in table order):
+    checked by :func:`_check_band_batch`, then timed in legs against 16
+    unbatched calls (call by events, kernel by the profiler), with the
+    batched plain version's time and the bound over the pairs the culled
+    batch evaluated. Returns ``{key: entry fields}``."""
+    from fpcr_tpu_torch.ops import morton as tm
+    from fpcr_tpu_torch.ops.matching import gather_correspondences
+    from fpcr_tpu_torch.ops.morton_cuda import (BAND_SUB, band_visit_totals,
+                                                morton_nn_cuda,
+                                                morton_nn_packed_cuda)
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms
+
+    srcs, tgts, _ = morton_batch(ft, dev)
+    b, n = srcs.shape[0], srcs.shape[1]
+    table = tm.build_morton_table(tgts)
+    order = tm.source_morton_order(srcs, table).long()
+    p = torch.take_along_dim(srcs, order[..., None], dim=1).contiguous()
+    nrm = gather_correspondences(ft.estimate_normals(tgts),
+                                 table.orig_index)
+    nrm = nrm.contiguous()
+    elems = [tm.table_element(table, k) for k in range(b)]
+    out = {}
+    for key, packed, kernel, plain, flops in (
+            ("morton_nn", False, morton_nn_cuda, tm.morton_nn_band_plain,
+             ARGMIN_PAIR_FLOPS),
+            ("morton_nn_packed", True, morton_nn_packed_cuda,
+             tm.morton_nn_band_packed_plain, PACKED_PAIR_FLOPS)):
+        err = 0.0
+        for label, extra in (("16x65536 c512/w64", None),
+                             ("16x65536 c512/w64 + normals", nrm)):
+            e, stats = _check_band_batch(label, p, table, extra, 512, 64,
+                                         packed, card)
+            err = max(err, e)
+        total, seeds = band_visit_totals(n, 512, stats["band"])
+        visits = int(stats["visits"].sum())
+        pairs = (visits + b * seeds) * BAND_SUB ** 2
+        legs = time_legs("batch", f"{key} 16x65536", lambda: kernel(
+            p, table, chunk=512, window=64), lambda: [
+                kernel(p[k], elems[k], chunk=512, window=64)
+                for k in range(b)], card)
+        plain_ms = cuda_time_ms(lambda: plain(p, table, chunk=512, window=64),
+                                repeats=2, warmup=1)["min"]
+        nbytes = b * (12 * n + 12 * n + 4 * n + 24 + 4 + 20 * n)
+        bound_ms, bound_by = bound(nbytes, flops * pairs)
+        fields = leg_fields(legs)
+        out[key] = dict(call_ms=fields["call_ms"],
+                        kernel_ms=fields["kernel_ms"],
+                        unbatched_call_ms=fields["yardstick_call_ms"],
+                        unbatched_kernel_ms=fields["yardstick_kernel_ms"],
+                        batch=b, n=n, pairs=pairs,
+                        visits_culled=1.0 - visits / (b * total),
+                        max_abs_err=err, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
+        log("times", f"batched {key} B={b} x {n} c512/w64: {json.dumps(out[key])}"
+                     f" {card}")
+    return out
+
+
+def phase_batched_configs(torch, np, ft, dev, smi):
+    """``register_batch`` for every config the JAX package ``vmap``s, and
+    K3 / K3p with a batch axis: the kernels checked and timed
+    (:func:`batched_band_kernels`); each config's path driven between
+    counter reads (one band launch a shift an iteration, no ``run_icp``),
+    every element to its ground truth and its own ``run_icp``'s iterations;
+    ``register_sequence`` through K3 on 17 frames of 65,536 points, with
+    its drift; each path captured bit for bit its eager run with equal
+    launches; 24 iterations reading the host only at the done reads; ms a
+    batch in legs against the parent's element-by-element route. Returns
+    ``(launches summed over the paths, the batched band launches,
+    the kernels' entries)``."""
+    import dataclasses as dc
+    import functools
+
+    from fpcr_tpu_torch.utils import graphs
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms
+
+    t0 = time.perf_counter()
+    card = f"[card: {smi}]"
+    entries = batched_band_kernels(torch, np, ft, dev, card)
+    paths = batch_config_paths(ft, dev)
+    launches, band = {}, {"morton_nn": 0, "morton_nn_packed": 0}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    graphs.clear()
+    for label, cfg, srcs, tgts, gts, thr in paths:
+        box = {}
+
+        def run(srcs=srcs, tgts=tgts, cfg=cfg):
+            box["res"] = ft.register_batch(srcs, tgts, cfg)
+
+        counts = drive(torch, f"register_batch {label}", run)
+        res = box["res"]
+        passes = loop_passes(int(res.num_iterations.max()),
+                             cfg.max_iterations)
+        kernel = {"morton": "morton_nn_packed" if cfg.pallas_mode ==
+                  "packed6_idx" else "morton_nn"}.get(cfg.matcher)
+        if kernel is not None:
+            if counts[kernel] != cfg.morton_shifts * passes:
+                raise AssertionError(f"{label}: {counts[kernel]} {kernel} "
+                                     f"launches in {passes} passes")
+            band[kernel] += counts[kernel]
+        elif counts["morton_nn"] or counts["morton_nn_packed"]:
+            raise AssertionError(f"{label}: a band kernel launched")
+        want_k1 = 2 * passes if cfg.matcher == "pallas" else 0
+        if counts["nn_argmin"] != want_k1:
+            raise AssertionError(f"{label}: {counts['nn_argmin']} K1 "
+                                 f"launches in {passes} passes")
+        add(counts)
+        _check_batch_elements(ft, label, res, srcs, tgts, gts, cfg, thr)
+
+    frames, xs = odometry_frames(ft, dev)
+    ocfg = ft.ICPConfig(**ODOMETRY_MORTON["config"])
+    box = {}
+    counts = drive(torch, "register_sequence morton 17x65536",
+                   lambda: box.update(odo=ft.register_sequence(frames, ocfg)))
+    odo = box["odo"]
+    passes = loop_passes(int(odo.relative.num_iterations.max()),
+                         ocfg.max_iterations)
+    if counts["morton_nn"] != passes:
+        raise AssertionError(f"register_sequence: {counts['morton_nn']} K3 "
+                             f"launches in {passes} passes")
+    band["morton_nn"] += counts["morton_nn"]
+    add(counts)
+    poses = odo.poses.cpu().numpy().astype(np.float64)
+    drift = np.abs(poses[:, 0, 3] - xs).max()
+    off = max(np.abs(poses[:, 1:3, 3]).max(),
+              np.abs(poses[:, :3, :3] - np.eye(3)).max())
+    log("batch", f"register_sequence morton {frames.shape[0]} x "
+                 f"{frames.shape[1]}: pair iterations "
+                 f"{odo.relative.num_iterations.tolist()}, end-pose x "
+                 f"{poses[-1, 0, 3]:.6f} (GT {xs[-1]:.6f}), largest x drift "
+                 f"{drift:.3e}, largest y/z/rotation entry off the GT "
+                 f"{off:.3e} (< {ODOMETRY_MORTON['drift']:g}) {card}")
+    if not (drift < ODOMETRY_MORTON["drift"]
+            and off < ODOMETRY_MORTON["drift"]):
+        raise AssertionError("register_sequence morton: drift "
+                             f"{max(drift, off)}")
+
+    captured = [(f"register_batch {label}", functools.partial(
+        ft.register_batch, srcs, tgts, cfg), (srcs, gts), thr)
+        for label, cfg, srcs, tgts, gts, thr in paths]
+    check_captured(torch, ft, captured, card)
+
+    for label, cfg, srcs, tgts, _, _ in paths:
+        run = functools.partial(ft.register_batch, srcs, tgts, dc.replace(
+            cfg, max_iterations=24, tolerance=0.0))
+        run()  # the key's first call, eager
+        run()  # captures
+        for mode in ("captured", "eager"):
+            with graphs.eager(mode == "eager"):
+                _check_sync_sites(f"register_batch {label}", mode,
+                                  sync_sites(torch, run), 2, card)
+
+    times = {}
+    for label, cfg, srcs, tgts, _, _ in paths:
+        legs = {"parent": [], "batched": []}
+        for leg in ("parent", "batched", "batched", "parent", "parent",
+                    "batched"):
+            fn = (functools.partial(ft.register_batch, srcs, tgts, cfg)
+                  if leg == "batched" else functools.partial(
+                      parent_register_batch, ft, srcs, tgts, cfg))
+            legs[leg].append(cuda_time_ms(fn, repeats=2, warmup=1)["min"])
+        best = {k: min(v) for k, v in legs.items()}
+        times[label] = legs
+        log("times", f"register_batch {label}, ms a batch in legs (parent's "
+                     f"element-by-element route, batched, batched, parent, "
+                     f"parent, batched): parent {legs['parent']}, batched "
+                     f"{legs['batched']}; least {best['batched']:.3f} "
+                     f"against {best['parent']:.3f} "
+                     f"({best['parent'] / best['batched']:.2f}x) {card}")
+    log("batch", f"phase done in {time.perf_counter() - t0:.1f} s")
+    return launches, band, entries
+
+
 def bound(nbytes, flops, ops_ms=0.0):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``nbytes`` of device-memory traffic (each input read once, each output
@@ -5087,7 +5516,7 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, nbytes,
 
 
 def kernels_line(launches, errs, times, times2, times3, times5, svd3,
-                 umeyama):
+                 umeyama, batched_launches, batched):
     """The ``kernels`` JSON object, the bounds from this run's inputs: the
     brute-force kernels at the synthetic scene's N = M = 16,384, the band
     kernels at 1,048,576 points (chunk 512, window 64, no extra; bytes with
@@ -5142,12 +5571,31 @@ def kernels_line(launches, errs, times, times2, times3, times5, svd3,
                      launches["morton_nn_packed"], errs["morton_nn_packed"],
                      *times2[f"k3p {nb}"], band_bytes,
                      PACKED_PAIR_FLOPS * times2[f"k3p pairs {nb}"]),
+    ] + [batched_band_entry(key, line, batched_launches[key], batched[key])
+         for key, line in (("morton_nn", 328), ("morton_nn_packed", 261))
+         ] + [
         kernel_entry("ndt_fused_moments", "fpcr_tpu_torch/csrc/ndt.cu",
                      "fpcr_tpu/ops/ndt_pallas.py:512",
                      launches["ndt_fused_moments"], errs["ndt_fused_moments"],
                      k4["k4_ms"], k4["plain_ms"], k4_bytes, k4_flops),
     ] + study_entries(launches, errs, times5) + [
         svd3_entry(launches, svd3), umeyama_entry(launches, umeyama)]}
+
+
+def batched_band_entry(key, line, launches, fields):
+    """K3's or K3p's batch axis as an entry of its own: its launches on the
+    batched paths (``register_batch`` and ``register_sequence`` through the
+    morton matcher), its batched call at 16 x 65,536 (kernel time by the
+    profiler, the legs' median; the call's where no leg saw an event)
+    against its batched plain version, bound over the pairs it evaluated,
+    and the 16 unbatched calls' times beside it."""
+    ms = fields["kernel_ms"]
+    return dict(fields, name=f"{key} batched", route="cuda",
+                source="fpcr_tpu_torch/csrc/morton.cu",
+                replaces=f"fpcr_tpu/ops/morton_pallas.py:{line}",
+                launches=launches,
+                ms=fields["call_ms"] if ms is None else ms,
+                library_ms=None)
 
 
 def svd3_entry(launches, svd3):
@@ -5451,6 +5899,10 @@ def main():
     launches, study, studies = phase_main_path(torch, ft, dev)
     phase_reference(torch, ft, dev)
     svd3, umeyama = phase_graphs(torch, np, ft, dev, smi)
+    counts, batched_launches, batched = phase_batched_configs(
+        torch, np, ft, dev, smi)
+    for key, n in counts.items():
+        launches[key] = launches.get(key, 0) + n
     times = phase_times(torch, ft, dev, smi, study)
     times2 = phase_times_slice2(torch, ft, dev, smi)
     times3 = phase_times_ndt(torch, np, ft, dev, smi)
@@ -5489,7 +5941,9 @@ def main():
               f"{guard:.4f} [card: {smi}]")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(launches, errs, times, times2, times3,
-                                  times5, svd3, umeyama)), flush=True)
+                                  times5, svd3, umeyama, batched_launches,
+                                  batched)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -171,8 +171,8 @@ def load_library() -> ctypes.CDLL:
     for name in ("fpcr_morton_nn", "fpcr_morton_nn_packed",
                  "fpcr_morton_nn_unculled", "fpcr_morton_nn_packed_unculled"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32,
-                       i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+        fn.argtypes = [ptr, i32, i32, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32,
+                       i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = i32
     lib.fpcr_nn_form_partial.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                          i32, i32, i32, ptr, ptr, ptr]

@@ -22,21 +22,28 @@ from ..utils.device import resolve_device
 
 
 class RigidTransform(NamedTuple):
-    """SE(3) transform ``x -> R @ x + t`` acting on row-major ``[N, 3]``."""
+    """SE(3) transform ``x -> R @ x + t`` acting on row-major ``[N, 3]``.
+    A batch of transforms (``[B, 3, 3]``, ``[B, 3]``) applies and composes
+    element by element, on ``[B, N, 3]`` points."""
 
     rotation: torch.Tensor  # [3, 3]
     translation: torch.Tensor  # [3]
 
     def apply(self, points: torch.Tensor) -> torch.Tensor:
-        """Apply to ``[..., 3]`` points."""
-        return torch.matmul(points, self.rotation.T) + self.translation
+        """Apply to ``[..., 3]`` points (``[B, ..., 3]`` for a batch)."""
+        if self.rotation.ndim == 2:
+            return torch.matmul(points, self.rotation.T) + self.translation
+        return (torch.matmul(points, self.rotation.transpose(-1, -2))
+                + self.translation.unsqueeze(-2))
 
     def compose(self, other: "RigidTransform") -> "RigidTransform":
         """Return ``self ∘ other`` (first ``other``, then ``self``)."""
+        t = other.translation
+        moved = (torch.matmul(self.rotation, t) if self.rotation.ndim == 2
+                 else torch.matmul(self.rotation, t[..., None])[..., 0])
         return RigidTransform(
             rotation=torch.matmul(self.rotation, other.rotation),
-            translation=torch.matmul(self.rotation, other.translation)
-            + self.translation,
+            translation=moved + self.translation,
         )
 
     def inverse(self) -> "RigidTransform":

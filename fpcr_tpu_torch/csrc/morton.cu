@@ -30,6 +30,14 @@
 // base + row (bit-equal to the table), and recomputes the exact distance
 // from the matched point; the quantized distance is never returned.
 //
+// A batch of B clouds of equal n and m runs in one launch: element e on
+// blockIdx.z, with its own rows of p, of the table (points, codes, extra,
+// valid_count, lo, inv_extent) and of the outputs, so its band bases come
+// from its own codes and its culling from its own boxes. Each element's
+// outputs are bit for bit those of its own unbatched launch. The unbatched
+// launch (B = 1) keeps its instance without the element offsets (kBatched
+// false), as kernel K1's finish does.
+//
 // Convention for a row whose whole band holds no valid target (only when
 // *valid_count is 0): distance +inf and index 0, with table row 0 as the
 // matched point and extra. This is kernel K1's convention; the TPU kernel
@@ -234,7 +242,9 @@ __device__ __forceinline__ unsigned wanted(bool rows, int lb, float seed,
 
 // kPacked: K3p with keys of idx_bits index bits; else K3 (idx_bits unused).
 // kCull: skip band sub-tiles that cannot hold a pick; else scan them all.
-template <bool kPacked, bool kCull>
+// kBatched: element blockIdx.z of a batch (every pointer offset to its
+// rows); else the one element of an unbatched launch.
+template <bool kPacked, bool kCull, bool kBatched>
 __global__ void __launch_bounds__(kMaxThreads)
 morton_band_kernel(const float* __restrict__ p, int n,
                    const float* __restrict__ q, int m,
@@ -250,6 +260,24 @@ morton_band_kernel(const float* __restrict__ p, int n,
     __shared__ float4 tile[kTile];
     __shared__ float4 box_lo[kSubTiles], box_hi[kSubTiles];
     __shared__ int s_base, s_rank, s_visits;
+
+    if constexpr (kBatched) {  // element e's rows of every array
+        const long long e = blockIdx.z;
+        const long long chunks = gridDim.x;
+        p += e * 3 * n;
+        q += e * 3 * m;
+        valid_count += e;
+        if (extra != nullptr) extra += e * 3 * m;
+        codes_sorted += e * m;
+        lo += e * 3;
+        inv_extent += e * 3;
+        out_q += e * 3 * n;
+        out_d += e * n;
+        out_i += e * n;
+        if (out_e != nullptr) out_e += e * 3 * n;
+        if (out_bases != nullptr) out_bases += e * chunks;
+        if (out_visits != nullptr) out_visits += e * chunks;
+    }
 
     const int tid = static_cast<int>(threadIdx.x);
     const int lane = tid & 31;
@@ -466,7 +494,7 @@ morton_band_kernel(const float* __restrict__ p, int n,
 }
 
 template <bool kPacked, bool kCull>
-int launch(const float* p, int n, const float* q, int m,
+int launch(const float* p, int batch, int n, const float* q, int m,
            const int* valid_count, const float* extra,
            const int* codes_sorted, const float* lo, const float* inv_extent,
            int chunk, int band, int idx_bits, float* out_q, float* out_d,
@@ -476,10 +504,20 @@ int launch(const float* p, int n, const float* q, int m,
     const int want = (chunk + rows_per_warp - 1) / rows_per_warp * 32;
     const int threads = want < kMaxThreads ? want : kMaxThreads;
     const int num_chunks = (n + chunk - 1) / chunk;
-    morton_band_kernel<kPacked, kCull><<<num_chunks, threads, 0,
-                                         static_cast<cudaStream_t>(stream)>>>(
-        p, n, q, m, valid_count, extra, codes_sorted, lo, inv_extent, chunk,
-        band, idx_bits, out_q, out_d, out_i, out_e, out_bases, out_visits);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (batch == 1) {
+        morton_band_kernel<kPacked, kCull, false><<<num_chunks, threads, 0,
+                                                    s>>>(
+            p, n, q, m, valid_count, extra, codes_sorted, lo, inv_extent,
+            chunk, band, idx_bits, out_q, out_d, out_i, out_e, out_bases,
+            out_visits);
+    } else {
+        const dim3 grid(num_chunks, 1, batch);
+        morton_band_kernel<kPacked, kCull, true><<<grid, threads, 0, s>>>(
+            p, n, q, m, valid_count, extra, codes_sorted, lo, inv_extent,
+            chunk, band, idx_bits, out_q, out_d, out_i, out_e, out_bases,
+            out_visits);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -487,68 +525,48 @@ int launch(const float* p, int n, const float* q, int m,
 
 extern "C" {
 
+#define FPCR_MORTON_ARGS                                                    \
+    const float *p, int batch, int n, const float *q, int m,               \
+        const int *valid_count, const float *extra, const int *codes_sorted, \
+        const float *lo, const float *inv_extent, int chunk, int band,       \
+        int idx_bits, float *out_q, float *out_d, int *out_i, float *out_e,  \
+        int *out_bases, int *out_visits, void *stream
+#define FPCR_MORTON_PASS                                                   \
+    p, batch, n, q, m, valid_count, extra, codes_sorted, lo, inv_extent,    \
+        chunk, band, idx_bits, out_q, out_d, out_i, out_e, out_bases,       \
+        out_visits, stream
+
 // K3: band NN of the n source rows p[n,3], in ceil(n/chunk) chunks of
 // `chunk` rows, against the Morton-sorted table q[m,3] (valid rows below
 // *valid_count; codes_sorted[m], lo[3] and inv_extent[3] its codes and
 // quantization), band `band` rows. `extra`/`out_e` may both be null; so may
 // out_bases[chunks] (each chunk's band base) and out_visits[chunks] (each
 // block's (group, sub-tile) visits). idx_bits is K3p's and unused here.
-// Writes out_q[n,3], out_d[n], out_i[n] and out_e[n,3].
-int fpcr_morton_nn(const float* p, int n, const float* q, int m,
-                   const int* valid_count, const float* extra,
-                   const int* codes_sorted, const float* lo,
-                   const float* inv_extent, int chunk, int band, int idx_bits,
-                   float* out_q, float* out_d, int* out_i, float* out_e,
-                   int* out_bases, int* out_visits, void* stream) {
-    return launch<false, true>(p, n, q, m, valid_count, extra, codes_sorted,
-                               lo, inv_extent, chunk, band, idx_bits, out_q,
-                               out_d, out_i, out_e, out_bases, out_visits,
-                               stream);
+// Writes out_q[n,3], out_d[n], out_i[n] and out_e[n,3]. A batch of
+// `batch` elements (1 <= batch <= 65535) stacks every array along a
+// leading axis: p[batch,n,3], q[batch,m,3], valid_count[batch], ...,
+// out_bases[batch,chunks]; batch 1 is the unbatched launch.
+int fpcr_morton_nn(FPCR_MORTON_ARGS) {
+    return launch<false, true>(FPCR_MORTON_PASS);
 }
 
 // K3p: as fpcr_morton_nn, by keys of idx_bits index bits (band <=
 // 2^idx_bits, idx_bits <= 23).
-int fpcr_morton_nn_packed(const float* p, int n, const float* q, int m,
-                          const int* valid_count, const float* extra,
-                          const int* codes_sorted, const float* lo,
-                          const float* inv_extent, int chunk, int band,
-                          int idx_bits, float* out_q, float* out_d,
-                          int* out_i, float* out_e, int* out_bases,
-                          int* out_visits, void* stream) {
-    return launch<true, true>(p, n, q, m, valid_count, extra, codes_sorted,
-                              lo, inv_extent, chunk, band, idx_bits, out_q,
-                              out_d, out_i, out_e, out_bases, out_visits,
-                              stream);
+int fpcr_morton_nn_packed(FPCR_MORTON_ARGS) {
+    return launch<true, true>(FPCR_MORTON_PASS);
 }
 
 // K3 and K3p with culling compiled out: every sub-tile scanned. The same
 // outputs bit for bit; kept to hold the culled kernels against.
-int fpcr_morton_nn_unculled(const float* p, int n, const float* q, int m,
-                            const int* valid_count, const float* extra,
-                            const int* codes_sorted, const float* lo,
-                            const float* inv_extent, int chunk, int band,
-                            int idx_bits, float* out_q, float* out_d,
-                            int* out_i, float* out_e, int* out_bases,
-                            int* out_visits, void* stream) {
-    return launch<false, false>(p, n, q, m, valid_count, extra, codes_sorted,
-                                lo, inv_extent, chunk, band, idx_bits, out_q,
-                                out_d, out_i, out_e, out_bases, out_visits,
-                                stream);
+int fpcr_morton_nn_unculled(FPCR_MORTON_ARGS) {
+    return launch<false, false>(FPCR_MORTON_PASS);
 }
 
-int fpcr_morton_nn_packed_unculled(const float* p, int n, const float* q,
-                                   int m, const int* valid_count,
-                                   const float* extra,
-                                   const int* codes_sorted, const float* lo,
-                                   const float* inv_extent, int chunk,
-                                   int band, int idx_bits, float* out_q,
-                                   float* out_d, int* out_i, float* out_e,
-                                   int* out_bases, int* out_visits,
-                                   void* stream) {
-    return launch<true, false>(p, n, q, m, valid_count, extra, codes_sorted,
-                               lo, inv_extent, chunk, band, idx_bits, out_q,
-                               out_d, out_i, out_e, out_bases, out_visits,
-                               stream);
+int fpcr_morton_nn_packed_unculled(FPCR_MORTON_ARGS) {
+    return launch<true, false>(FPCR_MORTON_PASS);
 }
+
+#undef FPCR_MORTON_ARGS
+#undef FPCR_MORTON_PASS
 
 }  // extern "C"

@@ -6,53 +6,62 @@ registers ``sources[b]`` onto ``targets[b]`` for every b and returns an
 those of its own ``run_icp``: the serving path (B scenes a request), and the
 engine of odometry and loop-closure verification.
 
-The JAX package ``vmap``s its whole loop, and ``vmap`` adds a batch axis to
-the Pallas K1's grid. Here the batch axis is written out. For the point and
-plane metrics with the brute matcher (``matcher`` 'xla' or 'pallas'; K2
-under ``pallas_mode='packed6_idx'``) the state of all B elements (points,
-transform, previous error, done flag, iteration count) lives in ``[B, ...]``
-tensors, and each iteration makes one batched matcher call: on the card one
-launch pair of K1 or K2 for the whole batch, the element on ``blockIdx.z``.
-The trimmed means, the IRLS weights, the Kabsch SVD with its det correction
-and the plane's 6x6 ``cholesky_ex`` run per element along the batch axis.
+The JAX package ``vmap``s its whole loop, for every ``ICPConfig``, and
+``vmap`` adds a batch axis to the grid of each Pallas kernel the loop
+reaches. Here the batch axis is written out, for every config as well:
+``models/icp.py``'s set-up, iteration and chunk take ``[B, ...]`` tensors,
+so the state of all B elements (points, carried source normals, transform,
+previous error, done flag, iteration count) lives in ``[B, ...]`` tensors
+and each iteration makes one batched matcher call for the whole batch:
+
+* the brute matcher (``matcher`` 'xla' or 'pallas'): on the card one
+  launch pair of K1 (K2 under ``pallas_mode='packed6_idx'``), the element
+  on ``blockIdx.z``;
+* the morton matcher: one launch of K3 (K3p) a shift, the element on
+  ``blockIdx.z`` with its own stacked Morton table, band bases and culling
+  (``ops/morton_cuda.py``), and ``morton_rescue`` through one batched K1
+  call; each source is sorted along its own target's curve once and the
+  points come back in the caller's row order;
+* the grid matcher: each element's voxel table and suggested cell size,
+  stacked, and one ``grid_nn`` pass (plain torch, as the JAX package
+  computes it in XLA); the degrade to morton is decided once for the
+  batch's N;
+* the plane, symmetric and GICP metrics: the normals prepass of every
+  target (and source) in one pass (``ops/normals.py``; above
+  ``normals_banded_threshold`` the banded search runs element by element),
+  the symmetric solve on ``n_p + sign·n_q`` and GICP's Woodbury normal
+  equations and 6x6 ``cholesky_ex`` along the batch axis.
+
 An element that has converged is a masked no-op, as under ``vmap``; the host
 reads the ``done`` flags once per ``DONE_CHECK_EVERY`` iterations, as
 ``run_icp`` does, and stops when every element is done. On the card those
 iterations are one replay of a CUDA graph from the second call of the
 batch's shapes and config on, as ``run_icp``'s are
-(``models/icp.py::drive_chunks``; the JAX package's loop is one ``jit``).
-The plane metric's normals prepass runs element by element: it is paid
-once.
-
-Every other config (the morton and grid matchers, the symmetric and gicp
-metrics) registers element by element through ``run_icp`` and stacks the
-results, which are equal; the route is chosen by the config alone.
+(``models/icp.py::drive_chunks``; the JAX package's loop is one ``jit``);
+the stacked tables and normals are copied into the graph's buffers once a
+call, as the other loops' constants are.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional
+from typing import Optional
 
 import torch
 
-from ..core.metrics import rmse
 from ..core.transforms import RigidTransform
 from ..ops.matching import gather_correspondences
-from ..ops.solve import kabsch_transform, point_to_plane_transform
 from ..utils.device import resolve_device
 from ..utils.precision import pin_f32_precision
-from .icp import (ICPConfig, ICPResult, _match, _matched_fraction,
-                  _normals_prepass, correspondence_weights, drive_chunks,
-                  rotation_angle, run_icp)
+from .icp import (ICPConfig, ICPResult, _ICPState, _icp_chunk, _prepare,
+                  drive_chunks)
 
 
 def batched_route(config: ICPConfig) -> bool:
     """Whether ``config`` runs the batched loop (one matcher call an
-    iteration for the whole batch) rather than one ``run_icp`` an
-    element."""
-    return (config.metric in ("point", "plane")
-            and config.matcher in ("xla", "pallas"))
+    iteration for the whole batch): every config does, as every config runs
+    under the JAX package's ``vmap``."""
+    return True
 
 
 def _as_batch(x, name: str, device=None) -> torch.Tensor:
@@ -67,87 +76,24 @@ def _as_batch(x, name: str, device=None) -> torch.Tensor:
     return x.contiguous()
 
 
-def _apply(R: torch.Tensor, t: torch.Tensor,
-           points: torch.Tensor) -> torch.Tensor:
-    """``points[b] @ R[b]ᵀ + t[b]`` for every element."""
-    return torch.matmul(points, R.transpose(1, 2)) + t[:, None, :]
-
-
-def _iteration(points, targets, normals, config: ICPConfig):
-    """One ICP iteration of every element: ``(new_points, increment,
-    error [B], matched_fraction)``, one batched matcher call."""
-    idx, dmin, _ = _match(points, targets, None, config)
-    q_m = gather_correspondences(targets, idx)
-    mask = correspondence_weights(dmin, None, config)
-    frac = _matched_fraction(mask, None, points.shape[1], points.device)
-    if config.metric == "point":
-        inc = kabsch_transform(
-            points, q_m, mask, solver=config.solver,
-            det_correction=config.det_correction
-            and not config.strict_reference)
-    else:
-        inc = point_to_plane_transform(
-            points, q_m, gather_correspondences(normals, idx), mask,
-            damping=config.damping)
-    new_points = _apply(inc.rotation, inc.translation, points)
-    return new_points, inc, rmse(new_points, q_m, mask), frac
-
-
-class _BatchState(NamedTuple):
-    """The state of every element, ``[B, ...]`` on the device."""
-
-    points: torch.Tensor
-    rotation: torch.Tensor
-    translation: torch.Tensor
-    prev_error: torch.Tensor
-    done: torch.Tensor
-    num_iterations: torch.Tensor
-
-
-def _batch_chunk(state: _BatchState, consts, k: int):
-    """``k`` masked iterations of every element: ``(state, rows [k, 4,
-    B])`` (error, matched fraction, ‖Δt‖, ∠ΔR, NaN where an element had
-    stopped). ``consts`` is ``(targets, normals, config)``. A pure function
-    of its tensors: on the card one CUDA graph a ``k``
-    (``models/icp.py::drive_chunks``)."""
-    targets, normals, config = consts
-    points, rot, trans, prev_error, done, num_iterations = state
-    nan = torch.full((), float("nan"), device=points.device)
-    rows = []
-    for _ in range(k):
-        new_points, inc, error, frac = _iteration(points, targets, normals,
-                                                  config)
-        active = ~done
-        rows.append(torch.where(active, torch.stack([
-            error, torch.broadcast_to(frac, error.shape),
-            torch.linalg.vector_norm(inc.translation, dim=-1),
-            rotation_angle(inc.rotation)]), nan))
-        converged = (error < config.tolerance) | (
-            torch.abs(error - prev_error) < config.tolerance)
-        a3 = active[:, None, None]
-        points = torch.where(a3, new_points, points)
-        trans = torch.where(active[:, None], torch.matmul(
-            inc.rotation, trans[:, :, None])[:, :, 0] + inc.translation,
-            trans)
-        rot = torch.where(a3, torch.matmul(inc.rotation, rot), rot)
-        prev_error = torch.where(active, error, prev_error)
-        num_iterations = num_iterations + active.to(torch.int32)
-        done = done | (active & converged)
-    return (_BatchState(points, rot, trans, prev_error, done, num_iterations),
-            torch.stack(rows))
-
-
-def _batched_loop(sources, targets, normals, config: ICPConfig) -> ICPResult:
+def _batched_loop(sources, targets, target_normals, config: ICPConfig,
+                  source_normals: Optional[torch.Tensor] = None,
+                  matcher_state=None) -> ICPResult:
+    """The loop of every element on prepared inputs (:func:`_prepare` with
+    ``batched``: the morton sources in their curve order, whose ``points``
+    come back in that order)."""
     b, device = sources.shape[0], sources.device
-    state = _BatchState(
-        sources, torch.eye(3, device=device).expand(b, 3, 3).contiguous(),
+    state = _ICPState(
+        sources, source_normals,
+        torch.eye(3, device=device).expand(b, 3, 3).contiguous(),
         torch.zeros((b, 3), device=device),
         torch.full((b,), float("inf"), device=device),
         torch.zeros(b, dtype=torch.bool, device=device),
         torch.zeros(b, dtype=torch.int32, device=device))
     # the chunk never reads max_iterations: one graph serves every length
-    consts = (targets, normals, dataclasses.replace(config, max_iterations=0))
-    state, rows = drive_chunks(_batch_chunk, state, consts,
+    consts = (targets, None, None, target_normals, matcher_state,
+              dataclasses.replace(config, max_iterations=0), None)
+    state, rows = drive_chunks(_icp_chunk, state, consts,
                                config.max_iterations,
                                lambda st: bool(st.done.all()), (4, b))
     # [B, max_iterations] each, NaN after the stop
@@ -160,30 +106,22 @@ def _batched_loop(sources, targets, normals, config: ICPConfig) -> ICPResult:
                      delta_rot=delta_rot)
 
 
-def _stack_results(results: List[ICPResult]) -> ICPResult:
-    """One ``ICPResult`` with a leading batch axis from per-element ones."""
-    return ICPResult(
-        transform=RigidTransform(
-            torch.stack([r.transform.rotation for r in results]),
-            torch.stack([r.transform.translation for r in results])),
-        **{name: torch.stack([getattr(r, name) for r in results])
-           for name in ICPResult._fields[1:]})
-
-
 def register_batch(sources, targets, config: ICPConfig = ICPConfig(),
                    target_normals: Optional[torch.Tensor] = None
                    ) -> ICPResult:
     """Register ``sources[b]`` onto ``targets[b]`` for every b, on the
-    sources' device.
+    sources' device, as one batched loop whatever the config.
 
     Args:
       sources: ``[B, N, 3]``; targets: ``[B, M, 3]``;
-      target_normals: optional ``[B, M, 3]`` (the plane metric estimates
-        them, element by element, when not given).
+      target_normals: optional ``[B, M, 3]`` (the plane, symmetric and gicp
+        metrics estimate them, for the whole batch in one pass, when not
+        given; the last two estimate the sources' normals too).
 
     Returns an ``ICPResult`` whose fields carry the leading batch axis:
     ``transform`` holds rotations ``[B, 3, 3]`` and translations ``[B, 3]``,
-    the per-iteration rows are ``[B, max_iterations]``.
+    the per-iteration rows are ``[B, max_iterations]``, ``points`` is in
+    the caller's row order.
     """
     pin_f32_precision()
     sources = _as_batch(sources, "sources")
@@ -194,12 +132,11 @@ def register_batch(sources, targets, config: ICPConfig = ICPConfig(),
     if target_normals is not None:
         target_normals = _as_batch(target_normals, "target_normals",
                                    device=sources.device)
-    if not batched_route(config):
-        return _stack_results([
-            run_icp(sources[k], targets[k], config, target_normals=(
-                None if target_normals is None else target_normals[k]))
-            for k in range(sources.shape[0])])
-    if config.metric == "plane" and target_normals is None:
-        target_normals = torch.stack([_normals_prepass(t, None, config)
-                                      for t in targets]).contiguous()
-    return _batched_loop(sources, targets, target_normals, config)
+    prep = _prepare(sources, targets, config, target_normals=target_normals,
+                    batched=True)
+    res = _batched_loop(prep.source, prep.target, prep.target_normals,
+                        prep.config, prep.source_normals, prep.matcher_state)
+    if prep.unsort is not None:
+        res = res._replace(points=gather_correspondences(res.points,
+                                                         prep.unsort))
+    return res

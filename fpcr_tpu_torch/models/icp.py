@@ -51,6 +51,12 @@ non-finite error.
 ``ops.grid.MAX_CANDIDATE_GATHERS`` candidate rows, as in the JAX package;
 the port's limit is set by the card and admits 1M points at cap 8, where
 the JAX package's degrades.
+
+The set-up, the iteration and the chunk take a leading batch axis as well
+(``models/batch.py::register_batch``, the JAX package's ``vmap`` of this
+loop): clouds ``[B, N, 3]``, a stacked matcher state, transforms ``[B, 3,
+3]`` and ``[B, 3]``, and ``[B]`` errors and flags, each element computed on
+its own, with one matcher call an iteration for the whole batch.
 """
 
 from __future__ import annotations
@@ -198,7 +204,9 @@ def build_matcher_state(target: torch.Tensor,
     """Per-target matcher structures, built once and reused every
     iteration: for ``matcher='grid'`` the ``VoxelTable``, for
     ``matcher='morton'`` one ``(MortonTable, normals in table order)`` per
-    shift (the normals are K3's ``extra``); None otherwise."""
+    shift (the normals are K3's ``extra``); None otherwise. Targets ``[B, M,
+    3]`` give the stacked tables of the B elements' own builds, the grid's
+    cell size suggested for each element."""
     if config.matcher == "grid":
         cell = (grid.suggest_cell_size(target)
                 if config.grid_cell_size is None else config.grid_cell_size)
@@ -211,7 +219,8 @@ def build_matcher_state(target: torch.Tensor,
     for s_idx in range(max(1, config.morton_shifts)):
         table = build_morton_table(target, target_mask, shift=0.5 * s_idx)
         normals_sorted = (None if target_normals is None else
-                          target_normals[table.orig_index.long()]
+                          gather_correspondences(target_normals,
+                                                 table.orig_index)
                           .contiguous())
         states.append((table, normals_sorted))
     return tuple(states)
@@ -222,8 +231,9 @@ def _exact_rescue(points, target, target_mask, target_normals, q_m, n_m,
     """Re-match the ``config.morton_rescue`` rows of largest banded
     distance exactly against the whole target (``nn_argmin``: kernel K1 on
     a CUDA tensor) and keep the closer match. Seam misses have unbounded
-    banded distance, so the damaging rows separate cleanly by ``dmin``."""
-    k = min(config.morton_rescue, points.shape[0])
+    banded distance, so the damaging rows separate cleanly by ``dmin``. A
+    batch rescues each element's own rows: one batched K1 call."""
+    k = min(config.morton_rescue, points.shape[-2])
     if k <= 0:
         return q_m, n_m, dmin
     score = dmin
@@ -232,23 +242,25 @@ def _exact_rescue(points, target, target_mask, target_normals, q_m, n_m,
                             torch.full_like(score, -float("inf")))
     # stable descending sort: among equal scores the lower row comes first,
     # as lax.top_k orders them
-    sel = torch.sort(score, descending=True, stable=True).indices[:k]
+    sel = torch.sort(score, dim=-1, descending=True,
+                     stable=True).indices[..., :k]
     idx_e, d_e = nn_argmin(
-        points[sel].contiguous(), target, target_mask,
+        gather_correspondences(points, sel).contiguous(), target,
+        target_mask,
         source_chunk=min(config.source_chunk, max(k, 8)),
         target_tile=config.target_tile, exact=config.exact_distances)
-    d_old = dmin[sel]
+    d_old = torch.take_along_dim(dmin, sel, dim=-1)
     better = d_e < d_old
-    q_m = q_m.clone()
-    q_m[sel] = torch.where(better[:, None],
-                           gather_correspondences(target, idx_e), q_m[sel])
-    dmin = dmin.clone()
-    dmin[sel] = torch.where(better, d_e, d_old)
+    rows = sel[..., None].expand(sel.shape + (3,))
+    q_m = q_m.scatter(-2, rows, torch.where(
+        better[..., None], gather_correspondences(target, idx_e),
+        gather_correspondences(q_m, sel)))
+    dmin = dmin.scatter(-1, sel, torch.where(better, d_e, d_old))
     if n_m is not None and target_normals is not None:
-        n_m = n_m.clone()
-        n_m[sel] = torch.where(better[:, None],
-                               gather_correspondences(target_normals, idx_e),
-                               n_m[sel])
+        n_m = n_m.scatter(-2, rows, torch.where(
+            better[..., None],
+            gather_correspondences(target_normals, idx_e),
+            gather_correspondences(n_m, sel)))
     return q_m, n_m, dmin
 
 
@@ -288,7 +300,7 @@ def _correspondences(points, target, target_mask, target_normals,
             if dmin is None:
                 q_m, dmin, n_m = q_c, d_c, n_c
             else:  # keep the closer match of the shifted curve
-                better = (d_c < dmin)[:, None]
+                better = (d_c < dmin)[..., None]
                 q_m = torch.where(better, q_c, q_m)
                 if n_m is not None:
                     n_m = torch.where(better, n_c, n_m)
@@ -421,7 +433,7 @@ def icp_iteration(points: torch.Tensor, target: torch.Tensor,
         source_mask=source_mask)
     mask = correspondence_weights(dmin, found, config, source_mask, group)
     aux = IterationAux(matched_fraction=_matched_fraction(
-        mask, source_mask, points.shape[0], points.device, group))
+        mask, source_mask, points.shape[-2], points.device, group))
     if config.metric == "point":
         inc = kabsch_transform(
             points, q_matched, mask, solver=config.solver,
@@ -435,7 +447,7 @@ def icp_iteration(points: torch.Tensor, target: torch.Tensor,
         # sign-aligned to n_p first
         if source_normals is None:
             raise ValueError("metric='symmetric' needs source_normals")
-        sgn = torch.sign(torch.sum(source_normals * n_matched, dim=1,
+        sgn = torch.sign(torch.sum(source_normals * n_matched, dim=-1,
                                    keepdim=True))
         sgn = torch.where(sgn == 0, torch.ones_like(sgn), sgn)
         inc = point_to_plane_transform(
@@ -466,6 +478,8 @@ def _nan_padded(values, length: int, device) -> torch.Tensor:
 
 
 def _normals_prepass(cloud, mask, config: ICPConfig) -> torch.Tensor:
+    """The normals of ``cloud`` [M, 3], or of each cloud of a batch [B, M,
+    3] in one pass."""
     return estimate_normals(cloud, k=config.k_neighbors, mask=mask,
                             chunk=config.source_chunk,
                             tile=config.target_tile,
@@ -491,18 +505,27 @@ def _prepare(source, target, config: ICPConfig,
              target_mask: Optional[torch.Tensor] = None,
              target_normals: Optional[torch.Tensor] = None,
              source_normals: Optional[torch.Tensor] = None,
-             matcher_state=None) -> _Prepared:
-    """The set-up that ``run_icp`` and ``run_aa_icp`` share: contiguous
-    float32 clouds on the source's device, the normals prepass of the
-    metrics that need normals, the matcher resolved for the source's size
-    and its state built (a prebuilt grid table above the limit is rebuilt
-    for morton), and on the morton matcher the source sorted along the
-    target's curve once: the solve and the error do not depend on the row
-    order, and the loop then reads bands only."""
+             matcher_state=None, batched: bool = False) -> _Prepared:
+    """The set-up that ``run_icp``, ``run_aa_icp`` and ``register_batch``
+    share: contiguous float32 clouds on the source's device, the normals
+    prepass of the metrics that need normals, the matcher resolved for the
+    source's size and its state built (a prebuilt grid table above the
+    limit is rebuilt for morton), and on the morton matcher the source
+    sorted along the target's curve once: the solve and the error do not
+    depend on the row order, and the loop then reads bands only.
+    ``batched``: the clouds are ``[B, N, 3]`` float32 tensors on one device
+    (``register_batch`` checks them), each element prepared on its own,
+    its normals and tables in one pass for the batch."""
     # the kernels take contiguous f32 rows; views are copied once here
-    source = as_points(source).contiguous()
-    device = source.device
-    target = as_points(target, device=device).contiguous()
+    if batched:
+        device = source.device
+        points = lambda x: x.to(device)  # noqa: E731
+    else:
+        source = as_points(source)
+        device = source.device
+        points = lambda x: as_points(x, device=device)  # noqa: E731
+    source = source.contiguous()
+    target = points(target).contiguous()
     if target_mask is not None:
         target_mask = target_mask.to(device).contiguous()
     if source_mask is not None:
@@ -512,13 +535,13 @@ def _prepare(source, target, config: ICPConfig,
     if config.metric in ("plane", "symmetric", "gicp"):
         target_normals = (_normals_prepass(target, target_mask, config)
                           if target_normals is None else
-                          as_points(target_normals, device=device))
+                          points(target_normals))
         target_normals = target_normals.contiguous()
     if carries_normals:
         source_normals = (_normals_prepass(source, source_mask, config)
                           if source_normals is None else
-                          as_points(source_normals, device=device))
-    resolved = resolve_matcher(config, source.shape[0])
+                          points(source_normals))
+    resolved = resolve_matcher(config, source.shape[-2])
     if matcher_state is None or resolved.matcher != config.matcher:
         matcher_state = build_matcher_state(target, target_mask, resolved,
                                             target_normals)
@@ -526,13 +549,14 @@ def _prepare(source, target, config: ICPConfig,
     unsort = None
     if resolved.matcher == "morton":
         order = source_morton_order(source, matcher_state[0][0]).long()
-        source = source[order].contiguous()
+        source = gather_correspondences(source, order).contiguous()
         if source_mask is not None:
-            source_mask = source_mask[order]
+            source_mask = torch.take_along_dim(source_mask, order, dim=-1)
         if carries_normals:
-            source_normals = source_normals[order]
-        unsort = torch.empty_like(order)
-        unsort[order] = torch.arange(order.shape[0], device=device)
+            source_normals = gather_correspondences(source_normals, order)
+        unsort = torch.empty_like(order).scatter_(
+            -1, order, torch.arange(order.shape[-1], device=device)
+            .expand_as(order))
     return _Prepared(source, target, source_mask, target_mask, target_normals,
                      source_normals if carries_normals else None,
                      matcher_state, unsort, resolved)
@@ -580,7 +604,9 @@ def _icp_chunk(state: _ICPState, consts, k: int):
     fraction, ‖Δt‖ and ∠ΔR, NaN where the loop had stopped. ``consts`` is
     ``(target, source_mask, target_mask, target_normals, matcher_state,
     config, group)``. A pure function of its tensors: on the card one CUDA
-    graph a ``k`` (:func:`drive_chunks`)."""
+    graph a ``k`` (:func:`drive_chunks`). A batch state (``[B, N, 3]``
+    points, ``[B]`` flags) gives rows ``[k, 4, B]``, each element masked
+    by its own flag (``register_batch``)."""
     (target, source_mask, target_mask, target_normals, matcher_state,
      config, group) = consts
     points, normals, rotation, translation, prev_error, done, n_it = state
@@ -591,20 +617,21 @@ def _icp_chunk(state: _ICPState, consts, k: int):
             points, target, config, source_mask, target_mask,
             target_normals, group, matcher_state, normals)
         active = ~done
+        a1, a2 = active[..., None], active[..., None, None]
         rows.append(torch.where(active, torch.stack([
-            error, aux.matched_fraction,
-            torch.linalg.vector_norm(inc.translation),
+            error, torch.broadcast_to(aux.matched_fraction, error.shape),
+            torch.linalg.vector_norm(inc.translation, dim=-1),
             rotation_angle(inc.rotation)]), nan))
         converged = (error < config.tolerance) | (
             torch.abs(error - prev_error) < config.tolerance)
         composed = inc.compose(RigidTransform(rotation, translation))
-        points = torch.where(active, new_points, points)
+        points = torch.where(a2, new_points, points)
         if normals is not None:  # full f32 rotation of the carried normals
-            normals = torch.where(active,
-                                  torch.matmul(normals, inc.rotation.T),
-                                  normals)
-        rotation = torch.where(active, composed.rotation, rotation)
-        translation = torch.where(active, composed.translation, translation)
+            normals = torch.where(
+                a2, torch.matmul(normals, inc.rotation.transpose(-1, -2)),
+                normals)
+        rotation = torch.where(a2, composed.rotation, rotation)
+        translation = torch.where(a1, composed.translation, translation)
         prev_error = torch.where(active, error, prev_error)
         n_it = n_it + active.to(torch.int32)
         done = done | (active & converged)
@@ -704,7 +731,8 @@ def _run_icp(source, target, config: ICPConfig,
         errors=errors,
         num_iterations=state.num_iterations,
         converged=state.done,
-        points=state.points if unsort is None else state.points[unsort],
+        points=(state.points if unsort is None
+                else gather_correspondences(state.points, unsort)),
         matched_fraction=fractions,
         delta_t=delta_t,
         delta_rot=delta_rot,

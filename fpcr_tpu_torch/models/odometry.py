@@ -3,8 +3,10 @@
 Counterpart of ``fpcr_tpu/models/odometry.py``. Given T frames of a moving
 sensor, :func:`register_sequence` estimates every frame's pose in frame-0
 coordinates: the T−1 consecutive-pair registrations are independent, so
-they run as one :func:`models.batch.register_batch` (one matcher call an
-iteration for all pairs), and the poses accumulate by a prefix product of
+they run as one :func:`models.batch.register_batch` (one batched loop for
+every config, one matcher call an iteration for all pairs: on the card K1,
+or K3 a shift for the morton matcher of large scans), and the poses
+accumulate by a prefix product of
 the 4x4 homogeneous matrices. The JAX package takes that product with
 ``lax.associative_scan`` (a tree of depth log T); here it is a sequential
 product, T−1 small matmuls at trajectory scale, which rounds in another

@@ -359,8 +359,9 @@ def detect_loop_closures(frames, odometry, *, radius: float = 0.5,
     ``radius`` and at least ``min_separation`` steps apart (a host-side
     O(T²) scan), largest separation first, then closest, capped at
     ``max_pairs`` and padded to ``max_pairs`` by repetition. All of them are
-    verified in one :func:`models.batch.register_batch` (one matcher call an
-    iteration for the whole batch), each pair pre-transformed by the
+    verified in one :func:`models.batch.register_batch` (one batched loop
+    whatever ``config``, one matcher call an iteration for the whole
+    batch), each pair pre-transformed by the
     odometry's prediction ``A = X_i⁻¹X_j`` so that ICP recovers only the
     drift. Pairs whose final RMSE exceeds ``max_error`` are rejected.
 

@@ -67,7 +67,9 @@ def _unit_eigenvector(A: torch.Tensor, lam: torch.Tensor,
     n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
     good = n[..., 0] > eps
     v_unit = v / torch.where(n > 0, n, torch.ones_like(n))
-    fb = torch.tensor(_FALLBACK, dtype=A.dtype, device=A.device)
+    # a fill on the device: torch.tensor would copy from the host and
+    # synchronise
+    fb = torch.full((3,), _FALLBACK[0], dtype=A.dtype, device=A.device)
     return torch.where(good[..., None], v_unit, fb)
 
 

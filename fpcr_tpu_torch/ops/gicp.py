@@ -18,6 +18,12 @@ the device, with an identity update where the factor fails, and the
 rotation is the exact SO(3) exponential. ``group`` all-reduces H and g
 in one call when the rows are a rank's shard, as JAX's ``axis_name`` psums
 them.
+
+Every function takes leading batch axes (``[..., N, 3]`` rows, masks
+``[..., N]``) and treats each element on its own, the JAX package's
+``vmap`` (``models/batch.py``): the Woodbury products become batched
+``[3, N] x [N, 3]`` matmuls and the solve a batched 6x6 ``cholesky_ex``
+with two triangular solves, routes a CUDA graph captures.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ def normal_covariances(normals: torch.Tensor, epsilon: float) -> torch.Tensor:
     """GICP surface covariances ``[N,3,3]`` from unit normals: ``C = I -
     (1-eps) n nᵀ``, the eps axis along the normal."""
     eye = torch.eye(3, dtype=normals.dtype, device=normals.device)
-    return eye - (1.0 - epsilon) * (normals[:, :, None] * normals[:, None, :])
+    return eye - (1.0 - epsilon) * (normals[..., :, None]
+                                    * normals[..., None, :])
 
 
 def inv3x3_sym(A: torch.Tensor, floor: float = 1e-12) -> torch.Tensor:
@@ -43,9 +50,9 @@ def inv3x3_sym(A: torch.Tensor, floor: float = 1e-12) -> torch.Tensor:
     adjugate; ``floor`` guards the determinant of a (numerically) singular
     input. GICP's ``A = 2I - PSD`` has eigenvalues >= 2 eps, so the guard
     never binds on valid data."""
-    a, b, c = A[:, 0, 0], A[:, 0, 1], A[:, 0, 2]
-    e, f = A[:, 1, 1], A[:, 1, 2]
-    i = A[:, 2, 2]
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    e, f = A[..., 1, 1], A[..., 1, 2]
+    i = A[..., 2, 2]
     A11 = e * i - f * f
     A12 = c * f - b * i
     A13 = b * f - c * e
@@ -59,16 +66,16 @@ def inv3x3_sym(A: torch.Tensor, floor: float = 1e-12) -> torch.Tensor:
     M = torch.stack([torch.stack([A11, A12, A13], dim=-1),
                      torch.stack([A12, A22, A23], dim=-1),
                      torch.stack([A13, A23, A33], dim=-1)], dim=-2)
-    return M * inv_det[:, None, None]
+    return M * inv_det[..., None, None]
 
 
 def _skew(p: torch.Tensor) -> torch.Tensor:
     """Skew-symmetric matrices ``[N,3,3]`` with ``S_i v = p_i x v``."""
-    zeros = torch.zeros_like(p[:, 0])
+    zeros = torch.zeros_like(p[..., 0])
     return torch.stack([
-        torch.stack([zeros, -p[:, 2], p[:, 1]], dim=-1),
-        torch.stack([p[:, 2], zeros, -p[:, 0]], dim=-1),
-        torch.stack([-p[:, 1], p[:, 0], zeros], dim=-1),
+        torch.stack([zeros, -p[..., 2], p[..., 1]], dim=-1),
+        torch.stack([p[..., 2], zeros, -p[..., 0]], dim=-1),
+        torch.stack([-p[..., 1], p[..., 0], zeros], dim=-1),
     ], dim=-2)
 
 
@@ -76,7 +83,7 @@ def _unit(n: torch.Tensor) -> torch.Tensor:
     # renormalised: ||n|| > 1 makes C = I - (1-eps) n nᵀ indefinite, which
     # can drive A near singular when the two normals align (convergence)
     n = n.to(torch.float32)
-    return n / torch.clamp(torch.linalg.vector_norm(n, dim=1, keepdim=True),
+    return n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True),
                            min=1e-12)
 
 
@@ -90,21 +97,22 @@ def gicp_normal_equations(p: torch.Tensor, q: torch.Tensor,
     (``p`` transformed, ``source_normals`` rotated to it). Residual model
     r(x) = r0 - S_i w + t with r0 = p - q, S = skew(p), x = (w, t), per-point
     metric M_i = (C_p_i + C_q_i)^{-1}. Returns ``(H [6,6], g [6])`` with the
-    mask's weights applied."""
+    mask's weights applied, or ``[..., 6, 6]`` and ``[..., 6]`` for rows
+    with leading batch axes."""
     p = p.to(torch.float32)
     q = q.to(torch.float32)
     a = _unit(source_normals)
     b = _unit(target_normals)
     r0 = p - q
-    n, dev = p.shape[0], p.device
+    rows, dev = p.shape[:-1], p.device
 
     # A = 2I - alpha (a aᵀ + b bᵀ)  =>  M = A^{-1} = I/2 + G E Gᵀ, G = [a b],
     # E the symmetric 2x2 from kappa = 1/2 - 1/alpha and c = a·b
     alpha = 1.0 - epsilon
     if alpha <= 0.0:  # epsilon >= 1: both covariances are I, M = I/2
-        e11 = e12 = e22 = torch.zeros(n, dtype=torch.float32, device=dev)
+        e11 = e12 = e22 = torch.zeros(rows, dtype=torch.float32, device=dev)
     else:
-        c = torch.sum(a * b, dim=1)
+        c = torch.sum(a * b, dim=-1)
         kappa = 0.5 - 1.0 / alpha  # <= -1/2 for alpha <= 1
         # > 0 for eps > 0; the floor mirrors inv3x3_sym's guard, for
         # direct calls with eps -> 0 and parallel normals
@@ -113,29 +121,33 @@ def gicp_normal_equations(p: torch.Tensor, q: torch.Tensor,
         e11 = s * kappa
         e12 = -0.5 * s * c
         e22 = s * kappa
-    at = e11[:, None] * a + e12[:, None] * b  # ã  (M = I/2 + a ãᵀ + b b̃ᵀ)
-    bt = e12[:, None] * a + e22[:, None] * b  # b̃
+    at = e11[..., None] * a + e12[..., None] * b  # ã  (M = I/2 + a ãᵀ + b b̃ᵀ)
+    bt = e12[..., None] * a + e22[..., None] * b  # b̃
 
     w = None if mask is None else mask.to(torch.float32)
 
-    def wsum(x):  # Σ w_i x_i over points
-        if w is None:
-            return torch.sum(x, dim=0)
-        return torch.sum(x * w.reshape((-1,) + (1,) * (x.ndim - 1)), dim=0)
+    def wsum(x):  # Σ w_i x_i over points: x [..., N] or [..., N, 3]
+        axis = -2 if x.ndim > len(rows) else -1
+        if w is not None:
+            x = x * (w[..., None] if axis == -2 else w)
+        return torch.sum(x, dim=axis)
 
     def mm(x, y):  # Σ w_i x_i y_iᵀ as a [3,N]x[N,3] matmul
-        xw = x if w is None else x * w[:, None]
-        return torch.matmul(xw.T, y)
+        xw = x if w is None else x * w[..., None]
+        return torch.matmul(xw.transpose(-1, -2), y)
 
     def skew3(v):
-        zero = torch.zeros_like(v[0])
-        return torch.stack([torch.stack([zero, -v[2], v[1]]),
-                            torch.stack([v[2], zero, -v[0]]),
-                            torch.stack([-v[1], v[0], zero])])
+        zero = torch.zeros_like(v[..., 0])
+        return torch.stack([
+            torch.stack([zero, -v[..., 2], v[..., 1]], dim=-1),
+            torch.stack([v[..., 2], zero, -v[..., 0]], dim=-1),
+            torch.stack([-v[..., 1], v[..., 0], zero], dim=-1)], dim=-2)
 
-    cross = torch.linalg.cross
-    Mr = (0.5 * r0 + a * torch.sum(at * r0, dim=1, keepdim=True)
-          + b * torch.sum(bt * r0, dim=1, keepdim=True))  # M r0
+    def cross(x, y):
+        return torch.linalg.cross(x, y, dim=-1)
+
+    Mr = (0.5 * r0 + a * torch.sum(at * r0, dim=-1, keepdim=True)
+          + b * torch.sum(bt * r0, dim=-1, keepdim=True))  # M r0
     g2 = wsum(Mr)
     g1 = wsum(cross(p, Mr))  # (-S)ᵀ M r0 = p x (M r0)
 
@@ -145,15 +157,17 @@ def gicp_normal_equations(p: torch.Tensor, q: torch.Tensor,
     btxp = cross(bt, p)
 
     eye = torch.eye(3, dtype=torch.float32, device=dev)
-    n_w = wsum(torch.ones(n, dtype=torch.float32, device=dev))
-    B22 = 0.5 * n_w * eye + mm(a, at) + mm(b, bt)  # Σ w M
+    n_w = wsum(torch.ones(rows, dtype=torch.float32, device=dev))
+    B22 = (0.5 * n_w[..., None, None] * eye + mm(a, at)
+           + mm(b, bt))  # Σ w M
     B12 = -(-0.5 * skew3(wsum(p)) + mm(axp, at) + mm(bxp, bt))  # -Σ w SᵀM
-    p_sq = wsum(torch.sum(p * p, dim=1))
+    p_sq = wsum(torch.sum(p * p, dim=-1))
     # Σ w SᵀMS = Σ w [(|p|²I - p pᵀ)/2 + (a x p)(ã x p)ᵀ + (b x p)(b̃ x p)ᵀ]
-    B11 = 0.5 * (p_sq * eye - mm(p, p)) + mm(axp, atxp) + mm(bxp, btxp)
-    H = torch.cat([torch.cat([B11, B12], dim=1),
-                   torch.cat([B12.T, B22], dim=1)], dim=0)
-    return _psum_all((H, torch.cat([g1, g2])), group)
+    B11 = (0.5 * (p_sq[..., None, None] * eye - mm(p, p)) + mm(axp, atxp)
+           + mm(bxp, btxp))
+    H = torch.cat([torch.cat([B11, B12], dim=-1),
+                   torch.cat([B12.transpose(-1, -2), B22], dim=-1)], dim=-2)
+    return _psum_all((H, torch.cat([g1, g2], dim=-1)), group)
 
 
 def gicp_solve_update(H: torch.Tensor, g: torch.Tensor, damping: float = 0.0
@@ -163,16 +177,24 @@ def gicp_solve_update(H: torch.Tensor, g: torch.Tensor, damping: float = 0.0
     solve's relative floor ``1e-7·tr(H)/6`` sits on the diagonal; a failed
     factor (``cholesky_ex`` reports it on the device, with no host check)
     or a non-finite x gives x = 0, the identity update (a line cloud makes
-    every normal pair parallel and H indefinite)."""
+    every normal pair parallel and H indefinite). ``H`` [..., 6, 6] and
+    ``g`` [..., 6] solve each element on its own. The solve is two
+    triangular solves with L, as the plane solve's: a batched
+    ``cholesky_solve`` goes through MAGMA on the card, which no CUDA graph
+    captures."""
     eye = torch.eye(6, dtype=H.dtype, device=H.device)
     if damping:
         H = H + damping * eye
-    H = H + (1e-7 * (torch.trace(H) / 6.0) + 1e-30) * eye
+    trace = H.diagonal(dim1=-2, dim2=-1).sum(dim=-1)[..., None, None]
+    H = H + (1e-7 * (trace / 6.0) + 1e-30) * eye
     L, info = torch.linalg.cholesky_ex(H)
-    x = torch.cholesky_solve(-g[:, None], L)[:, 0]
-    good = (info == 0) & torch.isfinite(x).all()
-    x = torch.where(good, x, torch.zeros_like(x))
-    return RigidTransform(rotation_exp(x[:3]).to(H.dtype), x[3:6]), x
+    x = torch.linalg.solve_triangular(
+        L.transpose(-1, -2), torch.linalg.solve_triangular(
+            L, -g[..., None], upper=False), upper=True)[..., 0]
+    good = (info == 0) & torch.isfinite(x).all(dim=-1)
+    x = torch.where(good[..., None], x, torch.zeros_like(x))
+    return (RigidTransform(rotation_exp(x[..., :3]).to(H.dtype),
+                           x[..., 3:6]), x)
 
 
 def gicp_transform(p: torch.Tensor, q: torch.Tensor,

@@ -24,6 +24,13 @@ the buckets equal JAX's wrapping int32 hash, negative cells included.
 
 Guarantee: for clouds whose true NN lies within one cell (``dist <= h``) and
 buckets under ``cap`` occupancy, :func:`grid_nn` equals brute force.
+
+:func:`suggest_cell_size`, :func:`build_voxel_table` and :func:`grid_nn`
+take a batch as well, the JAX package's ``vmap`` over its registration loop
+(``models/batch.py``): targets ``[B, M, 3]`` with one cell size each give a
+stacked table (every tensor field with a leading B), and queries ``[B, N,
+3]`` are matched against their own element's table, each element's result
+bit for bit its own call's.
 """
 
 from __future__ import annotations
@@ -59,11 +66,15 @@ def _hash_cells(cells: torch.Tensor, table_bits: int) -> torch.Tensor:
 def _cells(points: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Integer cells int32 ``floor(points / h)``; ``h`` a tensor on the
     points' device (on the card a division by a CPU scalar becomes a
-    multiplication by its reciprocal, which moves cell boundaries)."""
-    return torch.floor(points / h).to(torch.int32)
+    multiplication by its reciprocal, which moves cell boundaries), 0-d or
+    one size an element of ``points`` [B, N, 3]."""
+    return torch.floor(points / h[..., None, None]).to(torch.int32)
 
 
 class VoxelTable(NamedTuple):
+    """A target's hash table; a stacked table (a batch of B targets) has
+    every tensor field with a leading B."""
+
     points_sorted: torch.Tensor  # [M, 3] bucket-sorted target points
     orig_index: torch.Tensor  # [M] int32 sorted row -> original index
     starts: torch.Tensor  # [H] int32 first sorted row of each bucket
@@ -75,22 +86,36 @@ class VoxelTable(NamedTuple):
 def build_voxel_table(q, cell_size, table_bits: int = 20,
                       q_mask: Optional[torch.Tensor] = None) -> VoxelTable:
     """Hash-bucket the target cloud on its device (one sort). Masked rows
-    go to an overflow bucket past the table."""
-    q = as_points(q)
-    dev = q.device
-    h = torch.as_tensor(cell_size, dtype=torch.float32, device=dev).reshape(())
+    go to an overflow bucket past the table. Targets ``[B, M, 3]`` (mask
+    ``[B, M]``) with a cell size each (``[B]``, or one for all) give the
+    stacked table of the B elements' own builds."""
+    if not (isinstance(q, torch.Tensor) and q.ndim == 3):
+        q = as_points(q)
+    dev, lead = q.device, q.shape[:-2]
+    h = torch.as_tensor(cell_size, dtype=torch.float32, device=dev)
+    h = h.expand(lead) if h.ndim == 0 else h.reshape(lead)
     n_buckets = 1 << table_bits
     key = _hash_cells(_cells(q, h), table_bits)
     if q_mask is not None:
         key = torch.where(q_mask.to(device=dev, dtype=torch.bool), key,
                           torch.full_like(key, n_buckets))
-    order = torch.argsort(key, stable=True)
-    counts = torch.bincount(key.to(torch.int64),
-                            minlength=n_buckets + 1).to(torch.int32)
-    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-    return VoxelTable(points_sorted=q[order].contiguous(),
+    order = torch.argsort(key, dim=-1, stable=True)
+    # each element's buckets counted over its own range, by an integer
+    # scatter-add into a table of known size (a bincount would read its
+    # size from the device), exact in any order
+    batch = key.reshape(-1, key.shape[-1]).shape[0]
+    flat = (key.reshape(batch, -1).to(torch.int64) + (n_buckets + 1)
+            * torch.arange(batch, device=dev)[:, None]).reshape(-1)
+    counts = torch.zeros(batch * (n_buckets + 1), dtype=torch.int32,
+                         device=dev).index_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32)).reshape(
+            lead + (n_buckets + 1,))
+    starts = torch.cumsum(counts, -1, dtype=torch.int32) - counts
+    return VoxelTable(points_sorted=torch.take_along_dim(
+                          q, order[..., None], dim=-2).contiguous(),
                       orig_index=order.to(torch.int32),
-                      starts=starts[:n_buckets], counts=counts[:n_buckets],
+                      starts=starts[..., :n_buckets].contiguous(),
+                      counts=counts[..., :n_buckets].contiguous(),
                       cell_size=h, table_bits=table_bits)
 
 
@@ -108,8 +133,11 @@ def grid_nn(p: torch.Tensor, table: VoxelTable, cap: int = 8,
     """Fixed-radius NN through the voxel table: ``(idx int32[N], sqdist
     f32[N], found bool[N])``, ``idx`` into the original target order, idx 0
     and ``inf`` where nothing was found. Raises ``ValueError`` above
-    ``max_candidate_gathers`` candidate rows (N x 27 x cap)."""
-    n = p.shape[0]
+    ``max_candidate_gathers`` candidate rows (N x 27 x cap). A batch ``p``
+    [B, N, 3] against a stacked table gives ``[B, N]``, the limit applying
+    to each element; a chunk then holds ``chunk // B`` queries of each
+    element."""
+    lead, n = p.shape[:-2], p.shape[-2]
     budget = n * 27 * cap
     if budget > max_candidate_gathers:
         raise ValueError(
@@ -120,42 +148,55 @@ def grid_nn(p: torch.Tensor, table: VoxelTable, cap: int = 8,
     p = p.to(torch.float32)
     dev = p.device
     offsets = _neighbor_offsets(dev)
-    m = table.points_sorted.shape[0]
+    m = table.points_sorted.shape[-2]
+    n_buckets = table.starts.shape[-1]
+    batch = p.reshape(-1, n, 3).shape[0]
+    # each element's first row in the flattened table and bucket arrays
+    elem = torch.arange(batch, device=dev).reshape(lead + (1, 1))
+    q_flat = table.points_sorted.reshape(-1, 3)
+    starts, counts = table.starts.reshape(-1), table.counts.reshape(-1)
+    orig_index = table.orig_index.reshape(-1)
     lane = torch.arange(cap, dtype=torch.int32, device=dev)
     idx, dmin, found = [], [], []
-    for s0 in range(0, n, chunk):
-        pc = p[s0:s0 + chunk]
-        rows = pc.shape[0]
-        nbr = _cells(pc, table.cell_size)[:, None, :] + offsets[None]
-        keys = _hash_cells(nbr, table.table_bits).to(torch.int64)  # [r, 27]
-        start = table.starts[keys]
-        count = table.counts[keys]
-        cand = torch.clamp(start[:, :, None] + lane, 0, m - 1)
-        cand = cand.reshape(rows, 27 * cap).to(torch.int64)
-        valid = (lane < torch.clamp(count[:, :, None], max=cap)).reshape(
-            rows, 27 * cap)
-        diff = table.points_sorted[cand] - pc[:, None, :]  # [r, K, 3]
+    step = max(1, chunk // batch)
+    for s0 in range(0, n, step):
+        pc = p[..., s0:s0 + step, :]
+        rows = pc.shape[-2]
+        nbr = (_cells(pc, table.cell_size)[..., :, None, :]
+               + offsets)  # [..., r, 27, 3]
+        keys = (_hash_cells(nbr, table.table_bits).to(torch.int64)
+                + elem * n_buckets)  # [..., r, 27]
+        start = starts[keys]
+        count = counts[keys]
+        cand = torch.clamp(start[..., None] + lane, 0, m - 1)
+        cand = cand.reshape(lead + (rows, 27 * cap)).to(torch.int64)
+        valid = (lane < torch.clamp(count[..., None], max=cap)).reshape(
+            lead + (rows, 27 * cap))
+        cand = cand + elem * m  # rows of the flattened table
+        diff = q_flat[cand] - pc[..., :, None, :]  # [..., r, K, 3]
         d = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
              + diff[..., 2] * diff[..., 2])
         d = torch.where(valid, d, torch.full_like(d, float("inf")))
-        best = torch.argmin(d, dim=1, keepdim=True)  # the first minimum
-        d_c = torch.gather(d, 1, best)[:, 0]
-        orig = table.orig_index[torch.gather(cand, 1, best)[:, 0]]
+        best = torch.argmin(d, dim=-1, keepdim=True)  # the first minimum
+        d_c = torch.gather(d, -1, best)[..., 0]
+        orig = orig_index[torch.gather(cand, -1, best)[..., 0]]
         f_c = torch.isfinite(d_c)
         idx.append(torch.where(f_c, orig, torch.zeros_like(orig)))
         dmin.append(d_c)
         found.append(f_c)
     if not idx:
-        return (torch.zeros(0, dtype=torch.int32, device=dev),
-                torch.zeros(0, dtype=torch.float32, device=dev),
-                torch.zeros(0, dtype=torch.bool, device=dev))
-    return torch.cat(idx), torch.cat(dmin), torch.cat(found)
+        return (torch.zeros(lead + (0,), dtype=torch.int32, device=dev),
+                torch.zeros(lead + (0,), dtype=torch.float32, device=dev),
+                torch.zeros(lead + (0,), dtype=torch.bool, device=dev))
+    return (torch.cat(idx, dim=-1), torch.cat(dmin, dim=-1),
+            torch.cat(found, dim=-1))
 
 
 def suggest_cell_size(q: torch.Tensor, sample: int = 2048,
                       scale: float = 2.0) -> torch.Tensor:
     """≈ ``scale`` × the median nearest-neighbour spacing of a sample, as a
-    0-d float32 tensor on ``q``'s device.
+    0-d float32 tensor on ``q``'s device; ``[B]`` for clouds ``[B, M, 3]``,
+    each element's its own call's.
 
     The slice is centred, zero-distance neighbours (duplicates) are left out
     of the median, and a cloud too degenerate to measure falls back to an
@@ -163,20 +204,25 @@ def suggest_cell_size(q: torch.Tensor, sample: int = 2048,
     distances are the difference form: in the expansion form a duplicate's
     distance can round to ~1e-7 instead of 0 and then sets the size."""
     q = q.to(torch.float32)
-    q_slice = q[: min(q.shape[0], 65536)]
-    q_slice = q_slice - q_slice.mean(dim=0)
-    step = max(1, q_slice.shape[0] // sample)
-    sub = q_slice[::step][:sample]
+    q_slice = q[..., : min(q.shape[-2], 65536), :]
+    q_slice = q_slice - q_slice.mean(dim=-2, keepdim=True)
+    step = max(1, q_slice.shape[-2] // sample)
+    sub = q_slice[..., ::step, :][..., :sample, :]
     # 2-NN against the slice holding sub: slot 0 is the point itself
     _, d = knn(sub, q_slice, 2, exact=True)
-    d1 = torch.clamp(d[:, 1], min=0.0)
+    d1 = torch.clamp(d[..., 1], min=0.0)
     pos = d1 > 0
-    n_pos = pos.sum()
-    # lower median of the positive spacings (duplicates sort to +inf)
-    sorted_d = torch.sort(torch.where(pos, d1, torch.full_like(d1, np.inf)))
-    med = torch.sqrt(sorted_d.values[torch.clamp(n_pos - 1, min=0) // 2])
-    ext = torch.linalg.vector_norm(q_slice.amax(dim=0) - q_slice.amin(dim=0))
-    fallback = ext / float(np.cbrt(np.float32(max(q_slice.shape[0], 1))))
+    n_pos = pos.sum(dim=-1, keepdim=True)
+    # lower median of the positive spacings (duplicates sort to +inf),
+    # gathered on the device: no host read
+    sorted_d = torch.sort(torch.where(pos, d1, torch.full_like(d1, np.inf)),
+                          dim=-1)
+    med = torch.sqrt(torch.take_along_dim(
+        sorted_d.values, torch.clamp(n_pos - 1, min=0) // 2, dim=-1))[..., 0]
+    n_pos = n_pos[..., 0]
+    ext = torch.linalg.vector_norm(q_slice.amax(dim=-2)
+                                   - q_slice.amin(dim=-2), dim=-1)
+    fallback = ext / float(np.cbrt(np.float32(max(q_slice.shape[-2], 1))))
     med = torch.where((n_pos > 0) & torch.isfinite(med) & (med > 0), med,
                       fallback)
     return (scale * med).to(torch.float32)

@@ -67,7 +67,8 @@ FORMS_SUB = 32  # targets a sub-tile of csrc/nn_forms.cu's reduction
 def pairwise_sqdist(p: torch.Tensor, q: torch.Tensor,
                     precision=None) -> torch.Tensor:
     """Squared distances ``[n, m]`` by the expansion, clamped at 0 (f32
-    cancellation can leave tiny negatives on near-zero distances).
+    cancellation can leave tiny negatives on near-zero distances); ``[...,
+    n, m]`` for leading batch axes.
 
     ``precision`` is the JAX package's matmul precision, taken so that a
     call in its order binds; whatever its value, the product runs in full
@@ -75,13 +76,14 @@ def pairwise_sqdist(p: torch.Tensor, q: torch.Tensor,
     the CPU."""
     p_sq = torch.sum(p * p, dim=-1, keepdim=True)
     q_sq = torch.sum(q * q, dim=-1)
-    cross = torch.matmul(p, q.T)
-    return torch.clamp(p_sq - 2.0 * cross + q_sq[None, :], min=0.0)
+    cross = torch.matmul(p, q.transpose(-1, -2))
+    return torch.clamp(p_sq - 2.0 * cross + q_sq.unsqueeze(-2), min=0.0)
 
 
 def pairwise_sqdist_exact(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Difference-form squared distances ``[n, m]``."""
-    diff = p[:, None, :] - q[None, :, :]
+    """Difference-form squared distances ``[n, m]`` (``[..., n, m]`` for
+    leading batch axes)."""
+    diff = p[..., :, None, :] - q[..., None, :, :]
     return torch.sum(diff * diff, dim=-1)
 
 

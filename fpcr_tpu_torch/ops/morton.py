@@ -27,6 +27,16 @@ Two band geometries exist, as in the JAX package:
 Both process the ``[chunks, chunk, band]`` distance blocks in groups of at
 most ``PAIR_BUDGET`` pairs, so memory stays bounded at 1M points. Argsorts
 are stable (``jnp.argsort`` is): duplicate codes are common at 1M points.
+
+Everything up to the matchers takes a batch, the JAX package's ``vmap``
+over its registration loop (``models/batch.py``): targets ``[B, M, 3]``
+give a stacked table (:func:`build_morton_table`; every field with a
+leading B, ``valid_count`` int32[B]), each element's fields bit for bit
+its own build's, and sources ``[B, N, 3]`` their orders, probe ranks and
+bases ``[B, ...]`` against it. The matchers take ``[B, N, 3]`` against a
+stacked table: on the card one launch of K3 or K3p for the whole batch,
+and the plain versions run the chunks of every element as one sequence,
+each element's outputs bit for bit those of its own call.
 """
 
 from __future__ import annotations
@@ -38,8 +48,8 @@ import numpy as np
 import torch
 
 from ..core.cloud import round_up
-from .matching import (PACKED_KEY_INIT, nn_argmin, nn_argmin_plain,
-                       packed_keys)
+from .matching import (PACKED_KEY_INIT, gather_correspondences, nn_argmin,
+                       nn_argmin_plain, packed_keys)
 from .normals import smallest_k
 
 _BITS = 10  # 10 bits an axis -> 30-bit codes, int32-safe
@@ -65,14 +75,18 @@ def _part1by2(x: torch.Tensor) -> torch.Tensor:
 def morton_codes(points: torch.Tensor, lo: torch.Tensor,
                  inv_extent: torch.Tensor) -> torch.Tensor:
     """30-bit Morton codes int32[N] of ``[N, 3]`` points given the bounds
-    ``lo`` and ``1/extent``, with the JAX package's float expression order."""
-    u = torch.clamp(((points - lo) * inv_extent * (1 << _BITS))
-                    .to(torch.int32), 0, (1 << _BITS) - 1)
-    return ((_part1by2(u[:, 0]) << 2) | (_part1by2(u[:, 1]) << 1)
-            | _part1by2(u[:, 2]))
+    ``lo`` and ``1/extent``, with the JAX package's float expression order;
+    ``[..., N, 3]`` points with bounds ``[..., 3]`` give ``[..., N]``."""
+    u = torch.clamp(((points - lo.unsqueeze(-2)) * inv_extent.unsqueeze(-2)
+                     * (1 << _BITS)).to(torch.int32), 0, (1 << _BITS) - 1)
+    return ((_part1by2(u[..., 0]) << 2) | (_part1by2(u[..., 1]) << 1)
+            | _part1by2(u[..., 2]))
 
 
 class MortonTable(NamedTuple):
+    """A target sorted along the curve; a stacked table (a batch of B
+    targets) has every field with a leading B."""
+
     points_sorted: torch.Tensor  # [M, 3] target along the curve
     codes_sorted: torch.Tensor  # [M] int32, masked rows at the end
     orig_index: torch.Tensor  # [M] int32: sorted position -> target index
@@ -82,31 +96,41 @@ class MortonTable(NamedTuple):
     # it are masked
 
 
+def table_element(table: MortonTable, b: int) -> MortonTable:
+    """Element ``b`` of a stacked table: the table of its own target."""
+    return MortonTable(*(field[b] for field in table))
+
+
 def build_morton_table(q: torch.Tensor, q_mask: Optional[torch.Tensor] = None,
                        shift: float = 0.0) -> MortonTable:
     """Sort the target along the Morton curve. ``shift`` (in cells, e.g.
     0.5) offsets the quantization grid: a half-cell-shifted second table
-    covers the first curve's seams."""
+    covers the first curve's seams. Targets ``[B, M, 3]`` (mask ``[B, M]``)
+    give the stacked table of the B elements' own builds."""
     q = q.to(torch.float32)
-    m = q.shape[0]
+    m = q.shape[-2]
     if q_mask is not None:
         mask = q_mask.to(torch.bool)
         inf = torch.full_like(q, float("inf"))
-        lo = torch.where(mask[:, None], q, inf).amin(dim=0)
-        hi = torch.where(mask[:, None], q, -inf).amax(dim=0)
-        valid_count = mask.sum(dtype=torch.int32)
+        lo = torch.where(mask[..., None], q, inf).amin(dim=-2)
+        hi = torch.where(mask[..., None], q, -inf).amax(dim=-2)
+        valid_count = mask.sum(dim=-1, dtype=torch.int32)
     else:
-        lo, hi = q.amin(dim=0), q.amax(dim=0)
-        valid_count = torch.tensor(m, dtype=torch.int32, device=q.device)
+        lo, hi = q.amin(dim=-2), q.amax(dim=-2)
+        # a fill on the device: torch.tensor would copy from the host
+        valid_count = torch.full(q.shape[:-2], m, dtype=torch.int32,
+                                 device=q.device)
     inv_extent = 1.0 / torch.clamp(hi - lo, min=1e-12)
     if shift:
         lo = lo - shift * (1.0 / inv_extent) / (1 << _BITS)
     codes = morton_codes(q, lo, inv_extent)
     if q_mask is not None:
         codes = torch.where(mask, codes, torch.full_like(codes, _MASKED_CODE))
-    order = torch.argsort(codes, stable=True)
-    return MortonTable(points_sorted=q[order].contiguous(),
-                       codes_sorted=codes[order].contiguous(),
+    order = torch.argsort(codes, dim=-1, stable=True)
+    return MortonTable(points_sorted=gather_correspondences(q, order)
+                       .contiguous(),
+                       codes_sorted=torch.take_along_dim(codes, order, -1)
+                       .contiguous(),
                        orig_index=order.to(torch.int32), lo=lo,
                        inv_extent=inv_extent, valid_count=valid_count)
 
@@ -115,21 +139,23 @@ def source_morton_order(p: torch.Tensor, table: MortonTable) -> torch.Tensor:
     """Stable Morton sort order int32[N] of the source in the target's
     frame, applied once before the ICP loop: the solve and the error do not
     depend on the row order, and rigid iterates keep consecutive rows
-    spatially coherent."""
+    spatially coherent. ``[B, N, 3]`` against a stacked table gives each
+    element's order, ``[B, N]``."""
     codes = morton_codes(p.to(torch.float32), table.lo, table.inv_extent)
-    return torch.argsort(codes, stable=True).to(torch.int32)
+    return torch.argsort(codes, dim=-1, stable=True).to(torch.int32)
 
 
 def probe_ranks(p: torch.Tensor, table: MortonTable,
                 chunk: int) -> torch.Tensor:
-    """Rank int64[chunks] in the sorted target of each chunk's middle row.
-    The tail chunk is padded with the last real row, never with zeros: a
-    zero probe would quantize to the origin cell and put the band anywhere."""
-    n = p.shape[0]
+    """Rank int64[chunks] in the sorted target of each chunk's middle row
+    (``[B, chunks]`` for a batch against a stacked table). The tail chunk is
+    padded with the last real row, never with zeros: a zero probe would
+    quantize to the origin cell and put the band anywhere."""
+    n = p.shape[-2]
     rows = torch.clamp(
         torch.arange(math.ceil(n / chunk), device=p.device) * chunk
         + chunk // 2, max=n - 1)
-    codes = morton_codes(p[rows].to(torch.float32), table.lo,
+    codes = morton_codes(p[..., rows, :].to(torch.float32), table.lo,
                          table.inv_extent)
     return torch.searchsorted(table.codes_sorted, codes)
 
@@ -141,9 +167,10 @@ def band_rows(chunk: int, window: int) -> int:
 
 def band_bases(p: torch.Tensor, table: MortonTable, chunk: int,
                window: int) -> Tuple[int, torch.Tensor]:
-    """K3's band geometry: ``(band, bases int32[chunks])``."""
+    """K3's band geometry: ``(band, bases int32[chunks])``, or ``[B,
+    chunks]`` for a batch."""
     band = band_rows(chunk, window)
-    m_pad = round_up(table.points_sorted.shape[0], BAND_ALIGN) + band
+    m_pad = round_up(table.points_sorted.shape[-2], BAND_ALIGN) + band
     bases = torch.clamp(probe_ranks(p, table, chunk) - band // 2, 0,
                         m_pad - band)
     return band, (bases & ~(BAND_ALIGN - 1)).to(torch.int32).contiguous()
@@ -193,7 +220,13 @@ def prologue_bases(p: torch.Tensor, table: MortonTable, chunk: int,
     probe row ``min(c·chunk + chunk/2, n-1)`` quantized in float32 in
     :func:`morton_codes`' operation order, its rank by the kernel's 32-ary
     lower-bound search, then clip and align as :func:`band_bases`. Equals
-    :func:`band_bases` wherever torch's cast does not overflow."""
+    :func:`band_bases` wherever torch's cast does not overflow. A batch
+    gives each element's bases, ``[B, chunks]``."""
+    if p.ndim == 3:
+        band = band_rows(chunk, window)
+        return band, np.stack([
+            prologue_bases(p[b], table_element(table, b), chunk, window)[1]
+            for b in range(p.shape[0])]).reshape(p.shape[0], -1)
     band = band_rows(chunk, window)
     pts = p.detach().to(torch.float32).cpu().numpy()
     lo = table.lo.detach().cpu().numpy().astype(np.float32)
@@ -220,20 +253,34 @@ def _band_blocks(p: torch.Tensor, q_sorted: torch.Tensor,
     """Yield ``(c0, rows, d)`` for groups of chunks: the chunk range start,
     the band's table rows int64[G, band] and the distances f32[G, chunk,
     band], +inf at rows that are masked or past the table. Source rows past
-    ``n`` repeat the last row and are the caller's to drop."""
-    n, m = p.shape[0], q_sorted.shape[0]
-    num_chunks = bases.shape[0]
+    ``n`` repeat the last row and are the caller's to drop. A batch (``p``
+    [B, N, 3], ``q_sorted`` [B, M, 3], ``valid_count`` [B], ``bases`` [B,
+    C]) yields the chunks of every element as one sequence, element-major:
+    chunk ``c0`` is chunk ``c0 % C`` of element ``c0 // C``, and its rows
+    index its own element's table."""
+    n, m = p.shape[-2], q_sorted.shape[-2]
+    num_chunks = bases.shape[-1]
+    p = p.reshape(-1, n, 3)
+    batch = p.shape[0]
     pad = num_chunks * chunk - n
     if pad:
-        p = torch.cat([p, p[-1:].expand(pad, 3)])
+        p = torch.cat([p, p[:, -1:].expand(batch, pad, 3)], dim=1)
+    p = p.reshape(batch * num_chunks * chunk, 3)
+    q_flat = q_sorted.reshape(batch * m, 3)
+    bases = bases.reshape(batch * num_chunks)
+    # each chunk's element: its first table row and its valid count
+    elem = torch.arange(batch * num_chunks, device=p.device) // num_chunks
+    first = elem * m
+    count = valid_count.reshape(batch)[elem]
     offs = torch.arange(band, device=p.device)
     group = max(1, PAIR_BUDGET // (chunk * band))
-    for c0 in range(0, num_chunks, group):
+    for c0 in range(0, batch * num_chunks, group):
         b = bases[c0:c0 + group].to(torch.int64)
         g = b.shape[0]
         rows = b[:, None] + offs  # [G, band]
-        valid = (rows < valid_count) & (rows < m)
-        tb = q_sorted[torch.clamp(rows, max=m - 1)]  # [G, band, 3]
+        valid = (rows < count[c0:c0 + g, None]) & (rows < m)
+        tb = q_flat[torch.clamp(rows, max=m - 1)
+                    + first[c0:c0 + g, None]]  # [G, band, 3]
         pc = p[c0 * chunk:(c0 + g) * chunk].view(g, chunk, 3)
         if exact:  # difference form, K3's arithmetic
             d = None
@@ -260,15 +307,15 @@ def _band_nn(p: torch.Tensor, table: MortonTable, extra, bases, chunk: int,
              band: int, exact: bool, no_valid_to_zero: bool,
              packed: bool = False):
     """Band NN over the chunks' bases: ``(matched, sqdist, idx_sorted,
-    matched_extra)``. The first minimum of the band wins; ``packed``: the
+    matched_extra)``, with the leading batch axis of ``p`` and the table
+    when they have one. The first minimum of the band wins; ``packed``: the
     least key of :func:`~.matching.packed_keys` over the band rows wins and
     the distance is recomputed exactly from the matched row."""
-    n, m = p.shape[0], table.points_sorted.shape[0]
-    num_chunks = bases.shape[0]
-    best_d = torch.empty(num_chunks * chunk, dtype=torch.float32,
-                         device=p.device)
-    best_i = torch.empty(num_chunks * chunk, dtype=torch.int64,
-                         device=p.device)
+    n, m = p.shape[-2], table.points_sorted.shape[-2]
+    lead = p.shape[:-2]
+    total = bases.numel() * chunk
+    best_d = torch.empty(total, dtype=torch.float32, device=p.device)
+    best_i = torch.empty(total, dtype=torch.int64, device=p.device)
     if packed:
         idx_bits = band_idx_bits(band)
         row_ids = torch.arange(band, dtype=torch.int32, device=p.device)
@@ -289,17 +336,19 @@ def _band_nn(p: torch.Tensor, table: MortonTable, extra, bases, chunk: int,
         sl = slice(c0 * chunk, c0 * chunk + dmin.numel())
         best_d[sl] = dmin.reshape(-1)
         best_i[sl] = idx.reshape(-1)
-    best_d, best_i = best_d[:n], best_i[:n]
+    best_d = best_d.view(lead + (-1,))[..., :n]
+    best_i = best_i.view(lead + (-1,))[..., :n]
     if no_valid_to_zero:
         best_i = torch.where(torch.isinf(best_d), torch.zeros_like(best_i),
                              best_i)
     idx = torch.clamp(best_i, 0, m - 1)
-    matched = table.points_sorted[idx]
-    matched_extra = None if extra is None else extra.to(torch.float32)[idx]
+    matched = gather_correspondences(table.points_sorted, idx)
+    matched_extra = (None if extra is None else gather_correspondences(
+        extra.to(torch.float32), idx))
     if packed:
         diff = p - matched
         best_d = torch.where(torch.isinf(best_d), best_d,
-                             torch.sum(diff * diff, dim=1))
+                             torch.sum(diff * diff, dim=-1))
     return matched, best_d, idx.to(torch.int32), matched_extra
 
 
@@ -312,10 +361,11 @@ def morton_nn(p: torch.Tensor, table: MortonTable,
     ``p`` rows must be spatially coherent (sorted with
     :func:`source_morton_order`); ``extra`` (e.g. target normals) is in table
     order. Returns ``(matched f32[N,3], sqdist f32[N], idx_sorted int32[N],
-    matched_extra)``."""
+    matched_extra)``; a batch ``p`` [B, N, 3] against a stacked table and
+    ``extra`` [B, M, 3] gives them with the leading B."""
     p = p.to(torch.float32)
     band = chunk + 2 * window
-    m_pad = max(round_up(table.points_sorted.shape[0], 8), band)
+    m_pad = max(round_up(table.points_sorted.shape[-2], 8), band)
     bases = torch.clamp(probe_ranks(p, table, chunk) - band // 2, 0,
                         m_pad - band)
     return _band_nn(p, table, extra, bases, chunk, band, exact=False,
@@ -329,7 +379,8 @@ def morton_nn_band_plain(p: torch.Tensor, table: MortonTable,
     geometry (:func:`band_bases`) and its difference-form distances. A row
     whose band holds no valid target gets ``idx_sorted`` 0 and ``inf``, and
     its matched point and extra are table row 0 (the K1 convention; the TPU
-    kernel returns a ~1e30 surrogate distance there)."""
+    kernel returns a ~1e30 surrogate distance there). A batch as
+    :func:`morton_nn` takes it, each element bit for bit its own call."""
     p = p.to(torch.float32)
     band, bases = band_bases(p, table, chunk, window)
     return _band_nn(p, table, extra, bases, chunk, band, exact=True,
@@ -347,7 +398,8 @@ def morton_nn_band_packed_plain(p: torch.Tensor, table: MortonTable,
     the table rows at it, and the distance is recomputed exactly from the
     matched point. A row whose band holds no valid target gets
     ``idx_sorted`` 0, ``inf`` and table row 0, K3's convention (the TPU
-    kernel keeps its ~1e30 surrogate distance there)."""
+    kernel keeps its ~1e30 surrogate distance there). A batch as
+    :func:`morton_nn` takes it, each element bit for bit its own call."""
     p = p.to(torch.float32)
     band, bases = band_bases(p, table, chunk, window)
     return _band_nn(p, table, extra, bases, chunk, band, exact=True,
@@ -360,7 +412,8 @@ def morton_nn_band(p: torch.Tensor, table: MortonTable,
     """Band NN with K3's geometry: kernel K3 (K3p for ``mode=
     'packed6_idx'``) on a CUDA tensor, its plain version on a CPU tensor,
     with no fallback between the two. ``mode`` takes the JAX package's
-    band kernel modes (:data:`BAND_MODES`)."""
+    band kernel modes (:data:`BAND_MODES`). A batch ``p`` [B, N, 3] against
+    a stacked table is one launch on the card."""
     if mode not in BAND_MODES:
         raise ValueError(f"unknown mode {mode!r}")
     packed = mode == "packed6_idx"

@@ -12,6 +12,13 @@ Normals are the reference's: the k+1 nearest neighbours including the point
 itself, the self slot dropped, the 3x3 covariance of the k neighbours, and
 the eigenvector of its smallest eigenvalue (closed form, ``ops/eigh3.py``).
 Normals are unoriented, as the reference's are.
+
+:func:`knn`, :func:`self_knn` and :func:`estimate_normals` take a batch as
+well (clouds ``[B, M, 3]``, masks ``[B, M]``), the JAX package's ``vmap``
+over the normals prepass (``models/batch.py``): one pass over the same
+tiles for every element, each element's neighbours and normals bit for bit
+those of its own call. Above ``banded_threshold`` the banded search runs
+element by element.
 """
 
 from __future__ import annotations
@@ -44,31 +51,34 @@ def knn(p: torch.Tensor, q: torch.Tensor, k: int,
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest targets of every query point: ``(idx int32[N, k], sqdist
     f32[N, k])``, ascending by distance, ties to the lower target index.
-    Slots with no valid target left hold ``(0, inf)``."""
+    Slots with no valid target left hold ``(0, inf)``. A batch ``p`` [B, N,
+    3], ``q`` [B, M, 3], ``q_mask`` [B, M] gives ``[B, N, k]``."""
     p = p.to(torch.float32)
     q = q.to(torch.float32)
-    n, m = p.shape[0], q.shape[0]
+    lead, n, m = p.shape[:-2], p.shape[-2], q.shape[-2]
     dist_fn = pairwise_sqdist_exact if exact else pairwise_sqdist
-    out_d = torch.empty((n, k), dtype=torch.float32, device=p.device)
-    out_i = torch.empty((n, k), dtype=torch.int32, device=p.device)
+    out_d = torch.empty(lead + (n, k), dtype=torch.float32, device=p.device)
+    out_i = torch.empty(lead + (n, k), dtype=torch.int32, device=p.device)
     for s0 in range(0, n, chunk):
-        p_c = p[s0:s0 + chunk]
-        rows = p_c.shape[0]
-        best_d = torch.full((rows, k), float("inf"), dtype=torch.float32,
-                            device=p.device)
-        best_i = torch.zeros((rows, k), dtype=torch.int32, device=p.device)
+        p_c = p[..., s0:s0 + chunk, :]
+        rows = p_c.shape[-2]
+        best_d = torch.full(lead + (rows, k), float("inf"),
+                            dtype=torch.float32, device=p.device)
+        best_i = torch.zeros(lead + (rows, k), dtype=torch.int32,
+                             device=p.device)
         for t0 in range(0, m, tile):
-            d = dist_fn(p_c, q[t0:t0 + tile])
+            d = dist_fn(p_c, q[..., t0:t0 + tile, :])
             if q_mask is not None:
-                valid = q_mask[t0:t0 + tile].to(torch.bool)
-                d = torch.where(valid[None, :], d,
+                valid = q_mask[..., t0:t0 + tile].to(torch.bool)
+                d = torch.where(valid.unsqueeze(-2), d,
                                 torch.full_like(d, float("inf")))
-            tile_i = torch.arange(t0, t0 + d.shape[1], dtype=torch.int32,
-                                  device=p.device).expand(rows, -1)
-            best_d, pos = smallest_k(torch.cat([best_d, d], dim=1), k)
-            best_i = torch.gather(torch.cat([best_i, tile_i], dim=1), 1, pos)
-        out_d[s0:s0 + rows] = best_d
-        out_i[s0:s0 + rows] = best_i
+            tile_i = torch.arange(t0, t0 + d.shape[-1], dtype=torch.int32,
+                                  device=p.device).expand(lead + (rows, -1))
+            best_d, pos = smallest_k(torch.cat([best_d, d], dim=-1), k)
+            best_i = torch.gather(torch.cat([best_i, tile_i], dim=-1), -1,
+                                  pos)
+        out_d[..., s0:s0 + rows, :] = best_d
+        out_i[..., s0:s0 + rows, :] = best_i
     return out_i, out_d
 
 
@@ -79,10 +89,18 @@ def self_knn(q: torch.Tensor, kk: int, mask: Optional[torch.Tensor] = None,
     """Self-kNN (``kk`` includes the self slot): the O(M²) streaming search
     up to ``banded_threshold`` points, the Morton-banded O(M·band) search
     above it with its chunk capped at 1024. ``exact=True`` keeps the
-    streaming search at every size, since the banded one is approximate."""
-    if q.shape[0] > banded_threshold and not exact:
+    streaming search at every size, since the banded one is approximate. A
+    batch ``[B, M, 3]`` takes one streaming pass for every element, or the
+    banded search element by element."""
+    if q.shape[-2] > banded_threshold and not exact:
         from .morton import knn_morton
 
+        if q.ndim == 3:
+            outs = [knn_morton(q[b], kk, None if mask is None else mask[b],
+                               chunk=min(chunk, 1024))
+                    for b in range(q.shape[0])]
+            return (torch.stack([o[0] for o in outs]),
+                    torch.stack([o[1] for o in outs]))
         return knn_morton(q, kk, mask, chunk=min(chunk, 1024))
     return knn(q, q, kk, mask, chunk=chunk, tile=tile, exact=exact)
 
@@ -90,10 +108,14 @@ def self_knn(q: torch.Tensor, kk: int, mask: Optional[torch.Tensor] = None,
 def _neighbour_covariance(q: torch.Tensor, nbr_idx: torch.Tensor
                           ) -> torch.Tensor:
     """Unnormalised 3x3 covariance ``[M, 3, 3]`` of each point's neighbours
-    (the reference also skips the 1/k factor)."""
-    nbrs = q[nbr_idx.long()]  # [M, k, 3]
-    dev = nbrs - nbrs.mean(dim=1, keepdim=True)
-    return torch.matmul(dev.transpose(1, 2), dev)
+    (the reference also skips the 1/k factor); ``[B, M, 3, 3]`` for a
+    batch."""
+    lead, m, k = nbr_idx.shape[:-2], nbr_idx.shape[-2], nbr_idx.shape[-1]
+    nbrs = torch.take_along_dim(
+        q, nbr_idx.reshape(lead + (m * k, 1)).long(), dim=-2).reshape(
+            lead + (m, k, 3))
+    dev = nbrs - nbrs.mean(dim=-2, keepdim=True)
+    return torch.matmul(dev.transpose(-1, -2), dev)
 
 
 def estimate_normals(q: torch.Tensor, k: int = 4,
@@ -103,11 +125,12 @@ def estimate_normals(q: torch.Tensor, k: int = 4,
                      banded_threshold: int = 100_000) -> torch.Tensor:
     """Unoriented PCA normals ``[M, 3]`` of a cloud from its k nearest
     non-self neighbours (``include_self`` adds the point itself). A
-    degenerate neighbourhood gets (1,1,1)/√3."""
+    degenerate neighbourhood gets (1,1,1)/√3. A batch ``[B, M, 3]`` (mask
+    ``[B, M]``) gives ``[B, M, 3]``, each element's its own call's."""
     q = q.to(torch.float32)
     idx_all, _ = self_knn(q, k + 1, mask, chunk=chunk, tile=tile,
                           exact=exact, banded_threshold=banded_threshold)
-    nbr_idx = idx_all if include_self else idx_all[:, 1:]
+    nbr_idx = idx_all if include_self else idx_all[..., 1:]
     normals, _ = smallest_eigenvector(_neighbour_covariance(q, nbr_idx))
     return normals
 

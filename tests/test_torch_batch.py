@@ -2,9 +2,10 @@
 (CPU): the batched plain versions of kernels K1 and K2 against
 ``jax.vmap(nn_argmin_pallas)`` in interpret mode, the batched solvers and
 trimming against their per-element calls, and ``register_batch`` against
-the JAX package's ``register_batch`` for the point and plane metrics and
-the options of the batched route, with elements that converge at
-different iterations.
+the JAX package's ``register_batch`` for every metric and matcher (the
+morton band with K3's and the XLA geometry, K3p, two shifts and the rescue,
+the grid, symmetric, GICP, plane with and without given normals) and the
+options, with elements that converge at different iterations.
 
 Run as a script, it prints the JAX package's CPU runs that set
 ``chip_smoke.py``'s serving thresholds (``SERVING``):
@@ -192,6 +193,7 @@ def _serving_case(b=4, n=512, seed=0, far=False):
 
 
 NOISE = 1e-5  # an RMSE below this is float32 noise of converged clouds
+MORTON = dict(matcher="morton", morton_chunk=64, morton_window=64)
 # the gated runs take the difference form: the expansion's ~1e-7 sqdist
 # rounding moves rows across a gate set by distances of that size
 BATCH_CONFIGS = {
@@ -208,7 +210,30 @@ BATCH_CONFIGS = {
     "plane": dict(metric="plane"),
     "plane-auto-trim": dict(metric="plane", auto_trim=9.0,
                             exact_distances=True),
+    # the band matcher at chunk 64 / window 64 on 512 points, gated by its
+    # default auto-trim; 'pallas' is K3's geometry (the card's route), whose
+    # distances are the difference form, and runs the JAX package's vmapped
+    # TPU kernel in interpret mode. The XLA geometry has only the expansion
+    # form, whose rounding moves rows across the auto-trim gate (errors
+    # ~6e-5 apart on the fourth element, per-element runs alike): it runs
+    # ungated
+    "morton-xla": dict(MORTON, morton_impl="xla", auto_trim=0.0),
+    "morton-pallas": dict(MORTON, morton_impl="pallas"),
+    "morton-packed6_idx": dict(MORTON, morton_impl="pallas",
+                               pallas_mode="packed6_idx"),
+    "morton-shifts2": dict(MORTON, morton_impl="pallas", morton_shifts=2),
+    "morton-rescue8": dict(MORTON, morton_impl="pallas", morton_rescue=8),
+    # the configs whose normals each package estimates itself take 8
+    # neighbours: a 4-neighbour covariance on these patches can have two
+    # near-equal small eigenvalues, whose eigenvector each package rounds
+    # its own way (normals 0.56 apart in cosine, per-element runs alike)
+    "symmetric": dict(metric="symmetric", k_neighbors=8),
+    "gicp": dict(metric="gicp", k_neighbors=8),
+    "grid": dict(matcher="grid"),
+    "plane-no-normals": dict(metric="plane", k_neighbors=8),
 }
+# the configs whose normals each package estimates itself
+OWN_NORMALS = ("plane-no-normals",)
 
 
 @pytest.mark.parametrize("key", list(BATCH_CONFIGS))
@@ -218,12 +243,15 @@ def test_register_batch_matches_jax(key):
     may land one apart where |E - E_prev| sits within f32 noise of the
     tolerance) and its transform within 1e-5, the errors within 1e-5 while
     both run, NaN after its own stop; the elements stop at different
-    iterations. The plane runs take JAX's target normals. The JAX package
-    runs ``matcher='pallas'`` through its TPU kernel in interpret mode."""
+    iterations. The plane runs take JAX's target normals but
+    ``plane-no-normals``, where each package estimates its own, as the
+    symmetric and GICP runs do for both clouds. The JAX package runs
+    ``matcher='pallas'`` and ``morton_impl='pallas'`` through its TPU kernels
+    in interpret mode."""
     kw = BATCH_CONFIGS[key]
     src, tgt, _ = _serving_case(far=key == "point-trim")
     normals = None
-    if kw.get("metric") == "plane":
+    if kw.get("metric") == "plane" and key not in OWN_NORMALS:
         normals = np.stack([np.array(f.estimate_normals(jnp.asarray(t)))
                             for t in tgt])
     j = f.register_batch(jnp.asarray(src), jnp.asarray(tgt),
@@ -262,39 +290,65 @@ def test_register_batch_matches_jax(key):
 
 
 def test_register_batch_routes_by_config():
-    """The point and plane metrics with the brute matcher take the batched
-    loop (one matcher call an iteration for the whole batch); every other
-    config registers element by element through ``run_icp``, stacked, with
-    equal results."""
-    assert tb.batched_route(ft.ICPConfig(matcher="pallas", metric="plane"))
-    for kw in (dict(matcher="morton"), dict(matcher="grid"),
-               dict(metric="symmetric"), dict(metric="gicp")):
-        assert not tb.batched_route(ft.ICPConfig(**kw))
+    """Every config takes the batched loop: one batched matcher call an
+    iteration for the whole batch (one a shift for the morton band, and one
+    batched exact call for its rescue), never ``run_icp``; each element
+    within one iteration and 1e-5 of its own ``run_icp``."""
     src, tgt, _ = _serving_case(b=2, n=300, seed=4)
+    routes = {  # config: {matcher function in models/icp.py: calls a pass}
+        "point": (dict(), {"nn_argmin": 1}),
+        "plane-pallas": (dict(matcher="pallas", metric="plane"),
+                         {"nn_argmin": 1}),
+        "morton": (dict(MORTON, morton_rescue=8), {"morton_nn": 1,
+                                                   "nn_argmin": 1}),
+        "morton-pallas": (dict(MORTON, morton_impl="pallas",
+                               morton_shifts=2), {"morton_nn_band": 2}),
+        "grid": (dict(matcher="grid"), {"grid_nn": 1}),
+        "symmetric": (dict(metric="symmetric"), {"nn_argmin": 1}),
+        "gicp": (dict(metric="gicp"), {"nn_argmin": 1}),
+    }
+    saved = {name: getattr(ticp, name) for name in ("nn_argmin", "morton_nn",
+                                                    "morton_nn_band",
+                                                    "run_icp")}
+    saved_grid = ticp.grid.grid_nn
     calls = []
-    saved = ticp.nn_argmin
 
-    def counting(p, *a, **k):
-        calls.append(tuple(p.shape))
-        return saved(p, *a, **k)
+    def counting(name, fn):
+        def call(p, *a, **k):
+            calls.append((name, tuple(p.shape[:-1])))
+            return fn(p, *a, **k)
+        return call
 
-    ticp.nn_argmin = counting
-    try:
-        res = ft.register_batch(_t(src), _t(tgt),
-                                ft.ICPConfig(max_iterations=6))
-    finally:
-        ticp.nn_argmin = saved
-    assert calls == [(2, 300, 3)] * 6  # one batched call an iteration
-    for kw in (dict(matcher="morton", morton_chunk=64, morton_window=64),
-               dict(metric="gicp", max_iterations=10)):
-        cfg = ft.ICPConfig(**kw)
-        got = ft.register_batch(_t(src), _t(tgt), cfg)
+    def refuse(*a, **k):
+        raise AssertionError("register_batch called run_icp")
+
+    for key, (kw, per_pass) in routes.items():
+        assert tb.batched_route(ft.ICPConfig(**kw)), key
+        cfg = ft.ICPConfig(max_iterations=6, **kw)
+        calls.clear()
+        for name in ("nn_argmin", "morton_nn", "morton_nn_band"):
+            setattr(ticp, name, counting(name, saved[name]))
+        ticp.grid.grid_nn = counting("grid_nn", saved_grid)
+        ticp.run_icp = refuse
+        try:
+            got = ft.register_batch(_t(src), _t(tgt), cfg)
+        finally:
+            for name, fn in saved.items():
+                setattr(ticp, name, fn)
+            ticp.grid.grid_nn = saved_grid
+        # the normals prepass matches no source rows: only the loop counts
+        want = sorted((name, (2, 8 if key.startswith("morton")
+                              and name == "nn_argmin" else 300))
+                      for name, n in per_pass.items() for _ in range(6 * n))
+        assert sorted(calls) == want, key
         for k in range(2):
-            want = ft.run_icp(_t(src[k]), _t(tgt[k]), cfg)
-            assert torch.equal(got.transform.rotation[k],
-                               want.transform.rotation)
-            assert int(got.num_iterations[k]) == int(want.num_iterations)
-    assert int(res.num_iterations.max()) <= 6
+            one = ft.run_icp(_t(src[k]), _t(tgt[k]), cfg)
+            assert abs(int(got.num_iterations[k])
+                       - int(one.num_iterations)) <= 1, key
+            assert _rmse_between(got.transform.rotation[k],
+                                 got.transform.translation[k],
+                                 one.transform.rotation,
+                                 one.transform.translation, src[k]) < GAP, key
 
 
 def test_register_batch_checks_shapes_and_matches_jax_state_shapes():
@@ -318,7 +372,9 @@ def jax_references():
     B = 32 ``synthetic_scene(width=64)`` elements (4,096 points) under
     their own GT poses (seed 0), 20 iterations, each element's iterations
     and GT error (``run_icp`` per element: ``register_batch``'s elements
-    are its runs), with the exact matcher and with ``packed6_idx``."""
+    are its runs), with the exact matcher and with ``packed6_idx``; then
+    its ``register_batch`` on ``chip_smoke.py``'s ``BATCH_CONFIG_RUNS``
+    (the morton batch through the XLA geometry)."""
     import sys
 
     sys.path.insert(0, ".")
@@ -345,6 +401,33 @@ def jax_references():
         errs.append(float(f.transform_rmse(r.transform, gt, s.source)))
     print(f"serving packed6_idx: iterations {its}, largest GT error "
           f"{max(errs):.3e}", flush=True)
+    # the configs that register_batch batches beyond point and plane, on
+    # chip_smoke.py's batches (the torch batches made on the CPU, handed
+    # over as numpy): JAX's register_batch, each element's GT error
+    paths = chip_smoke.batch_config_paths(ft, torch.device("cpu"))
+    for label, cfg, srcs, tgts, gts, _ in paths:
+        fields = dataclasses.asdict(cfg)
+        if fields["matcher"] == "morton":
+            fields["morton_impl"] = "xla"  # the TPU kernel is the card's
+        r = f.register_batch(jnp.asarray(srcs.numpy()),
+                             jnp.asarray(tgts.numpy()),
+                             f.ICPConfig(**fields))
+        errs = [float(ft.transform_rmse(ft.RigidTransform(
+            _t(r.transform.rotation[k]), _t(r.transform.translation[k])), g,
+            srcs[k])) for k, g in enumerate(gts)]
+        print(f"{label}: iterations {np.asarray(r.num_iterations).tolist()}"
+              f", largest GT error {max(errs):.3e}", flush=True)
+    frames, xs = chip_smoke.odometry_frames(ft, torch.device("cpu"))
+    cfg = dict(chip_smoke.ODOMETRY_MORTON["config"], morton_impl="xla")
+    odo = f.register_sequence(jnp.asarray(frames.numpy()),
+                              f.ICPConfig(**cfg))
+    poses = np.asarray(odo.poses, np.float64)
+    off = max(np.abs(poses[:, 1:3, 3]).max(),
+              np.abs(poses[:, :3, :3] - np.eye(3)).max())
+    print(f"register_sequence morton {tuple(frames.shape)}: pair iterations "
+          f"{np.asarray(odo.relative.num_iterations).tolist()}, largest x "
+          f"drift {np.abs(poses[:, 0, 3] - xs).max():.3e}, other entries "
+          f"off the GT {off:.3e}", flush=True)
 
 
 if __name__ == "__main__":

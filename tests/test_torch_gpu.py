@@ -1,4 +1,5 @@
-"""Kernels K1, K2, the min-only sweep, K3, K3p, K4, Kernel S (the bf16
+"""Kernels K1, K2, the min-only sweep, K3, K3p (unbatched and with a batch
+axis), K4, Kernel S (the bf16
 split distance on the tensor cores) and the E1 distance forms on the card
 against their plain PyTorch versions, and the E1 forms and the min-only
 sweep (``csrc/nn_forms.cu``) bit for bit against their first design
@@ -1143,6 +1144,154 @@ def test_band_kernel_rejects_bad_tables(cuda):
                        ("codes_sorted", table.codes_sorted.cpu())):
         with pytest.raises(ValueError, match=field):
             morton_nn_cuda(p, table._replace(**{field: bad}))
+
+
+# --- K3 and K3p with a batch axis (the element on blockIdx.z) -------------
+
+def _band_batch(cuda, b, n, m, seed):
+    """B clouds with their stacked table (element 1 a masked tail, element
+    2 no valid target), each source sorted along its own curve, and an
+    extra of the table rows."""
+    from fpcr_tpu_torch.ops.morton import (build_morton_table,
+                                           source_morton_order)
+
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.uniform(-2, 2, (b, m, 3)).astype(np.float32),
+                        device=cuda)
+    rows = torch.as_tensor(rng.integers(0, m, (b, n)), device=cuda)
+    p = torch.take_along_dim(q, rows[..., None], dim=1) + torch.as_tensor(
+        rng.normal(scale=0.002, size=(b, n, 3)).astype(np.float32),
+        device=cuda)
+    mask = torch.ones((b, m), dtype=torch.bool, device=cuda)
+    if b > 1:
+        mask[1, m // 2:] = False
+    if b > 2:
+        mask[2] = False
+    table = build_morton_table(q, mask, shift=0.5 if seed % 2 else 0.0)
+    order = source_morton_order(p, table).long()
+    p = torch.take_along_dim(p, order[..., None], dim=1).contiguous()
+    return p, table, (table.points_sorted * 0.5 + 0.25).contiguous()
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["K3", "K3p"])
+@pytest.mark.parametrize("b,n,m,chunk,window", [
+    (1, 1000, 3000, 512, 64), (3, 2500, 3000, 256, 256),
+    (4, 4000, 5000, 1000, 300), (5, 300, 500, 256, 256),
+    (16, 65536, 65536, 512, 64)])
+def test_batched_band_kernel_equals_unbatched_launches(cuda, packed, b, n,
+                                                       m, chunk, window):
+    """A batch is one launch; each element's four outputs, band bases and
+    sub-tile visits equal its own unbatched launch's bit for bit; the
+    culled batch equals the unculled one; every element holds against the
+    plain version as an unbatched call does."""
+    from fpcr_tpu_torch.ops.morton import table_element
+    from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
+                                                morton_nn_packed_cuda)
+
+    kernel = morton_nn_packed_cuda if packed else morton_nn_cuda
+    check = (_check_band_packed_against_plain if packed
+             else _check_band_against_plain)
+    p, table, extra = _band_batch(cuda, b, n, m, b * 31 + n)
+    for e in (extra, None):
+        stats, full = {}, {}
+        before = kernel.launches
+        out = kernel(p, table, e, chunk=chunk, window=window, _stats=stats)
+        assert kernel.launches == before + 1
+        ref = kernel(p, table, e, chunk=chunk, window=window, _cull=False,
+                     _stats=full)
+        for x, y in zip(out, ref):
+            assert (x is None and y is None) or torch.equal(x, y)
+        assert out[0].shape == (b, n, 3) and stats["bases"].shape[0] == b
+        for k in range(b):
+            own_stats = {}
+            own = kernel(p[k], table_element(table, k),
+                         None if e is None else e[k], chunk=chunk,
+                         window=window, _stats=own_stats)
+            for x, y in zip(out, own):
+                assert (x is None and y is None) or torch.equal(x[k], y)
+            for key in ("bases", "visits"):
+                assert torch.equal(stats[key][k], own_stats[key])
+            if k < 2 or k == b - 1:
+                check(p[k], table_element(table, k),
+                      None if e is None else e[k], chunk, window)
+    if b > 2:  # no valid target: idx 0, inf, table row 0
+        assert torch.isinf(out[1][2]).all() and (out[2][2] == 0).all()
+
+
+def test_batched_band_kernel_checks_its_batch(cuda):
+    """A batch past gridDim.z, a table of another batch size and an extra
+    of other rows raise before any launch."""
+    from fpcr_tpu_torch.ops.morton import MortonTable
+    from fpcr_tpu_torch.ops.morton_cuda import morton_nn_cuda
+
+    p, table, extra = _band_batch(cuda, 3, 300, 600, 7)
+    before = morton_nn_cuda.launches
+    with pytest.raises(ValueError, match="batch elements"):
+        morton_nn_cuda(p[:2].contiguous(), table)
+    with pytest.raises(ValueError, match="extra"):
+        morton_nn_cuda(p, table, extra[:, :10].contiguous())
+    with pytest.raises(ValueError, match="valid_count"):
+        morton_nn_cuda(p, table._replace(
+            valid_count=table.valid_count[:1].contiguous()))
+    big = MortonTable(*(f[:1].expand((65536,) + tuple(f.shape[1:]))
+                        .contiguous() for f in table))
+    with pytest.raises(ValueError, match="gridDim.z"):
+        morton_nn_cuda(p[:1].expand(65536, 300, 3).contiguous(), big)
+    assert morton_nn_cuda.launches == before
+
+
+@pytest.mark.parametrize("kw", [
+    dict(matcher="morton", morton_chunk=512, morton_window=64),
+    dict(matcher="morton", morton_chunk=512, morton_window=64,
+         pallas_mode="packed6_idx", morton_shifts=2, morton_rescue=64),
+    dict(metric="symmetric", matcher="pallas"),
+    dict(metric="gicp", matcher="pallas"),
+    dict(matcher="grid"),
+    dict(metric="plane", matcher="pallas")], ids=[
+        "morton", "morton-packed-shifts-rescue", "symmetric", "gicp", "grid",
+        "plane"])
+def test_register_batch_every_config_on_card(cuda, kw):
+    """``register_batch`` on the card for every newly batched config: one
+    batched band launch a shift an iteration (morton), no ``run_icp``,
+    every element within one iteration of its own ``run_icp`` on the card
+    and its transform within 1e-5 of it."""
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.models import icp as mi
+    from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
+                                                morton_nn_packed_cuda)
+
+    s = ft.synthetic_scene(width=64, device=cuda)
+    rng = np.random.default_rng(11)
+    tgts = torch.stack([ft.gt_transform(tuple(0.01 * rng.standard_normal(3)),
+                                        tuple(0.02 * rng.standard_normal(3)),
+                                        device=cuda).apply(s.source)
+                        for _ in range(4)])
+    srcs = torch.stack([s.source] * 4)
+    cfg = ft.ICPConfig(max_iterations=20, **kw)
+    saved = mi.run_icp
+    mi.run_icp = None  # register_batch must not reach it
+    try:
+        before = morton_nn_cuda.launches + morton_nn_packed_cuda.launches
+        res = ft.register_batch(srcs, tgts, cfg)
+        torch.cuda.synchronize()
+        band = (morton_nn_cuda.launches + morton_nn_packed_cuda.launches
+                - before)
+    finally:
+        mi.run_icp = saved
+    passes = -(-int(res.num_iterations.max()) // 8) * 8
+    if cfg.matcher == "morton":
+        assert band == cfg.morton_shifts * min(passes, 20)
+    else:
+        assert band == 0
+    for k in range(4):
+        one = ft.run_icp(srcs[k], tgts[k], cfg)
+        assert abs(int(res.num_iterations[k]) - int(one.num_iterations)) <= 1
+        assert float(ft.transform_rmse(
+            ft.RigidTransform(res.transform.rotation[k],
+                              res.transform.translation[k]),
+            one.transform, s.source)) < 1e-5
+        torch.testing.assert_close(res.points[k], one.points, atol=1e-4,
+                                   rtol=0)
 
 
 def test_register_ndt_numpy_clouds_on_card(cuda):

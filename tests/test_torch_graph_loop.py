@@ -159,8 +159,9 @@ def _per_iteration_batch(sources, targets, normals, config):
     for it in range(config.max_iterations):
         if it and it % DONE_CHECK_EVERY == 0 and bool(done.all()):
             break
-        new_points, inc, error, frac = mb._iteration(points, targets,
-                                                     normals, config)
+        new_points, inc, error, aux = mi.icp_iteration(
+            points, targets, config, target_normals=normals)
+        frac = aux.matched_fraction
         active = ~done
         errors.append(torch.where(active, error, nan))
         fractions.append(torch.where(active, frac, nan))
@@ -476,7 +477,7 @@ def test_ndt_and_batch_take_the_captured_route(rehearse):
     mb._batched_loop(srcs, srcs + 0.01, None,
                      ft.ICPConfig(max_iterations=13, tolerance=0.0))
     fns = [k[0][0] for k in rehearse.keys]
-    assert fns == [mn._ndt_chunk] * 2 + [mb._batch_chunk] * 2
+    assert fns == [mn._ndt_chunk] * 2 + [mi._icp_chunk] * 2
 
 
 def _key(*args, fn=mi._icp_chunk):
