@@ -51,6 +51,7 @@ import torch
 
 from ..core.transforms import RigidTransform
 from ..ops.matching import gather_correspondences
+from ..utils import timing
 from ..utils.device import resolve_device
 from ..utils.precision import pin_f32_precision
 from .icp import (ICPConfig, ICPResult, _ICPState, _icp_chunk, _prepare,
@@ -76,34 +77,50 @@ def _as_batch(x, name: str, device=None) -> torch.Tensor:
     return x.contiguous()
 
 
-def _batched_loop(sources, targets, target_normals, config: ICPConfig,
-                  source_normals: Optional[torch.Tensor] = None,
-                  matcher_state=None) -> ICPResult:
-    """The loop of every element on prepared inputs (:func:`_prepare` with
-    ``batched``: the morton sources in their curve order, whose ``points``
-    come back in that order)."""
+def _first_state(sources, source_normals) -> _ICPState:
+    """The loop's state before its first iteration: every element at the
+    identity, nothing done."""
     b, device = sources.shape[0], sources.device
-    state = _ICPState(
+    return _ICPState(
         sources, source_normals,
         torch.eye(3, device=device).expand(b, 3, 3).contiguous(),
         torch.zeros((b, 3), device=device),
         torch.full((b,), float("inf"), device=device),
         torch.zeros(b, dtype=torch.bool, device=device),
         torch.zeros(b, dtype=torch.int32, device=device))
+
+
+def _batched_loop(sources, targets, target_normals, config: ICPConfig,
+                  source_normals: Optional[torch.Tensor] = None,
+                  matcher_state=None, state: Optional[_ICPState] = None,
+                  unsort: Optional[torch.Tensor] = None) -> ICPResult:
+    """The loop of every element on prepared inputs (:func:`_prepare` with
+    ``batched``: the morton sources in their curve order, whose ``points``
+    come back in that order unless ``unsort`` is given), from ``state``
+    (:func:`_first_state` where None). The span ``result`` runs from the
+    loop's end to the returned ``ICPResult``."""
+    if state is None:
+        state = _first_state(sources, source_normals)
     # the chunk never reads max_iterations: one graph serves every length
     consts = (targets, None, None, target_normals, matcher_state,
               dataclasses.replace(config, max_iterations=0), None)
     state, rows = drive_chunks(_icp_chunk, state, consts,
                                config.max_iterations,
-                               lambda st: bool(st.done.all()), (4, b))
+                               lambda st: bool(st.done.all()),
+                               (4, sources.shape[0]))
+    span = timing.begin("result")
     # [B, max_iterations] each, NaN after the stop
     errors, fractions, delta_t, delta_rot = rows.permute(1, 2, 0).contiguous()
-    return ICPResult(transform=RigidTransform(state.rotation,
-                                              state.translation),
-                     errors=errors, num_iterations=state.num_iterations,
-                     converged=state.done, points=state.points,
-                     matched_fraction=fractions, delta_t=delta_t,
-                     delta_rot=delta_rot)
+    result = ICPResult(
+        transform=RigidTransform(state.rotation, state.translation),
+        errors=errors, num_iterations=state.num_iterations,
+        converged=state.done,
+        points=(state.points if unsort is None
+                else gather_correspondences(state.points, unsort)),
+        matched_fraction=fractions, delta_t=delta_t, delta_rot=delta_rot)
+    if span:
+        span.end()
+    return result
 
 
 def register_batch(sources, targets, config: ICPConfig = ICPConfig(),
@@ -122,21 +139,31 @@ def register_batch(sources, targets, config: ICPConfig = ICPConfig(),
     ``transform`` holds rotations ``[B, 3, 3]`` and translations ``[B, 3]``,
     the per-iteration rows are ``[B, max_iterations]``, ``points`` is in
     the caller's row order.
+
+    Recorded (``utils/timing.py``), a call is the root span ``call`` over
+    ``prepare`` (the checks, :func:`_prepare` and the loop's first state),
+    ``models/icp.py::drive_chunks``' spans and ``result``.
     """
-    pin_f32_precision()
-    sources = _as_batch(sources, "sources")
-    targets = _as_batch(targets, "targets", device=sources.device)
-    if targets.shape[0] != sources.shape[0]:
-        raise ValueError(f"{sources.shape[0]} sources but "
-                         f"{targets.shape[0]} targets")
-    if target_normals is not None:
-        target_normals = _as_batch(target_normals, "target_normals",
-                                   device=sources.device)
-    prep = _prepare(sources, targets, config, target_normals=target_normals,
-                    batched=True)
-    res = _batched_loop(prep.source, prep.target, prep.target_normals,
-                        prep.config, prep.source_normals, prep.matcher_state)
-    if prep.unsort is not None:
-        res = res._replace(points=gather_correspondences(res.points,
-                                                         prep.unsort))
-    return res
+    with timing.call("register_batch") as call:
+        span = timing.begin("prepare")
+        pin_f32_precision()
+        sources = _as_batch(sources, "sources")
+        targets = _as_batch(targets, "targets", device=sources.device)
+        if targets.shape[0] != sources.shape[0]:
+            raise ValueError(f"{sources.shape[0]} sources but "
+                             f"{targets.shape[0]} targets")
+        if target_normals is not None:
+            target_normals = _as_batch(target_normals, "target_normals",
+                                       device=sources.device)
+        prep = _prepare(sources, targets, config,
+                        target_normals=target_normals, batched=True)
+        state = _first_state(prep.source, prep.source_normals)
+        if span:
+            span.end()
+        if call:
+            call.attrs.update(B=sources.shape[0], N=sources.shape[1],
+                              M=targets.shape[1], metric=prep.config.metric,
+                              matcher=prep.config.matcher)
+        return _batched_loop(prep.source, prep.target, prep.target_normals,
+                             prep.config, prep.source_normals,
+                             prep.matcher_state, state, prep.unsort)

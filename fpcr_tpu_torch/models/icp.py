@@ -80,7 +80,7 @@ from ..ops.morton import (build_morton_table, miss_floors, morton_nn,
                           morton_nn_band, source_morton_order)
 from ..ops.normals import estimate_normals
 from ..ops.solve import kabsch_transform, point_to_plane_transform
-from ..utils import diagnostics, graphs
+from ..utils import diagnostics, graphs, timing
 from ..utils.precision import pin_f32_precision
 
 # The host reads the device `done` flag once per this many iterations: a
@@ -207,23 +207,29 @@ def build_matcher_state(target: torch.Tensor,
     shift (the normals are K3's ``extra``); None otherwise. Targets ``[B, M,
     3]`` give the stacked tables of the B elements' own builds, the grid's
     cell size suggested for each element."""
+    if config.matcher not in ("grid", "morton"):
+        return None
+    span = timing.begin("table")
     if config.matcher == "grid":
         cell = (grid.suggest_cell_size(target)
                 if config.grid_cell_size is None else config.grid_cell_size)
-        return grid.build_voxel_table(target, cell,
-                                      table_bits=config.grid_table_bits,
-                                      q_mask=target_mask)
-    if config.matcher != "morton":
-        return None
-    states = []
-    for s_idx in range(max(1, config.morton_shifts)):
-        table = build_morton_table(target, target_mask, shift=0.5 * s_idx)
-        normals_sorted = (None if target_normals is None else
-                          gather_correspondences(target_normals,
-                                                 table.orig_index)
-                          .contiguous())
-        states.append((table, normals_sorted))
-    return tuple(states)
+        state = grid.build_voxel_table(target, cell,
+                                       table_bits=config.grid_table_bits,
+                                       q_mask=target_mask)
+    else:
+        states = []
+        for s_idx in range(max(1, config.morton_shifts)):
+            table = build_morton_table(target, target_mask,
+                                       shift=0.5 * s_idx)
+            normals_sorted = (None if target_normals is None else
+                              gather_correspondences(target_normals,
+                                                     table.orig_index)
+                              .contiguous())
+            states.append((table, normals_sorted))
+        state = tuple(states)
+    if span:
+        span.end()
+    return state
 
 
 def _exact_rescue(points, target, target_mask, target_normals, q_m, n_m,
@@ -479,11 +485,15 @@ def _nan_padded(values, length: int, device) -> torch.Tensor:
 
 def _normals_prepass(cloud, mask, config: ICPConfig) -> torch.Tensor:
     """The normals of ``cloud`` [M, 3], or of each cloud of a batch [B, M,
-    3] in one pass."""
-    return estimate_normals(cloud, k=config.k_neighbors, mask=mask,
-                            chunk=config.source_chunk,
-                            tile=config.target_tile,
-                            banded_threshold=config.normals_banded_threshold)
+    3] in one pass (the span ``normals``)."""
+    span = timing.begin("normals")
+    normals = estimate_normals(
+        cloud, k=config.k_neighbors, mask=mask, chunk=config.source_chunk,
+        tile=config.target_tile,
+        banded_threshold=config.normals_banded_threshold)
+    if span:
+        span.end()
+    return normals
 
 
 class _Prepared(NamedTuple):
@@ -548,6 +558,7 @@ def _prepare(source, target, config: ICPConfig,
 
     unsort = None
     if resolved.matcher == "morton":
+        span = timing.begin("source_order")
         order = source_morton_order(source, matcher_state[0][0]).long()
         source = gather_correspondences(source, order).contiguous()
         if source_mask is not None:
@@ -557,6 +568,8 @@ def _prepare(source, target, config: ICPConfig,
         unsort = torch.empty_like(order).scatter_(
             -1, order, torch.arange(order.shape[-1], device=device)
             .expand_as(order))
+        if span:
+            span.end()
     return _Prepared(source, target, source_mask, target_mask, target_normals,
                      source_normals if carries_normals else None,
                      matcher_state, unsort, resolved)
@@ -639,6 +652,18 @@ def _icp_chunk(state: _ICPState, consts, k: int):
                       done, n_it), torch.stack(rows))
 
 
+def _graph_counts() -> tuple:
+    return graphs.CACHE.replays, len(graphs.CACHE.captures)
+
+
+def _chunk_route(before: tuple) -> str:
+    """How the chunk run since ``before = _graph_counts()`` ran."""
+    replays, captures = _graph_counts()
+    if replays != before[0]:
+        return "replay"
+    return "capture" if captures != before[1] else "eager"
+
+
 def drive_chunks(body, state, consts, iterations: int, stopped,
                  row_shape: tuple, *, group=None, check=None):
     """Run ``body(state, consts, k) -> (state, rows [k, *row_shape])`` for
@@ -659,9 +684,20 @@ def drive_chunks(body, state, consts, iterations: int, stopped,
     :func:`utils.diagnostics.debug_nans`, whose ``check(state, rows,
     start)`` reads each iteration's error: there a chunk is one
     iteration. Each route is chosen here, before the loop; a capture that
-    fails raises."""
+    fails raises.
+
+    Recorded (``utils/timing.py``), the set-up before the first chunk is
+    the span ``bind`` (its route, ``eager`` or ``graphs``, and the bytes of
+    ``consts`` copied into the graphs' static buffers, which count on the
+    call), each ``stopped`` read is the span ``done_read`` and counts one
+    host sync on the call, and each chunk is the span ``chunk`` (``k``, and
+    its route: ``eager``, ``capture`` or ``replay``) and counts on the call
+    by its route."""
     every = 1 if check is not None else DONE_CHECK_EVERY
     device = state[0].device
+    span = timing.begin("bind")
+    if span:
+        bound = graphs.CACHE.loops["graphs"]
     # every route computes on the layouts the graphs hold: contiguous
     consts = graphs.contiguous(consts)
     if (graphs.captured(device) and graphs.capturable(group)
@@ -672,15 +708,33 @@ def drive_chunks(body, state, consts, iterations: int, stopped,
             return body(graphs.contiguous(st), consts, k)
     out = torch.full((iterations,) + tuple(row_shape), float("nan"),
                      device=device)
+    if span:
+        graphed = graphs.CACHE.loops["graphs"] != bound
+        nbytes = graphs.tensor_bytes(consts) if graphed else 0
+        span.end(route="graphs" if graphed else "eager", bytes=nbytes)
+        timing.count("bytes_copied", nbytes)
     for start in range(0, iterations, every):
-        if start and start % DONE_CHECK_EVERY == 0 and stopped(state):
-            break
+        if start and start % DONE_CHECK_EVERY == 0:
+            span = timing.begin("done_read")
+            stop = stopped(state)
+            if span:
+                span.end()
+                timing.count("syncs")
+            if stop:
+                break
         k = min(every, iterations - start)
+        span = timing.begin("chunk")
+        if span:
+            before = _graph_counts()
         new_state, rows = step(state, k)
         if check is not None:
             check(state, rows, start)
         state = new_state
         out[start:start + k] = rows
+        if span:
+            route = _chunk_route(before)
+            span.end(k=k, route=route)
+            timing.count("chunks_" + route)
     return state, out
 
 
@@ -700,43 +754,61 @@ def _run_icp(source, target, config: ICPConfig,
     one ``jit``, from the second call of its shapes and config on, a
     sharded loop over NCCL included. It runs eagerly, one launch at a time,
     on the first such call, on the CPU, with a gloo ``group`` and under
-    ``debug_nans``."""
-    pin_f32_precision()
-    (source, target, source_mask, target_mask, target_normals,
-     source_normals, matcher_state, unsort, config) = _prepare(
-        source, target, config, source_mask, target_mask, target_normals,
-        source_normals, matcher_state)
-    check = None
-    if diagnostics.nans_checked():
-        def check(before, rows, start):
-            diagnostics.check_iteration(rows[0, 0], ~before.done, start,
-                                        "run_icp")
-    # the chunk never reads max_iterations: one graph serves every length
-    consts = (target, source_mask, target_mask, target_normals,
-              matcher_state, dataclasses.replace(config, max_iterations=0),
-              group)
-    identity = RigidTransform.identity(device=source.device)
-    state = _ICPState(source, source_normals, identity.rotation,
-                      identity.translation,
-                      torch.full((), float("inf"), device=source.device),
-                      torch.zeros((), dtype=torch.bool, device=source.device),
-                      torch.zeros((), dtype=torch.int32, device=source.device))
-    state, rows = drive_chunks(_icp_chunk, state, consts,
-                               config.max_iterations,
-                               lambda st: bool(st.done), (4,),
-                               group=group, check=check)
-    errors, fractions, delta_t, delta_rot = rows.T.contiguous()
-    return ICPResult(
-        transform=RigidTransform(state.rotation, state.translation),
-        errors=errors,
-        num_iterations=state.num_iterations,
-        converged=state.done,
-        points=(state.points if unsort is None
-                else gather_correspondences(state.points, unsort)),
-        matched_fraction=fractions,
-        delta_t=delta_t,
-        delta_rot=delta_rot,
-    )
+    ``debug_nans``.
+
+    Recorded (``utils/timing.py``), a call is the root span ``call`` over
+    the spans ``prepare`` (:func:`_prepare` and the loop's first state),
+    :func:`drive_chunks`' and ``result`` (from the loop's end to the
+    returned ``ICPResult``)."""
+    with timing.call("run_icp") as call:
+        span = timing.begin("prepare")
+        pin_f32_precision()
+        (source, target, source_mask, target_mask, target_normals,
+         source_normals, matcher_state, unsort, config) = _prepare(
+            source, target, config, source_mask, target_mask,
+            target_normals, source_normals, matcher_state)
+        check = None
+        if diagnostics.nans_checked():
+            def check(before, rows, start):
+                diagnostics.check_iteration(rows[0, 0], ~before.done, start,
+                                            "run_icp")
+        # the chunk never reads max_iterations: one graph serves every
+        # length
+        consts = (target, source_mask, target_mask, target_normals,
+                  matcher_state,
+                  dataclasses.replace(config, max_iterations=0), group)
+        device = source.device
+        identity = RigidTransform.identity(device=device)
+        state = _ICPState(source, source_normals, identity.rotation,
+                          identity.translation,
+                          torch.full((), float("inf"), device=device),
+                          torch.zeros((), dtype=torch.bool, device=device),
+                          torch.zeros((), dtype=torch.int32, device=device))
+        if span:
+            span.end()
+        if call:
+            call.attrs.update(B=1, N=source.shape[-2], M=target.shape[-2],
+                              metric=config.metric, matcher=config.matcher)
+        state, rows = drive_chunks(_icp_chunk, state, consts,
+                                   config.max_iterations,
+                                   lambda st: bool(st.done), (4,),
+                                   group=group, check=check)
+        span = timing.begin("result")
+        errors, fractions, delta_t, delta_rot = rows.T.contiguous()
+        result = ICPResult(
+            transform=RigidTransform(state.rotation, state.translation),
+            errors=errors,
+            num_iterations=state.num_iterations,
+            converged=state.done,
+            points=(state.points if unsort is None
+                    else gather_correspondences(state.points, unsort)),
+            matched_fraction=fractions,
+            delta_t=delta_t,
+            delta_rot=delta_rot,
+        )
+        if span:
+            span.end()
+        return result
 
 
 def tune_morton(source, target, config: Optional[ICPConfig] = None, *,

@@ -39,7 +39,12 @@ capture rules are followed:
   launches of its iterations as the eager loop does;
 * :data:`CACHE` keeps at most ``MAX_KEYS`` keys and ``MAX_BYTES`` of their
   static buffers and pools, the least recently used key dropped first with
-  its graphs. :func:`clear` drops them all and forgets the keys seen.
+  its graphs. :func:`clear` drops them all and forgets the keys seen. It
+  counts the loops bound by route (``loops``), the captures (``captures``,
+  one record each) and the chunks replayed (``replays``);
+* while the program's spans are recorded (``utils/timing.py``), a
+  replayed chunk is the spans ``copy_in``, ``replay`` and ``copy_out``,
+  and the bytes of its state copied into static buffers count on the call.
 
 A graph replays the functions it captured: a module attribute patched
 later (a kernel wrapper swapped for another) is not seen until
@@ -60,6 +65,7 @@ from typing import Callable, Dict, List, NamedTuple
 import torch
 
 from .. import _build
+from . import timing
 
 # the keys the cache keeps, and the device memory of their static buffers
 # and pools: a loop's key holds two graphs (a chunk and the shorter last
@@ -139,6 +145,12 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def tensor_bytes(tree) -> int:
+    """The bytes of ``tree``'s tensors: what a bind of ``tree`` as a loop's
+    constants copies into static buffers."""
+    return _nbytes(cache_key(None, (tree,))[1])
+
+
 def _clone(tree):
     if isinstance(tree, torch.Tensor):
         return tree.clone()
@@ -189,6 +201,8 @@ class GraphCache:
         self.captures: List[dict] = []
         # loops bound, by route: "eager" (a key's first), "graphs"
         self.loops: "collections.Counter[str]" = collections.Counter()
+        # chunks replayed
+        self.replays = 0
 
     def clear(self) -> None:
         with self._lock:
@@ -231,17 +245,35 @@ class GraphCache:
                                            state, k)
 
     def _step(self, key, entry: _Key, fn, consts, state, k):
+        """One chunk: its state copied in, its graph replayed and its
+        outputs cloned out (the spans ``copy_in``, ``replay`` and
+        ``copy_out``), or, the first time, captured."""
+        span = timing.begin("copy_in")
         skey, tensors = cache_key(fn, (state, k))
         with self._lock:
             g = entry.graphs.get(skey[1])
             if g is None:
+                if span:
+                    span.end()
                 return self._capture(key, entry, fn, consts, skey, tensors)
             for dst, src in zip(g.inputs, tensors):
                 dst.copy_(src)
+            if span:
+                nbytes = _nbytes(tensors)
+                span.end(bytes=nbytes)
+                timing.count("bytes_copied", nbytes)
+                span = timing.begin("replay")
             g.graph.replay()
+            self.replays += 1
             for wrapper, delta in g.deltas:
                 _add_counts(wrapper, delta)
-            return _clone(g.outputs)
+            if span:
+                span.end()
+                span = timing.begin("copy_out")
+            out = _clone(g.outputs)
+            if span:
+                span.end()
+            return out
 
     def _capture(self, key, entry: _Key, fn, consts, skey, tensors):
         from ..ops.matching_cuda import _rescue_counter

@@ -12,23 +12,55 @@
   breakdown (matching / minimisation / transformation / error, %-of-total),
   each phase timed by a pair of CUDA events on the card and synchronised at
   its end, by the host clock on the CPU;
-* :func:`profiler_trace` — a ``torch.profiler`` trace for TensorBoard.
+* :func:`profiler_trace` — a ``torch.profiler`` trace for TensorBoard;
+* :func:`call`, :func:`begin`, :func:`count` and :func:`recorded_spans` —
+  the program's own spans of its host path, described below.
 
 Events measure the device timeline between two points of the stream, which
 includes any time the device waits on the host. There is no CPU fallback: a
 timing that finds no CUDA device raises, unless the caller asked for the
 CPU.
+
+The program's spans
+-------------------
+
+``run_icp`` and ``register_batch`` record where their host time goes: a
+span is a name, a start and an end on the host clock
+(``time.perf_counter_ns``), its own id, its parent's id, its call's id and
+a few attributes. Each call is one root span ``call``, whose id every span
+of the call carries and whose attributes hold the call's counts (host syncs,
+chunks by route, kernel launches, bytes copied into the graphs' static
+buffers). A span begun outside any call (a Morton table built by the caller
+before ``run_icp``, the chunks of the other loops) has no call id and no
+parent. Finished spans are kept in memory, the newest :data:`MAX_SPANS`
+(about 1,500 point registrations' worth), and read back by
+:func:`recorded_spans`.
+
+Recording is on while a ``torch.profiler`` (or ``torch.autograd.profiler``)
+session is active, and inside a :func:`recording` block. Off, a site costs
+one check of those two flags: no clock is read, and nothing is recorded. The
+spans are the program's own record: they make no ``record_function`` range,
+profiler annotation or CUDA event, so a profiler's trace holds the same
+events with recording on as without it. To put a span on the profiler's
+timeline, shift its host times by one offset, such as the median of
+(the start of a profiler range around each call − its ``call`` span's
+start).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
+from .. import _build
 from .device import resolve_device
 
 
@@ -204,3 +236,164 @@ def profiler_trace(log_dir: Optional[str] = None):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield
+
+
+# ---- the program's own spans (see the module's notes) --------------------
+
+# the finished spans kept, the oldest dropped first: a point registration
+# at 16,384 points records about 20
+MAX_SPANS = 32_768
+
+
+class Span(NamedTuple):
+    """A finished span: host times from ``time.perf_counter_ns``."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]  # the enclosing span's id; None for a root
+    call: Optional[int]  # the id of the call's root span; None outside one
+    attrs: dict
+
+
+class _Open:
+    """A span begun and not yet ended: :meth:`end` it."""
+
+    __slots__ = ("recorder", "name", "start", "id", "parent", "call",
+                 "attrs", "launches")
+
+    def __init__(self, recorder, name, start, id_, parent, call) -> None:
+        self.recorder = recorder
+        self.name, self.start, self.id = name, start, id_
+        self.parent, self.call = parent, call
+        self.attrs: dict = {}
+        self.launches = None  # a call's launch count at its start
+
+    def end(self, **attrs) -> None:
+        """Record the span, with ``attrs`` added to its attributes."""
+        self.recorder._end(self, attrs)
+
+
+# the recorder's clock
+_clock = time.perf_counter_ns
+
+
+def _launches() -> int:
+    """The sum of every kernel wrapper's launch counter
+    (``_build.COUNTED``)."""
+    return sum(sum(f.launches.values()) if isinstance(f.launches, dict)
+               else f.launches for f in _build.COUNTED)
+
+
+class _Stacks(threading.local):
+    def __init__(self) -> None:
+        self.stack: list = []  # this thread's open spans, innermost last
+
+
+class SpanRecorder:
+    """The spans of the program's host path, in memory: at most
+    ``max_spans`` finished ones, the oldest dropped first. Each thread keeps
+    its own stack of open spans, which gives a new span its parent and its
+    call."""
+
+    def __init__(self, max_spans: int = MAX_SPANS) -> None:
+        # finished spans, as plain tuples of Span's fields
+        self._done: "collections.deque[tuple]" = collections.deque(
+            maxlen=max_spans)
+        self._local = _Stacks()
+        self._ids = itertools.count(1)
+        self.forced = 0  # open recording() blocks
+
+    def on(self) -> bool:
+        """Whether spans are recorded: inside :meth:`recording`, or while a
+        ``torch.profiler`` session is active."""
+        return bool(self.forced or _autograd_profiler._is_profiler_enabled)
+
+    def _stack(self) -> list:
+        return self._local.stack
+
+    def begin(self, name: str) -> Optional[_Open]:
+        """Open the span ``name`` inside the innermost open one; None,
+        after one flag check, where recording is off."""
+        if not (self.forced or _autograd_profiler._is_profiler_enabled):
+            return None
+        stack = self._local.stack
+        top = stack[-1] if stack else None
+        span = _Open(self, name, _clock(), next(self._ids),
+                     top.id if top else None, top.call if top else None)
+        stack.append(span)
+        return span
+
+    @contextlib.contextmanager
+    def call(self, entry: str):
+        """The root span ``call`` of one call of ``entry``, ended however
+        the block ends; yields it, or None where recording is off. Spans
+        that an exception left open (outside any call) are dropped from the
+        stack first."""
+        if not (self.forced or _autograd_profiler._is_profiler_enabled):
+            yield None
+            return
+        stack = self._stack()
+        if not any(s.call == s.id for s in stack):
+            stack.clear()
+        span = self.begin("call")
+        span.call = span.id
+        span.attrs["entry"] = entry
+        span.launches = _launches()
+        try:
+            yield span
+        finally:
+            span.end()
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the count ``name`` of the innermost open call; no
+        call open, or recording off, counts nothing."""
+        if not (self.forced or _autograd_profiler._is_profiler_enabled):
+            return
+        for span in reversed(self._stack()):
+            if span.call == span.id:
+                span.attrs[name] = span.attrs.get(name, 0) + n
+                return
+
+    def _end(self, span: _Open, attrs: dict) -> None:
+        if span.launches is not None:
+            span.attrs["kernel_launches"] = _launches() - span.launches
+        end = _clock()
+        stack = self._local.stack
+        if stack and stack[-1] is span:
+            stack.pop()
+        elif span in stack:
+            # the spans an exception left open inside this one go with it
+            while stack.pop() is not span:
+                pass
+        if attrs:
+            span.attrs.update(attrs)
+        self._done.append((span.name, span.start, end, span.id, span.parent,
+                           span.call, span.attrs))
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Record spans inside the block (in every thread), profiler or
+        not."""
+        self.forced += 1
+        try:
+            yield
+        finally:
+            self.forced -= 1
+
+    def spans(self) -> List[Span]:
+        """The finished spans kept, the oldest first."""
+        return [Span._make(t) for t in self._done]
+
+    def clear(self) -> None:
+        self._done.clear()
+
+
+RECORDER = SpanRecorder()
+begin = RECORDER.begin
+call = RECORDER.call
+count = RECORDER.count
+recording = RECORDER.recording
+recorded_spans = RECORDER.spans
+clear_spans = RECORDER.clear
