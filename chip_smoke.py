@@ -5002,25 +5002,57 @@ def kernel_sites(torch, run):
     return sites, sum(added.values()), seen, added
 
 
+# a child process: ``_graph_traces_here`` on a fresh CUDA context
+GRAPH_TRACES_CHILD = """
+import sys, torch
+import chip_smoke
+import fpcr_tpu_torch as ft
+chip_smoke._graph_traces_here(torch, ft, torch.device("cuda", 0), sys.argv[1])
+print("GRAPH_TRACES_OK")
+"""
+
+
 def graph_traces(torch, ft, dev, card):
+    """:func:`_graph_traces_here` in a process of its own: in a process
+    that has captured, replayed and destroyed many graphs (this one, by
+    now), the profiler names the kernels of conditional bodies wrongly (a
+    point run's K1 events seen as ``morton_band_kernel`` on an H100), while
+    a fresh process names them right."""
+    runs = _finish_side_runs(_start_side_runs(
+        {"traces": [sys.executable, "-c", GRAPH_TRACES_CHILD, card]}),
+        timeout=900)
+    rc, so, se = runs["traces"]
+    print(so, end="", flush=True)
+    if rc != 0 or "GRAPH_TRACES_OK" not in so:
+        raise AssertionError(f"graph_traces: exit {rc}\nstderr "
+                             f"{se[-4000:]}")
+
+
+def _graph_traces_here(torch, ft, dev, card):
     """One traced run of ``GRAPH_TRACE_ITERS`` iterations of point and
     plane ICP through K1 at 16,384 (the plane's normals given), captured
     (after the key's first call and the call that captures) and eager:
     device events, host launch calls (kernel and graph launches) and busy
     time an iteration, and the device's idle share. A second traced run
     each way holds the launch counters to the trace: the port's kernels
-    appear as device events in the counted numbers, all under
-    ``cudaGraphLaunch`` calls when captured and under none when eager."""
+    appear as device events in the counted numbers, under graph launches
+    when captured (or under no launching call, from a conditional body)
+    and under kernel launches when eager. A captured point run that stops
+    inside a chunk holds them to the trace with the launches of its
+    skipped iterations taken out (the call's ``iterations_run`` and
+    ``iterations_skipped``)."""
     from fpcr_tpu_torch.utils import graphs
 
     s = build_scene(ft, "synthetic", dev)
     nrm = ft.estimate_normals(s.target)  # the loop alone, as in the slopes
     k = GRAPH_TRACE_ITERS
     out = {}
-    for label, fields in (("point K1", {"matcher": "pallas"}),
-                          ("plane K1", {"metric": "plane",
-                                        "matcher": "pallas"})):
-        cfg = ft.ICPConfig(max_iterations=k, tolerance=0.0, **fields)
+    runs = [("point K1", {"matcher": "pallas"}, 0.0),
+            ("plane K1", {"metric": "plane", "matcher": "pallas"}, 0.0),
+            ("point K1 stopping", {"matcher": "pallas"},
+             _stop_inside_a_chunk(ft, s, k))]
+    for label, fields, tolerance in runs:
+        cfg = ft.ICPConfig(max_iterations=k, tolerance=tolerance, **fields)
         normals = nrm if cfg.metric == "plane" else None
         for mode in ("captured", "eager"):
             with graphs.eager(mode == "eager"):
@@ -5034,14 +5066,17 @@ def graph_traces(torch, ft, dev, card):
                 takes = []
                 for _ in range(SITE_TAKES):
                     sites, counted, seen, added = kernel_sites(torch, run)
+                    ran = (_last_call_counts("iterations_run"),
+                           _last_call_counts("iterations_skipped"))
                     takes.append((sites, counted, seen, added))
-                    if sites_agree(sites, counted, mode):
+                    if sites_agree(sites, counted, mode, ran):
                         break
             out[(label, mode)] = traced
             log("graphs", f"traced {k} iterations, {label} 16,384, {mode}: "
                           f"{json.dumps(traced)}; the port's kernels by "
                           f"launching call {sites}, launches counted "
-                          f"{counted} {card}")
+                          f"{counted}, iterations of replayed chunks run / "
+                          f"skipped {ran} {card}")
             for n, (t_sites, t_counted, t_seen, t_added) in enumerate(
                     takes[:-1]):
                 log("graphs", f"{label} ({mode}): session {n + 1} of the "
@@ -5049,14 +5084,36 @@ def graph_traces(torch, ft, dev, card):
                               f"launching call {t_sites}, by name {t_seen}; "
                               f"counted {t_counted}, by counter {t_added}; "
                               f"retaken")
-            if not sites_agree(sites, counted, mode):
+            if not sites_agree(sites, counted, mode, ran):
                 raise AssertionError(f"{label} ({mode}): in {len(takes)} "
                                      f"sessions the trace never showed the "
                                      f"port's kernels as counted; the last "
                                      f"shows them under {sites} (by name "
                                      f"{seen}), the counters {counted} "
-                                     f"({added})")
+                                     f"({added}), iterations run / skipped "
+                                     f"{ran}")
+            # every captured iteration sits in a conditional node, and the
+            # stopping run skips some
+            if mode == "captured" and (
+                    not ran[0] or (label.endswith("stopping") and not ran[1])):
+                raise AssertionError(f"{label} ({mode}): iterations run / "
+                                     f"skipped {ran}")
     return out
+
+
+def _stop_inside_a_chunk(ft, s, k):
+    """A tolerance at which point ICP on ``s`` stops inside a chunk before
+    ``k`` iterations, so that its last chunk skips iterations."""
+    from fpcr_tpu_torch.models.icp import DONE_CHECK_EVERY
+
+    for tolerance in (1e-3, 3e-4, 1e-4, 3e-5, 1e-5, 3e-6, 1e-6):
+        n = int(ft.run_icp(s.source, s.target, ft.ICPConfig(
+            max_iterations=k, tolerance=tolerance,
+            matcher="pallas")).num_iterations)
+        if n < k and n % DONE_CHECK_EVERY:
+            return tolerance
+    raise AssertionError(f"no tolerance stops point ICP inside a chunk "
+                         f"before {k} iterations")
 
 
 # traced sessions of the counters' check in ``graph_traces``: a session can
@@ -5065,15 +5122,37 @@ def graph_traces(torch, ft, dev, card):
 SITE_TAKES = 5
 
 
-def sites_agree(sites, counted, mode):
+def sites_agree(sites, counted, mode, ran=None):
     """Whether one traced session (``kernel_sites``) shows the port's
     kernels as counted: as many device events as counted launches, each
-    matched to the call that launched it, all under ``cudaGraphLaunch``
-    when ``mode`` is "captured" and none under it when eager."""
-    graph_launched = set(sites) == {"cudaGraphLaunch"}
-    return (counted > 0 and sum(sites.values()) == counted
-            and graph_launched == (mode == "captured")
-            and "no runtime call" not in sites)
+    matched to the call that launched it, under ``cudaGraphLaunch`` when
+    ``mode`` is "captured" and under none when eager. ``ran = (run,
+    skipped)`` are the iterations of the replayed chunks that sit in
+    conditional nodes (``utils/graphs.py::skip_if_all``) and those of them
+    skipped. A replay counts every launch its capture made, the skipped
+    iterations' included (``_build.counted``), so the events are then
+    ``counted × (run − skipped) / run``; and a kernel of a conditional
+    body is launched by the device, which CUPTI reports under the graph's
+    launch in one session and under no launching call in another, so
+    there a captured event may come with none (never with a kernel
+    launch)."""
+    run, skipped = ran if ran is not None else (0, 0)
+    expected = counted * (run - skipped) / run if run else counted
+    if mode == "captured":
+        allowed = {"cudaGraphLaunch"} | ({"no runtime call"} if run else set())
+        routed = bool(sites) and set(sites) <= allowed
+    else:
+        routed = (set(sites) != {"cudaGraphLaunch"}
+                  and "no runtime call" not in sites)
+    return counted > 0 and sum(sites.values()) == expected and routed
+
+
+def _last_call_counts(name):
+    """The count ``name`` of the last call the program recorded."""
+    from fpcr_tpu_torch.utils import timing
+
+    calls = [s for s in timing.recorded_spans() if s.name == "call"]
+    return calls[-1].attrs.get(name, 0) if calls else 0
 
 
 def phase_graphs(torch, np, ft, dev, smi):

@@ -55,7 +55,11 @@ COUNTED: list = []
 def counted(fn, launches=0):
     """Give the wrapper ``fn`` its launch counter ``fn.launches`` (an int,
     or a dict of ints keyed by launch type) and register it in
-    :data:`COUNTED`; ``fn`` adds to the counter where it launches."""
+    :data:`COUNTED`; ``fn`` adds to the counter where it launches. A replay
+    of a captured graph adds the launches its capture made, those of the
+    conditional blocks that the replay skips included
+    (``utils/graphs.py::skip_if_all``): a counter counts launches issued,
+    which the device runs unless their block is skipped."""
     fn.launches = launches
     COUNTED.append(fn)
     return fn
@@ -215,6 +219,19 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_svd3_fixed_umeyama.restype = i32
     lib.fpcr_svd3_ablation.argtypes = [ptr, i32, i32, ptr, ptr]
     lib.fpcr_svd3_ablation.restype = i32
+    lib.fpcr_graph_add_if.argtypes = [ptr, ptr, i32, ptr, ptr]
+    lib.fpcr_graph_add_if.restype = i32
+    lib.fpcr_graph_add_child.argtypes = [ptr, ptr]
+    lib.fpcr_graph_add_child.restype = i32
+    lib.fpcr_graph_capture_begin.argtypes = [ptr]
+    lib.fpcr_graph_capture_begin.restype = i32
+    lib.fpcr_graph_capture_end.argtypes = [ptr, i32,
+                                           ctypes.POINTER(ctypes.c_void_p)]
+    lib.fpcr_graph_capture_end.restype = i32
+    lib.fpcr_graph_launch.argtypes = [ptr, ptr]
+    lib.fpcr_graph_launch.restype = i32
+    lib.fpcr_graph_destroy.argtypes = [ptr]
+    lib.fpcr_graph_destroy.restype = i32
     lib.fpcr_cuda_error_string.argtypes = [i32]
     lib.fpcr_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -34,7 +34,9 @@ and each iteration makes one batched matcher call for the whole batch:
 
 An element that has converged is a masked no-op, as under ``vmap``; the host
 reads the ``done`` flags once per ``DONE_CHECK_EVERY`` iterations, as
-``run_icp`` does, and stops when every element is done. On the card those
+``run_icp`` does, and stops when every element is done. In a captured
+chunk an iteration that starts with every element done runs none of its
+kernels. On the card those
 iterations are one replay of a CUDA graph from the second call of the
 batch's shapes and config on, as ``run_icp``'s are
 (``models/icp.py::drive_chunks``; the JAX package's loop is one ``jit``);

@@ -29,9 +29,10 @@ The JAX loop is one ``lax.while_loop`` with no host sync until the result.
 Here the loop state (points, carried normals, transform, previous error,
 done flag, iteration count) stays on the device and every update is masked
 by the device ``done`` flag, so an iteration that runs after the stop
-changes nothing. The host reads ``done`` only every ``DONE_CHECK_EVERY``
-iterations, never per iteration; the results equal those of a
-per-iteration check.
+changes nothing; on the card, in a captured chunk, such an iteration runs
+none of its kernels (``utils/graphs.py::skip_if_all``). The host reads
+``done`` only every ``DONE_CHECK_EVERY`` iterations, never per iteration;
+the results equal those of a per-iteration check.
 
 Every sum over points takes ``group``, a ``torch.distributed`` process group
 over which the source rows are sharded (``parallel/dist_icp.py``), as the
@@ -61,6 +62,7 @@ its own, with one matcher call an iteration for the whole batch.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import warnings
@@ -84,7 +86,8 @@ from ..utils import diagnostics, graphs, timing
 from ..utils.precision import pin_f32_precision
 
 # The host reads the device `done` flag once per this many iterations: a
-# stop is seen at most 7 iterations late, and those iterations are masked.
+# stop is seen at most 7 iterations late, and those iterations are masked
+# (skipped on the device in a captured chunk).
 DONE_CHECK_EVERY = 8
 
 
@@ -616,40 +619,50 @@ def _icp_chunk(state: _ICPState, consts, k: int):
     rows [k, 4])``, a row an iteration holding its error, matched
     fraction, ‖Δt‖ and ∠ΔR, NaN where the loop had stopped. ``consts`` is
     ``(target, source_mask, target_mask, target_normals, matcher_state,
-    config, group)``. A pure function of its tensors: on the card one CUDA
-    graph a ``k`` (:func:`drive_chunks`). A batch state (``[B, N, 3]``
-    points, ``[B]`` flags) gives rows ``[k, 4, B]``, each element masked
-    by its own flag (``register_batch``)."""
+    config, group)``. A pure function of its tensors but for ``state``,
+    which it updates in place and returns: on the card one CUDA graph a
+    ``k`` (:func:`drive_chunks`). A batch state (``[B, N, 3]`` points,
+    ``[B]`` flags) gives rows ``[k, 4, B]``, each element masked by its own
+    flag (``register_batch``).
+
+    Each iteration is a ``graphs.skip_if_all(done)`` block: in a captured
+    chunk, an iteration that starts with every element done runs none of
+    its kernels, and leaves the state and its row (NaN) as its masked run
+    would. A sharded loop (``group``) runs every iteration, its collectives
+    outside any conditional node."""
     (target, source_mask, target_mask, target_normals, matcher_state,
      config, group) = consts
     points, normals, rotation, translation, prev_error, done, n_it = state
     nan = torch.full((), float("nan"), device=points.device)
-    rows = []
-    for _ in range(k):
-        new_points, inc, error, aux = icp_iteration(
-            points, target, config, source_mask, target_mask,
-            target_normals, group, matcher_state, normals)
-        active = ~done
-        a1, a2 = active[..., None], active[..., None, None]
-        rows.append(torch.where(active, torch.stack([
-            error, torch.broadcast_to(aux.matched_fraction, error.shape),
-            torch.linalg.vector_norm(inc.translation, dim=-1),
-            rotation_angle(inc.rotation)]), nan))
-        converged = (error < config.tolerance) | (
-            torch.abs(error - prev_error) < config.tolerance)
-        composed = inc.compose(RigidTransform(rotation, translation))
-        points = torch.where(a2, new_points, points)
-        if normals is not None:  # full f32 rotation of the carried normals
-            normals = torch.where(
-                a2, torch.matmul(normals, inc.rotation.transpose(-1, -2)),
-                normals)
-        rotation = torch.where(a2, composed.rotation, rotation)
-        translation = torch.where(a1, composed.translation, translation)
-        prev_error = torch.where(active, error, prev_error)
-        n_it = n_it + active.to(torch.int32)
-        done = done | (active & converged)
-    return (_ICPState(points, normals, rotation, translation, prev_error,
-                      done, n_it), torch.stack(rows))
+    rows = torch.full((k, 4) + tuple(done.shape), float("nan"),
+                      device=points.device)
+    for i in range(k):
+        with (graphs.skip_if_all(done) if group is None
+              else contextlib.nullcontext()):
+            new_points, inc, error, aux = icp_iteration(
+                points, target, config, source_mask, target_mask,
+                target_normals, group, matcher_state, normals)
+            active = ~done
+            a1, a2 = active[..., None], active[..., None, None]
+            torch.where(active, torch.stack([
+                error, torch.broadcast_to(aux.matched_fraction, error.shape),
+                torch.linalg.vector_norm(inc.translation, dim=-1),
+                rotation_angle(inc.rotation)]), nan, out=rows[i])
+            converged = (error < config.tolerance) | (
+                torch.abs(error - prev_error) < config.tolerance)
+            composed = inc.compose(RigidTransform(rotation, translation))
+            torch.where(a2, new_points, points, out=points)
+            if normals is not None:  # full f32 rotation of carried normals
+                torch.where(a2, torch.matmul(
+                    normals, inc.rotation.transpose(-1, -2)), normals,
+                    out=normals)
+            torch.where(a2, composed.rotation, rotation, out=rotation)
+            torch.where(a1, composed.translation, translation,
+                        out=translation)
+            torch.where(active, error, prev_error, out=prev_error)
+            n_it.add_(active.to(torch.int32))
+            done.logical_or_(active & converged)
+    return state, rows
 
 
 def _graph_counts() -> tuple:
@@ -686,13 +699,18 @@ def drive_chunks(body, state, consts, iterations: int, stopped,
     iteration. Each route is chosen here, before the loop; a capture that
     fails raises.
 
+    ``body`` may update the state it is handed in place: an eager chunk is
+    handed a copy of its state, a replayed one the graph's static buffers.
+
     Recorded (``utils/timing.py``), the set-up before the first chunk is
     the span ``bind`` (its route, ``eager`` or ``graphs``, and the bytes of
     ``consts`` copied into the graphs' static buffers, which count on the
     call), each ``stopped`` read is the span ``done_read`` and counts one
     host sync on the call, and each chunk is the span ``chunk`` (``k``, and
     its route: ``eager``, ``capture`` or ``replay``) and counts on the call
-    by its route."""
+    by its route. A loop whose replayed chunks hold ``skip_if_all`` blocks
+    counts ``iterations_run`` and, after its last chunk,
+    ``iterations_skipped`` on the call (``graphs.Loop.finish``)."""
     every = 1 if check is not None else DONE_CHECK_EVERY
     device = state[0].device
     span = timing.begin("bind")
@@ -704,8 +722,7 @@ def drive_chunks(body, state, consts, iterations: int, stopped,
             and check is None):
         step = graphs.bind(body, consts)
     else:
-        def step(st, k):
-            return body(graphs.contiguous(st), consts, k)
+        step = graphs.Loop(body, consts)
     out = torch.full((iterations,) + tuple(row_shape), float("nan"),
                      device=device)
     if span:
@@ -735,6 +752,7 @@ def drive_chunks(body, state, consts, iterations: int, stopped,
             route = _chunk_route(before)
             span.end(k=k, route=route)
             timing.count("chunks_" + route)
+    step.finish()
     return state, out
 
 

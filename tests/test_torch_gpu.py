@@ -1941,6 +1941,146 @@ def test_captured_loop_under_debug_nans_runs_eagerly(cuda):
     assert len(graphs.CACHE) >= 1
 
 
+def _chunk_trajectory(chunk, state, consts, n):
+    """The states before each of ``n`` eager iterations of ``chunk`` from
+    ``state``, and after the last: ``[S_0, ..., S_n]``."""
+    from fpcr_tpu_torch.utils import graphs
+
+    states = [graphs.owned(state)]
+    for _ in range(n):
+        state, _ = chunk(graphs.owned(state), consts, 1)
+        states.append(graphs.owned(state))
+    return states
+
+
+def _skipped_chunk_case(cuda, batch):
+    """``(consts, cases)`` of point ICP through K1 (a batch of ``batch``
+    where it is over 1): the chunk's constants, and ``{name: (state,
+    bodies run)}`` for a state whose loop stops at a chunk's third
+    iteration, one already done and a live one; the key captured."""
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.models import batch as mb
+    from fpcr_tpu_torch.models import icp as mi
+    from fpcr_tpu_torch.utils import graphs
+
+    s = ft.synthetic_scene(width=64, device=cuda)
+    cfg = ft.ICPConfig(matcher="pallas", max_iterations=0)
+    poses = [((0.2, -0.1, 0.15), (0.1, 0.05, -0.1)),
+             ((0.1, 0.12, -0.05), (-0.05, 0.1, 0.05)),
+             ((-0.15, 0.05, 0.1), (0.05, -0.1, 0.08))][:batch]
+    srcs = torch.stack([ft.gt_transform(r, t, device=cuda).apply(s.source)
+                        for r, t in poses]).contiguous()
+    if batch == 1:
+        state = mi._ICPState(srcs[0].contiguous(), None,
+                             torch.eye(3, device=cuda),
+                             torch.zeros(3, device=cuda),
+                             torch.full((), float("inf"), device=cuda),
+                             torch.zeros((), dtype=torch.bool, device=cuda),
+                             torch.zeros((), dtype=torch.int32, device=cuda))
+        consts = (s.target.contiguous(), None, None, None, None, cfg, None)
+    else:
+        state = mb._first_state(srcs, None)
+        consts = (s.target.expand(batch, -1, -1).contiguous(), None, None,
+                  None, None, cfg, None)
+    traj = _chunk_trajectory(mi._icp_chunk, state, consts, 60)
+    stop = next(j for j, st in enumerate(traj) if bool(st.done.all()))
+    assert stop > 8, stop  # the live state runs every body of a chunk
+    graphs.clear()
+    graphs.bind(mi._icp_chunk, consts)(traj[0], 8)  # the key's first: eager
+    graphs.bind(mi._icp_chunk, consts)(traj[0], 8)  # captures
+    assert graphs.CACHE.captures[-1]["blocks"] == 8
+    return consts, {"stops at 3": (traj[stop - 3], 3),
+                    "done": (traj[stop], 0), "live": (traj[0], 8)}
+
+
+def _replay_chunk(consts, start):
+    """One replay of the key's chunk from ``start``, recorded: ``((state,
+    rows), the call's counts)``."""
+    from fpcr_tpu_torch.models import icp as mi
+    from fpcr_tpu_torch.utils import graphs, timing
+
+    with timing.recording(), timing.call("chunk") as call:
+        loop = graphs.bind(mi._icp_chunk, consts)
+        replays = graphs.CACHE.replays
+        out = loop(start, 8)
+        torch.cuda.synchronize()
+        loop.finish()
+    assert graphs.CACHE.replays == replays + 1
+    return out, call.attrs
+
+
+def _k1_events_of_replays(batch):
+    """``{case: [K1 device events of each profiled replay]}``, for the cases
+    of :func:`_skipped_chunk_case`: sessions padded by spin kernels,
+    retaken (up to five) until one shows two a body run, since a session
+    can lose events at its edges, never add any. Run in a process of its
+    own: in one that has run many graphs, the profiler loses and misnames
+    the kernels of conditional bodies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    consts, cases = _skipped_chunk_case(torch.device("cuda", 0), batch)
+    out = {}
+    for name, (start, executed) in cases.items():
+        counts = out[name] = []
+        while len(counts) < 5 and (not counts or counts[-1] != 2 * executed):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(1 << 20)
+                _replay_chunk(consts, start)
+                torch.cuda._sleep(1 << 20)
+                torch.cuda.synchronize()
+            counts.append(sum(1 for ev in prof.events()
+                              if ev.device_type == DeviceType.CUDA
+                              and "nn_tc_" in ev.name))
+    return out
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_skipped_iterations_are_the_eager_chunk(cuda, batch):
+    """A captured point chunk (K1) and a batched one, replayed from a state
+    that stops at the chunk's third iteration, one already done and a live
+    one: each replay is the eager chunk bit for bit (state and rows, NaN
+    after the stop), the call's ``iterations_skipped`` is the chunk's
+    iterations after the stop, of ``iterations_run`` 8, and the profiler
+    (in a fresh process) shows K1 only in the bodies that ran, two events
+    a body."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from fpcr_tpu_torch.models import icp as mi
+    from fpcr_tpu_torch.utils import graphs
+
+    consts, cases = _skipped_chunk_case(cuda, batch)
+    for name, (start, executed) in cases.items():
+        ref_state, ref_rows = mi._icp_chunk(graphs.owned(start), consts, 8)
+        (got_state, got_rows), attrs = _replay_chunk(consts, start)
+        got = [t for t in (*got_state, got_rows) if t is not None]
+        ref = [t for t in (*ref_state, ref_rows) if t is not None]
+        assert len(got) == len(ref) == 7
+        assert all(torch.equal(a, b) for a, b in zip(
+            _result_bits(got), _result_bits(ref))), name
+        assert torch.isnan(got_rows[executed:]).all(), name
+        assert int(got_state.num_iterations.max()) == (
+            int(start.num_iterations.max()) + executed), name
+        assert attrs["iterations_run"] == 8, name
+        assert attrs["iterations_skipped"] == 8 - executed, name
+    root = Path(__file__).resolve().parents[1]
+    child = subprocess.run(
+        [sys.executable, "-c", "import json, sys; sys.path[:0] = "
+         "['tests', '.']; import test_torch_gpu as t; print('K1', "
+         f"json.dumps(t._k1_events_of_replays({batch})))"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert child.returncode == 0, child.stderr[-3000:]
+    counts = json.loads(child.stdout.split("K1 ", 1)[1].splitlines()[0])
+    for name, (_, executed) in cases.items():
+        assert (max(counts[name]) <= 2 * executed
+                and counts[name][-1] == 2 * executed), (name, counts)
+
+
 def test_failed_capture_raises(cuda):
     """A function that waits for the card cannot be captured: the key's
     first loop runs it eagerly, the second raises at its capture and

@@ -361,12 +361,148 @@ def test_chunked_ndt_within_jax_tolerance():
                                    torch.as_tensor(scan))) < GAP
 
 
+# ---- one chunk, in place, against masked iterations ------------------------
+
+def _masked_iteration(state, consts):
+    """One iteration of the chunk as it ran before it updated its state in
+    place: new tensors, each masked by ``done``. ``(state, row [4, ...])``."""
+    (target, source_mask, target_mask, target_normals, matcher_state,
+     config, group) = consts
+    points, normals, rotation, translation, prev_error, done, n_it = state
+    nan = torch.full((), float("nan"), device=points.device)
+    new_points, inc, error, aux = mi.icp_iteration(
+        points, target, config, source_mask, target_mask, target_normals,
+        group, matcher_state, normals)
+    active = ~done
+    a1, a2 = active[..., None], active[..., None, None]
+    row = torch.where(active, torch.stack([
+        error, torch.broadcast_to(aux.matched_fraction, error.shape),
+        torch.linalg.vector_norm(inc.translation, dim=-1),
+        mi.rotation_angle(inc.rotation)]), nan)
+    converged = (error < config.tolerance) | (
+        torch.abs(error - prev_error) < config.tolerance)
+    composed = inc.compose(RigidTransform(rotation, translation))
+    return mi._ICPState(
+        torch.where(a2, new_points, points), normals,
+        torch.where(a2, composed.rotation, rotation),
+        torch.where(a1, composed.translation, translation),
+        torch.where(active, error, prev_error), done | (active & converged),
+        n_it + active.to(torch.int32)), row
+
+
+def _chunk_case(name, tolerance=1e-6):
+    """``(state, consts)`` of the chunk ``name`` at its loop's start:
+    point (K1's plain version), Morton (K3's) or a batch of three."""
+    src, tgt, _ = _scene()
+    kw = {"point K1": dict(matcher="pallas"),
+          "morton K3": dict(matcher="morton", morton_impl="pallas",
+                            morton_chunk=128, morton_window=64),
+          "batch K1": dict(matcher="pallas")}[name]
+    cfg = ft.ICPConfig(max_iterations=0, tolerance=tolerance, **kw)
+    if name.startswith("batch"):
+        poses = [((0.05, -0.02, 0.03), (0.02, 0.01, -0.02)),
+                 ((0.01, 0.02, -0.01), (-0.01, 0.02, 0.01)),
+                 ((-0.03, 0.01, 0.02), (0.01, -0.02, 0.02))]
+        srcs = torch.stack([ft.gt_transform(r, t, device="cpu").apply(src)
+                            for r, t in poses])
+        tgts = torch.stack([tgt] * 3)
+        prep = _prepare(srcs, tgts, cfg, batched=True)
+        state = mb._first_state(prep.source, None)
+    else:
+        prep = _prepare(src, tgt, cfg)
+        state = mi._ICPState(
+            prep.source, None, torch.eye(3), torch.zeros(3),
+            torch.full((), float("inf")), torch.zeros((), dtype=torch.bool),
+            torch.zeros((), dtype=torch.int32))
+    consts = (prep.target, prep.source_mask, prep.target_mask,
+              prep.target_normals, prep.matcher_state, prep.config, None)
+    return state, graphs.contiguous(consts)
+
+
+@pytest.mark.parametrize("stop", ["inside", "last", "never"])
+@pytest.mark.parametrize("name", ["point K1", "morton K3", "batch K1"])
+def test_in_place_chunk_equals_masked_iterations(name, stop):
+    """The chunk, which updates its state in place, equals eight masked
+    iterations bit for bit, state and rows, from a state whose loop stops
+    inside the chunk (at its third iteration), at its last iteration, or
+    never (no tolerance: the cap ends the loop); rows after the stop are
+    NaN, and the state before the chunk, a copy, is left as it was."""
+    state, consts = _chunk_case(name, 0.0 if stop == "never" else 1e-6)
+    trajectory = [state]
+    for _ in range(40):
+        trajectory.append(_masked_iteration(trajectory[-1], consts)[0])
+    done_at = next((j for j, st in enumerate(trajectory)
+                    if bool(st.done.all())), None)
+    assert (done_at is None) == (stop == "never")
+    assert stop == "never" or done_at >= 8, done_at
+    start = {"inside": lambda: trajectory[done_at - 3],
+             "last": lambda: trajectory[done_at - 8],
+             "never": lambda: trajectory[4]}[stop]()
+    ref, rows = start, []
+    for _ in range(8):
+        ref, row = _masked_iteration(ref, consts)
+        rows.append(row)
+    kept = graphs.owned(start)
+    given = graphs.owned(start)
+    got, got_rows = mi._icp_chunk(given, consts, 8)
+    assert got is given  # updated in place
+    _same([t for t in (*got, got_rows) if t is not None],
+          [t for t in (*ref, torch.stack(rows)) if t is not None], name)
+    ran = {"inside": 3, "last": 8, "never": 8}[stop]
+    assert torch.isnan(got_rows[ran:]).all()
+    assert not torch.isnan(got_rows[:ran]).all(dim=tuple(
+        range(1, got_rows.ndim))).any()
+    _same([t for t in start if t is not None],
+          [t for t in kept if t is not None])
+
+
+def test_skip_if_all_is_a_no_op_off_a_capture():
+    """Off a capture (the CPU, an eager loop) ``skip_if_all`` runs its
+    block whatever ``done`` holds and changes nothing; in a warm-up it only
+    notes that the chunk has a block."""
+    ran = []
+    for done in (torch.zeros(3, dtype=torch.bool),
+                 torch.ones(3, dtype=torch.bool), torch.ones((), dtype=bool)):
+        before = done.clone()
+        with graphs.skip_if_all(done):
+            ran.append(True)
+        assert torch.equal(done, before)
+    assert ran == [True] * 3
+    assert graphs._capturing.parts is None
+    assert not graphs._capturing.met_block
+    graphs._capturing.warming = True
+    try:
+        with graphs.skip_if_all(torch.ones((), dtype=torch.bool)):
+            ran.append(True)
+        assert graphs._capturing.met_block and len(ran) == 4
+    finally:
+        graphs._capturing.warming = False
+        graphs._capturing.met_block = False
+
+
+@pytest.mark.parametrize("route", ["eager", "rehearsed"])
+def test_a_loop_leaves_the_callers_tensors(route, monkeypatch):
+    """The chunk updates its state in place, never the caller's tensors:
+    the eager route and a replay (rehearsed) each work on a copy."""
+    if route == "rehearsed":
+        monkeypatch.setattr(graphs, "bind", _Recorder())
+        monkeypatch.setattr(graphs, "captured", lambda device: True)
+    src, tgt, _ = _scene()
+    srcs = torch.stack([src, src + 0.01])
+    kept = (src.clone(), srcs.clone())
+    ft.run_icp(src, tgt, ft.ICPConfig(max_iterations=13))
+    mb._batched_loop(srcs, torch.stack([tgt] * 2), None,
+                     ft.ICPConfig(max_iterations=13))
+    assert torch.equal(src, kept[0]) and torch.equal(srcs, kept[1])
+
+
 # ---- the captured route, rehearsed on the CPU ------------------------------
 
 class _Recorder:
     """In place of ``graphs.bind``: records each chunk's keys, ``(the
     loop's key, the graph's key, k)``, and runs the chunk eagerly, as a
-    replay would compute it."""
+    replay would compute it: on a copy of the state, as a replay on its
+    static buffers (a chunk may update its state in place)."""
 
     def __init__(self):
         self.keys = []
@@ -377,7 +513,8 @@ class _Recorder:
         def step(state, k):
             self.keys.append((loop_key, graphs.cache_key(fn, (state, k))[0],
                               k))
-            return fn(state, consts, k)
+            return fn(graphs.owned(state), consts, k)
+        step.finish = lambda: None  # nothing replayed, nothing to count
         return step
 
 
@@ -592,3 +729,47 @@ def test_trace_check_needs_every_counted_launch(sites, counted, mode, agree):
 
     assert chip_smoke.sites_agree(sites, counted, mode) is agree
     assert chip_smoke.SITE_TAKES > 1
+
+
+@pytest.mark.parametrize("sites, counted, ran, agree", [
+    ({"cudaGraphLaunch": 45}, 72, (24, 9), True),
+    ({"cudaGraphLaunch": 72}, 72, (24, 0), True),
+    ({"cudaGraphLaunch": 72}, 72, (24, 9), False),  # skipped ones ran
+    ({"cudaGraphLaunch": 44}, 72, (24, 9), False),  # records lost
+    # a conditional body's kernel, launched by the device
+    ({"cudaGraphLaunch": 44, "no runtime call": 1}, 72, (24, 9), True),
+    ({"no runtime call": 45}, 72, (24, 9), True),
+    ({"cudaGraphLaunch": 44, "cudaLaunchKernel": 1}, 72, (24, 9), False),
+    ({}, 0, (0, 0), False),
+])
+def test_trace_check_takes_out_skipped_iterations(sites, counted, ran,
+                                                   agree):
+    """``chip_smoke.py``'s check of a captured run whose iterations sit in
+    conditional nodes: the replays count the launches of the skipped
+    iterations, the trace shows only those of the iterations that ran, each
+    under the graph's launch or, launched by the device, under none."""
+    import sys
+
+    sys.path.insert(0, ".")
+    import chip_smoke
+
+    assert chip_smoke.sites_agree(sites, counted, "captured", ran) is agree
+
+
+def test_loop_finish_counts_the_skipped_blocks():
+    """While recording, a loop's runner zeroes its key's count of blocks
+    run when bound and, at its end, adds to the call the blocks of its
+    replayed chunks that did not run; unrecorded, it adds nothing."""
+    from fpcr_tpu_torch.utils import timing
+
+    entry = graphs._Key([torch.zeros(1)])
+    entry.bodies = torch.full((), 7, dtype=torch.int64)
+    loop = graphs.Loop(mi._icp_chunk, (), entry=entry)
+    assert not loop.counting and int(entry.bodies) == 7
+    with timing.recording(), timing.call("test") as call:
+        loop = graphs.Loop(mi._icp_chunk, (), entry=entry)
+        assert loop.counting and int(entry.bodies) == 0
+        loop.blocks_run = 16  # two replayed chunks of 8 blocks
+        entry.bodies.fill_(11)  # as the device counts the blocks run
+        loop.finish()
+    assert call.attrs["iterations_skipped"] == 5

@@ -903,7 +903,8 @@ def test_umeyama_from_svd_picks_the_plain_version_on_the_cpu():
 class _Recorder:
     """In place of ``graphs.bind``: records each chunk's keys, ``(the
     loop's key, the graph's key, k)``, and runs the chunk eagerly, as a
-    replay would compute it."""
+    replay would compute it: on a copy of the state, as a replay on its
+    static buffers (a chunk may update its state in place)."""
 
     def __init__(self):
         self.keys = []
@@ -914,7 +915,8 @@ class _Recorder:
         def step(state, k):
             self.keys.append((loop_key, graphs.cache_key(fn, (state, k))[0],
                               k))
-            return fn(state, consts, k)
+            return fn(graphs.owned(state), consts, k)
+        step.finish = lambda: None  # nothing replayed, nothing to count
         return step
 
 
