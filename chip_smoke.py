@@ -124,7 +124,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    one more that finds the port's kernels in the trace, in the counted
    numbers, under ``cudaGraphLaunch`` when captured. The loop variants
    likewise: svd3's Umeyama form against its plain version and its
-   yardstick on the same batches and edge cases, with its times in legs; AA-ICP point and plane,
+   yardstick on the same batches and edge cases, with its times in legs;
+   kernel eig3 on the hall scan's 16,384 normals covariances against
+   float64 ``eigh`` and its plain version under eig3's bounds (the
+   isotropic rows on the fixed frame), one launch a call and no host read,
+   with its kernel, call, plain and closed-form times and its bound; AA-ICP point and plane,
    scaled ICP through K1 and K2, SGD-ICP on Bunny (B = 1,024, 200 steps),
    history through K1 and K2 on the four scenes and K3 at 1,048,576, the
    SLAM example's pose graph (unit weights and the closures'
@@ -1568,6 +1572,7 @@ def _wrappers():
                                                   nn_argmin_cuda,
                                                   nn_argmin_packed_cuda,
                                                   nn_min_only_cuda)
+    from fpcr_tpu_torch.ops.eig3_cuda import eig3_cuda
     from fpcr_tpu_torch.ops.morton_cuda import (morton_nn_cuda,
                                                 morton_nn_packed_cuda)
     from fpcr_tpu_torch.ops.ndt_cuda import ndt_fused_moments_cuda
@@ -1584,6 +1589,7 @@ def _wrappers():
             "ndt_fused_moments": ndt_fused_moments_cuda,
             "svd3_rotation": svd3_rotation_cuda,
             "svd3_umeyama": svd3_umeyama_cuda,
+            "eig3": eig3_cuda,
             "nn_argmin_cudacore": _nn_argmin_cudacore,
             "nn_argmin_packed_cudacore": _nn_argmin_packed_cudacore,
             "nn_min_only_yardstick": _nn_min_only_yardstick,
@@ -2500,8 +2506,8 @@ def phase_main_path(torch, ft, dev):
                  brute("point", PACKED_SCENES, "nn_argmin_packed", **PACKED),
                  ("nn_argmin_packed", "svd3_rotation"),
                  packed_not + ("morton_nn_packed",)),
-                ("plane ICP, K1", brute("plane", PLANE_SCENES), "nn_argmin",
-                 CUDACORE),
+                ("plane ICP, K1", brute("plane", PLANE_SCENES),
+                 ("nn_argmin", "eig3"), CUDACORE),
                 ("coarse-to-fine, K1 + K3", coarse_to_fine, "morton_nn",
                  CUDACORE),
                 ("register_ndt, gather NDT + K1", register_ndt_hall,
@@ -4352,6 +4358,117 @@ def phase_svd3_umeyama(torch, np, dev, card):
                 batches=batches)
 
 
+# kernel eig3 (csrc/svd3.cu, ops/eig3_cuda.py): the normals' eigensolver
+# on the covariances of the hall scan's 16,384 points, the main path's
+# batch, each point's 4 nearest other points as the prepass picks them.
+# Eigenvalues within EIG3_VAL_ULPS float32 epsilons of λ2 of float64's, and
+# the smallest eigenvector within EIG3_VEC_ULPS·2⁻²³·λ2 / (λ1 − λ0) rad of
+# float64's (or 1e-6 rad), for the kernel and its plain version alike
+EIG3_VAL_ULPS, EIG3_VEC_ULPS = 8, 8
+EIG3_BYTES = 36 + 48  # a matrix read, its eigenvalues and vectors written
+EIG3_FLOPS = 3 * 65  # one Jacobi sweep (benchmark/metrics/eig3_roofline.py)
+
+
+def eig3_covariances(torch, ft, dev):
+    """The hall scan's normals covariances ``[16384, 3, 3]`` on the card,
+    from the prepass's own search and re-rank."""
+    from fpcr_tpu_torch.ops import normals as tn
+
+    q = build_scene(ft, "hall", dev).target
+    idx, d = tn.self_knn(q, 5 + tn.RERANK)
+    return tn._neighbour_covariance(q, tn.rerank(q, idx, d, 5)[:, 1:])
+
+
+def eig3_held(torch, A, vals, vecs, label):
+    """The worst ratio of ``(vals, vecs)``'s error to eig3's bounds against
+    float64 ``eigh`` of the same float32 ``A``, and the rows where A ≈ qI;
+    raises where a row is off its bound or an isotropic row off the fixed
+    frame."""
+    from fpcr_tpu_torch.ops.eigh3 import ISO_FRAME, ISO_TOL
+
+    a64 = A.double()
+    w, v = torch.linalg.eigh(a64)
+    eps = 2.0 ** -23
+    top = w.abs().amax(-1)
+    q = a64.diagonal(dim1=-2, dim2=-1).sum(-1) / 3.0
+    dev_ = a64 - q[:, None, None] * torch.eye(3, dtype=a64.dtype,
+                                               device=A.device)
+    iso = ((dev_ * dev_).sum((-2, -1))
+           <= ISO_TOL ** 2 * (a64 * a64).sum((-2, -1)))
+    frame = torch.tensor(ISO_FRAME, dtype=A.dtype, device=A.device)
+    if not torch.equal(vecs[iso], frame.expand(int(iso.sum()), 3, 3)):
+        raise AssertionError(f"{label}: an isotropic row is off the frame")
+    val_r = ((vals.double() - w).abs().amax(-1)
+             / (EIG3_VAL_ULPS * eps * top).clamp_min(1e-300))
+    sin = torch.linalg.cross(vecs[..., :, 0].double(), v[..., :, 0]).norm(
+        dim=-1)
+    bound = (EIG3_VEC_ULPS * eps * w[:, 2]
+             / (w[:, 1] - w[:, 0]).clamp_min(1e-300)).clamp_min(1e-6)
+    vec_r = sin / bound
+    worst = (float(val_r[~iso].max()), float(vec_r[~iso].max()))
+    if not (worst[0] <= 1.0 and worst[1] <= 1.0):
+        raise AssertionError(f"{label}: off float64 eigh by {worst} of its "
+                             "bounds (eigenvalues, smallest eigenvector)")
+    return worst, int(iso.sum())
+
+
+def phase_eig3(torch, np, ft, dev, card):
+    """Kernel eig3 on the hall scan's 16,384 normals covariances: against
+    float64 ``eigh`` and its plain version (``eig3_plain``) under eig3's
+    bounds, the isotropic rows (the rangeless returns' zero covariances) on
+    the fixed frame, one launch a call and no host read; its kernel time
+    (profiler events), call time, the plain version's and the closed
+    form's (``eigvals3`` and ``_unit_eigenvector``, the prepass's first
+    design) and its bound; returns the kernels line's fields."""
+    from fpcr_tpu_torch.ops.eig3_cuda import eig3_cuda
+    from fpcr_tpu_torch.ops.eigh3 import (_unit_eigenvector, eig3_plain,
+                                          eigvals3)
+    from fpcr_tpu_torch.utils.timing import cuda_time_ms
+
+    A = eig3_covariances(torch, ft, dev).contiguous()
+    b = A.shape[0]
+    before = eig3_cuda.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vals, vecs = eig3_cuda(A)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if eig3_cuda.launches - before != 1:
+        raise AssertionError("eig3: not one launch a call")
+    worst, iso = eig3_held(torch, A, vals, vecs, "eig3")
+    p_vals, p_vecs = eig3_plain(A)
+    plain_worst, _ = eig3_held(torch, A, p_vals, p_vecs, "eig3 plain")
+    err = float((vals - p_vals).abs().max())
+
+    def closed():
+        return _unit_eigenvector(A, eigvals3(A)[..., 0], 1e-20)
+
+    events = [e for e in device_events(
+        lambda: [eig3_cuda(A) for _ in range(20)])
+        if "eig3_kernel" in e.name]
+    if not events:
+        raise AssertionError("eig3: the profiler saw no eig3_kernel event")
+    ms = sum(e.time_range.elapsed_us() for e in events) / len(events) / 1e3
+    call_ms = cuda_time_ms(lambda: eig3_cuda(A), repeats=20)["min"]
+    plain_ms = cuda_time_ms(lambda: eig3_plain(A), repeats=10)["min"]
+    closed_ms = cuda_time_ms(closed, repeats=10)["min"]
+    bound_ms, bound_by = bound(EIG3_BYTES * b, EIG3_FLOPS * b)
+    log("graphs", f"eig3 B={b} (hall covariances): worst error / bound "
+                  f"(eigenvalues, smallest eigenvector) {worst[0]:.3e}, "
+                  f"{worst[1]:.3e}; the plain version's {plain_worst[0]:.3e},"
+                  f" {plain_worst[1]:.3e}; {iso} rows A ≈ qI on the fixed "
+                  f"frame; max |λ - plain λ| {err:.3e}; kernel {ms:.5f} ms "
+                  f"({len(events)} events), call {call_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, closed form {closed_ms:.4f} ms, bound "
+                  f"{bound_ms:.7f} ms ({bound_by}) {card}")
+    return {"max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "closed_form_ms": closed_ms,
+            "worst_over_bound": worst, "plain_worst_over_bound": plain_worst,
+            "isotropic_rows": iso, "batch": b}
+
+
 def svd3_slopes(torch, ft, dev, card):
     """Captured point ICP through K1 at 16,384 points, ms/iter by the slope
     (10/60 iterations, min of 3), with run_icp's svd3 the yardstick or the
@@ -5161,11 +5278,13 @@ def phase_graphs(torch, np, ft, dev, smi):
     bit for bit its eager run, to its ground truth, with the eager run's
     launches; the host's syncs in 24 iterations of each; captured against
     eager ms/iter in turns, six times; one traced run of point and plane
-    ICP each way. Returns svd3's kernels-line fields."""
+    ICP each way; kernel eig3 (:func:`phase_eig3`). Returns svd3's, its
+    Umeyama form's and eig3's kernels-line fields."""
     t0 = time.perf_counter()
     card = f"[card: {smi}]"
     svd3 = phase_svd3(torch, np, dev, card)
     umeyama = phase_svd3_umeyama(torch, np, dev, card)
+    eig3 = phase_eig3(torch, np, ft, dev, card)
     records = check_captured(torch, ft, graph_paths(torch, np, ft, dev), card)
     t1 = time.perf_counter()
     records += check_captured(torch, ft, variant_paths(torch, np, ft, dev),
@@ -5192,7 +5311,7 @@ def phase_graphs(torch, np, ft, dev, smi):
     log("graphs", f"phase done in {time.perf_counter() - t0:.1f} s; the "
                   f"loop variants' part (captured paths, syncs, slopes) "
                   f"{(t2 - t1) + (t4 - t3) + (t6 - t5):.1f} s")
-    return svd3, umeyama
+    return svd3, umeyama, eig3
 
 
 # ---- register_batch for every config (K3 and K3p with a batch axis) -------
@@ -5595,7 +5714,7 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, nbytes,
 
 
 def kernels_line(launches, errs, times, times2, times3, times5, svd3,
-                 umeyama, batched_launches, batched):
+                 umeyama, eig3, batched_launches, batched):
     """The ``kernels`` JSON object, the bounds from this run's inputs: the
     brute-force kernels at the synthetic scene's N = M = 16,384, the band
     kernels at 1,048,576 points (chunk 512, window 64, no extra; bytes with
@@ -5658,7 +5777,8 @@ def kernels_line(launches, errs, times, times2, times3, times5, svd3,
                      launches["ndt_fused_moments"], errs["ndt_fused_moments"],
                      k4["k4_ms"], k4["plain_ms"], k4_bytes, k4_flops),
     ] + study_entries(launches, errs, times5) + [
-        svd3_entry(launches, svd3), umeyama_entry(launches, umeyama)]}
+        svd3_entry(launches, svd3), umeyama_entry(launches, umeyama),
+        eig3_entry(launches, eig3)]}
 
 
 def batched_band_entry(key, line, launches, fields):
@@ -5693,6 +5813,22 @@ def svd3_entry(launches, svd3):
         entry[key] = svd3[key]
     entry["batches"] = {str(b): v for b, v in svd3["batches"].items()}
     entry["point_k1_ms_per_iter"] = svd3["slopes"]
+    return entry
+
+
+def eig3_entry(launches, eig3):
+    """eig3's ``kernels`` entry at the main path's batch, the hall scan's
+    16,384 covariances: its bound the larger of 84 bytes a matrix over the
+    HBM rate and one Jacobi sweep's float32 operations over the float32
+    peak, the closed form's call time beside the plain version's."""
+    entry = kernel_entry("eig3", "fpcr_tpu_torch/csrc/svd3.cu",
+                         "fpcr_tpu/ops/eigh3.py:86", launches["eig3"],
+                         eig3["max_abs_err"], eig3["ms"], eig3["plain_ms"],
+                         EIG3_BYTES * eig3["batch"],
+                         EIG3_FLOPS * eig3["batch"])
+    for key in ("call_ms", "closed_form_ms", "worst_over_bound",
+                "plain_worst_over_bound", "isotropic_rows", "batch"):
+        entry[key] = eig3[key]
     return entry
 
 
@@ -5977,7 +6113,7 @@ def main():
         errs[key] = max(errs[key], err)
     launches, study, studies = phase_main_path(torch, ft, dev)
     phase_reference(torch, ft, dev)
-    svd3, umeyama = phase_graphs(torch, np, ft, dev, smi)
+    svd3, umeyama, eig3 = phase_graphs(torch, np, ft, dev, smi)
     counts, batched_launches, batched = phase_batched_configs(
         torch, np, ft, dev, smi)
     for key, n in counts.items():
@@ -6020,8 +6156,8 @@ def main():
               f"{guard:.4f} [card: {smi}]")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(launches, errs, times, times2, times3,
-                                  times5, svd3, umeyama, batched_launches,
-                                  batched)),
+                                  times5, svd3, umeyama, eig3,
+                                  batched_launches, batched)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -219,6 +219,8 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_svd3_fixed_umeyama.restype = i32
     lib.fpcr_svd3_ablation.argtypes = [ptr, i32, i32, ptr, ptr]
     lib.fpcr_svd3_ablation.restype = i32
+    lib.fpcr_eig3.argtypes = [ptr, i32, ptr, ptr, ptr]
+    lib.fpcr_eig3.restype = i32
     lib.fpcr_graph_add_if.argtypes = [ptr, ptr, i32, ptr, ptr]
     lib.fpcr_graph_add_if.restype = i32
     lib.fpcr_graph_add_child.argtypes = [ptr, ptr]

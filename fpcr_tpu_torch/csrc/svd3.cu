@@ -59,6 +59,10 @@
 // The caps (8 sweeps in each stage) are guards; a warp runs to the slowest
 // matrix of its 32.
 //
+// Kernel eig3, the symmetric eigendecomposition of the normals prepass and
+// of NDT's voxel frames, is built at the end of this file on the same
+// rotate and sweeps templates.
+//
 // The yardstick, on no path: the first design (fixed 8 sweeps in float64,
 // 24 rotations of three divisions and two square roots each, whatever the
 // input), svd3_fixed_*_kernel, reached only through
@@ -518,6 +522,183 @@ __device__ __forceinline__ void svd3_one(const float* __restrict__ w, int b,
                 u[0][i] * vc[0][j] + u[1][i] * vc[1][j] + u[2][i] * vc[2][j]);
 }
 
+// ---- kernel eig3: the symmetric eigendecomposition ----
+//
+// The port's own kernel, not a TPU kernel's counterpart: the JAX package
+// takes the normals' and NDT's eigenvectors from a closed form
+// (fpcr_tpu/ops/eigh3.py), arccos(det(B)/2) and cross products, whose error
+// grows without bound where two eigenvalues meet: on a 16-beam LiDAR scan a
+// point's nearest neighbours lie nearly on a line, and its two smallest
+// eigenvalues nearly meet. The reference takes them from LAPACK's ssyev on
+// the host; torch.linalg.eigh on the card checks its status on the host.
+// This kernel reports nothing, so the normals prepass issues no host read.
+//
+// Function, for each symmetric A (row-major, 9 floats) of the batch:
+//   A = V diag(λ) Vᵀ, λ0 <= λ1 <= λ2; vals = λ, and vecs = V with column j
+//   the j-th eigenvector (torch.linalg.eigh's layout).
+// Conventions (ops/eigh3.py::eig3_plain on the CPU): where |A − qI| <=
+// kIsoTol·|A| (Frobenius norms in float64, q = tr A / 3: A ≈ qI, the zero
+// matrix included; then λ2 − λ0 <= √2·|A − qI|) V is the fixed frame
+// (1,1,1)/√3, (2,−1,−1)/√6, (0,1,−1)/√2, the JAX package's fallback normal
+// completed to a right-handed frame, and λ is as computed; a non-finite
+// entry gives NaN in every output.
+//
+// Design: svd3's one-sided Jacobi, whose right singular vectors of a
+// symmetric A are its eigenvectors.
+//   1. A is scaled by a power of two as svd3 scales W (exact).
+//   2. float32 sweeps on A from V = I (svd3's sweeps, 2⁻²⁰ stop).
+//   3. A float64 polish on B = A + s·I, s = the largest absolute row sum of
+//      A (>= every |λ|): B is positive semidefinite and has A's
+//      eigenvectors, so an eigenvalue pair λ, −λ of A, which one-sided
+//      Jacobi on A cannot tell apart (A² has one eigenvalue there), is
+//      resolved too. V is re-orthonormalised, B·V recomputed in float64 and
+//      swept to 2⁻⁵², as svd3's polish does.
+//   4. λj = vjᵀ A vj in float64, the sign included; λ and V sorted
+//      ascending; rounded to float32 at the end.
+// The smallest eigenvector then lies within a few float32 epsilons·λ2 /
+// (λ1 − λ0) rad of float64's, the angle the float32 input itself leaves.
+// What bounds it on this card: latency, as svd3 (one thread a matrix, 36
+// bytes read and 48 written).
+
+// A ≈ qI where |A − qI| <= kIsoTol·|A|: half a float32 epsilon, so that
+// λ2 − λ0 <= 1.3 float32 epsilons·max |λ|, where the float32 input does
+// not resolve the smallest eigenvector's direction; squared here
+constexpr double kIsoTol2 = 0x1p-44;
+
+__device__ __forceinline__ void eig3_one(const float* __restrict__ in, int b,
+                                         float* __restrict__ vals,
+                                         float* __restrict__ vecs) {
+    const float* ab = in + 9 * static_cast<long long>(b);
+    float* lb = vals + 3 * static_cast<long long>(b);
+    float* vb = vecs + 9 * static_cast<long long>(b);
+
+    float af[3][3];
+    float m = 0.0f;
+    bool finite = true;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            af[r][c] = ab[3 * r + c];
+            finite = finite && isfinite(af[r][c]);
+            m = fmaxf(m, fabsf(af[r][c]));
+        }
+    }
+    if (!finite) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) lb[k] = __int_as_float(0x7fc00000);
+#pragma unroll
+        for (int k = 0; k < 9; ++k) vb[k] = __int_as_float(0x7fc00000);
+        return;
+    }
+    // A·2^-e, its largest |entry| in [0.5, 1): exact in float64
+    int e = 0;
+    if (m > 0.0f) frexp(static_cast<double>(m), &e);
+    const double scale = pow2(-e);
+    double as[3][3];
+    float a32[3][3], v32[3][3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            as[r][c] = static_cast<double>(af[r][c]) * scale;
+            a32[r][c] = __double2float_rn(as[r][c]);
+            v32[r][c] = r == c ? 1.0f : 0.0f;
+        }
+    }
+    // A ≈ qI, decided on the input, not on the computed eigenvalues
+    bool iso;
+    {
+        const double q = (as[0][0] + as[1][1] + as[2][2]) / 3.0;
+        double dev = 0.0, all = 0.0;
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                const double x = as[r][c] - (r == c ? q : 0.0);
+                dev += x * x;
+                all += as[r][c] * as[r][c];
+            }
+        iso = dev <= kIsoTol2 * all;
+    }
+    sweeps(a32, v32, kTol32);
+
+    // V in float64: v1, v2 by Gram-Schmidt, v3 = v1 × v2
+    double v[3][3];
+    {
+        double x[3], y[3];
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+            x[r] = v32[r][0];
+            y[r] = v32[r][1];
+        }
+        const double rx = rsqrt(dot3(x, x));
+#pragma unroll
+        for (int r = 0; r < 3; ++r) x[r] *= rx;
+        const double ry = rsqrt(reject2(y, x));
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+            v[r][0] = x[r];
+            v[r][1] = y[r] * ry;
+        }
+        v[0][2] = v[1][0] * v[2][1] - v[2][0] * v[1][1];
+        v[1][2] = v[2][0] * v[0][1] - v[0][0] * v[2][1];
+        v[2][2] = v[0][0] * v[1][1] - v[1][0] * v[0][1];
+    }
+    // the shift: the largest absolute row sum
+    double s = 0.0;
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+        s = fmax(s, fabs(as[r][0]) + fabs(as[r][1]) + fabs(as[r][2]));
+    // B·V in float64, B = A + s·I, from A
+    double a[3][3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+            a[r][c] = as[r][0] * v[0][c] + as[r][1] * v[1][c] +
+                      as[r][2] * v[2][c] + s * v[r][c];
+    sweeps(a, v, kTol64);
+
+    // λj = vjᵀ A vj, negated so that swap_cols' descending order is λ's
+    // ascending one
+    double neg[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+        double q = 0.0;
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+            q += v[r][j] * (as[r][0] * v[0][j] + as[r][1] * v[1][j] +
+                            as[r][2] * v[2][j]);
+        neg[j] = -q;
+    }
+    swap_cols(a, v, neg, 0, 1);
+    swap_cols(a, v, neg, 1, 2);
+    swap_cols(a, v, neg, 0, 1);
+
+    if (iso) {  // A ≈ qI: the fixed frame
+        const double f = 0.57735026918962576, g = 0.81649658092772603,
+                     h = 0.40824829046386302, k = 0.70710678118654752;
+        v[0][0] = f; v[0][1] = g;  v[0][2] = 0.0;
+        v[1][0] = f; v[1][1] = -h; v[1][2] = k;
+        v[2][0] = f; v[2][1] = -h; v[2][2] = -k;
+    }
+    const double back = pow2(e);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) lb[j] = __double2float_rn(-neg[j] * back);
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) vb[3 * r + c] = __double2float_rn(v[r][c]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+eig3_kernel(const float* __restrict__ in, int batch, float* __restrict__ vals,
+            float* __restrict__ vecs) {
+    const int b = blockIdx.x * kThreads + threadIdx.x;
+    if (b < batch) eig3_one(in, b, vals, vecs);
+}
+
 __global__ void __launch_bounds__(kThreads)
 svd3_rotation_kernel(const float* __restrict__ w, int batch,
                      int det_correction, float* __restrict__ out) {
@@ -628,6 +809,17 @@ int fpcr_svd3_ablation(const float* w, int batch, int mode, float* out,
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// a[batch, 3, 3] symmetric float32 row-major → vals[batch, 3] ascending
+// and vecs[batch, 3, 3] with column j the j-th eigenvector, one thread a
+// matrix
+int fpcr_eig3(const float* a, int batch, float* vals, float* vecs,
+              void* stream) {
+    if (batch <= 0) return 0;
+    eig3_kernel<<<blocks_of(batch), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(a, batch, vals, vecs);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -488,15 +488,11 @@ def _nan_padded(values, length: int, device) -> torch.Tensor:
 
 def _normals_prepass(cloud, mask, config: ICPConfig) -> torch.Tensor:
     """The normals of ``cloud`` [M, 3], or of each cloud of a batch [B, M,
-    3] in one pass (the span ``normals``)."""
-    span = timing.begin("normals")
-    normals = estimate_normals(
+    3] in one pass (``estimate_normals`` records the span ``normals``)."""
+    return estimate_normals(
         cloud, k=config.k_neighbors, mask=mask, chunk=config.source_chunk,
         tile=config.target_tile,
         banded_threshold=config.normals_banded_threshold)
-    if span:
-        span.end()
-    return normals
 
 
 class _Prepared(NamedTuple):

@@ -1,16 +1,27 @@
-"""Batched closed-form symmetric 3x3 eigendecomposition on the device.
+"""Batched symmetric 3x3 eigendecomposition on the device.
 
-Counterpart of ``fpcr_tpu/ops/eigh3.py``: trigonometric eigenvalues
-(Smith's algorithm) and cross-product eigenvectors, elementwise torch ops
-over ``[..., 3, 3]`` batches, with no LAPACK call and no host round trip.
+:func:`eigh3` is the one the port computes with: kernel eig3 on the card
+(``ops/eig3_cuda.py``, Jacobi rotations to float64, no host read), and
+``torch.linalg.eigh`` in float32 on the CPU (:func:`eig3_plain`, LAPACK's
+``ssyev`` as the reference's own programs call it), with the same guards:
 
-Degenerate guards, as in the JAX package:
-  * isotropic A ≈ qI (p2 → 0): the eigenvalues collapse to q and the
-    eigenvector falls back to (1,1,1)/√3;
-  * rank-deficient cross products: the largest-norm cross of the rows of
-    (A - λI) is taken, and below ``eps`` the fallback direction;
-  * :func:`eigh3` completes the frame by Gram–Schmidt of the world axis
-    least aligned with v_max when v_min ≈ ±v_max.
+  * A ≈ qI (``|A − qI| <= ISO_TOL·|A|`` in Frobenius norms, q = tr A / 3,
+    the zero matrix included): the fixed frame :data:`ISO_FRAME`, whose
+    first column is the JAX package's fallback normal (1,1,1)/√3;
+  * a non-finite A: NaN eigenvalues and eigenvectors.
+
+:func:`smallest_eigenvector` (the normals' PCA direction) and NDT's voxel
+frames take it. They depart from ``fpcr_tpu/ops/eigh3.py``'s
+closed form where two eigenvalues nearly meet, the usual case of a point on
+a 16-beam scan, whose nearest neighbours lie nearly on a line: there the
+closed form's eigenvectors are off by up to ~1 rad and these hold float64's
+to a few float32 epsilons·λ2 / (λ1 − λ0).
+
+The closed form is kept for tests only, the JAX-parity tests that call it
+(no function of the port does):
+:func:`eigvals3` (trigonometric eigenvalues, Smith's algorithm) and
+:func:`_unit_eigenvector` (the largest-norm cross product of the rows of
+A − λI, below ``eps`` the fallback direction).
 """
 
 from __future__ import annotations
@@ -73,38 +84,63 @@ def _unit_eigenvector(A: torch.Tensor, lam: torch.Tensor,
     return torch.where(good[..., None], v_unit, fb)
 
 
+# A ≈ qI where |A − qI| <= ISO_TOL·|A| (csrc/svd3.cu: kIsoTol2, its
+# square): then λ2 − λ0 <= 1.3 float32 epsilons·max |λ|, where a float32
+# input does not resolve the smallest eigenvector's direction. Decided on
+# the input in float64, so that the kernel and the plain path agree
+ISO_TOL = 2.0 ** -22
+# the eigenvectors of A ≈ qI, as columns: (1,1,1)/√3, (2,−1,−1)/√6 and
+# (0,1,−1)/√2, a right-handed frame
+ISO_FRAME = ((1.0 / math.sqrt(3.0), 2.0 / math.sqrt(6.0), 0.0),
+             (1.0 / math.sqrt(3.0), -1.0 / math.sqrt(6.0),
+              1.0 / math.sqrt(2.0)),
+             (1.0 / math.sqrt(3.0), -1.0 / math.sqrt(6.0),
+              -1.0 / math.sqrt(2.0)))
+
+
+def eig3_plain(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel eig3's plain version, on any device: ``torch.linalg.eigh`` of
+    the float32 ``A`` [..., 3, 3] with the kernel's guards. On a CUDA
+    tensor it waits for the card."""
+    A = A.to(torch.float32)
+    finite = torch.isfinite(A).all(dim=-1).all(dim=-1)
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    A = torch.where(finite[..., None, None], A, eye)
+    vals, vecs = torch.linalg.eigh(A)
+    a64 = A.double()
+    q = a64.diagonal(dim1=-2, dim2=-1).sum(-1) / 3.0
+    dev = a64 - q[..., None, None] * eye.double()
+    iso = ((dev * dev).sum((-2, -1))
+           <= ISO_TOL * ISO_TOL * (a64 * a64).sum((-2, -1)))
+    frame = torch.tensor(ISO_FRAME, dtype=A.dtype, device=A.device)
+    vecs = torch.where(iso[..., None, None], frame, vecs)
+    nan = torch.full((), float("nan"), dtype=A.dtype, device=A.device)
+    return (torch.where(finite[..., None], vals, nan),
+            torch.where(finite[..., None, None], vecs, nan))
+
+
 def smallest_eigenvector(A: torch.Tensor, eps: float = 1e-20
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(eigenvector, eigenvalue) of the smallest eigenvalue of symmetric
-    ``[..., 3, 3]`` batches: the PCA surface-normal direction."""
-    lam_min = eigvals3(A)[..., 0]
-    return _unit_eigenvector(A, lam_min, eps), lam_min
+    ``[..., 3, 3]`` batches, by :func:`eigh3`: the PCA surface-normal
+    direction, (1,1,1)/√3 where A ≈ qI. ``eps`` as in :func:`eigh3`."""
+    vals, vecs = eigh3(A)
+    return vecs[..., :, 0].contiguous(), vals[..., 0].contiguous()
 
 
 def eigh3(A: torch.Tensor, eps: float = 1e-20
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(eigenvalues ascending ``[..., 3]``, eigenvectors ``[..., 3, 3]``
     with ``vecs[..., :, k]`` the k-th), the layout of ``torch.linalg.eigh``,
-    closed form and batched."""
-    lams = eigvals3(A)
-    v_min = _unit_eigenvector(A, lams[..., 0], eps)
-    v_max = _unit_eigenvector(A, lams[..., 2], eps)
-    # v_mid completes the right-handed frame; where v_min ≈ ±v_max (both
-    # fallbacks, an isotropic A) it is the world axis least aligned with
-    # v_max, Gram–Schmidt against it. n = sin(angle) of two unit vectors,
-    # so the guard is an angle, not an absolute epsilon
-    v_mid = torch.linalg.cross(v_max, v_min)
-    n = torch.sqrt(torch.sum(v_mid * v_mid, dim=-1, keepdim=True))
-    good = n[..., 0] > 1e-4
-    axis = torch.argmin(torch.abs(v_max), dim=-1)
-    e = torch.eye(3, dtype=A.dtype, device=A.device)[axis]
-    t = e - v_max * torch.sum(e * v_max, dim=-1, keepdim=True)
-    t = t / torch.sqrt(torch.clamp(torch.sum(t * t, dim=-1, keepdim=True),
-                                   min=eps))
-    v_mid = torch.where(good[..., None],
-                        v_mid / torch.where(n > 0, n, torch.ones_like(n)), t)
-    # re-derive v_min so the frame is orthonormal near repeated eigenvalues
-    v_min_o = torch.linalg.cross(v_mid, v_max)
-    nmo = torch.sqrt(torch.sum(v_min_o * v_min_o, dim=-1, keepdim=True))
-    v_min_o = v_min_o / torch.where(nmo > 0, nmo, torch.ones_like(nmo))
-    return lams, torch.stack([v_min_o, v_mid, v_max], dim=-1)
+    of symmetric ``[..., 3, 3]`` batches; float32, :data:`ISO_FRAME` where
+    A ≈ qI. On a CUDA tensor this is kernel eig3 (``ops/eig3_cuda.py``),
+    which reports nothing to the host; elsewhere :func:`eig3_plain`.
+    ``eps``, the closed form's floor, has no use here: it keeps the JAX
+    package's positional order, which every public function of the port
+    takes (``tests/test_torch_exports.py``)."""
+    A = A.to(torch.float32)
+    if A.device.type == "cuda":
+        from .eig3_cuda import eig3_cuda
+
+        return eig3_cuda(A.contiguous())
+    return eig3_plain(A)

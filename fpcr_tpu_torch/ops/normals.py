@@ -10,8 +10,20 @@ tile's (ascending) come first.
 
 Normals are the reference's: the k+1 nearest neighbours including the point
 itself, the self slot dropped, the 3x3 covariance of the k neighbours, and
-the eigenvector of its smallest eigenvalue (closed form, ``ops/eigh3.py``).
-Normals are unoriented, as the reference's are.
+the eigenvector of its smallest eigenvalue (``ops/eigh3.py::eigh3``: kernel
+eig3 on the card, ``torch.linalg.eigh`` on the CPU). Normals are
+unoriented, as the reference's are. The search ranks by the norm form
+``|p|² − 2p·q + |q|²``, whose float32 rounding (~1e-7 of ``|p|²``) swaps
+neighbours that lie within ~1e-4 m² of each other on a scan tens of metres
+across; :func:`estimate_normals` therefore takes :data:`RERANK` more
+candidates and re-ranks them by the difference form (:func:`rerank`), which
+picks float64's neighbours there. The JAX package keeps the norm form's
+picks.
+
+Recorded (``utils/timing.py``), :func:`estimate_normals` is the span
+``normals`` (its counts: ``rows``, ``k`` and the search's ``tiles``) over
+``knn`` (the self-kNN) and ``eig3`` (the covariances and the
+eigensolve).
 
 :func:`knn`, :func:`self_knn` and :func:`estimate_normals` take a batch as
 well (clouds ``[B, M, 3]``, masks ``[B, M]``), the JAX package's ``vmap``
@@ -27,7 +39,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .eigh3 import eigvals3, smallest_eigenvector
+from ..utils import timing
+from .eigh3 import eigh3, smallest_eigenvector
 from .matching import pairwise_sqdist, pairwise_sqdist_exact
 
 
@@ -105,6 +118,25 @@ def self_knn(q: torch.Tensor, kk: int, mask: Optional[torch.Tensor] = None,
     return knn(q, q, kk, mask, chunk=chunk, tile=tile, exact=exact)
 
 
+# candidates beyond the k + 1 that :func:`estimate_normals` re-ranks
+RERANK = 4
+
+
+def rerank(q: torch.Tensor, idx: torch.Tensor, d: torch.Tensor, kk: int
+           ) -> torch.Tensor:
+    """The ``kk`` nearest of each point's candidates ``idx`` [..., M, c]
+    (``d`` their search distances, ``inf`` where no valid target was left)
+    by difference-form distances, ascending, ties to the search's order:
+    ``int32 [..., M, kk]``."""
+    lead, m, c = idx.shape[:-2], idx.shape[-2], idx.shape[-1]
+    cand = torch.take_along_dim(
+        q, idx.reshape(lead + (m * c, 1)).long(), dim=-2).reshape(
+            lead + (m, c, 3))
+    diff = cand - q.unsqueeze(-2)
+    dd = torch.where(torch.isinf(d), d, torch.sum(diff * diff, dim=-1))
+    return torch.gather(idx, -1, smallest_k(dd, kk)[1])
+
+
 def _neighbour_covariance(q: torch.Tensor, nbr_idx: torch.Tensor
                           ) -> torch.Tensor:
     """Unnormalised 3x3 covariance ``[M, 3, 3]`` of each point's neighbours
@@ -125,13 +157,32 @@ def estimate_normals(q: torch.Tensor, k: int = 4,
                      banded_threshold: int = 100_000) -> torch.Tensor:
     """Unoriented PCA normals ``[M, 3]`` of a cloud from its k nearest
     non-self neighbours (``include_self`` adds the point itself). A
-    degenerate neighbourhood gets (1,1,1)/√3. A batch ``[B, M, 3]`` (mask
-    ``[B, M]``) gives ``[B, M, 3]``, each element's its own call's."""
+    degenerate neighbourhood gets (1,1,1)/√3. Unless ``exact``, the
+    search's ``k + 1 +`` :data:`RERANK` nearest are re-ranked by the
+    difference form. A batch ``[B, M, 3]`` (mask ``[B, M]``) gives ``[B, M,
+    3]``, each element's its own call's."""
+    span = timing.begin("normals")
     q = q.to(torch.float32)
-    idx_all, _ = self_knn(q, k + 1, mask, chunk=chunk, tile=tile,
-                          exact=exact, banded_threshold=banded_threshold)
+    inner = timing.begin("knn")
+    extra = 0 if exact else RERANK
+    idx_all, d_all = self_knn(q, k + 1 + extra, mask, chunk=chunk,
+                              tile=tile, exact=exact,
+                              banded_threshold=banded_threshold)
+    if extra:
+        idx_all = rerank(q, idx_all, d_all, k + 1)
+    if inner:
+        inner.end()
+    inner = timing.begin("eig3")
     nbr_idx = idx_all if include_self else idx_all[..., 1:]
     normals, _ = smallest_eigenvector(_neighbour_covariance(q, nbr_idx))
+    if inner:
+        inner.end()
+    if span:
+        m = q.shape[-2]
+        banded = m > banded_threshold and not exact
+        tiles = (-(-m // min(chunk, 1024)) if banded
+                 else -(-m // chunk) * -(-m // tile))
+        span.end(rows=m, k=k, tiles=tiles)
     return normals
 
 
@@ -156,8 +207,7 @@ def normals_with_curvature(q: torch.Tensor, k: int = 4,
     + lam2)``, from the streaming kNN (``kwargs`` go to :func:`knn`)."""
     q = q.to(torch.float32)
     idx_all, _ = knn(q, q, k + 1, mask, **kwargs)
-    cov = _neighbour_covariance(q, idx_all[:, 1:])
-    normals, lam_min = smallest_eigenvector(cov)
-    trace = eigvals3(cov).sum(dim=-1)
-    return normals, lam_min / torch.where(trace > 0, trace,
-                                          torch.ones_like(trace))
+    vals, vecs = eigh3(_neighbour_covariance(q, idx_all[:, 1:]))
+    trace = vals.sum(dim=-1)
+    return vecs[..., :, 0].contiguous(), vals[..., 0] / torch.where(
+        trace > 0, trace, torch.ones_like(trace))

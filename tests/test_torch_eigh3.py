@@ -1,5 +1,9 @@
-"""The port's closed-form 3x3 eigensolver against ``fpcr_tpu.ops.eigh3`` on
-the same numpy inputs (CPU), degenerate inputs included."""
+"""The port's 3x3 eigensolvers against ``fpcr_tpu.ops.eigh3`` on the same
+numpy inputs (CPU), degenerate inputs included: the closed form
+(``eigvals3``) equals JAX's; ``smallest_eigenvector`` and ``eigh3`` run
+``eig3`` (``torch.linalg.eigh`` on the CPU) and equal JAX's closed form
+where an eigenvalue is simple, and are held to float64 ``eigh`` where it is
+repeated, where the closed form's choice and LAPACK's differ."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -65,17 +69,48 @@ def test_smallest_eigenvector_matches_jax_and_numpy():
                                1.0, atol=1e-3)
 
 
+def _simple(a, col):
+    """Rows whose float64 eigenvalue ``col`` is apart from the others by
+    more than 1e-3 of the scale: its eigenvector is unique up to sign."""
+    w = np.linalg.eigvalsh(a.astype(np.float64))
+    scale = np.abs(w).max(axis=1) + 1e-30
+    gaps = np.abs(w - w[:, col:col + 1])
+    gaps[:, col] = np.inf
+    return gaps.min(axis=1) > 1e-3 * scale
+
+
+def _in_eigenspace(a, vecs, vals, atol):
+    """Each column of ``vecs`` is an eigenvector of ``a`` for its value of
+    ``vals``, as float64 ``eigh`` holds: ``|A v − λ v| <= atol·scale``."""
+    a64 = a.astype(np.float64)
+    v = vecs.astype(np.float64)
+    res = np.einsum("nij,njk->nik", a64, v) - v * vals[:, None, :]
+    scale = np.abs(np.linalg.eigvalsh(a64)).max(axis=1) + 1e-30
+    assert (np.linalg.norm(res, axis=1) <= atol * scale[:, None]).all()
+
+
 def test_degenerate_guards_match_jax():
     """Isotropic and zero matrices fall back to (1,1,1)/√3; a rank-1
-    matrix's smallest eigenvector is perpendicular to its direction."""
+    matrix's smallest eigenvector is perpendicular to its direction. Where
+    the smallest eigenvalue is simple the vector is JAX's up to sign; where
+    it is repeated (the rank-1 rows, I + 3vvᵀ) the closed form's choice is
+    not LAPACK's, and the vector is held to float64 ``eigh``: in the
+    smallest eigenvalue's eigenspace."""
     a = _degenerate_batch()
-    (jv, _), (tv, _) = _both("smallest_eigenvector", a)
-    tv = tv.numpy()
+    (jv, _), (tv, tl) = _both("smallest_eigenvector", a)
+    tv, jv = tv.numpy(), np.asarray(jv)
     fb = np.full(3, 1.0 / np.sqrt(3.0), np.float32)
     np.testing.assert_allclose(tv[0], fb, atol=1e-7)
     np.testing.assert_allclose(tv[1], fb, atol=1e-7)
-    np.testing.assert_allclose(tv, np.asarray(jv), atol=1e-6)
     assert np.isfinite(tv).all()
+    simple = _simple(a, 0)
+    assert simple.sum() == 2  # the rank-2 and diag(1, 1, 1e-6) rows
+    np.testing.assert_allclose(np.abs((tv * jv).sum(1))[simple], 1.0,
+                               atol=1e-6)
+    w = np.linalg.eigvalsh(a.astype(np.float64))
+    rest = ~simple
+    rest[:2] = False  # the guards' rows, held above
+    _in_eigenspace(a[rest], tv[rest][:, :, None], w[rest][:, :1], 1e-6)
     v = np.array([1.0, 2.0, -0.5], np.float32) / np.sqrt(5.25)
     # a double zero eigenvalue: the cross products of (A - λI)'s rows are
     # ~1e-4 of the scale, so the direction is resolved to ~1e-4
@@ -93,8 +128,18 @@ def test_eigh3_frame_matches_jax(batch):
     np.testing.assert_allclose(np.einsum("nji,njk->nik", tv, tv), eye,
                                atol=1e-4)
     np.testing.assert_allclose(tl, np.asarray(jl), atol=1e-4, rtol=1e-5)
-    np.testing.assert_allclose(np.abs(np.einsum("nji,nji->ni", tv, jv)),
-                               1.0, atol=1e-3)
+    # the random batch's columns are JAX's up to sign; the degenerate
+    # batch's are held to float64 eigh, since the closed form's frame turns
+    # by up to 0.09 rad there (the rank-2 row's null vector): each column
+    # in its eigenspace, a simple eigenvalue's float64's up to sign
+    w64, v64 = np.linalg.eigh(a.astype(np.float64))
+    ref = jv if batch == "random" else v64
+    cos = np.abs(np.einsum("nji,nji->ni", tv, ref))
+    simple = np.stack([_simple(a, k) for k in range(3)], axis=1)
+    np.testing.assert_allclose(cos[simple], 1.0, atol=1e-3)
+    if batch == "random":
+        assert simple.all()
+    _in_eigenspace(a, tv, w64, 1e-5)
     if batch == "random":
         recon = np.einsum("nij,nj,nkj->nik", tv, tl, tv)
         scale = np.abs(a).max(axis=(1, 2))[:, None, None]

@@ -17,6 +17,8 @@ not loaded):
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -2636,3 +2638,197 @@ def test_basic_registration_example_on_card(cuda):
     got = basic_registration.main([])
     assert got["gt_error"] < 1e-5
     assert nn_argmin_cuda.launches > before
+
+
+# ---- kernel eig3 and point-to-plane on the hall scan ------------------------
+
+EIG3_CASES = ["near_collinear", "lam0_near_lam1", "lam1_near_lam2",
+              "isotropic", "zero", "signed"]
+
+
+def _eig3_input(case):
+    from test_torch_eig3 import CASES
+
+    rng = np.random.default_rng(EIG3_CASES.index(case) + 31)
+    if case == "signed":
+        b = rng.normal(size=(500, 3, 3))
+        return (b + b.transpose(0, 2, 1)).astype(np.float32)
+    return CASES[case](rng)
+
+
+@pytest.mark.parametrize("case", EIG3_CASES)
+def test_eig3_kernel_against_mirror_and_float64(cuda, case):
+    """Kernel eig3 against float64 ``eigh`` of the same float32 matrices
+    (each column within 8·2⁻²³·max|λ| / its gap rad, or 1e-6; each value
+    within 8·2⁻²³·max|λ|) and against its CPU mirror (the same, and the
+    fixed frame of A ≈ qI bit for bit): one launch, through ``eigh3`` on
+    a CUDA tensor."""
+    from test_torch_eig3 import EPS32, _angles
+
+    from fpcr_tpu_torch.ops.eig3_cuda import eig3_cuda
+    from fpcr_tpu_torch.ops.eig3_mirror import eig3_mirror
+    from fpcr_tpu_torch.ops.eigh3 import eigh3
+
+    a = _eig3_input(case)
+    before = eig3_cuda.launches
+    vals, vecs = eigh3(torch.as_tensor(a, device=cuda))
+    assert eig3_cuda.launches == before + 1
+    vals, vecs = vals.cpu().numpy(), vecs.cpu().numpy()
+    mvals, mvecs = eig3_mirror(a)
+    w, v = np.linalg.eigh(a.astype(np.float64))
+    top = np.abs(w).max(axis=1)
+    for ref in (w, mvals):
+        np.testing.assert_array_less(np.abs(vals - ref).max(axis=1),
+                                     8 * EPS32 * top + 1e-30)
+    if case in ("isotropic", "zero"):
+        np.testing.assert_array_equal(vecs, mvecs)
+        return
+    for j in range(3):
+        gaps = np.abs(w - w[:, j:j + 1])
+        gaps[:, j] = np.inf
+        bound = np.maximum(8 * EPS32 * top / gaps.min(axis=1), 1e-6)
+        for ref in (v, mvecs):
+            ang = _angles(vecs[:, :, j], ref[:, :, j])
+            assert (ang <= bound).all(), (case, j, (ang / bound).max())
+
+
+def test_eig3_kernel_edges_and_checks(cuda):
+    """NaN and ±inf give NaN, zero the fixed frame, an empty batch no
+    launch; a CPU, float64 or non-contiguous input, or a wrong shape, is
+    refused before any launch."""
+    from fpcr_tpu_torch.ops.eig3_cuda import eig3_cuda
+    from fpcr_tpu_torch.ops.eigh3 import ISO_FRAME
+
+    a = torch.zeros(4, 3, 3, device=cuda)
+    a[0, 0, 1] = float("nan")
+    a[1, 2, 2] = float("inf")
+    a[2, 0, 0] = -float("inf")
+    vals, vecs = eig3_cuda(a)
+    assert bool(vals[:3].isnan().all()) and bool(vecs[:3].isnan().all())
+    assert bool((vals[3] == 0).all())
+    np.testing.assert_allclose(vecs[3].cpu().numpy(), np.array(ISO_FRAME),
+                               atol=1e-7)
+    before = eig3_cuda.launches
+    v0, e0 = eig3_cuda(torch.zeros(0, 3, 3, device=cuda))
+    assert v0.shape == (0, 3) and e0.shape == (0, 3, 3)
+    for bad in (torch.zeros(2, 3, 3), torch.zeros(2, 3, 3, device=cuda,
+                                                  dtype=torch.float64),
+                torch.zeros(3, 3, 2, device=cuda).transpose(1, 2),
+                torch.zeros(2, 3, 4, device=cuda)):
+        with pytest.raises(ValueError):
+            eig3_cuda(bad)
+    assert eig3_cuda.launches == before
+
+
+def _hall_plane_request(cuda, shift=0.0):
+    """The OS1-16 hall scan (16,384 points) with 2 mm noise and a 2 degree,
+    3 cm pose, as the cell hall-plane-seq registers it."""
+    from benchmark import scenes
+
+    cloud = scenes.ouster_hall("assets/Donut_1024x16.csv",
+                               "assets/beam_intrinsics.csv")
+    rng = np.random.default_rng(17)
+    c, s = math.cos(math.radians(2.0)), math.sin(math.radians(2.0))
+    rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    src = cloud.astype(np.float64) @ rot.T + [0.02, -0.01, 0.015]
+    src = src + rng.normal(0, 0.002, src.shape)
+    tgt = cloud + rng.normal(0, 0.002, cloud.shape) + shift
+    return (torch.as_tensor(src.astype(np.float32), device=cuda),
+            torch.as_tensor(tgt.astype(np.float32), device=cuda))
+
+
+def test_plane_call_captured_equals_eager_without_host_reads(cuda):
+    """``run_icp(metric='plane', matcher='xla')`` on the hall scan, its
+    normals prepass (self-kNN, covariances, kernel eig3) in every call:
+    the key's eager call, the capture and the replay bit for bit the
+    ``graphs.eager()`` run with its launches; the prepass issues no host
+    read (it runs under ``set_sync_debug_mode('error')``), so the call's
+    syncs are its done reads."""
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.ops.eig3_cuda import eig3_cuda
+    from fpcr_tpu_torch.utils import graphs, timing
+
+    graphs.clear()
+    src, tgt = _hall_plane_request(cuda)
+    cfg = ft.ICPConfig(metric="plane", matcher="xla", max_iterations=100,
+                       tolerance=1e-6, k_neighbors=4)
+
+    def run():
+        return ft.run_icp(src, tgt, cfg)
+
+    counts = [_launch_counts()]
+    with graphs.eager():
+        ref = run()
+    counts.append(_launch_counts())
+    outs = []
+    for _ in range(3):  # the key's eager call, the capture, the replay
+        outs.append(run())
+        counts.append(_launch_counts())
+    assert len(graphs.CACHE) >= 1
+    for got in outs:
+        assert all(torch.equal(a, b) for a, b in zip(_result_bits(ref),
+                                                     _result_bits(got)))
+
+    def diff(x, y):
+        return [({k: v - y[i].get(k, 0) for k, v in a.items()}
+                 if isinstance(a, dict) else a - y[i])
+                for i, a in enumerate(x)]
+    per_call = [diff(b, a) for a, b in zip(counts, counts[1:])]
+    assert all(d == per_call[0] for d in per_call)
+    before = eig3_cuda.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        normals = ft.estimate_normals(tgt, k=4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert eig3_cuda.launches == before + 1 and normals.shape == tgt.shape
+    with timing.recording():
+        res = run()
+    spans = timing.recorded_spans()
+    timing.clear_spans()
+    (call,) = [s for s in spans if s.name == "call"]
+    reads = [s for s in spans if s.name == "done_read"]
+    assert call.attrs["syncs"] == len(reads) >= 1
+    (nspan,) = [s for s in spans if s.name == "normals"]
+    assert nspan.attrs == {"rows": 16384, "k": 4, "tiles": 64}
+    assert int(res.num_iterations) == int(ref.num_iterations)
+
+
+def test_plane_on_a_ring_sector_holds_the_reference_on_card(cuda):
+    """The CPU test's 16-ring sector on the card, kernel eig3's normals and
+    K1: the float64 reference's pose and first error within the CPU test's
+    tolerances."""
+    import fpcr_tpu_torch as ft
+    from test_torch_eig3 import (FIRST_ERROR_TOL, ICP, POSE_TOL,
+                                 _ring_request)
+
+    from benchmark.reference import check, icp64
+    from benchmark.rows import pack
+
+    for b0 in (64, 256, 832):
+        src, tgt = _ring_request(b0)
+        ref = icp64.register(src, tgt, ICP, "plane", icp64.FLOAT64)
+        res = ft.run_icp(src.to(cuda), tgt.to(cuda),
+                         ft.ICPConfig(metric="plane", **ICP))
+        g = check.gaps(pack(res)[0].cpu(), ref, src)
+        assert g["iter_gap"] <= 1, (b0, g)
+        assert g["pose_gap_m"] < POSE_TOL, (b0, g)
+        assert g["first_error_gap_m"] < FIRST_ERROR_TOL, (b0, g)
+
+
+def test_batched_normals_equal_each_elements_call_on_card(cuda):
+    """``estimate_normals`` of a batch [B, M, 3] on the card: each
+    element's normals its own call's bit for bit, one eig3 launch for the
+    batch."""
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.ops.eig3_cuda import eig3_cuda
+
+    src, tgt = _hall_plane_request(cuda)
+    clouds = torch.stack([tgt, src, tgt[torch.randperm(
+        tgt.shape[0], generator=torch.Generator().manual_seed(0)).to(cuda)]])
+    before = eig3_cuda.launches
+    batch = ft.estimate_normals(clouds, k=4)
+    assert eig3_cuda.launches == before + 1
+    for b in range(3):
+        assert torch.equal(batch[b], ft.estimate_normals(clouds[b], k=4))

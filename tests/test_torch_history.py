@@ -47,18 +47,26 @@ HISTORY_RUNS = {
 
 
 @pytest.mark.parametrize("key", list(HISTORY_RUNS))
-def test_history_matches_jax(key):
+def test_history_matches_jax(key, monkeypatch):
     """Every row within f32 noise of JAX's fixed-trip scan, the rows after
     the stop JAX's masked no-op rows (identity increments, the frozen
     accumulated transform, the last error repeated, ``active`` false,
     ``matched_fraction`` NaN, zero deltas); equal iteration counts. Runs
-    with normals take JAX's normals."""
+    with normals take JAX's normals: the target's as an argument, the
+    symmetric run's source normals through the port's prepass, since the
+    port's eigensolver departs from JAX's closed form where two
+    eigenvalues of a neighbourhood nearly meet."""
     kw = HISTORY_RUNS[key]
     src, tgt = _scene()
     extra = {}
     if kw.get("metric") in ("plane", "symmetric"):
         extra["target_normals"] = np.array(f.estimate_normals(
             jnp.asarray(tgt)))
+    if kw.get("metric") == "symmetric":
+        from fpcr_tpu_torch.models import icp as mi
+
+        monkeypatch.setattr(mi, "estimate_normals", lambda q, **kws: _t(
+            f.estimate_normals(jnp.asarray(q.numpy()), **kws)))
     cfg = dict(max_iterations=30, **kw)
     j = f.run_icp_with_history(jnp.asarray(src), jnp.asarray(tgt),
                                f.ICPConfig(**cfg),

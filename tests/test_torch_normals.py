@@ -63,11 +63,41 @@ def _grid_target(width=40):
     return np.array(f.synthetic_scene(width=width).target)
 
 
+def _held_to_jax_or_float64(q, jidx, ridx, jnrm, tnrm):
+    """The port re-ranks the norm form's picks by the difference form
+    (``tn.rerank``), which JAX does not, and solves by ``eigh`` where JAX
+    takes the closed form. The port's neighbours ``ridx`` lie no farther
+    than JAX's ``jidx`` in float64; every normal is float64 ``eigh``'s of
+    the port's float32 covariance within ``8·2⁻²³·λ2 / (λ1 − λ0)`` rad (or
+    1e-6), eig3's bound; and it is JAX's wherever the two pick the same
+    neighbours, that bound is below 1e-3 rad and JAX's closed form
+    resolves the float64 normal."""
+    q64 = q.astype(np.float64)
+
+    def farthest(idx):
+        return ((q64[:, None] - q64[idx]) ** 2).sum(-1).max(1)
+
+    assert (farthest(ridx) <= farthest(jidx) * (1 + 1e-6)).all()
+    cov = tn._neighbour_covariance(torch.as_tensor(q),
+                                   torch.as_tensor(ridx[:, 1:]))
+    w, v = np.linalg.eigh(cov.double().numpy())
+    n64 = v[..., 0]
+    sin = np.linalg.norm(np.cross(n64, tnrm.astype(np.float64)), axis=1)
+    gap = np.maximum(w[:, 1] - w[:, 0], 1e-300)
+    bound = 8 * 2.0 ** -23 * w[:, 2] / gap
+    assert (sin <= np.maximum(bound, 1e-6)).all()
+    held = ((np.sort(jidx, 1) == np.sort(ridx, 1)).all(1) & (bound < 1e-3)
+            & (np.abs((n64 * jnrm).sum(1)) > 1 - 1e-4))
+    assert held.sum() > len(q) // 2
+    assert (np.abs((jnrm * tnrm).sum(1))[held] > 1 - 1e-4).all()
+
+
 @pytest.mark.parametrize("exact", [False, True])
 def test_estimate_normals_match_jax(exact):
     """On the synthetic grid the two kNN picks agree but at near-ties of the
-    grid, where a different k-th neighbour turns the normal; on a random
-    (tie-free) cloud every normal agrees up to sign."""
+    grid, where a different k-th neighbour turns the normal; there the
+    port's re-ranked normals are held to float64's. On a random (tie-free)
+    cloud every normal agrees up to sign."""
     q = _grid_target()
     jidx, _ = jn.knn(jnp.asarray(q), jnp.asarray(q), 5, exact=exact)
     tidx, _ = tn.knn(torch.as_tensor(q), torch.as_tensor(q), 5, exact=exact)
@@ -81,7 +111,20 @@ def test_estimate_normals_match_jax(exact):
     jnrm = np.asarray(jn.estimate_normals(jnp.asarray(q), exact=exact))
     tnrm = tn.estimate_normals(torch.as_tensor(q), exact=exact).numpy()
     np.testing.assert_allclose(np.linalg.norm(tnrm, axis=1), 1.0, atol=1e-5)
-    assert (np.abs((jnrm * tnrm).sum(1)) > 1 - 1e-4).mean() > 0.95
+    if exact:
+        assert (np.abs((jnrm * tnrm).sum(1)) > 1 - 1e-4).mean() > 0.95
+    else:
+        # the port re-ranks the norm form's picks by the difference form
+        # (``tn.rerank``), which JAX does not: every row's neighbours are
+        # float64's, and its normal is JAX's where the two pick the same
+        # neighbours, else float64's PCA normal of float64's neighbours
+        tq = torch.as_tensor(q)
+        ridx = tn.rerank(tq, *tn.knn(tq, tq, 5 + tn.RERANK), 5).numpy()
+        d64 = ((q64[:, None] - q64[None]) ** 2).sum(-1)
+        kth = np.sort(d64, 1)[:, 4]
+        dr = np.take_along_axis(d64, ridx.astype(np.int64), 1)[:, -1]
+        np.testing.assert_allclose(dr, kth, rtol=1e-6, atol=1e-12)
+        _held_to_jax_or_float64(q, jidx, ridx, jnrm, tnrm)
 
     c = np.random.default_rng(9).uniform(-1, 1, (1500, 3)).astype(np.float32)
     jnrm = np.asarray(jn.estimate_normals(jnp.asarray(c), exact=exact))
@@ -91,14 +134,19 @@ def test_estimate_normals_match_jax(exact):
 
 def test_banded_normals_match_jax():
     """Above ``banded_threshold`` the neighbours come from ``knn_morton``;
-    both packages sort the same table and scan the same bands."""
+    both packages sort the same table and scan the same bands; the port
+    re-ranks its picks as on the streaming path."""
     q = _grid_target(48)
     jnrm = np.asarray(jn.estimate_normals(jnp.asarray(q),
                                           banded_threshold=1000))
     tnrm = tn.estimate_normals(torch.as_tensor(q),
                                banded_threshold=1000).numpy()
-    dots = np.abs((jnrm * tnrm).sum(1))
-    assert (dots > 1 - 1e-4).mean() > 0.95
+    tq = torch.as_tensor(q)
+    jidx = np.asarray(jn.self_knn(jnp.asarray(q), 5,
+                                  banded_threshold=1000)[0])
+    ridx = tn.rerank(tq, *tn.self_knn(tq, 5 + tn.RERANK,
+                                      banded_threshold=1000), 5).numpy()
+    _held_to_jax_or_float64(q, jidx, ridx, jnrm, tnrm)
     # a random (tie-free) cloud: every normal agrees
     rng = np.random.default_rng(8)
     c = rng.uniform(-1, 1, (3000, 3)).astype(np.float32)

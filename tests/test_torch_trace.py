@@ -5,8 +5,8 @@ Off (no profiler session, no ``recording()`` block) a call records
 nothing and reads no clock. On, under ``recording()`` or a CPU
 ``torch.profiler`` session, one call is one tree: the root ``call``
 (entry, B, N, M, metric, matcher and the call's counts) over ``prepare``
-(``normals``, ``table`` and ``source_order`` inside it where the config
-builds them), ``bind``, the chunks, a ``done_read`` before every chunk but
+(``normals``, with ``knn`` and ``eig3`` inside it, ``table`` and
+``source_order`` inside it where the config builds them), ``bind``, the chunks, a ``done_read`` before every chunk but
 the first and after the last unless the loop ran to its cap, and
 ``result``; every span carries the call's id, and a child lies inside its
 parent in time.
@@ -39,7 +39,8 @@ POINT = ft.ICPConfig()
 # a morton plane registration run to its cap: three chunks, two done reads
 MORTON = ft.ICPConfig(matcher="morton", metric="plane", morton_chunk=64,
                       morton_window=64, tolerance=0.0, max_iterations=20)
-SPAN_NAMES = {"call", "prepare", "normals", "table", "source_order", "bind",
+SPAN_NAMES = {"call", "prepare", "normals", "knn", "eig3", "table",
+              "source_order", "bind",
               "chunk", "copy_in", "replay", "copy_out", "done_read",
               "result"}
 
@@ -158,14 +159,20 @@ def test_a_morton_call_records_its_table_and_source_order(scene):
     spans = timing.recorded_spans()
     root, by_name = _check_tree(
         spans, "run_icp", 1, 256, 256, "plane", "morton",
-        {"prepare", "normals", "table", "source_order", "bind", "chunk",
-         "done_read", "result"})
+        {"prepare", "normals", "knn", "eig3", "table", "source_order",
+         "bind", "chunk", "done_read", "result"})
     _check_loop(root, by_name, int(res.num_iterations), 20)
     assert int(res.num_iterations) == 20 and root.attrs["syncs"] == 2
     (prepare,) = by_name["prepare"]
     for name in ("normals", "table", "source_order"):
         (s,) = by_name[name]
         assert s.parent == prepare.id
+    (normals,) = by_name["normals"]
+    for name in ("knn", "eig3"):
+        (s,) = by_name[name]
+        assert s.parent == normals.id
+    # 256 rows, one chunk of 2,048 by one tile of 2,048
+    assert normals.attrs == {"rows": 256, "k": 4, "tiles": 1}
 
 
 def test_a_batch_call_records_its_batch(scene):
@@ -224,7 +231,7 @@ def test_an_exception_leaves_no_span_open(scene, monkeypatch):
     # the failed call is recorded, its open prepare and source_order not
     assert len(calls) == 2 and calls[1].parent is None
     assert [s.name for s in spans if s.call == calls[0].id] == [
-        "normals", "table", "call"]
+        "knn", "eig3", "normals", "table", "call"]
     assert timing.RECORDER._stack() == []
 
 
