@@ -221,6 +221,15 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_svd3_ablation.restype = i32
     lib.fpcr_eig3.argtypes = [ptr, i32, ptr, ptr, ptr]
     lib.fpcr_eig3.restype = i32
+    for name in ("fpcr_knn_k_max", "fpcr_knn_max_slice"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    lib.fpcr_knn_rows_per_block.argtypes = [i32]
+    lib.fpcr_knn_rows_per_block.restype = i32
+    lib.fpcr_knn_sweep.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 3
+    lib.fpcr_knn_sweep.restype = i32
+    lib.fpcr_knn_merge.argtypes = [ptr, ptr] + [i32] * 4 + [ptr] * 3
+    lib.fpcr_knn_merge.restype = i32
     lib.fpcr_graph_add_if.argtypes = [ptr, ptr, i32, ptr, ptr]
     lib.fpcr_graph_add_if.restype = i32
     lib.fpcr_graph_add_child.argtypes = [ptr, ptr]

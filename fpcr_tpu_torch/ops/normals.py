@@ -20,10 +20,19 @@ candidates and re-ranks them by the difference form (:func:`rerank`), which
 picks float64's neighbours there. The JAX package keeps the norm form's
 picks.
 
+On the card, :func:`estimate_normals` takes the self-kNN kernel
+(``ops/knn_cuda.py::self_knn_cuda``) wherever :func:`knn_kernel_route`
+admits the call: it ranks by the difference form, so it asks for the
+``k + 1`` nearest alone and nothing is re-ranked; every other call keeps
+the streaming search (and, unless ``exact``, the re-rank). :func:`knn`,
+:func:`self_knn` and :func:`normals_with_curvature` stream on every
+device.
+
 Recorded (``utils/timing.py``), :func:`estimate_normals` is the span
-``normals`` (its counts: ``rows``, ``k`` and the search's ``tiles``) over
-``knn`` (the self-kNN) and ``eig3`` (the covariances and the
-eigensolve).
+``normals`` (its counts: ``rows``, ``k`` and the search's ``tiles``: tile
+steps of the stream, or the kernel's sweep blocks) over ``knn`` (the
+self-kNN; its count ``kernel`` is 1 where the kernel served it, else 0)
+and ``eig3`` (the covariances and the eigensolve).
 
 :func:`knn`, :func:`self_knn` and :func:`estimate_normals` take a batch as
 well (clouds ``[B, M, 3]``, masks ``[B, M]``), the JAX package's ``vmap``
@@ -40,8 +49,9 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils import timing
+from . import knn_cuda
 from .eigh3 import eigh3, smallest_eigenvector
-from .matching import pairwise_sqdist, pairwise_sqdist_exact
+from .matching import pairwise_sqdist
 
 
 def smallest_k(d: torch.Tensor, k: int
@@ -58,6 +68,16 @@ def smallest_k(d: torch.Tensor, k: int
     return torch.gather(d, -1, pos), pos
 
 
+def sqdist_diff(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Difference-form squared distances ``[..., n, m]``, summed as ``(dx²
+    + dy²) + dz²`` on every device: the self-kNN kernel's order, where
+    ``torch.sum`` over the last axis takes the device's own (the card's
+    differs from the CPU's)."""
+    diff = p[..., :, None, :] - q[..., None, :, :]
+    sq = diff * diff
+    return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+
+
 def knn(p: torch.Tensor, q: torch.Tensor, k: int,
         q_mask: Optional[torch.Tensor] = None, *, chunk: int = 1024,
         tile: int = 2048, exact: bool = False
@@ -69,7 +89,7 @@ def knn(p: torch.Tensor, q: torch.Tensor, k: int,
     p = p.to(torch.float32)
     q = q.to(torch.float32)
     lead, n, m = p.shape[:-2], p.shape[-2], q.shape[-2]
-    dist_fn = pairwise_sqdist_exact if exact else pairwise_sqdist
+    dist_fn = sqdist_diff if exact else pairwise_sqdist
     out_d = torch.empty(lead + (n, k), dtype=torch.float32, device=p.device)
     out_i = torch.empty(lead + (n, k), dtype=torch.int32, device=p.device)
     for s0 in range(0, n, chunk):
@@ -122,6 +142,16 @@ def self_knn(q: torch.Tensor, kk: int, mask: Optional[torch.Tensor] = None,
 RERANK = 4
 
 
+def knn_kernel_route(device: torch.device, m: int, kk: int,
+                     banded_threshold: int) -> bool:
+    """Whether :func:`estimate_normals` searches the ``kk`` nearest of
+    each of ``m`` points by the self-kNN kernel: on a CUDA device, at most
+    ``banded_threshold`` points (above it the banded search runs) and
+    ``kk`` at most the kernel's ``K_MAX``."""
+    return (device.type == "cuda" and m <= banded_threshold
+            and kk <= knn_cuda.K_MAX)
+
+
 def rerank(q: torch.Tensor, idx: torch.Tensor, d: torch.Tensor, kk: int
            ) -> torch.Tensor:
     """The ``kk`` nearest of each point's candidates ``idx`` [..., M, c]
@@ -157,31 +187,46 @@ def estimate_normals(q: torch.Tensor, k: int = 4,
                      banded_threshold: int = 100_000) -> torch.Tensor:
     """Unoriented PCA normals ``[M, 3]`` of a cloud from its k nearest
     non-self neighbours (``include_self`` adds the point itself). A
-    degenerate neighbourhood gets (1,1,1)/√3. Unless ``exact``, the
-    search's ``k + 1 +`` :data:`RERANK` nearest are re-ranked by the
-    difference form. A batch ``[B, M, 3]`` (mask ``[B, M]``) gives ``[B, M,
-    3]``, each element's its own call's."""
+    degenerate neighbourhood gets (1,1,1)/√3. Off the kernel's route and
+    unless ``exact``, the search's ``k + 1 +`` :data:`RERANK` nearest are
+    re-ranked by the difference form. A batch ``[B, M, 3]`` (mask ``[B, M]``) gives ``[B, M,
+    3]``, each element's its own call's. On the card up to
+    ``banded_threshold`` points (:func:`knn_kernel_route`), the self-kNN
+    kernel finds the ``k + 1`` nearest by the difference form, ``exact``
+    or not."""
     span = timing.begin("normals")
     q = q.to(torch.float32)
+    m = q.shape[-2]
+    kernel = knn_kernel_route(q.device, m, k + 1, banded_threshold)
     inner = timing.begin("knn")
-    extra = 0 if exact else RERANK
-    idx_all, d_all = self_knn(q, k + 1 + extra, mask, chunk=chunk,
-                              tile=tile, exact=exact,
-                              banded_threshold=banded_threshold)
-    if extra:
-        idx_all = rerank(q, idx_all, d_all, k + 1)
+    if kernel:
+        q = q.contiguous()
+        idx_all, _ = knn_cuda.self_knn_cuda(
+            q, k + 1, None if mask is None
+            else mask.to(torch.bool).contiguous())
+    else:
+        extra = 0 if exact else RERANK
+        idx_all, d_all = self_knn(q, k + 1 + extra, mask, chunk=chunk,
+                                  tile=tile, exact=exact,
+                                  banded_threshold=banded_threshold)
+        if extra:
+            idx_all = rerank(q, idx_all, d_all, k + 1)
     if inner:
-        inner.end()
+        inner.end(kernel=int(kernel))
     inner = timing.begin("eig3")
     nbr_idx = idx_all if include_self else idx_all[..., 1:]
     normals, _ = smallest_eigenvector(_neighbour_covariance(q, nbr_idx))
     if inner:
         inner.end()
     if span:
-        m = q.shape[-2]
-        banded = m > banded_threshold and not exact
-        tiles = (-(-m // min(chunk, 1024)) if banded
-                 else -(-m // chunk) * -(-m // tile))
+        if kernel:
+            tiles = knn_cuda.sweep_blocks(
+                q.shape[0] if q.ndim == 3 else 1, m, k + 1,
+                knn_cuda.sm_count(q.device.index))
+        elif m > banded_threshold and not exact:
+            tiles = -(-m // min(chunk, 1024))
+        else:
+            tiles = -(-m // chunk) * -(-m // tile)
         span.end(rows=m, k=k, tiles=tiles)
     return normals
 

@@ -1,7 +1,7 @@
 """Kernels K1, K2, the min-only sweep, K3, K3p (unbatched and with a batch
-axis), K4, Kernel S (the bf16
-split distance on the tensor cores) and the E1 distance forms on the card
-against their plain PyTorch versions, and the E1 forms and the min-only
+axis), K4, Kernel S (the bf16 split distance on the tensor cores), the E1
+distance forms, eig3 and the normals' self-kNN on the card against their
+plain PyTorch versions, and the E1 forms and the min-only
 sweep (``csrc/nn_forms.cu``) bit for bit against their first design
 (``csrc/matching.cu``); GICP, the loop variants and the voxel
 grid on the card against the port on the CPU, and no host sync in their
@@ -2739,13 +2739,16 @@ def _hall_plane_request(cuda, shift=0.0):
 
 def test_plane_call_captured_equals_eager_without_host_reads(cuda):
     """``run_icp(metric='plane', matcher='xla')`` on the hall scan, its
-    normals prepass (self-kNN, covariances, kernel eig3) in every call:
-    the key's eager call, the capture and the replay bit for bit the
-    ``graphs.eager()`` run with its launches; the prepass issues no host
-    read (it runs under ``set_sync_debug_mode('error')``), so the call's
-    syncs are its done reads."""
+    normals prepass (the self-kNN kernel, covariances, kernel eig3) in
+    every call: the key's eager call, the capture and the replay bit for
+    bit the ``graphs.eager()`` run with its launches; the prepass issues
+    no host read (it runs under ``set_sync_debug_mode('error')``) and
+    launches the kNN sweep and merge, so the call's syncs are its done
+    reads and its span ``knn`` counts ``kernel`` 1."""
     import fpcr_tpu_torch as ft
     from fpcr_tpu_torch.ops.eig3_cuda import eig3_cuda
+    from fpcr_tpu_torch.ops.knn_cuda import (self_knn_cuda, sm_count,
+                                             sweep_blocks)
     from fpcr_tpu_torch.utils import graphs, timing
 
     graphs.clear()
@@ -2776,6 +2779,7 @@ def test_plane_call_captured_equals_eager_without_host_reads(cuda):
     per_call = [diff(b, a) for a, b in zip(counts, counts[1:])]
     assert all(d == per_call[0] for d in per_call)
     before = eig3_cuda.launches
+    knn_before = self_knn_cuda.launches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2783,6 +2787,8 @@ def test_plane_call_captured_equals_eager_without_host_reads(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert eig3_cuda.launches == before + 1 and normals.shape == tgt.shape
+    assert self_knn_cuda.launches == knn_before + 2  # the sweep, the merge
+    timing.clear_spans()  # what earlier tests recorded under a profiler
     with timing.recording():
         res = run()
     spans = timing.recorded_spans()
@@ -2791,7 +2797,10 @@ def test_plane_call_captured_equals_eager_without_host_reads(cuda):
     reads = [s for s in spans if s.name == "done_read"]
     assert call.attrs["syncs"] == len(reads) >= 1
     (nspan,) = [s for s in spans if s.name == "normals"]
-    assert nspan.attrs == {"rows": 16384, "k": 4, "tiles": 64}
+    (knn_span,) = [s for s in spans if s.name == "knn"]
+    assert knn_span.attrs["kernel"] == 1
+    blocks = sweep_blocks(1, 16384, 5, sm_count(cuda.index))
+    assert nspan.attrs == {"rows": 16384, "k": 4, "tiles": blocks}
     assert int(res.num_iterations) == int(ref.num_iterations)
 
 
@@ -2819,16 +2828,166 @@ def test_plane_on_a_ring_sector_holds_the_reference_on_card(cuda):
 
 def test_batched_normals_equal_each_elements_call_on_card(cuda):
     """``estimate_normals`` of a batch [B, M, 3] on the card: each
-    element's normals its own call's bit for bit, one eig3 launch for the
-    batch."""
+    element's normals its own call's bit for bit, one eig3 launch and one
+    kNN sweep and merge for the batch."""
     import fpcr_tpu_torch as ft
     from fpcr_tpu_torch.ops.eig3_cuda import eig3_cuda
+    from fpcr_tpu_torch.ops.knn_cuda import self_knn_cuda
 
     src, tgt = _hall_plane_request(cuda)
     clouds = torch.stack([tgt, src, tgt[torch.randperm(
         tgt.shape[0], generator=torch.Generator().manual_seed(0)).to(cuda)]])
     before = eig3_cuda.launches
+    knn_before = self_knn_cuda.launches
     batch = ft.estimate_normals(clouds, k=4)
     assert eig3_cuda.launches == before + 1
+    assert self_knn_cuda.launches == knn_before + 2
     for b in range(3):
         assert torch.equal(batch[b], ft.estimate_normals(clouds[b], k=4))
+
+
+# ---- the self-kNN kernel of the normals prepass -----------------------------
+
+KNN_CASES = ["random", "duplicates", "lattice", "nan", "masked",
+             "three valid", "batch", "hall", "hall kk=9", "hall kk=16",
+             "hall permuted"]
+
+
+def _knn_input(cuda, case):
+    """``(q, mask, kk)`` on the card for ``case``."""
+    rng = np.random.default_rng(KNN_CASES.index(case) + 230)
+
+    def cloud(m, scale=5.0):
+        return rng.uniform(-scale, scale, (m, 3)).astype(np.float32)
+
+    mask, kk = None, 5
+    if case == "random":
+        q = cloud(3000)
+    elif case == "duplicates":
+        q = cloud(2500)
+        q[rng.integers(0, 2500, 900)] = q[rng.integers(0, 2500, 900)]
+        q[1200:1204] = q[3]
+        kk = 9
+    elif case == "lattice":
+        g = np.stack(np.meshgrid(*[np.arange(13)] * 3, indexing="ij"), -1)
+        q = g.reshape(-1, 3).astype(np.float32)
+    elif case == "nan":
+        q = cloud(2000)
+        q[[0, 777, 1999]] = np.nan
+        q[5, 2] = np.inf
+    elif case == "masked":
+        q = cloud(3000)
+        mask = rng.random(3000) < 0.6
+        kk = 16
+    elif case == "three valid":
+        q = cloud(700)
+        mask = np.isin(np.arange(700), [2, 350, 699])
+    elif case == "batch":
+        q = np.stack([cloud(2048), cloud(2048, 0.01), cloud(2048)])
+        q[2, 1000:1500] = q[2, 0]
+        mask = rng.random((3, 2048)) < np.array([[1.0], [0.9], [0.5]])
+        kk = 9
+    else:
+        q = _hall_plane_request(cuda)[1].cpu().numpy()
+        kk = {"hall kk=9": 9, "hall kk=16": 16}.get(case, 5)
+        if case == "hall permuted":
+            q = q[rng.permutation(q.shape[0])]
+    return (torch.as_tensor(q, device=cuda),
+            None if mask is None else torch.as_tensor(mask, device=cuda), kk)
+
+
+@pytest.mark.parametrize("case", KNN_CASES)
+def test_knn_kernel_equals_plain_and_mirror(cuda, case):
+    """The self-kNN kernel bit for bit the plain exact search (indices and
+    distance bits), with and without its seed, and its CPU mirror up to
+    3,000 points and on the hall's 16,384; a sweep and a merge a call
+    where the plan has slices."""
+    from fpcr_tpu_torch.ops import normals as tn
+    from fpcr_tpu_torch.ops.knn_cuda import (_self_knn_unseeded, plan_knn,
+                                             self_knn_cuda, sm_count)
+    from fpcr_tpu_torch.ops.knn_mirror import self_knn_mirror
+
+    q, mask, kk = _knn_input(cuda, case)
+    want = tn.knn(q, q, kk, mask, exact=True)
+    before = self_knn_cuda.launches
+    got = self_knn_cuda(q, kk, mask)
+    slices, _ = plan_knn(q.shape[0] if q.ndim == 3 else 1, q.shape[-2], kk,
+                         sm_count(cuda.index))
+    assert self_knn_cuda.launches == before + (2 if slices > 1 else 1)
+    outs = [got, _self_knn_unseeded(q, kk, mask)]
+    if q.shape[-2] <= 3000 or case == "hall":
+        mi, md = self_knn_mirror(q.cpu().numpy(), kk,
+                                 None if mask is None else mask.cpu().numpy())
+        outs.append((torch.as_tensor(mi, device=cuda),
+                     torch.as_tensor(md, device=cuda)))
+    for idx, d in outs:
+        assert idx.dtype == torch.int32 and d.dtype == torch.float32
+        assert torch.equal(idx, want[0])
+        assert torch.equal(d.view(torch.int32), want[1].view(torch.int32))
+
+
+def test_knn_kernel_checks(cuda):
+    """A CPU, float64 or non-contiguous cloud, a ``kk`` outside 1 to
+    ``K_MAX``, or a mask of the wrong shape or type is refused before any
+    launch; an empty cloud launches nothing."""
+    from fpcr_tpu_torch.ops.knn_cuda import K_MAX, self_knn_cuda
+
+    q = torch.zeros(100, 3, device=cuda)
+    before = self_knn_cuda.launches
+    for args in ((q.cpu(), 5), (q.double(), 5), (q.t().contiguous().t(), 5),
+                 (q, 0), (q, K_MAX + 1), (q, 5, torch.ones(99, device=cuda,
+                                                           dtype=torch.bool)),
+                 (q, 5, torch.ones(100, device=cuda))):
+        with pytest.raises(ValueError):
+            self_knn_cuda(*args)
+    idx, d = self_knn_cuda(torch.zeros(0, 3, device=cuda), 5)
+    assert idx.shape == (0, 5) and d.shape == (0, 5)
+    assert self_knn_cuda.launches == before
+
+
+@pytest.mark.parametrize("scene", ["hall", "random"])
+def test_normals_on_the_kernel_route_hold_float64(cuda, scene):
+    """``estimate_normals`` on the card (the kernel's route): bit for bit
+    the plain exact route's normals (the streaming search forced by a
+    banded threshold of 0); its k + 1 neighbours float64's wherever the
+    float64 distances of ranks k + 1 and k + 2 lie further apart than
+    float32 rounding (1e-5 relative), on at least 99% of the rows; the
+    normals within eig3's bound of float64 ``eigh`` of their covariances."""
+    from test_torch_eig3 import EPS32, _angles
+
+    import fpcr_tpu_torch as ft
+    from fpcr_tpu_torch.ops import normals as tn
+    from fpcr_tpu_torch.ops.knn_cuda import self_knn_cuda
+
+    if scene == "hall":
+        q = _hall_plane_request(cuda)[1]
+    else:
+        rng = np.random.default_rng(5)
+        q = torch.as_tensor(rng.uniform(-20, 20, (8192, 3)).astype(
+            np.float32), device=cuda)
+    before = self_knn_cuda.launches
+    normals = ft.estimate_normals(q, k=4)
+    assert self_knn_cuda.launches > before
+    plain = ft.estimate_normals(q, k=4, exact=True, banded_threshold=0)
+    assert torch.equal(normals, plain)
+
+    idx, _ = self_knn_cuda(q, 5)
+    q64 = q.double()
+    d64 = torch.cat([torch.cdist(q64[s:s + 2048], q64) ** 2
+                     for s in range(0, q.shape[0], 2048)])
+    near = torch.topk(d64, 6, dim=-1, largest=False)
+    sep = near.values[:, 5] - near.values[:, 4] > 1e-5 * near.values[:, 5]
+    assert float(sep.double().mean()) >= 0.99
+    mine = torch.sort(idx.long(), dim=-1).values
+    theirs = torch.sort(near.indices[:, :5], dim=-1).values
+    assert torch.equal(mine[sep], theirs[sep])
+
+    cov = tn._neighbour_covariance(q, idx[:, 1:]).double()
+    w, v = torch.linalg.eigh(cov)
+    w, v = w.cpu().numpy(), v.cpu().numpy()
+    top = np.abs(w).max(axis=1)
+    bound = np.maximum(8 * EPS32 * top / np.maximum(w[:, 1] - w[:, 0],
+                                                    1e-300), 1e-6)
+    ang = _angles(normals.cpu().numpy(), v[:, :, 0])
+    ok = (w[:, 1] - w[:, 0]) > 8 * EPS32 * top  # a determined eigenvector
+    assert (ang[ok] <= bound[ok]).all()
