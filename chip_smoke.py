@@ -155,21 +155,19 @@ Phases, in order; any failure raises and the script exits nonzero:
 6. times — ms/iter by the slope method (point ICP at 16,384 through K1 and
    K2, plane ICP at 16,384, Morton ICP through K3 and K3p and NDT at
    262,144 and 1,048,576), K1 and K2 against their CUDA-core sweep in legs
-   (call and kernel time) with the sweep's ablations, K1, K2, the min-only
-   sweep, K3, K3p and K4 alone against their plain versions (K3 and K3p
-   with and without an extra, and
-   their unculled instances' kernel times), the kernels, device busy time
-   and idle share of a Morton point iteration at 1,048,576 (traced), the
-   packed-reduction study
+   (call and kernel time), K1, K2, the min-only sweep, K3, K3p and K4
+   alone against their plain versions (K3 and K3p with and without an
+   extra, and their unculled instances' kernel times), the kernels,
+   device busy time and idle share of a Morton point iteration at
+   1,048,576 (traced), the packed-reduction study
    (``fpcr_tpu_torch.bench.packed_reduction.main``), normals, the plane
    solve, the NDT grid build and the share of each stage of a point
    iteration, Kernel S's five launch types (in legs against the mma.sync
    yardstick: yardstick, wgmma, wgmma, yardstick, yardstick, wgmma, the
    least call and the median profiler kernel time a side; with the
-   sweep's ablations and slice plans), the E1 forms and the min-only sweep
-   in the same legs against their ``matching.cu`` yardstick and alone
-   against their plain versions, with the new sweep's ablations (the sums
-   alone, + the staging, + the reduction, + the finish), GICP (16,384
+   sweep's slice plans), the E1 forms and the min-only sweep in the same
+   legs against their ``matching.cu`` yardstick and alone against their
+   plain versions, GICP (16,384
    through K1, 1M through K3), AA-ICP, grid ICP (262k, 1M) and an SGD step
    by the slope method, and ``build_voxel_table``, ``grid_nn``,
    ``voxel_downsample`` and ``evaluate_registration`` by events;
@@ -241,8 +239,8 @@ plain version, the bound over the pairs the culled batch evaluated, and
 the 16 unbatched launches' call and kernel times beside them;
 the entries of Kernel S, the E1 forms, the min-only sweep and svd3's two
 forms also carry the legs' call and kernel times of both sides, svd3's
-rotation form also its design's parts alone, ``ablation``, and the
-captured point ICP slopes with either svd3, ``point_k1_ms_per_iter``). The last line is ``{"ok": true, "device":
+rotation form also the captured point ICP slopes with either svd3,
+``point_k1_ms_per_iter``). The last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits 1 and prints no result.
 """
 
@@ -651,8 +649,8 @@ def phase_build():
                    f"{k} {v / FORMS_BODY_PAIRS:.2f}" for k, v in per.items()
                    if k != "LDS"))
         log("build", f"SASS {name}: {per}{est}")
-    if len([k for k in forms if "nn_forms_kernel" in k]) != 18:
-        raise AssertionError("csrc/nn_forms.cu does not hold its 18 "
+    if len([k for k in forms if "nn_forms_kernel" in k]) != 6:
+        raise AssertionError("csrc/nn_forms.cu does not hold its 6 "
                              "instances")
     log("build", f"ptxas spills of the E1 / min-only sweep: "
                  f"{tc_spills(res.log, 'nn_forms_kernel')}")
@@ -665,15 +663,15 @@ def phase_build():
     if len(split) != 8 or not all(c["HMMA"] for c in split):
         raise AssertionError("a Kernel S yardstick instance issues no bf16 "
                              "HMMA")
-    # the wgmma sweep: terms 6 and 3 x four epilogues, and x two ablations
+    # the wgmma sweep: terms 6 and 3 x four epilogues
     wgmma = [c for k, c in counts.items() if "split_wgmma_kernel" in k]
-    if len(wgmma) != 12 or not all(c["HGMMA"] and not c["HMMA"]
+    if len(wgmma) != 8 or not all(c["HGMMA"] and not c["HMMA"]
                                    for c in wgmma):
         raise AssertionError("a Kernel S wgmma instance issues no HGMMA, or "
                              "HMMA")
     split_spills = tc_spills(res.log, "split_wgmma_kernel")
     log("build", f"ptxas spills of the Kernel S sweep: {split_spills}")
-    if len(split_spills) != 12 or any(split_spills.values()):
+    if len(split_spills) != 8 or any(split_spills.values()):
         raise AssertionError("a Kernel S wgmma instance spills")
     # C7514 and C7512: ptxas serialises the wgmma (the pipeline's form,
     # or too few registers)
@@ -1616,10 +1614,8 @@ SPLIT_MMA = tuple(f"split mma x{t} {e}" for t in (6, 3)
 FORM_YARDSTICKS = tuple(f"e1 yardstick {v}"
                         for v in ("v1", "v2", "v4", "v5", "v6")) + (
     "nn_min_only_yardstick",)
-# svd3's first design and the parts of the new one, on no path
-SVD3_NO_PATH = ("svd3_fixed_rotation", "svd3_fixed_umeyama") + tuple(
-    f"svd3 ablation {part}" for part in ("full", "float32 sweeps only",
-                                         "float64 sweeps only", "no sweeps"))
+# svd3's first design, on no path
+SVD3_NO_PATH = ("svd3_fixed_rotation", "svd3_fixed_umeyama")
 # while the ICP paths rerun on the CUDA-core sweep: the wrapper that counts
 # a kernel's launches in its place
 KERNEL_ALIAS = {}
@@ -1631,16 +1627,13 @@ RECORDS = {}
 def _keyed_wrappers():
     """Wrappers that count per launch type, in a dict: Kernel S's
     ``"x<terms> <epilogue>"`` and the E1 forms' ``"v<k>"`` (the new sweep
-    and its yardstick), and svd3's ablations by the part of the design
-    they run."""
+    and its yardstick)."""
     from fpcr_tpu_torch.ops.matching_cuda import (_nn_form_yardstick,
                                                   nn_form_cuda)
     from fpcr_tpu_torch.ops.split_cuda import _split_nn_mma_sync, split_nn_cuda
-    from fpcr_tpu_torch.ops.svd3_cuda import _svd3_ablation
 
     return {"split": split_nn_cuda, "split mma": _split_nn_mma_sync,
-            "e1": nn_form_cuda, "e1 yardstick": _nn_form_yardstick,
-            "svd3 ablation": _svd3_ablation}
+            "e1": nn_form_cuda, "e1 yardstick": _nn_form_yardstick}
 
 
 def counters():
@@ -2754,8 +2747,7 @@ OUR_KERNELS = ("nn_tc_sweep_kernel", "nn_tc_finish_kernel",
                "split_partial_kernel", "split_combine_kernel",
                "split_wgmma_kernel", "split_wgmma_combine_kernel",
                "svd3_rotation_kernel", "svd3_umeyama_kernel",
-               "svd3_fixed_rotation_kernel", "svd3_fixed_umeyama_kernel",
-               "svd3_ablation_kernel")
+               "svd3_fixed_rotation_kernel", "svd3_fixed_umeyama_kernel")
 
 
 def kernel_ms(fn, repeats=10, fallback=True):
@@ -2878,7 +2870,7 @@ def phase_times(torch, ft, dev, smi, study):
     for name, (ms, agree) in study.items():
         log("times", f"packed-reduction study N=M=16384 {name}: {ms:.4f} "
                      f"ms, idx agreement with K1 {agree:.5f} {card}")
-    legs, ablation, share = tc_legs(p, q, card)
+    legs, share = tc_legs(p, q, card)
 
     # one iteration's stages at N=16384, each alone, min of 20
     idx, d = nn_argmin_cuda(p, q)
@@ -2910,15 +2902,14 @@ def phase_times(torch, ft, dev, smi, study):
             "n": p.shape[0], "m": q.shape[0],
             "plain_expand_ms": plain_expand["min"], "ms_per_iter": per_iter,
             "svd_ms": stage_ms["svd + det fix"], "legs": legs,
-            "ablation": ablation, "share": share}
+            "share": share}
 
 
 def tc_legs(p, q, card):
     """The tensor-core K1 and K2 against their CUDA-core sweep on the same
     inputs, in legs (CUDA-core, tensor-core, tensor-core, CUDA-core): the
     call time (CUDA events, min of 20) and the kernel time (profiler) of
-    each leg; the sweep's kernel time alone and in its ablations; and the
-    rescued share of each kernel here."""
+    each leg; and the rescued share of each kernel here."""
     from fpcr_tpu_torch.ops import matching_cuda as mc
     from fpcr_tpu_torch.ops.matching import packed_idx_bits
     from fpcr_tpu_torch.utils.timing import cuda_time_ms
@@ -2937,18 +2928,13 @@ def tc_legs(p, q, card):
         legs.setdefault(k, []).append((call, kern))
         log("times", f"leg {k} N=M={p.shape[0]}: call {call:.4f} ms, kernel "
                      f"{kern:.4f} ms {card}")
-    ablation = {}
-    for mode in ("sweep", "no reduce", "no staging", "skeleton"):
-        ablation[mode] = kernel_ms(lambda: mc._nn_tc_sweep_only(p, q, mode))
-        log("times", f"tensor-core sweep alone, {mode}: kernel "
-                     f"{ablation[mode]:.4f} ms (profiler) {card}")
     mc.reset_rescued(p.device)
     calls["K1"]()
     calls["K2"]()
     share = [r / p.shape[0] for r in mc.rescued_rows(p.device)]
     log("times", f"rescued share N=M={p.shape[0]}: K1 {share[0]:.4f}, K2 "
                  f"{share[1]:.4f}")
-    return legs, ablation, share
+    return legs, share
 
 
 def traced_iteration(run, k_lo=2, k_hi=12):
@@ -4219,12 +4205,11 @@ def phase_svd3(torch, np, dev, card):
     """svd3 against its plain version (``rotation_from_svd_plain`` in float32
     and float64) on the main path's batches and the edge cases, against
     its yardstick (the first design) and its CPU mirror; its kernel time
-    in legs against the yardstick's, the parts of its design alone, the
-    plain version's, ``torch.linalg.svd``'s and its bound at each batch;
+    in legs against the yardstick's, the plain version's,
+    ``torch.linalg.svd``'s and its bound at each batch;
     returns the kernels line's fields, the batches' in ``batches``."""
     from fpcr_tpu_torch.ops.solve import rotation_from_svd_plain
-    from fpcr_tpu_torch.ops.svd3_cuda import (ABLATIONS, _svd3_ablation,
-                                              _svd3_rotation_fixed,
+    from fpcr_tpu_torch.ops.svd3_cuda import (_svd3_rotation_fixed,
                                               svd3_rotation_cuda)
     from fpcr_tpu_torch.utils.timing import cuda_time_ms
 
@@ -4275,16 +4260,9 @@ def phase_svd3(torch, np, dev, card):
             torch, "svd3", W, lambda: svd3_rotation_cuda(W),
             lambda: _svd3_rotation_fixed(W),
             lambda: rotation_from_svd_plain(W), 72, SVD3_FLOPS, card)
-        # the parts of the design alone, each the median of three
-        ablation = {part: sorted(kernel_ms(lambda: _svd3_ablation(W, part),
-                                           repeats=20)
-                                 for _ in range(3))[1] for part in ABLATIONS}
-        batches[b].update(latency_ms=latency, empty_call_ms=empty_call,
-                          ablation=ablation)
-        log("graphs", f"svd3 B={b}: the new design's parts alone, kernel "
-                      f"ms (profiler, median of 3): {json.dumps(ablation)};"
-                      f" an empty kernel {latency:.4f} ms on the device "
-                      f"(mean of {len(empty)} events), its call "
+        batches[b].update(latency_ms=latency, empty_call_ms=empty_call)
+        log("graphs", f"svd3 B={b}: an empty kernel {latency:.4f} ms on the "
+                      f"device (mean of {len(empty)} events), its call "
                       f"{empty_call:.4f} ms {card}")
     return dict(batches[1], max_abs_err=worst, batches=batches)
 
@@ -6001,8 +5979,7 @@ def svd3_entry(launches, svd3):
                          svd3["max_abs_err"], svd3["ms"], svd3["plain_ms"],
                          72, SVD3_FLOPS)
     for key in ("library_ms", "call_ms", "kernel_ms", "yardstick_call_ms",
-                "yardstick_kernel_ms", "latency_ms", "empty_call_ms",
-                "ablation"):
+                "yardstick_kernel_ms", "latency_ms", "empty_call_ms"):
         entry[key] = svd3[key]
     entry["batches"] = {str(b): v for b, v in svd3["batches"].items()}
     entry["point_k1_ms_per_iter"] = svd3["slopes"]
@@ -6156,28 +6133,22 @@ def phase_times_studies(torch, dev, smi, studies):
     (yardstick, wgmma, wgmma, yardstick, yardstick, wgmma: the call's
     CUDA-event time and the profiler's kernel time a leg) and alone
     against its plain version;
-    the wgmma sweep's ablations (without the reduction; without the
-    reduction and the staging) and slice plans; then the five E1 launch
-    types at E1's inputs and the min-only sweep at E2's, each in the same
-    legs against its ``csrc/matching.cu`` yardstick and alone against its
-    plain version, with the new sweep's ablations (the sums alone; the
-    sums and the staging; the sweep without the finish; each the median of
-    three sessions) and K1's kernel time on E1's inputs; then the three
-    studies' results."""
+    the wgmma sweep's slice plans; then the five E1 launch types at E1's
+    inputs and the min-only sweep at E2's, each in the same legs against
+    its ``csrc/matching.cu`` yardstick and alone against its plain
+    version, and K1's kernel time on E1's inputs; then the three studies'
+    results."""
     from fpcr_tpu_torch.bench import (match_kernels, packed_reduction,
                                       reduction2)
     from fpcr_tpu_torch.bench.kernel_checks import e1_args
     from fpcr_tpu_torch.ops.matching import E1_VARIANTS, nn_form_plain
     from fpcr_tpu_torch.ops.matching_cuda import (_nn_argmin_cudacore,
                                                   _nn_form_yardstick,
-                                                  _nn_forms_only,
                                                   _nn_min_only_yardstick,
                                                   nn_argmin_cuda, nn_form_cuda,
                                                   nn_min_only_cuda)
     from fpcr_tpu_torch.ops.split import split_nn_plain, split_operands
-    from fpcr_tpu_torch.ops.split_cuda import (WGMMA_MODES, _split_nn_mma_sync,
-                                               _split_wgmma_only,
-                                               split_nn_cuda)
+    from fpcr_tpu_torch.ops.split_cuda import _split_nn_mma_sync, split_nn_cuda
     from fpcr_tpu_torch.utils.timing import cuda_time_ms
 
     card = f"[card: {smi}]"
@@ -6215,17 +6186,6 @@ def phase_times_studies(torch, dev, smi, studies):
             log("times", f"{key}, three legs a side (least call, median "
                          f"kernel) ms: {json.dumps(leg_fields(rec))} "
                          f"({rec['retaken']} legs retaken) {card}")
-        ablation = {"sweep": leg_fields(out[
-            f"split x{terms} {'min' if terms == 6 else 'argmin'}"][
-            "legs"])["kernel_ms"]}
-        for mode in WGMMA_MODES:
-            ablation[mode] = kernel_ms(lambda: _split_wgmma_only(
-                p_in, q_in, n, m, mode))
-        out[f"ablation x{terms}"] = ablation
-        log("times", f"Kernel S wgmma sweep x{terms} N=M={n}, kernel ms "
-                     f"(profiler; 'sweep' = the "
-                     f"{'min' if terms == 6 else 'argmin'} epilogue): "
-                     f"{json.dumps(ablation)} {card}")
         plans = {}
         for sl in (m, m // 2, m // 4):
             with split_plan(sl):
@@ -6266,31 +6226,20 @@ def phase_times_studies(torch, dev, smi, studies):
                  f"on the CUDA cores, {k1_tc:.4f} ms on the tensor cores "
                  f"(profiler) {card}")
 
-    def form_legs(key, new, old, plain, sweep, pq):
+    def form_legs(key, new, old, plain, pq):
         n_, m_ = pq[0].shape[0], pq[1].shape[0]
         measure(key, new, plain, n_, m_)
         rec = legs(key, new, old)
         out[key]["legs"] = rec
-        ablation = {mode: sorted(kernel_ms(lambda: sweep(mode))
-                                 for _ in range(3))[1]  # the median
-                    for mode in ("sums only", "no reduce", "sweep")}
-        ablation["call"] = leg_fields(rec)["kernel_ms"]
-        out[key]["ablation"] = ablation
         log("times", f"{key}, three legs a side (least call, median kernel) "
                      f"ms: {json.dumps(leg_fields(rec))} ({rec['retaken']} "
-                     f"legs retaken); new sweep's kernel ms: the sums alone "
-                     f"{ablation['sums only']:.4f}, + staging "
-                     f"{ablation['no reduce']:.4f}, + reduction "
-                     f"{ablation['sweep']:.4f}, + finish "
-                     f"{ablation['call']} (profiler) {card}")
+                     f"legs retaken) {card}")
 
     for v, (form, reduce) in E1_VARIANTS.items():
         q_w, psq, kw = e1_args(p, q, v)
         form_legs(f"e1 {v}", lambda: nn_form_cuda(p, q, q_w, psq, **kw),
                   lambda: _nn_form_yardstick(p, q, q_w, psq, **kw),
-                  lambda: nn_form_plain(p, q, q_w, psq, **kw),
-                  lambda mode: _nn_forms_only(p, q, q_w, psq, mode=mode,
-                                              **kw), (p, q))
+                  lambda: nn_form_plain(p, q, q_w, psq, **kw), (p, q))
         log("times", f"e1 {v} ({form}, {reduce}): kernel "
                      f"{out[f'e1 {v}']['kernel_ms'] / k1:.3f}x the CUDA-core "
                      f"K1's {card}")
@@ -6298,8 +6247,6 @@ def phase_times_studies(torch, dev, smi, studies):
     form_legs("nn_min_only", lambda: nn_min_only_cuda(src, tgt),
               lambda: _nn_min_only_yardstick(src, tgt),
               lambda: packed_reduction.nn_min_only_plain(src, tgt),
-              lambda mode: _nn_forms_only(src, tgt, None, None, form="diff",
-                                          reduce="min", mode=mode),
               (src, tgt))
     for name, res in studies.items():
         log("times", f"study {name}: {json.dumps(res)} {card}")
@@ -6362,9 +6309,8 @@ def main():
                  f"{PROFILER_FALLBACKS})")
     legs = times["legs"]
     log("tc", "K1 / K2 at N=M=16384, (call, kernel) ms per leg, CUDA-core "
-              f"then tensor-core: {json.dumps(legs)}; sweep ablations "
-              f"{json.dumps(times['ablation'])}; rescued shares (K1, K2) "
-              f"{json.dumps(shares)}; guard's largest measured ratio "
+              f"then tensor-core: {json.dumps(legs)}; rescued shares (K1, "
+              f"K2) {json.dumps(shares)}; guard's largest measured ratio "
               f"{guard:.4f} [card: {smi}]")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(launches, errs, times, times2, times3,

@@ -166,8 +166,8 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_nn_min_combine.restype = i32
     lib.fpcr_nn_tc_rows_per_block.argtypes = []
     lib.fpcr_nn_tc_rows_per_block.restype = i32
-    lib.fpcr_nn_tc_sweep.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                     ptr, ptr, ptr, ptr]
+    lib.fpcr_nn_tc_sweep.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr,
+                                     ptr, ptr, ptr]
     lib.fpcr_nn_tc_sweep.restype = i32
     lib.fpcr_nn_tc_finish.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                       i32, i32, i32, i32, ptr, ptr, ptr, ptr]
@@ -185,7 +185,7 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_nn_forms_rows_per_block.restype = i32
     lib.fpcr_nn_forms_max_slice.argtypes = []
     lib.fpcr_nn_forms_max_slice.restype = i32
-    lib.fpcr_nn_forms_partial.argtypes = [ptr] * 5 + [i32] * 7 + [ptr] * 3
+    lib.fpcr_nn_forms_partial.argtypes = [ptr] * 5 + [i32] * 6 + [ptr] * 3
     lib.fpcr_nn_forms_partial.restype = i32
     lib.fpcr_nn_forms_finish.argtypes = [ptr] * 4 + [i32] * 6 + [ptr] * 5
     lib.fpcr_nn_forms_finish.restype = i32
@@ -199,7 +199,7 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_split_combine.restype = i32
     lib.fpcr_split_wgmma_rows_per_block.argtypes = []
     lib.fpcr_split_wgmma_rows_per_block.restype = i32
-    lib.fpcr_split_wgmma.argtypes = [ptr, ptr] + [i32] * 10 + [ptr, ptr, ptr]
+    lib.fpcr_split_wgmma.argtypes = [ptr, ptr] + [i32] * 9 + [ptr, ptr, ptr]
     lib.fpcr_split_wgmma.restype = i32
     lib.fpcr_split_wgmma_combine.argtypes = [ptr, ptr, i32, i32, i32, i32,
                                              ptr, ptr, ptr]
@@ -217,8 +217,6 @@ def load_library() -> ctypes.CDLL:
     lib.fpcr_svd3_fixed_rotation.restype = i32
     lib.fpcr_svd3_fixed_umeyama.argtypes = [ptr, i32, ptr, ptr, ptr]
     lib.fpcr_svd3_fixed_umeyama.restype = i32
-    lib.fpcr_svd3_ablation.argtypes = [ptr, i32, i32, ptr, ptr]
-    lib.fpcr_svd3_ablation.restype = i32
     lib.fpcr_eig3.argtypes = [ptr, i32, ptr, ptr, ptr]
     lib.fpcr_eig3.restype = i32
     for name in ("fpcr_knn_k_max", "fpcr_knn_max_slice"):

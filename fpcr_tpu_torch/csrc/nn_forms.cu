@@ -62,8 +62,9 @@
 // sweep, once a row and slice: divergent and latency-bound, it cost more
 // than the rest of the reduction; the finish rescans one sub-tile a row.
 // Measured at 16,384^2 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section
-// 6): the sums alone issue at about 70% of the rate their count allows
-// (0.040 ms for v1 and v2), the reduction adds up to 0.008 ms and the
+// 6, by ablations without the reduction and without the staging that no
+// longer ship): the sums alone issue at about 70% of the rate their count
+// allows (0.040 ms for v1 and v2), the reduction adds up to 0.008 ms and the
 // finish 0.004-0.006 ms; v1 0.053 ms of kernel against the yardstick's
 // 0.085, min-only 0.068 against 0.081.
 //
@@ -76,11 +77,7 @@
 // Slices over blockIdx.y (ops/matching_cuda.py::_plan_forms) write
 // [slices, n] partials; nn_forms_finish_kernel finishes the argmin and the
 // packed key (two launches a call), matching.cu's fpcr_nn_min_combine the
-// min-only sweep (with one slice its partial is the output). Modes 1 and 2
-// are the timing ablations: the sums and the staging with no reduction,
-// and the sums alone (the slice not staged); a three-input XOR of the
-// values' bits (half an instruction a pair) keeps the sums, and each row
-// writes its XOR to part_i.
+// min-only sweep (with one slice its partial is the output).
 //
 // C interface (loaded with ctypes). Pointers are device pointers; `stream`
 // is a cudaStream_t. Each function launches one kernel, does not
@@ -103,7 +100,6 @@ constexpr int kIntMax = 0x7FFFFFFF;
 
 enum class Form { kDiff = 0, kBiased = 1, kExpand = 2, kExpand5 = 3 };
 enum class Reduce { kArgmin = 0, kPacked = 1, kMin = 2 };
-enum Mode { kFull = 0, kNoReduce = 1, kSumsOnly = 2 };
 
 // One pair's value, in matching.cu's expressions and order. kDiff holds p
 // in (ax, ay, az), the other forms a = -2p.
@@ -190,7 +186,7 @@ __device__ __forceinline__ int stage_copies(float4* tile,
 // sub-tile holding it, -1 where none), kPacked part_i (the least bucket |
 // its first sub-tile, kIntMax where none), kMin part_d (the least value,
 // NaN where a value is NaN). q_mask (kDiff only) may be null.
-template <Form F, Reduce R, int kMode>
+template <Form F, Reduce R>
 __global__ void __launch_bounds__(kThreads, 4)
 nn_forms_kernel(const float* __restrict__ p, const float* __restrict__ q,
                 const float* __restrict__ q_w, const float* __restrict__ p_sq,
@@ -200,7 +196,6 @@ nn_forms_kernel(const float* __restrict__ p, const float* __restrict__ q,
     __shared__ __align__(16) float4 tile[kMaxSlice];
     constexpr bool kDiffForm = F == Form::kDiff;
     constexpr bool kClamp = F == Form::kExpand || F == Form::kExpand5;
-    constexpr bool kReduce = kMode == kFull;
 
     const int slice = blockIdx.y;
     const int j_begin = slice * slice_len;
@@ -213,15 +208,13 @@ nn_forms_kernel(const float* __restrict__ p, const float* __restrict__ q,
 
     // the slice's targets in two copy groups; whether any is valid (the
     // min-only sweep's mask) is read at the first group's barrier
-    int mine = 0, any_valid = 1;
-    if constexpr (kMode != kSumsOnly) {
-        mine = stage_copies<kDiffForm>(tile, q, q_w, q_mask, j_begin, count,
+    int mine = stage_copies<kDiffForm>(tile, q, q_w, q_mask, j_begin, count,
                                        0, first);
-        cp_async_commit();
-        mine |= stage_copies<kDiffForm>(tile, q, q_w, q_mask, j_begin, count,
-                                        first, padded);
-        cp_async_commit();
-    }
+    cp_async_commit();
+    mine |= stage_copies<kDiffForm>(tile, q, q_w, q_mask, j_begin, count,
+                                    first, padded);
+    cp_async_commit();
+    int any_valid = 1;
 
     // kDiff holds p, the other forms a = -2p (exact) and |p|^2
     constexpr float kScale = kDiffForm ? 1.0f : -2.0f;
@@ -250,18 +243,16 @@ nn_forms_kernel(const float* __restrict__ p, const float* __restrict__ q,
     }
 
     for (int s = 0; s < subs; ++s) {
-        if constexpr (kMode != kSumsOnly) {
-            if (s == 0) {
-                cp_async_wait<1>();
-                if constexpr (R == Reduce::kMin) {
-                    any_valid = __syncthreads_or(mine);
-                } else {
-                    __syncthreads();
-                }
-            } else if (s * kSub == first) {
-                cp_async_wait<0>();
+        if (s == 0) {
+            cp_async_wait<1>();
+            if constexpr (R == Reduce::kMin) {
+                any_valid = __syncthreads_or(mine);
+            } else {
                 __syncthreads();
             }
+        } else if (s * kSub == first) {
+            cp_async_wait<0>();
+            __syncthreads();
         }
         const float4* tt = tile + s * kSub;
 #pragma unroll
@@ -274,9 +265,7 @@ nn_forms_kernel(const float* __restrict__ p, const float* __restrict__ q,
                                                ta);
                 const float d1 = pair_value<F>(ax[k], ay[k], az[k], psq[k],
                                                tb);
-                if constexpr (!kReduce) {  // a three-input XOR keeps the sums
-                    run_i[k] ^= __float_as_int(d0) ^ __float_as_int(d1);
-                } else if constexpr (R == Reduce::kArgmin) {
+                if constexpr (R == Reduce::kArgmin) {
                     const float lo = fminf(d0, d1);
                     run_f[k] = t == 0 ? lo : fminf(run_f[k], lo);
                 } else if constexpr (R == Reduce::kPacked) {
@@ -289,7 +278,7 @@ nn_forms_kernel(const float* __restrict__ p, const float* __restrict__ q,
                 }
             }
         }
-        if constexpr (kReduce && R == Reduce::kArgmin) {
+        if constexpr (R == Reduce::kArgmin) {
 #pragma unroll
             for (int k = 0; k < kRows; ++k) {
                 if (run_f[k] < best_f[k]) {  // strict: an earlier sub-tile
@@ -297,7 +286,7 @@ nn_forms_kernel(const float* __restrict__ p, const float* __restrict__ q,
                     rec[k] = s;
                 }
             }
-        } else if constexpr (kReduce && R == Reduce::kPacked) {
+        } else if constexpr (R == Reduce::kPacked) {
 #pragma unroll
             for (int k = 0; k < kRows; ++k) {
                 const int b = key_bits<kClamp>(run_i[k]) & keep;
@@ -315,9 +304,7 @@ nn_forms_kernel(const float* __restrict__ p, const float* __restrict__ q,
         const int i = row0 + k * kThreads;
         if (i >= n) continue;
         const size_t o = static_cast<size_t>(slice) * n + i;
-        if constexpr (!kReduce) {
-            part_i[o] = run_i[k];
-        } else if constexpr (R == Reduce::kMin) {
+        if constexpr (R == Reduce::kMin) {
             part_d[o] = any_valid ? run_f[k] : CUDART_INF_F;
         } else if constexpr (R == Reduce::kArgmin) {
             // the sub-tile's least value and the sub-tile (-1 for none)
@@ -460,39 +447,16 @@ cudaError_t finish(const float* p, const float* q, const float* q_w,
     return cudaGetLastError();
 }
 
-template <Form F, Reduce R, int kMode>
+template <Form F, Reduce R>
 cudaError_t launch(const float* p, const float* q, const float* q_w,
                    const float* p_sq, const uint8_t* q_mask, int n, int m,
                    int slice_len, int idx_bits, float* part_d, int* part_i,
                    cudaStream_t stream) {
     const int slices = (m + slice_len - 1) / slice_len;
     const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, slices);
-    nn_forms_kernel<F, R, kMode><<<grid, kThreads, 0, stream>>>(
+    nn_forms_kernel<F, R><<<grid, kThreads, 0, stream>>>(
         p, q, q_w, p_sq, q_mask, n, m, slice_len, idx_bits, part_d, part_i);
     return cudaGetLastError();
-}
-
-template <int kMode>
-cudaError_t launch_mode(const float* p, const float* q, const float* q_w,
-                        const float* p_sq, const uint8_t* q_mask, int form,
-                        int reduce, int n, int m, int slice_len, int idx_bits,
-                        float* part_d, int* part_i, cudaStream_t s) {
-#define FPCR_FORMS(F, R)                                                     \
-    launch<F, R, kMode>(p, q, q_w, p_sq, q_mask, n, m, slice_len, idx_bits,  \
-                        part_d, part_i, s)
-    if (q_mask != nullptr && (form != 0 || reduce != 2)) {
-        return cudaErrorInvalidValue;  // only the min-only sweep masks
-    }
-    switch (form * 4 + reduce) {
-        case 2: return FPCR_FORMS(Form::kDiff, Reduce::kMin);
-        case 4: return FPCR_FORMS(Form::kBiased, Reduce::kArgmin);
-        case 5: return FPCR_FORMS(Form::kBiased, Reduce::kPacked);
-        case 9: return FPCR_FORMS(Form::kExpand, Reduce::kPacked);
-        case 12: return FPCR_FORMS(Form::kExpand5, Reduce::kArgmin);
-        case 13: return FPCR_FORMS(Form::kExpand5, Reduce::kPacked);
-        default: return cudaErrorInvalidValue;
-    }
-#undef FPCR_FORMS
 }
 
 }  // namespace
@@ -509,38 +473,35 @@ int fpcr_nn_forms_max_slice(void) { return kMaxSlice; }
 // optional, q_w and p_sq null) to part_d; (1, 0) v1 and (3, 0) v6 the least
 // value to part_d and its sub-tile (-1 for none) to part_i; (1, 1) v2,
 // (2, 1) v4 and (3, 1) v5 the least bucket | its sub-tile, with idx_bits,
-// to part_i. fpcr_nn_forms_finish finishes the last five. q_w [m] is the staged lane, p_sq [n] |p|^2 (null for form 1).
-// mode 0 the sweep, 1 without the reduction, 2 the sums alone (the mask
-// not read);
-// modes 1 and 2 write a word a row to part_i and nothing else.
+// to part_i. fpcr_nn_forms_finish finishes the last five. q_w [m] is the
+// staged lane, p_sq [n] |p|^2 (null for form 1).
 int fpcr_nn_forms_partial(const float* p, const float* q, const float* q_w,
                           const float* p_sq, const uint8_t* q_mask, int form,
-                          int reduce, int mode, int n, int m, int slice_len,
+                          int reduce, int n, int m, int slice_len,
                           int idx_bits, float* part_d, int* part_i,
                           void* stream) {
     if (slice_len <= 0 || slice_len > kMaxSlice || slice_len % kSub != 0 ||
         n <= 0 || m <= 0) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
+    if (q_mask != nullptr && (form != 0 || reduce != 2)) {
+        return static_cast<int>(cudaErrorInvalidValue);  // only min-only masks
+    }
     const auto s = static_cast<cudaStream_t>(stream);
+#define FPCR_FORMS(F, R)                                                     \
+    launch<F, R>(p, q, q_w, p_sq, q_mask, n, m, slice_len, idx_bits, part_d, \
+                 part_i, s)
     cudaError_t rc;
-    switch (mode) {
-        case kFull:
-            rc = launch_mode<kFull>(p, q, q_w, p_sq, q_mask, form, reduce, n,
-                                    m, slice_len, idx_bits, part_d, part_i, s);
-            break;
-        case kNoReduce:
-            rc = launch_mode<kNoReduce>(p, q, q_w, p_sq, q_mask, form, reduce,
-                                        n, m, slice_len, idx_bits, part_d,
-                                        part_i, s);
-            break;
-        case kSumsOnly:
-            rc = launch_mode<kSumsOnly>(p, q, q_w, p_sq, q_mask, form, reduce,
-                                        n, m, slice_len, idx_bits, part_d,
-                                        part_i, s);
-            break;
+    switch (form * 4 + reduce) {
+        case 2: rc = FPCR_FORMS(Form::kDiff, Reduce::kMin); break;
+        case 4: rc = FPCR_FORMS(Form::kBiased, Reduce::kArgmin); break;
+        case 5: rc = FPCR_FORMS(Form::kBiased, Reduce::kPacked); break;
+        case 9: rc = FPCR_FORMS(Form::kExpand, Reduce::kPacked); break;
+        case 12: rc = FPCR_FORMS(Form::kExpand5, Reduce::kArgmin); break;
+        case 13: rc = FPCR_FORMS(Form::kExpand5, Reduce::kPacked); break;
         default: rc = cudaErrorInvalidValue;
     }
+#undef FPCR_FORMS
     return static_cast<int>(rc);
 }
 

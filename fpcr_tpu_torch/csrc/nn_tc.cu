@@ -62,11 +62,12 @@
 // call, nothing read back to the host.
 //
 // What bounds it on this card (NVIDIA H100 80GB HBM3, 700.00 W, 16,384^2,
-// the synthetic scene; chip_smoke.py's ablations of the sweep): the products
-// (2 * 32 * N * M bf16 flops, 17 us at the dense peak) and their latency
-// set a skeleton of 35 us (products, barrier and one column kept); restaging
-// the tiles adds 16 us; the reduction, once the integer min/max of a
-// best/runner-up key a pair (4 ALU instructions a pair at half the FP32
+// the synthetic scene; measured by ablations of the sweep, without the
+// reduction, without restaging or without either, that no longer ship): the
+// products (2 * 32 * N * M bf16 flops, 17 us at the dense peak) and their
+// latency set a skeleton of 35 us (products, barrier and one column kept);
+// restaging the tiles adds 16 us; the reduction, once the integer min/max of
+// a best/runner-up key a pair (4 ALU instructions a pair at half the FP32
 // rate: 72 us) and now half an instruction a pair, adds 2 us: 53 us for the
 // sweep. The finish takes 20-23 us: the tile rescan of every row and the
 // exact rescan of the 1.7% of rows that did not certify. K1 0.075 ms against
@@ -113,13 +114,9 @@ constexpr int kStagedGroups = 3;         // k-groups 0-2 change; 3 is zeros
 constexpr int kCoreBytes = 128;  // LBO
 constexpr int kGroupBytes = 512;  // SBO: one 8-row group's 4 core matrices
 
-enum Mode {
-    kSweep = 0,
-    kDump = 1,
-    kNoReduce = 2,
-    kNoStaging = 3,
-    kSkeleton = 4
-};
+// the sweep's instances: the path's, and the guard check's, which also
+// dumps one tile's values
+enum Mode { kSweep = 0, kDump = 1 };
 
 // uint4 offset of (row, k-group of 8 slots) in an operand tile
 __device__ __forceinline__ int cell_offset(int row, int kg) {
@@ -295,10 +292,7 @@ __device__ __forceinline__ Target load_target(const float* __restrict__ q,
 
 // The candidate sweep of 64 * kGroups source rows over one target slice, in
 // tiles of 128 targets. kDump also writes d~ of the slice's first 64
-// targets to dump[row * 64 + col]; kNoReduce, kNoStaging and kSkeleton are
-// ablations that time the sweep without its reduction (one column block
-// kept), without restaging (the first three tiles over and over), or
-// without either, and write meaningless partials.
+// targets to dump[row * 64 + col].
 template <int kMode>
 __global__ void __launch_bounds__(128 * kGroups)
 nn_tc_sweep_kernel(const float* __restrict__ p, const float* __restrict__ q,
@@ -307,8 +301,6 @@ nn_tc_sweep_kernel(const float* __restrict__ p, const float* __restrict__ q,
                    float4* __restrict__ part_c, float* __restrict__ dump) {
     constexpr int kThreads = 128 * kGroups;
     constexpr int kCells = (kStagedGroups * kTile + kThreads - 1) / kThreads;
-    constexpr bool kReduce = kMode != kNoReduce && kMode != kSkeleton;
-    constexpr bool kRestage = kMode != kNoStaging && kMode != kSkeleton;
     __shared__ __align__(128) uint4 a_tile[kRows * 4];
     __shared__ __align__(128) uint4 b_tile[kBuffers][kTile * 4];
     __shared__ float4 warp_sum[kThreads / 32];
@@ -407,10 +399,6 @@ nn_tc_sweep_kernel(const float* __restrict__ p, const float* __restrict__ q,
         }
     };
     stage(0);
-    if constexpr (!kRestage) {
-        stage(1);
-        stage(2);
-    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
 
@@ -446,7 +434,7 @@ nn_tc_sweep_kernel(const float* __restrict__ p, const float* __restrict__ q,
         // the second k16 step: slots 16-31, 256 bytes on (16-byte units)
         wgmma_m64n128k16(acc, a_frag[1], db + 16, 1);
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-        if (kRestage && t + 1 < tiles) stage(t + 1);
+        if (t + 1 < tiles) stage(t + 1);
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
         fence_acc(acc);
         if constexpr (kMode == kDump) {
@@ -466,9 +454,9 @@ nn_tc_sweep_kernel(const float* __restrict__ p, const float* __restrict__ q,
         for (int h = 0; h < 2; ++h) {
             int lo = __float_as_int(acc[2 * h]);
 #pragma unroll
-            for (int cb = 0; cb < (kReduce ? 16 : 1); ++cb) {
+            for (int cb = 0; cb < 16; ++cb) {
                 const int a = __float_as_int(acc[4 * cb + 2 * h + 1]);
-                const int b = cb + 1 < (kReduce ? 16 : 1)
+                const int b = cb + 1 < 16
                                   ? __float_as_int(acc[4 * cb + 4 + 2 * h])
                                   : a;
                 lo = min(lo, min(a, b));
@@ -750,13 +738,12 @@ int fpcr_nn_tc_rows_per_block(void) { return kRows; }
 // targets (a multiple of 128, at most 4096): part int32[batch, 3, slices,
 // n] (per row the least value's bits, its 128-target tile, and the least
 // value of every other tile) and part_c f32[batch, ceil(n / 128), 4] (each
-// row block's centre), slices = ceil(m / slice_len). `mode` 0 the sweep; 1
-// also writes d~ of targets [0, 64) to dump f32[batch, n, 64]; 2, 3 and 4
-// the ablations without the reduction, without restaging, or without
-// either, whose partials mean nothing.
+// row block's centre), slices = ceil(m / slice_len). With a non-null
+// `dump` (the guard check's instance) the sweep also writes d~ of targets
+// [0, 64) to dump f32[batch, n, 64].
 int fpcr_nn_tc_sweep(const float* p, const float* q, const uint8_t* q_mask,
-                     int batch, int n, int m, int slice_len, int mode,
-                     int* part, float* part_c, float* dump, void* stream) {
+                     int batch, int n, int m, int slice_len, int* part,
+                     float* part_c, float* dump, void* stream) {
     if (slice_len % kTile != 0 || slice_len > kMaxSlice || batch < 1
         || batch > 65535) {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -772,13 +759,10 @@ int fpcr_nn_tc_sweep(const float* p, const float* q, const uint8_t* q_mask,
                          kMaxSlice * 16);                                     \
     nn_tc_sweep_kernel<M><<<grid, 128 * kGroups, smem, s>>>(                  \
         p, q, q_mask, n, m, slice_len, part, c, dump)
-    switch (mode) {
-        case kSweep: FPCR_TC_SWEEP(kSweep); break;
-        case kDump: FPCR_TC_SWEEP(kDump); break;
-        case kNoReduce: FPCR_TC_SWEEP(kNoReduce); break;
-        case kNoStaging: FPCR_TC_SWEEP(kNoStaging); break;
-        case kSkeleton: FPCR_TC_SWEEP(kSkeleton); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
+    if (dump != nullptr) {
+        FPCR_TC_SWEEP(kDump);
+    } else {
+        FPCR_TC_SWEEP(kSweep);
     }
 #undef FPCR_TC_SWEEP
     return static_cast<int>(cudaGetLastError());

@@ -70,18 +70,13 @@
 // a second kernel combines (slice order for the argmin, an int32 min for
 // the key, a min that keeps a NaN for the least distance).
 //
-// Instances: terms 6 and 3 x the four epilogues, and the ablations
-// (terms 6 and 3, Mode): kNoReduce keeps the ring and the products and
-// reduces one accumulator a tile; kProductsOnly also drops the staging,
-// loading the first four tiles once and sweeping them over and over.
-// Together with the full instances they split the time into products,
-// staging and reduction (chip_smoke.py::phase_times_studies).
+// Instances: terms 6 and 3 x the four epilogues.
 //
 // What bounds it on this card: the tensor cores' products, 2 * K_pad * N * M
 // bf16 flops (26 us for K=48 at 16,384^2 at the dense peak). Measured
-// times, the ablations' split and the yardstick's times in the same call
-// are in PERF.md (section 6, Kernel S), beside the card's name and power
-// limit.
+// times, their split into products, staging and reduction (by ablations
+// that no longer ship) and the yardstick's times in the same call are in
+// PERF.md (section 6, Kernel S), beside the card's name and power limit.
 //
 // C interface (loaded with ctypes). Pointers are device pointers; `stream`
 // is a cudaStream_t. Each function launches one kernel, does not
@@ -114,7 +109,6 @@ constexpr int kMaxDevices = 64;                // devices a process launches on
 constexpr int kMapCache = 16;                   // TMA maps kept for reuse
 
 enum class Epilogue { kArgmin = 0, kPacked14 = 1, kMin = 2, kKeepColumn = 3 };
-enum Mode { kFull = 0, kNoReduce = 1, kProductsOnly = 2 };
 
 template <int kTerms>
 struct Shape {
@@ -288,7 +282,7 @@ __device__ __forceinline__ void first_hit(const float (&v)[32], int t,
     }
 }
 
-template <int kTerms, Epilogue E, int kMode>
+template <int kTerms, Epilogue E>
 __global__ void __launch_bounds__(kThreads, 1)
 split_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const uint32_t* __restrict__ p_in, int n, int n_pad,
@@ -307,7 +301,6 @@ split_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int j_begin = blockIdx.y * slice_len;
     const int j_end = min(m, j_begin + slice_len);
     const int tiles = (j_end - j_begin + kTile - 1) / kTile;
-    constexpr bool kRestage = kMode != kProductsOnly;
 
     if (tid == 0) {
         for (int s = 0; s < kStages; ++s) {
@@ -374,7 +367,7 @@ split_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
     for (int t = 0; t < tiles; ++t) {
         const int s = t % kStages;
-        if (kRestage || t < kStages) mbar_wait(&full[s], (t / kStages) & 1);
+        mbar_wait(&full[s], (t / kStages) & 1);
         const uint64_t db = smem_desc<S::kSpan>(ring + s * S::kStageBytes);
         fence_acc(acc);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -386,17 +379,13 @@ split_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
         fence_acc(acc);
-        if (kRestage && lane == 0) mbar_arrive(&empty[s]);
-        if (kRestage && tid == 0 && t >= 1 && t - 1 + kStages < tiles) {
+        if (lane == 0) mbar_arrive(&empty[s]);
+        if (tid == 0 && t >= 1 && t - 1 + kStages < tiles) {
             const int sp = (t - 1) % kStages;
             mbar_wait(&empty[sp], ((t - 1) / kStages) & 1);
             load(t - 1 + kStages);
         }
 
-        if constexpr (kMode != kFull) {  // ablations: one accumulator
-            best[0] = fminf(best[0], acc[0]);
-            continue;
-        }
         const int t0 = j_begin + t * kTile;
         if constexpr (E == Epilogue::kKeepColumn) {
             if (t == keep_tile) {
@@ -473,11 +462,11 @@ split_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int h = 0; h < 2; ++h) {
         const int row = rows[h];
         const size_t o = static_cast<size_t>(blockIdx.y) * n + row;
-        if constexpr (kMode != kFull || E == Epilogue::kKeepColumn) {
+        if constexpr (E == Epilogue::kKeepColumn) {
             // the keep column: the one lane whose columns hold it writes
-            const bool mine = kMode == kFull && keep_tile >= 0
+            const bool mine = keep_tile >= 0
                               && ((keep - j_begin) & 7) >> 1 == t4;
-            if ((mine || (kMode != kFull && t4 == 0)) && row < n) {
+            if (mine && row < n) {
                 part_d[row] = best[h];
             }
         } else if constexpr (E == Epilogue::kMin) {
@@ -650,7 +639,7 @@ CUresult tensor_map(const void* q_in, int q_rows, int terms,
     return rc;
 }
 
-template <int kTerms, Epilogue E, int kMode>
+template <int kTerms, Epilogue E>
 cudaError_t launch(const CUtensorMap& map, dim3 grid, cudaStream_t stream,
                    const uint32_t* p, int n, int n_pad, int m, int slice_len,
                    int keep, int clamp, float* part_d, int* part_i) {
@@ -666,11 +655,11 @@ cudaError_t launch(const CUtensorMap& map, dim3 grid, cudaStream_t stream,
         std::lock_guard<std::mutex> hold(lock);
         if (!set[dev]) {
             rc = cudaFuncSetAttribute(
-                split_wgmma_kernel<kTerms, E, kMode>,
+                split_wgmma_kernel<kTerms, E>,
                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
             if (rc == cudaSuccess) {
                 rc = cudaFuncSetAttribute(
-                    split_wgmma_kernel<kTerms, E, kMode>,
+                    split_wgmma_kernel<kTerms, E>,
                     cudaFuncAttributePreferredSharedMemoryCarveout,
                     cudaSharedmemCarveoutMaxShared);
             }
@@ -678,29 +667,24 @@ cudaError_t launch(const CUtensorMap& map, dim3 grid, cudaStream_t stream,
             set[dev] = true;
         }
     }
-    split_wgmma_kernel<kTerms, E, kMode><<<grid, kThreads, kSmem, stream>>>(
+    split_wgmma_kernel<kTerms, E><<<grid, kThreads, kSmem, stream>>>(
         map, p, n, n_pad, m, slice_len, keep, clamp, part_d, part_i);
     return cudaGetLastError();
 }
 
 template <int kTerms>
-cudaError_t launch_terms(int epilogue, int mode, const CUtensorMap& map,
-                         dim3 grid, cudaStream_t s, const uint32_t* p, int n,
-                         int n_pad, int m, int slice_len, int keep, int clamp,
+cudaError_t launch_terms(int epilogue, const CUtensorMap& map, dim3 grid,
+                         cudaStream_t s, const uint32_t* p, int n, int n_pad,
+                         int m, int slice_len, int keep, int clamp,
                          float* part_d, int* part_i) {
-#define FPCR_WGMMA_LAUNCH(E, M)                                               \
-    launch<kTerms, E, M>(map, grid, s, p, n, n_pad, m, slice_len, keep,       \
-                         clamp, part_d, part_i)
-    if (mode == kNoReduce) return FPCR_WGMMA_LAUNCH(Epilogue::kMin, kNoReduce);
-    if (mode == kProductsOnly) {
-        return FPCR_WGMMA_LAUNCH(Epilogue::kMin, kProductsOnly);
-    }
-    if (mode != kFull) return cudaErrorInvalidValue;
+#define FPCR_WGMMA_LAUNCH(E)                                                  \
+    launch<kTerms, E>(map, grid, s, p, n, n_pad, m, slice_len, keep, clamp,   \
+                      part_d, part_i)
     switch (epilogue) {
-        case 0: return FPCR_WGMMA_LAUNCH(Epilogue::kArgmin, kFull);
-        case 1: return FPCR_WGMMA_LAUNCH(Epilogue::kPacked14, kFull);
-        case 2: return FPCR_WGMMA_LAUNCH(Epilogue::kMin, kFull);
-        case 3: return FPCR_WGMMA_LAUNCH(Epilogue::kKeepColumn, kFull);
+        case 0: return FPCR_WGMMA_LAUNCH(Epilogue::kArgmin);
+        case 1: return FPCR_WGMMA_LAUNCH(Epilogue::kPacked14);
+        case 2: return FPCR_WGMMA_LAUNCH(Epilogue::kMin);
+        case 3: return FPCR_WGMMA_LAUNCH(Epilogue::kKeepColumn);
         default: return cudaErrorInvalidValue;
     }
 #undef FPCR_WGMMA_LAUNCH
@@ -718,14 +702,12 @@ int fpcr_split_wgmma_rows_per_block(void) { return kRows; }
 // ceil(m / slice_len); with one slice the outputs themselves: part_d and
 // part_i [n] the argmin's distance (clamped at 0 where `clamp`) and index,
 // the key read as f32 and its 14 index bits, or the least distance; 3
-// keep-column, the distance to column `keep` written to part_d[n]. `mode`
-// 0 the sweep; 1 and 2 the ablations without the reduction, and without
-// the reduction and the staging (part_d [n], meaningless). `terms` 6 or 3;
-// p_in holds n_pad rows and q_in q_rows >= round_up(m, 8) rows of 8 * terms
-// bf16 values; both 16-byte aligned.
+// keep-column, the distance to column `keep` written to part_d[n]. `terms`
+// 6 or 3; p_in holds n_pad rows and q_in q_rows >= round_up(m, 8) rows of
+// 8 * terms bf16 values; both 16-byte aligned.
 int fpcr_split_wgmma(const void* p_in, const void* q_in, int q_rows,
-                     int terms, int epilogue, int mode, int n, int n_pad,
-                     int m, int slice_len, int keep, int clamp, float* part_d,
+                     int terms, int epilogue, int n, int n_pad, int m,
+                     int slice_len, int keep, int clamp, float* part_d,
                      int* part_i, void* stream) {
     if ((terms != 6 && terms != 3) || slice_len % kTile != 0 || n < 1
         || m < 1) {
@@ -738,12 +720,10 @@ int fpcr_split_wgmma(const void* p_in, const void* q_in, int q_rows,
     const auto p = static_cast<const uint32_t*>(p_in);
     const auto s = static_cast<cudaStream_t>(stream);
     const cudaError_t rc =
-        terms == 6 ? launch_terms<6>(epilogue, mode, map, grid, s, p, n,
-                                     n_pad, m, slice_len, keep, clamp, part_d,
-                                     part_i)
-                   : launch_terms<3>(epilogue, mode, map, grid, s, p, n,
-                                     n_pad, m, slice_len, keep, clamp, part_d,
-                                     part_i);
+        terms == 6 ? launch_terms<6>(epilogue, map, grid, s, p, n, n_pad, m,
+                                     slice_len, keep, clamp, part_d, part_i)
+                   : launch_terms<3>(epilogue, map, grid, s, p, n, n_pad, m,
+                                     slice_len, keep, clamp, part_d, part_i);
     return static_cast<int>(rc);
 }
 

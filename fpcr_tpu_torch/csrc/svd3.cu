@@ -66,8 +66,10 @@
 // The yardstick, on no path: the first design (fixed 8 sweeps in float64,
 // 24 rotations of three divisions and two square roots each, whatever the
 // input), svd3_fixed_*_kernel, reached only through
-// ops/svd3_cuda.py::_svd3_rotation_fixed and _svd3_umeyama_fixed.
-// svd3_ablation_kernel runs parts of the new design, for timing only.
+// ops/svd3_cuda.py::_svd3_rotation_fixed and _svd3_umeyama_fixed. An
+// ablation of the new design's parts, which no longer ships, found float64
+// sweeps from V = I under the same stop test within 4% of the whole
+// design's time on this card (NVIDIA H100 80GB HBM3, 700 W).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -350,17 +352,9 @@ __device__ __forceinline__ double norm_of(double x) {
     return x > 0.0 ? x * rsqrt(x) : 0.0;
 }
 
-// what svd3_ablation_kernel runs: the whole design, or a part of it
-enum : int {
-    kFull = 0,        // the float32 sweeps and the float64 polish
-    kNoPolish = 1,    // the float32 sweeps only (V still re-orthonormalised)
-    kF64Only = 2,     // float64 sweeps from V = I, no float32 stage
-    kCompletion = 3,  // no sweeps: the load, the scaling and the completion
-};
-
 // one matrix b of the batch; kUmeyama: the Umeyama form, which also writes
 // trace[b] (det_correction is then 1)
-template <bool kUmeyama, int kMode>
+template <bool kUmeyama>
 __device__ __forceinline__ void svd3_one(const float* __restrict__ w, int b,
                                          int det_correction,
                                          float* __restrict__ out,
@@ -401,7 +395,7 @@ __device__ __forceinline__ void svd3_one(const float* __restrict__ w, int b,
             v32[r][c] = r == c ? 1.0f : 0.0f;
         }
     }
-    if (kMode == kFull || kMode == kNoPolish) sweeps(a32, v32, kTol32);
+    sweeps(a32, v32, kTol32);
 
     // V in float64: v1, v2 by Gram-Schmidt, v3 = v1 × v2 (V32 is a product
     // of rotations, det V32 = Π(c² + s²) > 0, so det V = +1 keeps its sign)
@@ -434,7 +428,7 @@ __device__ __forceinline__ void svd3_one(const float* __restrict__ w, int b,
         for (int c = 0; c < 3; ++c)
             a[r][c] = ws[r][0] * v[0][c] + ws[r][1] * v[1][c] +
                       ws[r][2] * v[2][c];
-    if (kMode == kFull || kMode == kF64Only) sweeps(a, v, kTol64);
+    sweeps(a, v, kTol64);
 
     // σj² = |aj|², descending, the columns of A and V with them
     double nrm[3];
@@ -703,22 +697,14 @@ __global__ void __launch_bounds__(kThreads)
 svd3_rotation_kernel(const float* __restrict__ w, int batch,
                      int det_correction, float* __restrict__ out) {
     const int b = blockIdx.x * kThreads + threadIdx.x;
-    if (b < batch) svd3_one<false, kFull>(w, b, det_correction, out, nullptr);
+    if (b < batch) svd3_one<false>(w, b, det_correction, out, nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads)
 svd3_umeyama_kernel(const float* __restrict__ w, int batch,
                     float* __restrict__ out, float* __restrict__ trace) {
     const int b = blockIdx.x * kThreads + threadIdx.x;
-    if (b < batch) svd3_one<true, kFull>(w, b, 1, out, trace);
-}
-
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-svd3_ablation_kernel(const float* __restrict__ w, int batch,
-                     float* __restrict__ out) {
-    const int b = blockIdx.x * kThreads + threadIdx.x;
-    if (b < batch) svd3_one<false, kMode>(w, b, 1, out, nullptr);
+    if (b < batch) svd3_one<true>(w, b, 1, out, trace);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -779,36 +765,6 @@ int fpcr_svd3_fixed_umeyama(const float* w, int batch, float* out,
     svd3_fixed_umeyama_kernel<<<blocks_of(batch), kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
         w, batch, out, trace);
-    return static_cast<int>(cudaGetLastError());
-}
-
-// the rotation form (with the det fix) by a part of the new design, for
-// timing: mode 0 all of it, 1 the float32 sweeps only, 2 float64 sweeps
-// from V = I only, 3 no sweeps; another mode is cudaErrorInvalidValue
-int fpcr_svd3_ablation(const float* w, int batch, int mode, float* out,
-                       void* stream) {
-    if (batch <= 0) return 0;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (mode) {
-        case kFull:
-            svd3_ablation_kernel<kFull><<<blocks_of(batch), kThreads, 0, s>>>(
-                w, batch, out);
-            break;
-        case kNoPolish:
-            svd3_ablation_kernel<kNoPolish>
-                <<<blocks_of(batch), kThreads, 0, s>>>(w, batch, out);
-            break;
-        case kF64Only:
-            svd3_ablation_kernel<kF64Only>
-                <<<blocks_of(batch), kThreads, 0, s>>>(w, batch, out);
-            break;
-        case kCompletion:
-            svd3_ablation_kernel<kCompletion>
-                <<<blocks_of(batch), kThreads, 0, s>>>(w, batch, out);
-            break;
-        default:
-            return static_cast<int>(cudaErrorInvalidValue);
-    }
     return static_cast<int>(cudaGetLastError());
 }
 

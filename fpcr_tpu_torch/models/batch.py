@@ -60,13 +60,6 @@ from .icp import (ICPConfig, ICPResult, _ICPState, _icp_chunk, _prepare,
                   drive_chunks)
 
 
-def batched_route(config: ICPConfig) -> bool:
-    """Whether ``config`` runs the batched loop (one matcher call an
-    iteration for the whole batch): every config does, as every config runs
-    under the JAX package's ``vmap``."""
-    return True
-
-
 def _as_batch(x, name: str, device=None) -> torch.Tensor:
     """A ``[B, N, 3]`` contiguous float32 tensor; a tensor keeps its device
     unless ``device`` is given, anything else lands on the card by

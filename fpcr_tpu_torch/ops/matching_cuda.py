@@ -32,8 +32,7 @@ brute-force nearest neighbour, CUDA C++ (``csrc/nn_tc.cu``,
 * ``_nn_min_only_yardstick`` and ``_nn_form_yardstick`` launch the same two
   functions by their first design (``matching.cu``'s sweep): the
   yardsticks the new sweep is held to bit for bit and timed against, on no
-  path, with launch counters of their own; ``_nn_forms_only`` launches the
-  new sweep's ablations.
+  path, with launch counters of their own.
 
 Each wrapper checks the inputs, plans the launch, allocates the outputs and
 scratch with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -57,11 +56,6 @@ SLICE_QUANTUM = 256  # a target slice is a multiple of this many targets
 BLOCKS_PER_SM = 4  # the launch aims at this many blocks per SM
 TC_MAX_SLICE = 4096  # targets a sweep block holds in shared memory
 MAX_BATCH = 65535  # batch elements a launch takes: gridDim.z's limit
-# the sweep's modes (csrc/nn_tc.cu): the sweep, the sweep that also writes
-# one tile's values, and the ablations without the reduction, without
-# restaging, or without either
-TC_MODES = {"sweep": 0, "dump": 1, "no reduce": 2, "no staging": 3,
-            "skeleton": 4}
 
 
 def plan_slices(n: int, m: int, rows_per_block: int,
@@ -180,11 +174,12 @@ def reset_rescued(device) -> None:
     _rescue_counter(device).zero_()
 
 
-def _sweep(lib, p, q, mask_ptr, slice_len: int, mode: str, stream,
+def _sweep(lib, p, q, mask_ptr, slice_len: int, stream,
            dump: Optional[torch.Tensor] = None):
     """Launch the tensor-core sweep over ``p`` [N, 3] or [B, N, 3]; returns
     its partials int32[B, 3, slices, N] and the row blocks' centres
-    f32[B, blocks, 4] (B = 1 unbatched)."""
+    f32[B, blocks, 4] (B = 1 unbatched). With ``dump`` the sweep's instance
+    that also writes one tile's values there runs."""
     batch = p.shape[0] if p.ndim == 3 else 1
     n, m = p.shape[-2], q.shape[-2]
     slices = math.ceil(m / slice_len)
@@ -195,9 +190,9 @@ def _sweep(lib, p, q, mask_ptr, slice_len: int, mode: str, stream,
         dtype=torch.float32, device=p.device)
     rc = lib.fpcr_nn_tc_sweep(
         p.data_ptr(), q.data_ptr(), mask_ptr, batch, n, m, slice_len,
-        TC_MODES[mode], part.data_ptr(), centres.data_ptr(),
+        part.data_ptr(), centres.data_ptr(),
         None if dump is None else dump.data_ptr(), stream)
-    _raise_on(lib, rc, f"nn_tc_sweep ({mode})")
+    _raise_on(lib, rc, "nn_tc_sweep")
     return part, centres
 
 
@@ -218,8 +213,7 @@ def _nn_tc(fn, p, q, q_mask, idx_bits: Optional[int]):
     lib, slices, slice_len = _plan(p, m, tensor_cores=True)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        part, centres = _sweep(lib, p, q, mask_ptr, slice_len, "sweep",
-                               stream)
+        part, centres = _sweep(lib, p, q, mask_ptr, slice_len, stream)
         fn.launches += 1
         rc = lib.fpcr_nn_tc_finish(
             p.data_ptr(), q.data_ptr(), mask_ptr, part.data_ptr(),
@@ -296,22 +290,10 @@ def _nn_tc_tile_values(p: torch.Tensor, q: torch.Tensor,
         stream = torch.cuda.current_stream(p.device).cuda_stream
         _, centres = _sweep(lib, p, q, mask_ptr,
                             min(round_up(q.shape[0], 128), TC_MAX_SLICE),
-                            "dump", stream, dump=out)
+                            stream, dump=out)
     rows = (torch.arange(p.shape[0], device=p.device)
             // lib.fpcr_nn_tc_rows_per_block())
     return out, centres[0, rows, :3]
-
-
-def _nn_tc_sweep_only(p: torch.Tensor, q: torch.Tensor,
-                      mode: str = "sweep") -> None:
-    """Launch the sweep alone, as ``nn_argmin_cuda`` plans it, in ``mode``
-    (``'sweep'``, ``'no reduce'``, ``'no staging'`` or ``'skeleton'``):
-    the ablations that split its kernel time. Its outputs are dropped."""
-    mask_ptr = _check_inputs("_nn_tc_sweep_only", p, q, None)
-    lib, _, slice_len = _plan(p, q.shape[0], tensor_cores=True)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        _sweep(lib, p, q, mask_ptr, slice_len, mode, stream)
 
 
 def _nn_argmin_cudacore(
@@ -405,11 +387,6 @@ def check_idx_bits(m: int, idx_bits: int) -> None:
         raise ValueError(f"{m} targets do not fit in {idx_bits} index bits")
 
 
-# the new sweep's launch modes (csrc/nn_forms.cu): the sweep, and the
-# ablations without the reduction and without the staging as well
-FORMS_MODES = {"sweep": 0, "no reduce": 1, "sums only": 2}
-
-
 def _plan_forms(p: torch.Tensor, m: int):
     """``(lib, slices, slice_len)`` of a ``csrc/nn_forms.cu`` launch over
     ``p`` [N, 3], each slice held whole in a block's shared memory (32
@@ -426,14 +403,13 @@ def _plan_forms(p: torch.Tensor, m: int):
 
 
 def _forms_sweep(lib, p, q, q_w, p_sq, mask_ptr, form: int, reduce: int,
-                 mode: str, slice_len: int, idx_bits: int, part_d, part_i,
+                 slice_len: int, idx_bits: int, part_d, part_i,
                  stream) -> None:
     rc = lib.fpcr_nn_forms_partial(
         p.data_ptr(), q.data_ptr(), None if q_w is None else q_w.data_ptr(),
         None if p_sq is None else p_sq.data_ptr(), mask_ptr, form, reduce,
-        FORMS_MODES[mode], p.shape[0], q.shape[0], slice_len, idx_bits,
-        part_d, part_i, stream)
-    _raise_on(lib, rc, f"nn_forms_partial ({form}, {reduce}, {mode})")
+        p.shape[0], q.shape[0], slice_len, idx_bits, part_d, part_i, stream)
+    _raise_on(lib, rc, f"nn_forms_partial ({form}, {reduce})")
 
 
 def nn_min_only_cuda(
@@ -457,8 +433,8 @@ def nn_min_only_cuda(
         stream = torch.cuda.current_stream(p.device).cuda_stream
         part = dist if slices == 1 else torch.empty(
             (slices, n), dtype=torch.float32, device=p.device)
-        _forms_sweep(lib, p, q, None, None, mask_ptr, 0, 2, "sweep",
-                     slice_len, 0, part.data_ptr(), None, stream)
+        _forms_sweep(lib, p, q, None, None, mask_ptr, 0, 2, slice_len, 0,
+                     part.data_ptr(), None, stream)
         nn_min_only_cuda.launches += 1
         if slices > 1:
             rc = lib.fpcr_nn_min_combine(part.data_ptr(), n, slices,
@@ -579,7 +555,7 @@ def nn_form_cuda(
         part_i = torch.empty((slices, n), dtype=torch.int32, device=p.device)
         part_d = torch.empty((slices, n) if reduce == "argmin" else 0,
                              dtype=torch.float32, device=p.device)
-        _forms_sweep(lib, p, q, q_w, psq, None, f, r, "sweep", slice_len,
+        _forms_sweep(lib, p, q, q_w, psq, None, f, r, slice_len,
                      idx_bits or 0, part_d.data_ptr(), part_i.data_ptr(),
                      stream)
         nn_form_cuda.launches[name] += 1
@@ -656,26 +632,3 @@ def _nn_form_yardstick(
 
 _build.counted(_nn_form_yardstick, dict.fromkeys(FORM_LAUNCHES.values(), 0))
 
-
-def _nn_forms_only(p: torch.Tensor, q: torch.Tensor,
-                   q_w: Optional[torch.Tensor], p_sq: Optional[torch.Tensor],
-                   *, form: str, reduce: str, mode: str,
-                   idx_bits: Optional[int] = None) -> None:
-    """Launch ``csrc/nn_forms.cu``'s sweep alone, planned as the wrappers
-    plan it, in ``mode`` (:data:`FORMS_MODES`): the ablations that split its
-    kernel time. ``(form, reduce)`` is one of :data:`FORM_LAUNCHES` or
-    ``('diff', 'min')``, the min-only sweep (no mask). The outputs, the
-    sweep's partials or the ablations' words, are dropped."""
-    _check_inputs("_nn_forms_only", p, q, None)
-    n, m = p.shape[0], q.shape[0]
-    lib, slices, slice_len = _plan_forms(p, m)
-    if (form, reduce) == ("diff", "min"):
-        f, r = 0, 2
-    else:
-        f, r = FORMS.index(form) + 1, REDUCES.index(reduce)
-    part = torch.empty((2, slices, n), dtype=torch.float32, device=p.device)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        _forms_sweep(lib, p, q, q_w, None if form == "biased" else p_sq,
-                     None, f, r, mode, slice_len, idx_bits or 0,
-                     part[0].data_ptr(), part[1].data_ptr(), stream)

@@ -15,8 +15,7 @@ launches per launch type, ``"x<terms> <epilogue>"``, in
 :func:`_split_nn_mma_sync` runs the same function on the first design,
 ``csrc/split_mma.cu`` (``mma.sync`` m16n8k16), and counts in its own
 ``_split_nn_mma_sync.launches``: the yardstick the new kernel is timed
-against, on no path of the package. :func:`_split_wgmma_only` runs the
-sweep's ablations.
+against, on no path of the package.
 """
 
 from __future__ import annotations
@@ -37,9 +36,6 @@ EPILOGUES = ("argmin", "packed14", "min", "keep")
 TERMS = (6, 3)  # the split terms Kernel S is built for: K = 48 and K = 24
 TILE = 128  # targets a tile of the wgmma sweep (its n)
 SPLIT_ROWS = 192  # source rows a block of the wgmma sweep (three warpgroups)
-# the wgmma sweep's ablations (csrc/split_wgmma.cu Mode): without the
-# reduction, and without the reduction and the staging
-WGMMA_MODES = {"no reduce": 1, "products only": 2}
 PACKED14_BITS = 14  # E3's fixed index bits
 PACKED14_KEY_INIT = 0x7F7FFFFF  # bits of the largest finite float
 
@@ -169,7 +165,7 @@ def split_nn_cuda(
                                                  dtype=torch.int32,
                                                  device=dev))
         rc = lib.fpcr_split_wgmma(p_in.data_ptr(), q_in.data_ptr(),
-                                  q_in.shape[0], terms, code, 0, n,
+                                  q_in.shape[0], terms, code, n,
                                   p_in.shape[0], m, slice_len,
                                   keep if epilogue == "keep" else -1,
                                   int(clamp), _ptr(part_d), _ptr(part_i),
@@ -210,25 +206,6 @@ def _raise_on_wgmma(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: cuTensorMapEncodeTiled returned "
                            f"CUresult {rc - 1000}")
     _raise_on(lib, rc, what)
-
-
-def _split_wgmma_only(p_in: torch.Tensor, q_in: torch.Tensor, n: int, m: int,
-                      mode: str) -> torch.Tensor:
-    """One ablation of the wgmma sweep (:data:`WGMMA_MODES`) at the plan of
-    :func:`split_nn_cuda`, one launch; its d [n] means nothing. For timing
-    only: no launch count."""
-    terms = _checked(p_in, q_in, n, m, "min", None)
-    lib = _build.load_library()
-    _, slice_len = _plan(p_in.device, n, m)
-    d = torch.empty(max(n, 1), dtype=torch.float32, device=p_in.device)
-    with torch.cuda.device(p_in.device):
-        stream = torch.cuda.current_stream(p_in.device).cuda_stream
-        rc = lib.fpcr_split_wgmma(p_in.data_ptr(), q_in.data_ptr(),
-                                  q_in.shape[0], terms, 2, WGMMA_MODES[mode],
-                                  n, p_in.shape[0], m, slice_len, -1, 0,
-                                  d.data_ptr(), None, stream)
-        _raise_on_wgmma(lib, rc, f"split_wgmma ({mode})")
-    return d
 
 
 def _split_nn_mma_sync(

@@ -17,8 +17,7 @@ CPU mirror is ``ops/svd3_mirror.py``.
 
 On no path: :func:`_svd3_rotation_fixed` and :func:`_svd3_umeyama_fixed`
 launch the first design (8 float64 sweeps whatever the input), the
-yardstick that the kernel is timed against, and :func:`_svd3_ablation`
-parts of the new design, for timing; each counts its own launches.
+yardstick that the kernel is timed against; each counts its own launches.
 """
 
 from __future__ import annotations
@@ -133,31 +132,3 @@ def _svd3_umeyama_fixed(W: torch.Tensor):
 
 
 _build.counted(_svd3_umeyama_fixed)
-
-# the parts of the design that _svd3_ablation runs, by the kernel's mode
-ABLATIONS = {"full": 0, "float32 sweeps only": 1, "float64 sweeps only": 2,
-             "no sweeps": 3}
-
-
-def _svd3_ablation(W: torch.Tensor, part: str) -> torch.Tensor:
-    """The rotation form (det fix on) by a part of the new design
-    (:data:`ABLATIONS`), for timing: the whole, the float32 sweeps without
-    the float64 polish, float64 sweeps from V = I without the float32
-    stage, or no sweeps (the load, the scaling and the completion); on no
-    path. Counted in ``_svd3_ablation.launches[part]``."""
-    mode = ABLATIONS[part]
-    batch = _check(W, "_svd3_ablation")
-    out = torch.empty_like(W)
-    if batch == 0:
-        return out
-    lib = _build.load_library()
-    with torch.cuda.device(W.device):
-        stream = torch.cuda.current_stream(W.device).cuda_stream
-        rc = lib.fpcr_svd3_ablation(W.data_ptr(), batch, mode, out.data_ptr(),
-                                    stream)
-        _raise_on(lib, rc, f"svd3_ablation ({part})")
-        _svd3_ablation.launches[part] += 1
-    return out
-
-
-_build.counted(_svd3_ablation, {part: 0 for part in ABLATIONS})

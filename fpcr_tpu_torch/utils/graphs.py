@@ -463,8 +463,6 @@ class GraphCache:
         return stream
 
     def _capture(self, key, entry: _Key, fn, consts, skey, tensors):
-        from ..ops.matching_cuda import _rescue_counter
-
         device = entry.consts[0].device
         t0 = time.perf_counter()
         inputs = [t.clone() for t in tensors]
@@ -476,8 +474,6 @@ class GraphCache:
         _capturing.warming, _capturing.met_block = True, False
         try:
             with torch.cuda.device(device), torch.cuda.stream(side):
-                # first-use allocations must not fall inside the capture
-                _rescue_counter(device)
                 warm = fn(state, consts, k)  # this chunk's result
         finally:
             _capturing.warming = False

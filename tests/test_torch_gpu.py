@@ -730,17 +730,12 @@ def test_split_kernel_nan_as_plain(cuda, terms, m):
                                    ).all())
 
 
-def test_split_kernel_ablations_and_yardstick_count(cuda):
-    """The sweep's ablations launch (no count); the yardstick counts on its
-    own wrapper, never on split_nn_cuda's."""
-    from fpcr_tpu_torch.ops.split_cuda import (WGMMA_MODES, _split_nn_mma_sync,
-                                               _split_wgmma_only,
-                                               split_nn_cuda)
+def test_split_kernel_yardstick_count(cuda):
+    """The yardstick counts on its own wrapper, never on split_nn_cuda's."""
+    from fpcr_tpu_torch.ops.split_cuda import _split_nn_mma_sync, split_nn_cuda
 
     p_in, q_in = _split_case(cuda, 300, 4096, 3)
     before = dict(split_nn_cuda.launches)
-    for mode in WGMMA_MODES:
-        assert _split_wgmma_only(p_in, q_in, 300, 4096, mode).shape == (300,)
     old = dict(_split_nn_mma_sync.launches)
     _split_nn_mma_sync(p_in, q_in, 300, 4096, "argmin")
     torch.cuda.synchronize()
@@ -969,13 +964,10 @@ def test_forms_equal_under_any_slice_plan(cuda, slice_len, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-def test_forms_ablations_and_yardstick_counts(cuda):
-    """The sweep's ablations launch without a count; each yardstick counts
-    on its own wrapper, never on the new one's."""
+def test_forms_yardstick_counts(cuda):
+    """Each yardstick counts on its own wrapper, never on the new one's."""
     from fpcr_tpu_torch.bench.kernel_checks import e1_args
-    from fpcr_tpu_torch.ops.matching_cuda import (FORMS_MODES,
-                                                  _nn_form_yardstick,
-                                                  _nn_forms_only,
+    from fpcr_tpu_torch.ops.matching_cuda import (_nn_form_yardstick,
                                                   _nn_min_only_yardstick,
                                                   nn_form_cuda,
                                                   nn_min_only_cuda)
@@ -984,12 +976,6 @@ def test_forms_ablations_and_yardstick_counts(cuda):
     new = (dict(nn_form_cuda.launches), nn_min_only_cuda.launches)
     old = (dict(_nn_form_yardstick.launches),
            _nn_min_only_yardstick.launches)
-    for mode in FORMS_MODES:
-        _nn_forms_only(p, q, None, None, form="diff", reduce="min",
-                       mode=mode)
-        for v in ("v1", "v2", "v4", "v5", "v6"):
-            q_w, psq, kw = e1_args(p, q, v)
-            _nn_forms_only(p, q, q_w, psq, mode=mode, **kw)
     _nn_min_only_yardstick(p, q)
     q_w, psq, kw = e1_args(p, q, "v2")
     _nn_form_yardstick(p, q, q_w, psq, **kw)
@@ -2313,33 +2299,6 @@ def test_svd3_yardstick_edges(cuda):
             < 1e-6
         assert bool(R[3].isnan().all())
     assert float(_svd3_umeyama_fixed(W)[1][0]) == 0.0
-
-
-@pytest.mark.parametrize("part", ["full", "float32 sweeps only",
-                                  "float64 sweeps only", "no sweeps"])
-def test_svd3_ablation_parts(cuda, part):
-    """Each part of the design that the ablation times launches once and
-    gives a rotation; the whole is the kernel bit for bit, and float64
-    sweeps from V = I the kernel's R where R is unique; a mode the kernel
-    does not have raises."""
-    from fpcr_tpu_torch.ops.svd3_cuda import _svd3_ablation, svd3_rotation_cuda
-
-    W = torch.as_tensor(_svd3_inputs(32), device=cuda)
-    before = _svd3_ablation.launches[part]
-    R = _svd3_ablation(W, part)
-    assert _svd3_ablation.launches[part] == before + 1
-    g = R.double()
-    eye = torch.eye(3, device=cuda, dtype=torch.float64)
-    assert float((g.transpose(1, 2) @ g - eye).abs().max()) < SVD3_ATOL
-    assert float((torch.linalg.det(g) - 1).abs().max()) < SVD3_ATOL
-    if part == "full":
-        assert torch.equal(R, svd3_rotation_cuda(W))
-    if part == "float64 sweeps only":
-        sep = torch.as_tensor(_svd3_unique(W, True), device=cuda)
-        assert float((R - svd3_rotation_cuda(W))[sep].abs().max()) \
-            < SVD3_ATOL
-    with pytest.raises(KeyError):
-        _svd3_ablation(W, "no such part")
 
 
 def test_sharded_loop_over_nccl_is_captured(cuda, tmp_path):
