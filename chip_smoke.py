@@ -24,9 +24,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    serialised) in ptxas' log of ``split_wgmma.cu``;
 3. kernel vs plain — the tensor-core K1 and K2 against their CUDA-core
    sweep bit for bit (index and distance bits) on the kernel cases, the
-   hall scan, E1's ±300 cloud, duplicates and 200 x 1,048,576, each call
-   two launches and no host synchronisation, with the rescued share of
-   each input, and the guard: one tile of the sweep's values within a
+   hall scan, the benchmark's noised hall (its first request and the
+   identity pose), E1's ±300 cloud, duplicates and 200 x 1,048,576, each
+   call two launches and no host synchronisation, with the rescued rows of
+   each input, equal to the finish's lists, and the most in one block, and
+   the guard: one tile of the sweep's values within a
    quarter of each pair's G of the float64 distance; K1, K2, the min-only
    sweep, K3, K3p and K4 against
    their plain PyTorch versions on the card, at the test shapes and the
@@ -690,7 +692,8 @@ def phase_build():
     finishes = [k for k in spills if "nn_tc_finish_kernel" in k]
     if (len(finishes) != 4 or len(spills) != len(sweeps) + len(finishes)
             or any(spills.values())):
-        raise AssertionError("a tensor-core K1/K2 kernel spills")
+        raise AssertionError("a tensor-core K1/K2 kernel spills, or an "
+                             "instance is missing")
 
 
 def tc_spills(log_text, key="nn_tc"):
@@ -952,11 +955,33 @@ def phase_kernel_vs_plain(torch, np, ft, dev):
     return worst
 
 
+def noised_hall(torch, dev):
+    """The benchmark's noised hall (``benchmark/``'s ``os1-16-hall`` cloud
+    under ``scan-point-seq``'s traffic): its first request's source and
+    target, and that source taken back to the identity pose (the converged
+    loop's input), each f32[16384, 3] on ``dev``."""
+    from pathlib import Path
+
+    from benchmark import scenes, traffic
+
+    root = Path(__file__).resolve().parent / "benchmark"
+    config = json.loads((root / "configs" / "os1-16-hall.json").read_text())
+    mix = json.loads((root / "traffic" / "scan-point-seq.json").read_text())
+    pool = traffic.make_pool(scenes.make_cloud(config["scene"]), mix, dev)
+    source, target = pool.sources[0], pool.targets[0].contiguous()
+    r = torch.as_tensor(pool.rotations[0], device=dev)
+    t = torch.as_tensor(pool.translations[0], device=dev)
+    identity = ((source.double() - t) @ r).float().contiguous()
+    return source.contiguous(), identity, target
+
+
 def tc_cases(torch, np, ft, dev):
     """The inputs on which the tensor-core K1 and K2 must equal their
     CUDA-core instances: the kernel cases (masks, ties, an all-masked
-    target, 8,171^2, 16,384^2, 35,947^2), the hall scan, E1's +-300 cloud,
-    a cloud of duplicates and 200 rows against 1,048,576 targets."""
+    target, 8,171^2, 16,384^2, 35,947^2), the hall scan, the benchmark's
+    noised hall (``scan-point-seq``'s first request, and its source taken
+    back to the identity pose), E1's +-300 cloud, a cloud of duplicates
+    and 200 rows against 1,048,576 targets."""
     from fpcr_tpu_torch.bench import match_kernels
 
     rng = np.random.default_rng(81)
@@ -964,6 +989,10 @@ def tc_cases(torch, np, ft, dev):
     cases = kernel_cases(torch, np, ft, dev)
     s = build_scene(ft, "hall", dev)
     cases.append(("hall-16384^2", s.source, s.target, None))
+    first, identity, target = noised_hall(torch, dev)
+    cases.append(("noised hall 16384^2, first request", first, target, None))
+    cases.append(("noised hall 16384^2, identity pose", identity, target,
+                  None))
     cases.append(("E1 +-300 16384^2", *match_kernels.study_inputs(16384, dev),
                   None))
     dup = np.repeat(rng.uniform(-2, 2, (37, 3)), 27, axis=0)
@@ -982,8 +1011,11 @@ def phase_tc_vs_cudacore(torch, np, ft, dev, smi):
     """The tensor-core K1 and K2 against the CUDA-core sweep of the same
     functions (``_nn_argmin_cudacore``, ``_nn_argmin_packed_cudacore``),
     bit for bit in index and distance, on every input of ``tc_cases``; two
-    launches a call, none of them a host synchronisation; the rescued share
-    of each input; and the guard: on the synthetic scene, E1's +-300 cloud,
+    launches a call, none of them a host synchronisation; the rescued rows
+    of each input, equal to the sum of the finish's lists, and the most
+    that one 128-row certify block of the finish listed
+    (``_nn_tc_listed``); and the guard:
+    on the synthetic scene, E1's +-300 cloud,
     the hall scan and Bunny, every value of one tile of the sweep
     (``_nn_tc_tile_values``) within a quarter of its pair's G of the float64
     distance. Returns ``({input: (K1 share, K2 share)}, largest ratio)``."""
@@ -1020,14 +1052,22 @@ def phase_tc_vs_cudacore(torch, np, ft, dev, smi):
             same = (torch.equal(a[0], b[0]) and torch.equal(
                 a[1].view(torch.int32), b[1].view(torch.int32)))
             rescued = mc.rescued_rows(dev)[k]
+            listed = mc._nn_tc_listed(p, q, mask,
+                                      bits if label == "K2" else None)
             row.append(rescued / p.shape[0])
             log("tc", f"{label} {name}: idx and distance bits equal to the "
                       f"CUDA-core sweep: {same}; rescued rows {rescued}/"
-                      f"{p.shape[0]} ({rescued / p.shape[0]:.4f}) "
-                      f"[card: {smi}]")
+                      f"{p.shape[0]} ({rescued / p.shape[0]:.4f}), at most "
+                      f"{int(listed.max())} in one 128-row block of the "
+                      f"finish, {int((listed > 0).sum())} of "
+                      f"{listed.numel()} blocks with any [card: {smi}]")
             if not same:
                 raise AssertionError(f"{label} {name}: the tensor-core "
                                      "kernel differs from the CUDA-core one")
+            if int(listed.sum()) != rescued:
+                raise AssertionError(f"{label} {name}: the lists hold "
+                                     f"{int(listed.sum())} rows, the "
+                                     f"counter {rescued}")
         shares[name] = tuple(row)
 
     from fpcr_tpu_torch.bench import match_kernels

@@ -55,11 +55,18 @@
 // below t + G with G taken at that |q'|; every value outside t1 is at least
 // b2, so b2 - G > t certifies the pick: it is then the one the CUDA-core
 // sweep makes, with the same bits. An uncertified row (a tie or near tie
-// across tiles, no valid target in t1, a negative b2) goes to a list, and
-// the block's warps rescan all M targets for its listed rows exactly,
-// through tiles of 2,048 targets in shared memory, then write by the same
-// rule; the rescued rows are counted in a device counter. Two launches a
-// call, nothing read back to the host.
+// across tiles, no valid target in t1, a negative b2) goes to its block's
+// list, and is rescanned against all M targets exactly and written by the
+// same rule; the rescued rows are counted in a device counter. The rescue
+// is spread over the card: the hall scan's rangeless returns fill whole
+// blocks, and a block that rescanned its own list (75 rows on the
+// benchmark's noised hall) kept one SM busy while the others idled. So the
+// finish launch holds, after its certify blocks, one rescue block an SM; a
+// block's role is the ticket it draws as it starts, so a rescue block waits
+// only for certify blocks that are already running. The rescue blocks share
+// the listed rows out in groups of up to 4, each row's targets in 1,024
+// strided slices merged by the least (distance, index) or key. Two
+// launches a call, nothing read back to the host.
 //
 // What bounds it on this card (NVIDIA H100 80GB HBM3, 700.00 W, 16,384^2,
 // the synthetic scene; measured by ablations of the sweep, without the
@@ -69,15 +76,24 @@
 // restaging the tiles adds 16 us; the reduction, once the integer min/max of
 // a best/runner-up key a pair (4 ALU instructions a pair at half the FP32
 // rate: 72 us) and now half an instruction a pair, adds 2 us: 53 us for the
-// sweep. The finish takes 20-23 us: the tile rescan of every row and the
+// sweep. The finish took 20-23 us: the tile rescan of every row and the
 // exact rescan of the 1.7% of rows that did not certify. K1 0.075 ms against
 // the CUDA-core sweep's 0.104 ms in the same process; K2 0.085 ms against
-// 0.097 ms.
+// 0.097 ms. With the rescue in the row's own block the finish took 22 us on
+// the synthetic scene (279 rows rescued, at most 10 in one block), 56-92 us
+// on the benchmark's noised hall scan (86-153 rows, up to 75 in one block)
+// and 145 us on the noise-free hall (4,367 rows, whole blocks): one SM
+// rescanning while the others idled. With the rescue spread it takes
+// 13.1-14.8 us on the noised hall, 15.3 us on the synthetic scene and 63 us
+// on the noise-free hall; at B = 32 (4,096 certify blocks) 212-286 us,
+// against the in-block rescue's 213-307 us. The rescue's share, about 8 us
+// a pass, is a chain of dependent reads (the wait, the lengths, the row,
+// its point, the targets) more than its 1.2-2.5 M exact pairs.
 //
 // The batch axis: B independent (p, q, mask) elements of equal shapes run
-// in one sweep launch and one finish launch, the element on blockIdx.z
-// (B <= 65,535), each block offsetting its inputs, partials, centres and
-// outputs by its element. This is the counterpart of vmap over
+// in one sweep launch and one finish launch, the sweep's element on
+// blockIdx.z (B <= 65,535), a certify block's from its ticket, each block
+// offsetting its inputs, partials, centres and outputs by its element. This is the counterpart of vmap over
 // nn_argmin_pallas, which adds a batch axis to the TPU kernel's grid (the
 // serving path, fpcr_tpu/models/batch.py). A block computes exactly what
 // it computes unbatched, and the (least, tile, runner-up) state does not
@@ -292,13 +308,15 @@ __device__ __forceinline__ Target load_target(const float* __restrict__ q,
 
 // The candidate sweep of 64 * kGroups source rows over one target slice, in
 // tiles of 128 targets. kDump also writes d~ of the slice's first 64
-// targets to dump[row * 64 + col].
+// targets to dump[row * 64 + col]. The first block clears the finish's
+// counters, `ctrl`.
 template <int kMode>
 __global__ void __launch_bounds__(128 * kGroups)
 nn_tc_sweep_kernel(const float* __restrict__ p, const float* __restrict__ q,
                    const uint8_t* __restrict__ mask, int n, int m,
                    int slice_len, int* __restrict__ part,
-                   float4* __restrict__ part_c, float* __restrict__ dump) {
+                   float4* __restrict__ part_c, float* __restrict__ dump,
+                   int* __restrict__ ctrl) {
     constexpr int kThreads = 128 * kGroups;
     constexpr int kCells = (kStagedGroups * kTile + kThreads - 1) / kThreads;
     __shared__ __align__(128) uint4 a_tile[kRows * 4];
@@ -319,6 +337,10 @@ nn_tc_sweep_kernel(const float* __restrict__ p, const float* __restrict__ q,
         if (dump != nullptr) dump += e * 64 * n;
     }
     const int tid = threadIdx.x;
+    if (tid == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
+        ctrl[0] = 0;  // the finish's tickets
+        ctrl[1] = 0;  // and its certify blocks done
+    }
     const int group = tid >> 7;           // the warpgroup: A rows 64 * group
     const int warp = (tid >> 5) & 3;      // the warp in its warpgroup
     const int lane = tid & 31;
@@ -512,55 +534,127 @@ __device__ __forceinline__ float4 target4(const float* __restrict__ q,
                        valid ? 0.0f : CUDART_INF_F);
 }
 
-constexpr int kFinishRows = 128;   // rows a block: 8 lanes a row, 1024 threads
-constexpr int kRescueTile = 2048;  // targets staged for the exact rescan
-constexpr int kOwned = kFinishRows / 32;  // rescued rows a warp may own
+constexpr int kFinishRows = 128;      // rows a certify block: 8 lanes a row
+constexpr int kFinishThreads = 1024;  // a finish block, certify or rescue
+constexpr int kRescueRows = 4;        // listed rows a rescue group takes
+constexpr int kRescueUnroll = 2;      // targets a thread loads at once
+// a certify block's rows are a sweep block's: its list's length goes to
+// the w of that block's centre, which the finish does not read
+static_assert(kFinishRows == kRows, "a centre for each list");
 
-// Merge the slices' partials of each row (8 lanes a row), certify, write;
-// the block's uncertified rows go to a list, and its warps rescan all
-// targets for them exactly, each warp owning list entries w, w + 32, ...,
-// the targets staged once a tile for all of them in shared memory.
+__device__ __forceinline__ int load_acquire(const int* a) {
+    int v;
+    asm volatile("ld.acquire.gpu.s32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(a)
+                 : "memory");
+    return v;
+}
+
+// The inclusive sum of v over the block's threads up to this one, and in
+// `total` the block's sum. Every thread of the block calls it.
+__device__ __forceinline__ int block_scan(int v, int* warp_total,
+                                          int& total) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v += u;
+    }
+    if (lane == 31) warp_total[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        int w = warp_total[lane];
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const int u = __shfl_up_sync(0xffffffffu, w, off);
+            if (lane >= off) w += u;
+        }
+        warp_total[lane] = w;  // inclusive over the warps
+    }
+    __syncthreads();
+    total = warp_total[kFinishThreads / 32 - 1];
+    if (warp > 0) v += warp_total[warp - 1];
+    __syncthreads();  // warp_total is free again
+    return v;
+}
+
+// The finish: `lists` = B * ceil(n / 128) certify blocks, then gridDim.x -
+// lists rescue blocks, in one launch. A block draws a ticket as it starts;
+// the first `lists` tickets certify, the rest rescue. So every certify
+// block has started, and never waits, before a rescue block waits for them:
+// the wait cannot keep a certify block from an SM.
+//
+// Certify block c (element e = c / ceil(n / 128)): merge the slices'
+// partials of each of its 128 rows (8 lanes a row), certify, write; its
+// uncertified rows (as e * n + i) go to its list, written where its own
+// rows' slice-0 values were, which only it reads, its length to lens[c];
+// then it counts itself done. The lengths and the two counters live in the
+// centres: lens[c] in the w of centre c, the counters in the four words
+// after the last centre, which the sweep cleared.
+//
+// Rescue block k of R: wait until every certify block is done, then take
+// groups of r consecutive listed rows, r = min(4, ceil(total / R)), the
+// lists read in chunks of 1,024 (each chunk's exclusive prefix in shared
+// memory, a row found by binary search), the chunk's groups dealt to the
+// blocks in turn, continuing across chunks. A group rescans every target
+// exactly: thread t's slice is targets t, t + 1024, ... in ascending order
+// (K1's first minimum by the strict <, K2's least key), read once for all
+// the group's rows where they share an element, and the slices merge by
+// the least (distance, index) or key, the first minimum in ascending
+// target order. Each row is then written and adds 1 to *rescued.
 template <bool kPacked, bool kBatched>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kFinishThreads)
 nn_tc_finish_kernel(const float* __restrict__ p, const float* __restrict__ q,
-                    const uint8_t* __restrict__ mask,
-                    const int* __restrict__ part,
-                    const float4* __restrict__ part_c, int rows_per_block,
-                    int n, int m, int slices, int idx_bits,
+                    const uint8_t* __restrict__ mask, int* __restrict__ part,
+                    float4* __restrict__ part_c, int rows_per_block,
+                    int n, int m, int slices, int idx_bits, int lists,
                     float* __restrict__ out_d, int* __restrict__ out_i,
                     unsigned long long* __restrict__ rescued) {
-    __shared__ float4 tile[kRescueTile];
-    __shared__ int list[kFinishRows];
+    __shared__ int ticket;
     __shared__ int listed;
-    // the batch element on blockIdx.z (an unbatched launch takes the
-    // instance without the offsets)
-    if constexpr (kBatched) {
-        const size_t e = blockIdx.z;
-        p += e * 3 * n;
-        q += e * 3 * m;
-        if (mask != nullptr) mask += e * m;
-        part += e * 3 * slices * n;
-        part_c += e * ((n + rows_per_block - 1) / rows_per_block);
-        out_d += e * n;
-        out_i += e * n;
-    }
+    __shared__ int list[kFinishRows];
+    __shared__ int start[kFinishThreads + 1];
+    __shared__ int warp_total[kFinishThreads / 32];
+    __shared__ float warp_d[kRescueRows][kFinishThreads / 32];
+    __shared__ int warp_i[kRescueRows][kFinishThreads / 32];
+    __shared__ int group_row[kRescueRows];  // e * n + i of a group's rows
     const int tid = threadIdx.x;
-    // every lane runs the merge's shuffles; a row past n repeats the last
-    const int i = min(blockIdx.x * kFinishRows + (tid >> 3), n - 1);
-    const bool own = blockIdx.x * kFinishRows + (tid >> 3) < n;
-    const int sub = tid & 7;
     const int low = (1 << idx_bits) - 1;
-    if (tid == 0) listed = 0;
+    const size_t plane = static_cast<size_t>(slices) * n;
+    const int per_element = (n + kFinishRows - 1) / kFinishRows;
+    int* const ctrl = reinterpret_cast<int*>(part_c + lists);
+    int* const lens = reinterpret_cast<int*>(part_c) + 3;  // stride 4
+    if (tid == 0) ticket = atomicAdd(ctrl, 1);
     __syncthreads();
-    {  // the row's 8 lanes together
-        const size_t plane = static_cast<size_t>(slices) * n;
-        Best st;
+    const int c = ticket;
+
+    if (c < lists) {
+        // the element's rows, targets, mask, partials, centres and outputs
+        // (the unbatched instance folds the offsets away)
+        const size_t e = kBatched ? c / per_element : 0;
+        const int blk = c - static_cast<int>(e) * per_element;
+        const float* pe = p + e * 3 * n;
+        const float* qe = q + e * 3 * m;
+        const uint8_t* me = mask == nullptr ? nullptr : mask + e * m;
+        int* parte = part + e * 3 * plane;
+        const float4* ce =
+            part_c + e * ((n + rows_per_block - 1) / rows_per_block);
+        // every lane runs the merge's shuffles; a row past n repeats the
+        // last
+        const int i = min(blk * kFinishRows + (tid >> 3), n - 1);
+        const bool own = blk * kFinishRows + (tid >> 3) < n;
+        const int sub = tid & 7;
+        if (tid == 0) listed = 0;
+        __syncthreads();
+        Best st;  // the row's 8 lanes together
         for (int sl = sub; sl < slices; sl += 8) {
             const size_t o = static_cast<size_t>(sl) * n + i;
             Best b;
-            b.b1 = part[o];
-            b.t1 = part[plane + o];
-            b.b2 = part[2 * plane + o];
+            b.b1 = parte[o];
+            b.t1 = parte[plane + o];
+            b.b2 = parte[2 * plane + o];
             st.merge(b);
         }
 #pragma unroll
@@ -573,13 +667,13 @@ nn_tc_finish_kernel(const float* __restrict__ p, const float* __restrict__ q,
         }
         // the exact pick inside tile t1: lane `sub` takes its columns
         // sub, sub + 8, ... in ascending order
-        const float px = p[3 * i], py = p[3 * i + 1], pz = p[3 * i + 2];
+        const float px = pe[3 * i], py = pe[3 * i + 1], pz = pe[3 * i + 2];
         float bd = CUDART_INF_F;
         int bi = 0;
         int key = kKeyInit;
         const int j0 = kTile * st.t1;
         for (int j = j0 + sub; j < min(m, j0 + kTile); j += 8) {
-            const float d = exact_d(px, py, pz, target4(q, mask, j));
+            const float d = exact_d(px, py, pz, target4(qe, me, j));
             if constexpr (kPacked) {
                 key = min(key, (__float_as_int(d) & ~low) | j);
             } else if (d < bd) {
@@ -603,7 +697,7 @@ nn_tc_finish_kernel(const float* __restrict__ p, const float* __restrict__ q,
         if constexpr (kPacked) {
             if (key != kKeyInit) {
                 bi = min(key & low, m - 1);
-                bd = exact_d(px, py, pz, target4(q, nullptr, bi));
+                bd = exact_d(px, py, pz, target4(qe, nullptr, bi));
             }
         }
         // every value outside tile t1 is at least float(b2); a target there
@@ -615,8 +709,8 @@ nn_tc_finish_kernel(const float* __restrict__ p, const float* __restrict__ q,
             const double lo = st.b2 == kIntMax
                                   ? CUDART_INF
                                   : static_cast<double>(__int_as_float(st.b2));
-            const float4 c = part_c[i / rows_per_block];
-            const double x = px - c.x, y = py - c.y, z = pz - c.z;
+            const float4 cc = ce[i / rows_per_block];
+            const double x = px - cc.x, y = py - cc.y, z = pz - cc.z;
             const float edge = __int_as_float((__float_as_int(bd) & ~low)
                                               + low + 1);
             const double t = kPacked ? edge : bd;
@@ -626,100 +720,208 @@ nn_tc_finish_kernel(const float* __restrict__ p, const float* __restrict__ q,
         }
         if (own && sub == 0) {
             if (certified) {
-                out_d[i] = bd;
-                out_i[i] = bi;
+                out_d[e * n + i] = bd;
+                out_i[e * n + i] = bi;
             } else {
                 list[atomicAdd(&listed, 1)] = i;
             }
         }
+        // every lane has read its row's partials: the block's rows' slice-0
+        // values are free for its list
+        __syncthreads();
+        const int count = listed;
+        if (tid < count) {
+            parte[blk * kFinishRows + tid] = static_cast<int>(e) * n
+                                             + list[tid];
+        }
+        if (tid == 0) lens[4 * c] = count;
+        __threadfence();
+        __syncthreads();
+        if (tid == 0) atomicAdd(ctrl + 1, 1);
+        return;
+    }
+
+    // a rescue block
+    const int rank = c - lists;
+    const int blocks = static_cast<int>(gridDim.x) - lists;
+    if (tid == 0) {
+        while (load_acquire(ctrl + 1) < lists) __nanosleep(64);
     }
     __syncthreads();
-    const int count = listed;
-    if (count == 0) return;  // the whole block
-
+    int total;
+    {
+        int sum = 0;
+        for (int k = tid; k < lists; k += kFinishThreads) {
+            sum += __ldcg(lens + 4 * k);
+        }
+        block_scan(sum, warp_total, total);
+    }
+    if (total == 0) return;
+    const int per_group = min(kRescueRows, (total + blocks - 1) / blocks);
     const int warp = tid >> 5;
     const int lane = tid & 31;
-    float px[kOwned], py[kOwned], pz[kOwned], bd[kOwned];
-    int bi[kOwned], key[kOwned];
-#pragma unroll
-    for (int k = 0; k < kOwned; ++k) {
-        const int e = warp + 32 * k;
-        const int row = e < count ? list[e] : 0;
-        px[k] = p[3 * row];
-        py[k] = p[3 * row + 1];
-        pz[k] = p[3 * row + 2];
-        bd[k] = CUDART_INF_F;  // K1: the lane's first minimum
-        bi[k] = 0;
-        key[k] = kKeyInit;     // K2: the lane's least key
-    }
-    float4 pre[kRescueTile / 1024];
-#pragma unroll
-    for (int h = 0; h < kRescueTile / 1024; ++h) {
-        const int j = tid + 1024 * h;
-        pre[h] = j < m ? target4(q, mask, j) : float4{};
-    }
-    for (int t0 = 0; t0 < m; t0 += kRescueTile) {
-        const int size = min(kRescueTile, m - t0);
-        __syncthreads();  // every warp is done with the previous tile
-#pragma unroll
-        for (int h = 0; h < kRescueTile / 1024; ++h) {
-            tile[tid + 1024 * h] = pre[h];
-        }
+    int before = 0;  // groups of the earlier chunks
+    for (int c0 = 0; c0 < lists; c0 += kFinishThreads) {
+        const int here = min(kFinishThreads, lists - c0);
+        int chunk;
+        const int incl =
+            block_scan(tid < here ? __ldcg(lens + 4 * (c0 + tid)) : 0,
+                       warp_total, chunk);
+        if (tid < here) start[tid + 1] = incl;
+        if (tid == 0) start[0] = 0;
         __syncthreads();
+        const int groups = (chunk + per_group - 1) / per_group;
+        int g = (rank - before) % blocks;
+        if (g < 0) g += blocks;
+        for (; g < groups; g += blocks) {
+            const int w0 = g * per_group;
+            const int rows_here = min(per_group, chunk - w0);  // uniform
+            // thread k finds row k, the last one repeated past rows_here
+            if (tid < kRescueRows) {
+                const int w = w0 + min(tid, rows_here - 1);
+                int lo = 0, hi = here;  // the list with start[lo] <= w
+                while (hi - lo > 1) {
+                    const int mid = (lo + hi) >> 1;
+                    if (start[mid] <= w) lo = mid;
+                    else hi = mid;
+                }
+                const int at = c0 + lo;
+                const size_t le = kBatched ? at / per_element : 0;
+                const int lb = at - static_cast<int>(le) * per_element;
+                group_row[tid] = __ldcg(part + le * 3 * plane
+                                        + static_cast<size_t>(lb)
+                                              * kFinishRows
+                                        + w - start[lo]);
+            }
+            __syncthreads();
+            const int e0 = kBatched ? group_row[0] / n : 0;
+            bool one = true;  // every row of the group in one element
+            float px[kRescueRows], py[kRescueRows], pz[kRescueRows];
+            float bd[kRescueRows];
+            int bi[kRescueRows], key[kRescueRows];
 #pragma unroll
-        for (int h = 0; h < kRescueTile / 1024; ++h) {  // under the scan
-            const int j = t0 + kRescueTile + tid + 1024 * h;
-            if (j < m) pre[h] = target4(q, mask, j);
-        }
-#pragma unroll
-        for (int k = 0; k < kOwned; ++k) {
-            if (warp + 32 * k >= count) break;
-            for (int s = lane; s < size; s += 32) {
-                const float d = exact_d(px[k], py[k], pz[k], tile[s]);
+            for (int k = 0; k < kRescueRows; ++k) {
+                const int r = group_row[k];
+                if (kBatched) one = one && r / n == e0;
+                const float* pr = p + 3 * static_cast<size_t>(r);
+                px[k] = pr[0];
+                py[k] = pr[1];
+                pz[k] = pr[2];
+                bd[k] = CUDART_INF_F;  // K1: the slice's first minimum
+                bi[k] = 0;
+                key[k] = kKeyInit;     // K2: the slice's least key
+            }
+            // one row's take of target j at t
+            auto take = [&](int k, int j, float4 t) {
+                const float d = exact_d(px[k], py[k], pz[k], t);
                 if constexpr (kPacked) {
-                    key[k] = min(key[k],
-                                 (__float_as_int(d) & ~low) | (t0 + s));
-                } else if (d < bd[k]) {  // strict: ascending j in the lane
+                    key[k] = min(key[k], (__float_as_int(d) & ~low) | j);
+                } else if (d < bd[k]) {  // strict: ascending j in the slice
                     bd[k] = d;
-                    bi[k] = t0 + s;
+                    bi[k] = j;
                 }
-            }
-        }
-    }
+            };
+            if (one) {  // each target read once for the group's rows
+                const size_t e = e0;
+                const float* qe = q + 3 * e * m;
+                const uint8_t* me = mask == nullptr ? nullptr : mask + e * m;
+                for (int j0 = tid; j0 < m;
+                     j0 += kRescueUnroll * kFinishThreads) {
+                    float4 t[kRescueUnroll];
 #pragma unroll
-    for (int k = 0; k < kOwned; ++k) {
-        if (warp + 32 * k >= count) break;
+                    for (int u = 0; u < kRescueUnroll; ++u) {
+                        const int j = j0 + u * kFinishThreads;
+                        if (j < m) t[u] = target4(qe, me, j);
+                    }
 #pragma unroll
-        for (int off = 16; off >= 1; off >>= 1) {
-            if constexpr (kPacked) {
-                key[k] = min(key[k],
-                             __shfl_xor_sync(0xffffffffu, key[k], off));
-            } else {
-                const float od = __shfl_xor_sync(0xffffffffu, bd[k], off);
-                const int oi = __shfl_xor_sync(0xffffffffu, bi[k], off);
-                if (od < bd[k] || (od == bd[k] && oi < bi[k])) {
-                    bd[k] = od;
-                    bi[k] = oi;
+                    for (int u = 0; u < kRescueUnroll; ++u) {
+                        const int j = j0 + u * kFinishThreads;
+                        if (j >= m) break;
+#pragma unroll
+                        for (int k = 0; k < kRescueRows; ++k) {
+                            if (k < rows_here) take(k, j, t[u]);
+                        }
+                    }
+                }
+            } else {  // rows of several elements: each its own targets
+#pragma unroll
+                for (int k = 0; k < kRescueRows; ++k) {
+                    if (k >= rows_here) break;
+                    const size_t e = group_row[k] / n;
+                    const float* qe = q + 3 * e * m;
+                    const uint8_t* me =
+                        mask == nullptr ? nullptr : mask + e * m;
+                    for (int j = tid; j < m; j += kFinishThreads) {
+                        take(k, j, target4(qe, me, j));
+                    }
                 }
             }
-        }
-        if (lane == 0) {
-            const int row = list[warp + 32 * k];
-            float d = bd[k];
-            int j = bi[k];
-            if constexpr (kPacked) {
-                if (key[k] == kKeyInit) {  // no valid target
-                    d = CUDART_INF_F;
-                    j = 0;
-                } else {
-                    j = min(key[k] & low, m - 1);
-                    d = exact_d(px[k], py[k], pz[k], target4(q, nullptr, j));
+            // the slices' merge: the warp's, then the block's
+#pragma unroll
+            for (int k = 0; k < kRescueRows; ++k) {
+                if (k >= rows_here) break;
+#pragma unroll
+                for (int off = 16; off >= 1; off >>= 1) {
+                    if constexpr (kPacked) {
+                        key[k] = min(key[k], __shfl_xor_sync(0xffffffffu,
+                                                             key[k], off));
+                    } else {
+                        const float od =
+                            __shfl_xor_sync(0xffffffffu, bd[k], off);
+                        const int oi =
+                            __shfl_xor_sync(0xffffffffu, bi[k], off);
+                        if (od < bd[k] || (od == bd[k] && oi < bi[k])) {
+                            bd[k] = od;
+                            bi[k] = oi;
+                        }
+                    }
+                }
+                if (lane == 0) {
+                    warp_d[k][warp] = bd[k];
+                    warp_i[k][warp] = kPacked ? key[k] : bi[k];
                 }
             }
-            out_d[row] = d;
-            out_i[row] = j;
-            atomicAdd(rescued, 1ull);
+            __syncthreads();
+#pragma unroll
+            for (int k = 0; k < kRescueRows; ++k) {  // warp k merges row k
+                if (warp != k || k >= rows_here) continue;
+                float d = warp_d[k][lane];
+                int j = warp_i[k][lane];
+#pragma unroll
+                for (int off = 16; off >= 1; off >>= 1) {
+                    if constexpr (kPacked) {
+                        j = min(j, __shfl_xor_sync(0xffffffffu, j, off));
+                    } else {
+                        const float od = __shfl_xor_sync(0xffffffffu, d, off);
+                        const int oi = __shfl_xor_sync(0xffffffffu, j, off);
+                        if (od < d || (od == d && oi < j)) {
+                            d = od;
+                            j = oi;
+                        }
+                    }
+                }
+                if (lane == 0) {
+                    const int r = group_row[k];
+                    if constexpr (kPacked) {
+                        if (j == kKeyInit) {  // no valid target
+                            d = CUDART_INF_F;
+                            j = 0;
+                        } else {
+                            j = min(j & low, m - 1);
+                            const size_t e = kBatched ? r / n : 0;
+                            d = exact_d(px[k], py[k], pz[k],
+                                        target4(q + 3 * e * m, nullptr, j));
+                        }
+                    }
+                    out_d[r] = d;
+                    out_i[r] = j;
+                    atomicAdd(rescued, 1ull);
+                }
+            }
+            __syncthreads();  // warp_d, warp_i and group_row are free again
         }
+        before += groups;
+        __syncthreads();  // start is rewritten by the next chunk
     }
 }
 
@@ -730,7 +932,7 @@ extern "C" {
 // Source rows a block of the sweep.
 int fpcr_nn_tc_rows_per_block(void) { return kRows; }
 
-// Both kernels take `batch` independent elements on blockIdx.z, at most
+// Both functions take `batch` independent elements, at most
 // 65,535: element e reads p + 3ne, q + 3me, q_mask + me and writes its own
 // slices of every output below (batch 1 is the unbatched call).
 //
@@ -738,9 +940,10 @@ int fpcr_nn_tc_rows_per_block(void) { return kRows; }
 // targets (a multiple of 128, at most 4096): part int32[batch, 3, slices,
 // n] (per row the least value's bits, its 128-target tile, and the least
 // value of every other tile) and part_c f32[batch, ceil(n / 128), 4] (each
-// row block's centre), slices = ceil(m / slice_len). With a non-null
-// `dump` (the guard check's instance) the sweep also writes d~ of targets
-// [0, 64) to dump f32[batch, n, 64].
+// row block's centre), slices = ceil(m / slice_len). `part_c` holds 4
+// floats more, the finish's counters, which the sweep clears. With a
+// non-null `dump` (the guard check's instance) the sweep also writes d~ of
+// targets [0, 64) to dump f32[batch, n, 64].
 int fpcr_nn_tc_sweep(const float* p, const float* q, const uint8_t* q_mask,
                      int batch, int n, int m, int slice_len, int* part,
                      float* part_c, float* dump, void* stream) {
@@ -753,12 +956,14 @@ int fpcr_nn_tc_sweep(const float* p, const float* q, const uint8_t* q_mask,
     const auto s = static_cast<cudaStream_t>(stream);
     const auto c = reinterpret_cast<float4*>(part_c);
     const int smem = slice_len * static_cast<int>(sizeof(float4));
+    int* const ctrl = reinterpret_cast<int*>(c + static_cast<size_t>(batch)
+                                             * grid.x);
 #define FPCR_TC_SWEEP(M)                                                      \
     cudaFuncSetAttribute(nn_tc_sweep_kernel<M>,                               \
                          cudaFuncAttributeMaxDynamicSharedMemorySize,         \
                          kMaxSlice * 16);                                     \
     nn_tc_sweep_kernel<M><<<grid, 128 * kGroups, smem, s>>>(                  \
-        p, q, q_mask, n, m, slice_len, part, c, dump)
+        p, q, q_mask, n, m, slice_len, part, c, dump, ctrl)
     if (dump != nullptr) {
         FPCR_TC_SWEEP(kDump);
     } else {
@@ -770,22 +975,31 @@ int fpcr_nn_tc_sweep(const float* p, const float* q, const uint8_t* q_mask,
 
 // The finish of K1 (`packed` 0) or K2 (`packed` 1, with idx_bits): out_d /
 // out_i [batch, n] from the sweep's partials and centres (rows_per_block
-// rows a centre); each rescued row adds 1 to *rescued.
+// rows a centre, 128), in one launch of batch * ceil(n / 128) certify
+// blocks and `rescue_blocks` rescue blocks; each rescued row adds 1 to
+// *rescued. It writes its lists over `part`'s slice-0 values and their
+// lengths over the centres' w, and counts in the words that the sweep
+// cleared after the centres. batch * n must fit an int.
 int fpcr_nn_tc_finish(const float* p, const float* q, const uint8_t* q_mask,
-                      const int* part, const float* part_c,
-                      int rows_per_block, int batch, int n, int m, int slices,
-                      int packed, int idx_bits, float* out_d, int* out_i,
-                      unsigned long long* rescued, void* stream) {
-    if (batch < 1 || batch > 65535) {
+                      int* part, float* part_c, int rows_per_block,
+                      int batch, int n, int m, int slices, int packed,
+                      int idx_bits, int rescue_blocks, float* out_d,
+                      int* out_i, unsigned long long* rescued, void* stream) {
+    const long long lists =
+        static_cast<long long>(batch) * ((n + kFinishRows - 1) / kFinishRows);
+    if (batch < 1 || batch > 65535 || rescue_blocks < 1
+        || rows_per_block != kFinishRows
+        || static_cast<long long>(batch) * n > kIntMax
+        || lists + rescue_blocks > kIntMax) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const dim3 blocks((n + kFinishRows - 1) / kFinishRows, 1, batch);
+    const int grid = static_cast<int>(lists) + rescue_blocks;
     const auto s = static_cast<cudaStream_t>(stream);
-    const auto c = reinterpret_cast<const float4*>(part_c);
+    const auto c = reinterpret_cast<float4*>(part_c);
 #define FPCR_TC_FINISH(P, B)                                                  \
-    nn_tc_finish_kernel<P, B><<<blocks, 1024, 0, s>>>(                        \
+    nn_tc_finish_kernel<P, B><<<grid, kFinishThreads, 0, s>>>(                \
         p, q, q_mask, part, c, rows_per_block, n, m, slices,                  \
-        P ? idx_bits : 0, out_d, out_i, rescued)
+        P ? idx_bits : 0, static_cast<int>(lists), out_d, out_i, rescued)
     if (packed) {
         if (batch > 1) FPCR_TC_FINISH(true, true);
         else FPCR_TC_FINISH(true, false);

@@ -57,7 +57,7 @@ from ..utils import timing
 from ..utils.device import resolve_device
 from ..utils.precision import pin_f32_precision
 from .icp import (ICPConfig, ICPResult, _ICPState, _icp_chunk, _prepare,
-                  drive_chunks)
+                  count_k1_rescued, drive_chunks, rescued_mark)
 
 
 def _as_batch(x, name: str, device=None) -> torch.Tensor:
@@ -137,7 +137,8 @@ def register_batch(sources, targets, config: ICPConfig = ICPConfig(),
 
     Recorded (``utils/timing.py``), a call is the root span ``call`` over
     ``prepare`` (the checks, :func:`_prepare` and the loop's first state),
-    ``models/icp.py::drive_chunks``' spans and ``result``.
+    ``models/icp.py::drive_chunks``' spans and ``result``, and counts
+    ``k1_rescued`` (``models/icp.py::count_k1_rescued``).
     """
     with timing.call("register_batch") as call:
         span = timing.begin("prepare")
@@ -153,12 +154,16 @@ def register_batch(sources, targets, config: ICPConfig = ICPConfig(),
         prep = _prepare(sources, targets, config,
                         target_normals=target_normals, batched=True)
         state = _first_state(prep.source, prep.source_normals)
+        mark = rescued_mark(call, sources.device)
         if span:
             span.end()
         if call:
             call.attrs.update(B=sources.shape[0], N=sources.shape[1],
                               M=targets.shape[1], metric=prep.config.metric,
                               matcher=prep.config.matcher)
-        return _batched_loop(prep.source, prep.target, prep.target_normals,
-                             prep.config, prep.source_normals,
-                             prep.matcher_state, state, prep.unsort)
+        result = _batched_loop(prep.source, prep.target,
+                               prep.target_normals, prep.config,
+                               prep.source_normals, prep.matcher_state,
+                               state, prep.unsort)
+        count_k1_rescued(call, sources.device, mark)
+        return result

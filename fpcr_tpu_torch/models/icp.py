@@ -74,7 +74,7 @@ import torch
 from ..core.cloud import as_points
 from ..core.metrics import _psum_all, rmse
 from ..core.transforms import RigidTransform
-from ..ops import grid
+from ..ops import grid, matching_cuda
 from ..ops.gicp import gicp_transform
 from ..ops.matching import (gather_correspondences, nn_argmin,
                              nn_argmin_packed)
@@ -752,6 +752,26 @@ def drive_chunks(body, state, consts, iterations: int, stopped,
     return state, out
 
 
+def rescued_mark(call, device) -> Optional[torch.Tensor]:
+    """Where ``call`` is recorded, a mark of K1's rescued-row counter on
+    ``device`` (``ops/matching_cuda.py::rescued_mark``: a copy on the
+    device, nothing read), taken before the call's first K1 launch; else
+    None, and nothing done."""
+    return matching_cuda.rescued_mark(device) if call else None
+
+
+def count_k1_rescued(call, device, mark) -> None:
+    """Add to a recorded ``call`` ``k1_rescued``: the rows that K1's finish
+    rescanned exactly on ``device`` since ``mark``, read from its counter
+    after the loop's last wait for the device. Left out where K1 and K2
+    have not run there (on the CPU)."""
+    if not call:
+        return
+    rescued = matching_cuda.k1_rescued_since(device, mark)
+    if rescued is not None:
+        call.attrs["k1_rescued"] = rescued
+
+
 def _run_icp(source, target, config: ICPConfig,
              source_mask: Optional[torch.Tensor] = None,
              target_mask: Optional[torch.Tensor] = None,
@@ -773,7 +793,8 @@ def _run_icp(source, target, config: ICPConfig,
     Recorded (``utils/timing.py``), a call is the root span ``call`` over
     the spans ``prepare`` (:func:`_prepare` and the loop's first state),
     :func:`drive_chunks`' and ``result`` (from the loop's end to the
-    returned ``ICPResult``)."""
+    returned ``ICPResult``), and counts ``k1_rescued``
+    (:func:`count_k1_rescued`)."""
     with timing.call("run_icp") as call:
         span = timing.begin("prepare")
         pin_f32_precision()
@@ -792,6 +813,7 @@ def _run_icp(source, target, config: ICPConfig,
                   matcher_state,
                   dataclasses.replace(config, max_iterations=0), group)
         device = source.device
+        mark = rescued_mark(call, device)
         identity = RigidTransform.identity(device=device)
         state = _ICPState(source, source_normals, identity.rotation,
                           identity.translation,
@@ -807,6 +829,7 @@ def _run_icp(source, target, config: ICPConfig,
                                    config.max_iterations,
                                    lambda st: bool(st.done), (4,),
                                    group=group, check=check)
+        count_k1_rescued(call, device, mark)
         span = timing.begin("result")
         errors, fractions, delta_t, delta_rot = rows.T.contiguous()
         result = ICPResult(

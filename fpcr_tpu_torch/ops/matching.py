@@ -286,6 +286,10 @@ TC_BLOCK_ROWS = 128
 TC_TILE = 128
 CERT_GUARD = 24.0 * 2.0 ** -23
 CERT_SURROGATE = 1e30
+RESCUE_SLICES = 1024  # target slices of a row in the spread rescue
+RESCUE_CHUNK = 1024  # lists that a rescue block scans at once
+RESCUE_GROUP = 4  # listed rows that a rescue group takes at most
+RESCUE_BLOCKS = 132  # the card's rescue blocks, one an SM (H100 SXM)
 _INT_MAX = 0x7FFFFFFF
 
 
@@ -336,7 +340,9 @@ def nn_certified_plain(
     is certified where b2 - G > t, t = d (K1) or the upper edge of d's
     bucket (K2), G = guard (2|p - c| + sqrt(t))^2: a target outside t1 that
     reached t would lie within sqrt(t) of p, so its value would be below
-    t + G. Every other row takes the exact plain version. Returns ``(idx
+    t + G. Every other row goes on its block's list (:func:`finish_lists`)
+    and takes the spread rescue (:func:`rescue_groups`,
+    :func:`rescue_sliced_plain`). Returns ``(idx
     int32[N], sqdist f32[N], rescued bool[N])``; the first two equal
     :func:`nn_argmin_plain` (``exact=True``) or :func:`nn_argmin_packed_plain`
     wherever the approximation keeps to its guard."""
@@ -389,15 +395,128 @@ def nn_certified_plain(
                      b2.view(torch.float32).double())
     certified = (b2 >= 0) & found & (lo - guard * r * r > t)
     idx, dist = idx.to(torch.int32).clone(), dist.clone()
-    rows = torch.nonzero(~certified).flatten()
+    lengths, lists = finish_lists(~certified)
+    groups = [g for block in rescue_groups(lengths, lists, RESCUE_BLOCKS)
+              for g in block]
+    rows = (torch.cat(groups) if groups
+            else torch.zeros(0, dtype=torch.int64, device=p.device))
     if rows.numel():
-        sub = p[rows].contiguous()
-        if rule == "packed":
-            ri, rd = nn_argmin_packed_plain(sub, q, q_mask, idx_bits=idx_bits)
-        else:
-            ri, rd = nn_argmin_plain(sub, q, q_mask, exact=True)
+        ri, rd = rescue_sliced_plain(p, q, q_mask, rows, rule=rule,
+                                     idx_bits=idx_bits)
         idx[rows], dist[rows] = ri, rd
     return idx, dist, ~certified
+
+
+def finish_lists(uncertified: torch.Tensor):
+    """The finish's lists: each certify block of ``TC_BLOCK_ROWS`` rows
+    lists the rows it left uncertified (``uncertified`` bool[N]) in the
+    first entries of its row of ``lists`` int64[blocks, TC_BLOCK_ROWS] (-1
+    past them), as the card's finish does in its own rows' partials, and
+    its ``lengths`` int64[blocks]."""
+    n, dev = uncertified.shape[0], uncertified.device
+    blocks = -(-n // TC_BLOCK_ROWS)
+    flags = torch.zeros(blocks * TC_BLOCK_ROWS, dtype=torch.bool, device=dev)
+    flags[:n] = uncertified
+    flags = flags.view(blocks, TC_BLOCK_ROWS)
+    lengths = flags.sum(dim=1)
+    rows = torch.arange(blocks * TC_BLOCK_ROWS, device=dev).view(
+        blocks, TC_BLOCK_ROWS)
+    # each block's listed rows first, in ascending order (the card's order
+    # within a list is its atomics', which no result depends on)
+    order = torch.argsort((~flags).to(torch.int8), dim=1, stable=True)
+    lists = torch.where(torch.arange(TC_BLOCK_ROWS, device=dev)
+                        < lengths[:, None], rows.gather(1, order), -1)
+    return lengths, lists
+
+
+def rescue_rows(lengths: torch.Tensor, lists: torch.Tensor,
+                work: torch.Tensor) -> torch.Tensor:
+    """The rows of the rescue's work items ``work`` (int64), as each rescue
+    block finds them from the lists' lengths alone: item w is entry w -
+    start[g] of list g, where start is the lengths' exclusive prefix and g
+    the list with start[g] <= w < start[g + 1]."""
+    ends = torch.cumsum(lengths, 0)
+    g = torch.searchsorted(ends, work, right=True)
+    return lists[g, work - (ends - lengths)[g]]
+
+
+def rescue_groups(lengths: torch.Tensor, lists: torch.Tensor, blocks: int,
+                  chunk: int = RESCUE_CHUNK):
+    """The rescue's groups of listed rows as ``csrc/nn_tc.cu``'s ``blocks``
+    rescue blocks deal them out: a list of each block's groups, in order.
+    A group is r = min(``RESCUE_GROUP``, ceil(total / blocks)) consecutive
+    listed rows (fewer at a chunk's end) of one chunk of ``chunk`` lists,
+    found from the chunk's lengths alone (:func:`rescue_rows`); a chunk's
+    groups go to the blocks in turn, continuing from the block after the
+    earlier chunks' last group."""
+    out = [[] for _ in range(blocks)]
+    total = int(lengths.sum())
+    if total == 0:
+        return out
+    per = min(RESCUE_GROUP, -(-total // blocks))
+    before = 0  # groups of the earlier chunks
+    for c0 in range(0, lengths.shape[0], chunk):
+        lens = lengths[c0:c0 + chunk]
+        rows = rescue_rows(lens, lists[c0:c0 + chunk],
+                           torch.arange(int(lens.sum()),
+                                        device=lengths.device))
+        groups = -(-rows.numel() // per)
+        for g in range(groups):
+            out[(before + g) % blocks].append(rows[g * per:(g + 1) * per])
+        before += groups
+    return out
+
+
+def rescue_sliced_plain(p: torch.Tensor, q: torch.Tensor,
+                        q_mask: Optional[torch.Tensor], rows: torch.Tensor,
+                        *, rule: str = "argmin",
+                        idx_bits: Optional[int] = None,
+                        slices: int = RESCUE_SLICES):
+    """The spread rescue of ``rows`` of ``p`` against every target, as
+    the rescue blocks of ``csrc/nn_tc.cu``'s finish make it: slice s of a row
+    holds targets s, s + ``slices``, ... in ascending order; K1
+    (``'argmin'``) takes each slice's first minimum of the difference form
+    by the strict < from (+inf, 0), so that a NaN or a masked target's
+    +inf is never taken, and K2 (``'packed'``) each slice's least key of
+    :func:`packed_keys` from ``PACKED_KEY_INIT``; the slices merge by the
+    least (distance bits, index), the first minimum in ascending order, or
+    the least key, which K2 unpacks as :func:`nn_argmin_packed_plain`
+    does. Returns ``(idx int32[R], sqdist f32[R])``."""
+    p = p.to(torch.float32)
+    q = q.to(torch.float32)
+    m = q.shape[0]
+    d = pairwise_sqdist_exact(p[rows], q)
+    if q_mask is not None:
+        d = torch.where(q_mask.to(torch.bool)[None, :], d,
+                        torch.full_like(d, float("inf")))
+    steps = -(-m // slices)
+    pad = torch.full((d.shape[0], steps * slices - m), float("inf"),
+                     device=d.device)
+    # [R, step, slice]: target j = step * slices + slice
+    d = torch.cat([d, pad], dim=1).view(-1, steps, slices)
+    j = torch.arange(steps * slices, device=d.device).view(steps, slices)
+    if rule == "packed":
+        key = packed_keys(d, j.to(torch.int32), idx_bits)
+        key = torch.where(j < m, key, PACKED_KEY_INIT)
+        key = torch.clamp(key.amin(dim=1), max=PACKED_KEY_INIT)  # a slice's
+        key = key.amin(dim=1)  # the merge
+        none = key == PACKED_KEY_INIT
+        idx = torch.where(none, torch.zeros_like(key),
+                          torch.clamp(key & ((1 << idx_bits) - 1), max=m - 1))
+        diff = p[rows] - q[idx.long()]
+        dist = torch.where(none, torch.full_like(diff[:, 0], float("inf")),
+                           torch.sum(diff * diff, dim=1))
+        return idx.to(torch.int32), dist
+    d = torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d)
+    first = torch.argmin(d, dim=1)  # [R, slice]: each slice's first minimum
+    best = torch.gather(d, 1, first[:, None])[:, 0]
+    at = torch.where(best < float("inf"), first * slices + torch.arange(
+        slices, device=d.device), 0)  # (+inf, 0) where it took nothing
+    key = (best.contiguous().view(torch.int32).to(torch.int64) << 32) | at
+    key = key.amin(dim=1)  # the merge: the least (distance bits, index)
+    idx = (key & 0xFFFFFFFF).to(torch.int32)
+    dist = (key >> 32).to(torch.int32).view(torch.float32)
+    return idx, dist
 
 
 def sq_norm(x: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,9 @@ brute-force nearest neighbour, CUDA C++ (``csrc/nn_tc.cu``,
   kernel ``fpcr_tpu/ops/matching_pallas.py::nn_argmin_pallas``: the
   tensor-core candidate sweep and the certified finish of ``nn_tc.cu``,
   one pair of clouds or a batch of B pairs in the same two launches (the
-  element on ``blockIdx.z``, the counterpart of ``vmap`` over the TPU
-  kernel); plain version ``ops.matching.nn_argmin_plain``, dispatcher
+  sweep's element on ``blockIdx.z``, the counterpart of ``vmap`` over the
+  TPU kernel), the finish's exact rescue of its uncertified rows spread
+  over the card; plain version ``ops.matching.nn_argmin_plain``, dispatcher
   ``ops.matching.nn_argmin``, the finish's CPU mirror
   ``ops.matching.nn_certified_plain``;
 * :func:`nn_argmin_packed_cuda` launches K2, the packed (value|index)
@@ -18,7 +19,8 @@ brute-force nearest neighbour, CUDA C++ (``csrc/nn_tc.cu``,
 * ``_nn_argmin_cudacore`` and ``_nn_argmin_packed_cudacore`` launch the
   same two functions on the CUDA cores (``matching.cu``'s sweep): the
   yardstick of the studies and of the card's checks, on no path;
-  :func:`rescued_rows` reads how many rows the finish rescanned exactly;
+  :func:`rescued_rows` reads how many rows the finish rescanned exactly,
+  ``_nn_tc_listed`` how many each certify block of the finish listed;
 * :func:`nn_min_only_cuda` launches the min-only sweep of
   ``scripts/exp_packed_reduction.py::make_minonly``
   (``csrc/nn_forms.cu``); plain version and dispatcher in
@@ -44,6 +46,7 @@ per launch type, keyed by the E1 variant (``"v1"``, ``"v2"``, ``"v4"``,
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -56,6 +59,8 @@ SLICE_QUANTUM = 256  # a target slice is a multiple of this many targets
 BLOCKS_PER_SM = 4  # the launch aims at this many blocks per SM
 TC_MAX_SLICE = 4096  # targets a sweep block holds in shared memory
 MAX_BATCH = 65535  # batch elements a launch takes: gridDim.z's limit
+FINISH_ROWS = 128  # source rows a certify block of K1's and K2's finish
+FINISH_CTRL = 4  # the finish's counters: floats after the centres
 
 
 def plan_slices(n: int, m: int, rows_per_block: int,
@@ -69,6 +74,12 @@ def plan_slices(n: int, m: int, rows_per_block: int,
     slices = max(1, min(want, math.ceil(m / SLICE_QUANTUM)))
     slice_len = round_up(math.ceil(m / slices), SLICE_QUANTUM)
     return math.ceil(m / slice_len), slice_len
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device, read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_points(name: str, x: torch.Tensor, device, ndim: int = 2) -> None:
@@ -137,7 +148,7 @@ def _plan(p: torch.Tensor, m: int, tensor_cores: bool = False):
     ([N, 3], or [B, N, 3] for the tensor-core sweep): the CUDA-core sweep's
     rows per block, or the tensor-core sweep's."""
     lib = _build.load_library()
-    sms = torch.cuda.get_device_properties(p.device).multi_processor_count
+    sms = _sm_count(p.device)
     rows = (lib.fpcr_nn_tc_rows_per_block() if tensor_cores
             else lib.fpcr_nn_rows_per_block())
     batch = p.shape[0] if p.ndim == 3 else 1
@@ -151,10 +162,15 @@ def _plan(p: torch.Tensor, m: int, tensor_cores: bool = False):
 _RESCUED = {}  # per device: int64[2], rows rescued by K1's and K2's finish
 
 
-def _rescue_counter(device) -> torch.Tensor:
+def _counter_key(device) -> torch.device:
     device = torch.device(device)
     if device.index is None:
         device = torch.device(device.type, torch.cuda.current_device())
+    return device
+
+
+def _rescue_counter(device) -> torch.Tensor:
+    device = _counter_key(device)
     counter = _RESCUED.get(device)
     if counter is None:
         counter = _RESCUED[device] = torch.zeros(2, dtype=torch.int64,
@@ -174,20 +190,44 @@ def reset_rescued(device) -> None:
     _rescue_counter(device).zero_()
 
 
+def rescued_mark(device) -> Optional[torch.Tensor]:
+    """A copy of ``device``'s rescued-row counters, made on the device in
+    stream order: nothing is read back and nothing waits. None where K1 and
+    K2 have not run on a CUDA ``device``."""
+    if torch.device(device).type != "cuda":
+        return None
+    counter = _RESCUED.get(_counter_key(device))
+    return None if counter is None else counter.clone()
+
+
+def k1_rescued_since(device, mark: Optional[torch.Tensor]) -> Optional[int]:
+    """The rows that K1's finish rescued on ``device`` since ``mark``
+    (:func:`rescued_mark`; None: since the counter was made). Reading it
+    waits for the card. None where K1 and K2 have not run there."""
+    if torch.device(device).type != "cuda":
+        return None
+    counter = _RESCUED.get(_counter_key(device))
+    if counter is None:
+        return None
+    return int(counter[0] if mark is None else counter[0] - mark[0])
+
+
 def _sweep(lib, p, q, mask_ptr, slice_len: int, stream,
            dump: Optional[torch.Tensor] = None):
     """Launch the tensor-core sweep over ``p`` [N, 3] or [B, N, 3]; returns
     its partials int32[B, 3, slices, N] and the row blocks' centres
-    f32[B, blocks, 4] (B = 1 unbatched). With ``dump`` the sweep's instance
-    that also writes one tile's values there runs."""
+    f32[B, blocks, 4] (B = 1 unbatched), whose storage holds the finish's
+    ``FINISH_CTRL`` counters after them. With ``dump`` the sweep's
+    instance that also writes one tile's values there runs."""
     batch = p.shape[0] if p.ndim == 3 else 1
     n, m = p.shape[-2], q.shape[-2]
     slices = math.ceil(m / slice_len)
     part = torch.empty((batch, 3, slices, n), dtype=torch.int32,
                        device=p.device)
-    centres = torch.empty(
-        (batch, math.ceil(n / lib.fpcr_nn_tc_rows_per_block()), 4),
-        dtype=torch.float32, device=p.device)
+    blocks = math.ceil(n / lib.fpcr_nn_tc_rows_per_block())
+    centres = torch.empty(batch * blocks * 4 + FINISH_CTRL,
+                          dtype=torch.float32, device=p.device)
+    centres = centres[:batch * blocks * 4].view(batch, blocks, 4)
     rc = lib.fpcr_nn_tc_sweep(
         p.data_ptr(), q.data_ptr(), mask_ptr, batch, n, m, slice_len,
         part.data_ptr(), centres.data_ptr(),
@@ -196,32 +236,41 @@ def _sweep(lib, p, q, mask_ptr, slice_len: int, stream,
     return part, centres
 
 
+def _finish(lib, p, q, mask_ptr, part, centres, slices: int,
+            idx_bits: Optional[int], dist, idx, rescued, stream) -> None:
+    """Launch the certified finish of K1 (``idx_bits`` None) or K2 over the
+    sweep's ``part`` and ``centres``, its rescue blocks one an SM."""
+    batch = p.shape[0] if p.ndim == 3 else 1
+    rc = lib.fpcr_nn_tc_finish(
+        p.data_ptr(), q.data_ptr(), mask_ptr, part.data_ptr(),
+        centres.data_ptr(), lib.fpcr_nn_tc_rows_per_block(), batch,
+        p.shape[-2], q.shape[-2], slices, int(idx_bits is not None),
+        idx_bits or 0, _sm_count(p.device), dist.data_ptr(), idx.data_ptr(),
+        rescued, stream)
+    _raise_on(lib, rc, "nn_tc_finish")
+
+
 def _nn_tc(fn, p, q, q_mask, idx_bits: Optional[int]):
     """Launch the tensor-core sweep and the certified finish of K1
     (``idx_bits`` None) or K2 over one pair or a batch of pairs, counting
     both launches on ``fn``."""
-    packed = idx_bits is not None
     mask_ptr = _check_inputs(fn.__name__, p, q, q_mask, batched=True)
-    batch = p.shape[0] if p.ndim == 3 else 1
     n, m = p.shape[-2], q.shape[-2]
-    if packed:
+    if idx_bits is not None:
         check_idx_bits(m, idx_bits)
     idx = torch.empty(p.shape[:-1], dtype=torch.int32, device=p.device)
     dist = torch.empty(p.shape[:-1], dtype=torch.float32, device=p.device)
     if n == 0:
         return idx, dist
     lib, slices, slice_len = _plan(p, m, tensor_cores=True)
+    rescued = (_rescue_counter(p.device).data_ptr()
+               + 8 * int(idx_bits is not None))
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         part, centres = _sweep(lib, p, q, mask_ptr, slice_len, stream)
         fn.launches += 1
-        rc = lib.fpcr_nn_tc_finish(
-            p.data_ptr(), q.data_ptr(), mask_ptr, part.data_ptr(),
-            centres.data_ptr(), lib.fpcr_nn_tc_rows_per_block(), batch, n,
-            m, slices, int(packed), idx_bits or 0, dist.data_ptr(),
-            idx.data_ptr(),
-            _rescue_counter(p.device).data_ptr() + 8 * int(packed), stream)
-        _raise_on(lib, rc, "nn_tc_finish")
+        _finish(lib, p, q, mask_ptr, part, centres, slices, idx_bits, dist,
+                idx, rescued, stream)
         fn.launches += 1
     return idx, dist
 
@@ -294,6 +343,27 @@ def _nn_tc_tile_values(p: torch.Tensor, q: torch.Tensor,
     rows = (torch.arange(p.shape[0], device=p.device)
             // lib.fpcr_nn_tc_rows_per_block())
     return out, centres[0, rows, :3]
+
+
+def _nn_tc_listed(p: torch.Tensor, q: torch.Tensor,
+                  q_mask: Optional[torch.Tensor] = None,
+                  idx_bits: Optional[int] = None) -> torch.Tensor:
+    """The rows that each certify block of K1's finish (K2's with
+    ``idx_bits``) listed for the rescue, int32[B, ceil(N / FINISH_ROWS)] (B
+    = 1 unbatched), from a test-only call of the sweep and the finish that
+    counts its rescued rows apart: the rescued counter does not move."""
+    mask_ptr = _check_inputs("_nn_tc_listed", p, q, q_mask, batched=True)
+    lib, slices, slice_len = _plan(p, q.shape[-2], tensor_cores=True)
+    idx = torch.empty(p.shape[:-1], dtype=torch.int32, device=p.device)
+    dist = torch.empty(p.shape[:-1], dtype=torch.float32, device=p.device)
+    apart = torch.zeros(1, dtype=torch.int64, device=p.device)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        part, centres = _sweep(lib, p, q, mask_ptr, slice_len, stream)
+        _finish(lib, p, q, mask_ptr, part, centres, slices, idx_bits, dist,
+                idx, apart.data_ptr(), stream)
+    # a list's length is in the w of its block's centre
+    return centres.view(torch.int32)[..., 3].clone()
 
 
 def _nn_argmin_cudacore(

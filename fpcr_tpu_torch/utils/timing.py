@@ -30,8 +30,10 @@ span is a name, a start and an end on the host clock
 a few attributes. Each call is one root span ``call``, whose id every span
 of the call carries and whose attributes hold the call's counts (host syncs,
 chunks by route, kernel launches, bytes copied into the graphs' static
-buffers, and the iterations of replayed chunks that ran or were skipped on
-the device: ``iterations_run``, ``iterations_skipped``). A span begun
+buffers, the iterations of replayed chunks that ran or were skipped on
+the device: ``iterations_run``, ``iterations_skipped``, and the rows that
+kernel K1's finish rescued, ``k1_rescued``, which the entry points add
+themselves: ``models/icp.py::count_k1_rescued``). A span begun
 outside any call (a Morton table built by the caller before ``run_icp``,
 the chunks of the other loops) has no call id and no parent. Finished
 spans are kept in memory, the newest :data:`MAX_SPANS` (about 1,500 point

@@ -3,7 +3,10 @@ on the CPU through its plain mirror ``ops.matching.nn_certified_plain``.
 
 The mirror takes any approximate distance matrix, keeps the sweep's best
 and runner-up key values, certifies a pick where the runner-up clears it by
-the guard G, and rescans every other row exactly. Whatever the
+the guard G, lists every other row in its block's list, and rescans the
+listed rows exactly as the spread rescue does: each row's targets in
+strided slices, each slice's first minimum (or least key), the slices
+merged by the least (distance, index) or key. Whatever the
 approximation, as long as it lies within G of the difference form, its
 output must equal the exact plain versions bit for bit:
 ``nn_argmin_plain(exact=True)`` (K1) and ``nn_argmin_packed_plain`` (K2),
@@ -19,10 +22,15 @@ import torch
 
 import fpcr_tpu as f
 import fpcr_tpu_torch as ft
-from fpcr_tpu_torch.ops.matching import (CERT_GUARD, TC_TILE,
+from fpcr_tpu_torch.ops.matching import (CERT_GUARD, RESCUE_GROUP,
+                                         RESCUE_SLICES, TC_BLOCK_ROWS,
+                                         TC_TILE, finish_lists,
                                          nn_argmin_packed_plain,
                                          nn_argmin_plain, nn_certified_plain,
-                                         pair_guard, tc_centres)
+                                         pair_guard, rescue_groups,
+                                         rescue_rows, rescue_sliced_plain,
+                                         tc_centres)
+from fpcr_tpu_torch.ops.matching_cuda import FINISH_ROWS
 from fpcr_tpu_torch.ops.split import tc_split_operands
 
 SCALES = ["unit", "300", "hall"]
@@ -248,3 +256,148 @@ def test_centres_are_block_means():
     assert torch.allclose(c[0], p[:128].mean(0), atol=1e-6)
     assert torch.allclose(c[299], p[256:].mean(0), atol=1e-6)
     assert torch.equal(c[128], c[255])
+
+
+# The spread rescue: the finish's per-block lists, the rescue's lookup of
+# its work items from the lengths alone, the sliced scan and its merge.
+
+
+def _slice_edge_ties(m=2100):
+    """Targets far away but for exact duplicates at 1023 and 1024 (slice
+    1023's first target and slice 0's second: the lower index sits in the
+    higher slice) and at 5 and 2053 (one slice, two steps apart), with
+    sources on and about them: exact ties across and within slices."""
+    rng = np.random.default_rng(91)
+    q = rng.uniform(50.0, 60.0, (m, 3)).astype(np.float32)
+    q[1023] = q[1024] = (0.25, -0.5, 0.125)
+    q[5] = q[2053] = (-0.75, 0.5, 0.25)
+    p = np.concatenate([np.repeat(q[[1023, 5]], 70, axis=0)
+                        + rng.normal(scale=1e-3, size=(140, 3)),
+                        q[[1024, 2053, 1023, 5]]]).astype(np.float32)
+    return p, q
+
+
+@pytest.mark.parametrize("rule,bits", [("argmin", None), ("packed", 12)])
+@pytest.mark.parametrize("slices", [RESCUE_SLICES, 7])
+def test_rescue_ties_across_slice_edges(slices, rule, bits):
+    """Every row rescued: the lower index wins each tie, whichever slice
+    holds it, bit for bit the plain version."""
+    p, q = _slice_edge_ties()
+    t = torch.as_tensor
+    got = rescue_sliced_plain(t(p), t(q), None, torch.arange(p.shape[0]),
+                              rule=rule, idx_bits=bits, slices=slices)
+    _assert_bit_equal(got, _plain(p, q, None, rule, bits))
+    assert set(got[0].tolist()) == {5, 1023}
+
+
+@pytest.mark.parametrize("rule,bits", [("argmin", None), ("packed", 12)])
+@pytest.mark.parametrize("keep", [0.0, 0.3])
+def test_rescue_masked_and_all_masked(keep, rule, bits):
+    """Masked targets never win, the ties included; with every target
+    masked each row gets (+inf, 0)."""
+    p, q = _slice_edge_ties()
+    mask = np.random.default_rng(92).uniform(size=q.shape[0]) < keep
+    mask[[1024, 2053]] = keep > 0  # one of each tied pair stays valid
+    t = torch.as_tensor
+    got = rescue_sliced_plain(t(p), t(q), t(mask), torch.arange(p.shape[0]),
+                              rule=rule, idx_bits=bits)
+    _assert_bit_equal(got, _plain(p, q, mask, rule, bits))
+    if keep == 0.0:
+        assert (got[0] == 0).all() and torch.isinf(got[1]).all()
+    else:
+        assert mask[got[0].numpy()].all()
+
+
+@pytest.mark.parametrize("bits", [11, 12, 16])
+def test_rescue_keys(bits):
+    """K2's least key over the slices: ties inside a bucket go to the lower
+    index across slice edges, and the distance is the pick's exact one."""
+    p, q = _cloud("unit", seed=93, n=200, m=2000)
+    q[1500] = q[300] + np.float32(1e-7)  # one bucket, two slices apart
+    p[:20] = q[300]
+    t = torch.as_tensor
+    got = rescue_sliced_plain(t(p), t(q), None, torch.arange(p.shape[0]),
+                              rule="packed", idx_bits=bits)
+    _assert_bit_equal(got, _plain(p, q, None, "packed", bits))
+
+
+def _listed_blocks(n, full, seed=94):
+    """A certification of ``n`` rows: block ``full`` lists all its rows,
+    the other blocks a scattered few, the last block ragged."""
+    rng = np.random.default_rng(seed)
+    flags = rng.uniform(size=n) < 0.05
+    flags[full * TC_BLOCK_ROWS:(full + 1) * TC_BLOCK_ROWS] = True
+    return torch.as_tensor(flags)
+
+
+@pytest.mark.parametrize("n,full", [(300, 1), (128, 0), (700, 5)])
+def test_finish_lists_and_rescue_rows(n, full):
+    """Each block's list holds its uncertified rows, a full block all 128
+    of them; the rescue's work items, found from the lengths alone, are
+    the listed rows, block after block, each once."""
+    flags = _listed_blocks(n, full)
+    lengths, lists = finish_lists(flags)
+    assert lengths.shape[0] == -(-n // TC_BLOCK_ROWS) and \
+        int(lengths[full]) == min(TC_BLOCK_ROWS, n - full * TC_BLOCK_ROWS)
+    for b in range(lengths.shape[0]):
+        rows = lists[b, :int(lengths[b])]
+        assert ((rows // TC_BLOCK_ROWS) == b).all()
+        assert (lists[b, int(lengths[b]):] == -1).all()
+    work = rescue_rows(lengths, lists, torch.arange(int(lengths.sum())))
+    assert torch.equal(work, torch.nonzero(flags).flatten())
+
+
+@pytest.mark.parametrize("rule,bits", [("argmin", None), ("packed", 11)])
+@pytest.mark.parametrize("kind", ["uniform", "adversarial"])
+def test_certified_with_full_and_scattered_lists(kind, rule, bits):
+    """Sources on duplicated targets fill one block's list whole (none of
+    its 128 rows certifies), scattered near ties list rows in the other
+    blocks: the mirror equals the plain version bit for bit."""
+    p, q = _cloud("unit", seed=95, n=400, m=1500)
+    q[1000:1128] = q[:128]  # exact duplicates, in another tile
+    p[128:256] = q[:128]    # block 1: sources on the duplicated targets
+    g = _guard(p, q)
+    d = _noisy(_d64(p, q), g, kind)
+    got = _run(p, q, None, d, rule, bits)
+    _assert_bit_equal(got[:2], _plain(p, q, None, rule, bits))
+    lengths, _ = finish_lists(got[2])
+    assert int(lengths[1]) == TC_BLOCK_ROWS
+    assert int(lengths[0]) + int(lengths[2]) + int(lengths[3]) > 0
+
+
+@pytest.mark.parametrize("n,full,blocks,chunk", [
+    (16384, 40, 132, 1024),   # the hall's 128 lists on the card's 132
+    (16384, 40, 132, 5),      # the same lists over chunks of 5
+    (16384, 40, 16, 7),       # another card, groups of 4
+    (300, 1, 132, 1024),      # one block full
+    (700, 5, 3, 2),           # more groups than blocks, chunk edges
+    (128, 0, 1, 1024),        # a single rescue block
+    (4096, 0, 132, 1),        # a list a chunk
+    (16384, 127, 1000, 64),   # more blocks than groups
+])
+def test_rescue_groups_deal_each_listed_row_once(n, full, blocks, chunk):
+    """Group G goes to block G mod ``blocks``; taken in that order the
+    groups hold every listed row once, block after block of the finish, at
+    most ``RESCUE_GROUP`` rows a group, fewer only at a chunk's end; the
+    blocks' numbers of groups differ by at most one."""
+    flags = _listed_blocks(n, full)
+    lengths, lists = finish_lists(flags)
+    dealt = rescue_groups(lengths, lists, blocks, chunk=chunk)
+    counts = [len(b) for b in dealt]
+    assert len(dealt) == blocks and max(counts) - min(counts) <= 1
+    order = [dealt[g % blocks][g // blocks] for g in range(sum(counts))]
+    assert torch.equal(torch.cat(order), torch.nonzero(flags).flatten())
+    per = min(RESCUE_GROUP, -(-int(lengths.sum()) // blocks))
+    ends = set(torch.cumsum(lengths, 0)[chunk - 1::chunk].tolist())
+    ends.add(int(lengths.sum()))
+    done = 0
+    for g in order:
+        done += g.numel()
+        assert g.numel() == per or (0 < g.numel() < per and done in ends)
+    assert FINISH_ROWS == TC_BLOCK_ROWS
+
+
+def test_rescue_groups_of_no_listed_row():
+    """Nothing listed: every rescue block gets no group."""
+    lengths, lists = finish_lists(torch.zeros(300, dtype=torch.bool))
+    assert rescue_groups(lengths, lists, 132) == [[] for _ in range(132)]

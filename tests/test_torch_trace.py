@@ -14,10 +14,11 @@ The host syncs counted are the done reads. The buffer keeps its bound.
 The recorder's switch is torch's private profiler flag, pinned here, so
 that a torch that moves it fails a test.
 
-The last test needs the card and skips without one: over a 16,384-point
-``run_icp`` call replayed as CUDA graphs, the syncs counted equal those
-``torch.cuda.set_sync_debug_mode`` reports, and a profiler's device events
-hold no program span:
+The last two tests need the card and skip without one: over a
+16,384-point ``run_icp`` call replayed as CUDA graphs, the syncs counted
+equal those ``torch.cuda.set_sync_debug_mode`` reports, and a profiler's
+device events hold no program span; the call's ``k1_rescued`` is K1's
+rescued-row counter's growth, read once after the loop:
 
     python -m pytest --noconftest -q tests/test_torch_trace.py
 """
@@ -249,6 +250,44 @@ def test_the_eager_bind_is_recorded(scene, monkeypatch):
     assert bind.attrs == {"route": "eager", "bytes": 0}
 
 
+def test_k1_rescued_is_read_only_while_recording(scene, monkeypatch):
+    """The call's ``k1_rescued``: off, K1's rescued-row counter is neither
+    marked nor read; on, each call marks it once before its loop and reads
+    it once after, on the call's device. Where K1 has not run there (on the
+    CPU: no counter) the count is left out."""
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+
+    with timing.recording():
+        ft.run_icp(scene.source, scene.target, POINT)
+        ft.register_batch(*_batch(scene), POINT)
+    calls = [s for s in timing.recorded_spans() if s.name == "call"]
+    assert len(calls) == 2
+    assert not any("k1_rescued" in c.attrs for c in calls)
+    timing.clear_spans()
+
+    seen = []
+
+    def mark(device):
+        seen.append(("mark", device.type))
+        return "before"
+
+    def since(device, before):
+        seen.append(("read", device.type, before))
+        return 7
+
+    monkeypatch.setattr(mc, "rescued_mark", mark)
+    monkeypatch.setattr(mc, "k1_rescued_since", since)
+    ft.run_icp(scene.source, scene.target, POINT)
+    ft.register_batch(*_batch(scene), POINT)
+    assert seen == [] and timing.recorded_spans() == []
+    with timing.recording():
+        ft.run_icp(scene.source, scene.target, POINT)
+        ft.register_batch(*_batch(scene), POINT)
+    assert seen == [("mark", "cpu"), ("read", "cpu", "before")] * 2
+    calls = [s for s in timing.recorded_spans() if s.name == "call"]
+    assert [c.attrs["k1_rescued"] for c in calls] == [7, 7]
+
+
 def test_the_buffer_keeps_its_bound():
     rec = timing.SpanRecorder(max_spans=10)
     with rec.recording():
@@ -330,4 +369,39 @@ def test_card_syncs_counted_and_no_device_span(cuda):
     device = {e.name for e in prof.events()
               if e.device_type == DeviceType.CUDA}
     assert device and not device & SPAN_NAMES
+    graphs.clear()
+
+
+@pytest.mark.gpu
+def test_card_k1_rescued_is_the_counters_growth(cuda, monkeypatch):
+    from fpcr_tpu_torch.ops import matching_cuda as mc
+
+    sc = synthetic_scene(width=128, device=cuda)  # 16,384 points
+    cfg = ft.ICPConfig(tolerance=0.0, max_iterations=20)
+    graphs.clear()
+
+    def recorded_syncs():
+        torch.cuda.synchronize()
+        timing.clear_spans()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                with timing.recording():
+                    ft.run_icp(sc.source, sc.target, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return len([w for w in caught if "synchroniz" in str(w.message)])
+
+    counted = []
+    for _ in range(3):  # eager, captured, replayed
+        mc.reset_rescued(cuda)
+        counted.append(recorded_syncs())
+        (call,) = [s for s in timing.recorded_spans() if s.name == "call"]
+        assert call.attrs["k1_rescued"] == mc.rescued_rows(cuda)[0] > 0
+    # the count's one read after the loop's last wait is its only sync
+    monkeypatch.setattr(mc, "k1_rescued_since", lambda device, mark: None)
+    assert recorded_syncs() == counted[-1] - 1
+    (call,) = [s for s in timing.recorded_spans() if s.name == "call"]
+    assert "k1_rescued" not in call.attrs
     graphs.clear()
